@@ -1,0 +1,132 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+The sources under ``arpack_ng_tpu_torch/csrc/`` are compiled with ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes``.  The build runs at first use, under a file lock, into
+``arpack_ng_tpu_torch/_build/``; the library's name carries a hash of the
+sources and flags, so an edited source is rebuilt and a finished build is
+reused.  Nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("sel.cu", "rot.cu")
+HEADERS = ("common.cuh",)
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: dtype code of the C interface for each (storage, accumulation) pair
+DTYPE_CODES = {
+    (torch.float32, torch.float32): 0,
+    (torch.bfloat16, torch.float32): 1,
+    (torch.float64, torch.float64): 2,
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc (PATH or /usr/local/cuda/bin)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libarpack_tpu_torch_{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if no build of the current sources exists.
+    The compiler's report (registers, shared memory, spills) goes to
+    ``<library>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if out.exists():
+                return out
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *FLAGS, "-o", str(tmp),
+                   *(str(CSRC / s) for s in SOURCES)]
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=900)
+            out.with_suffix(".log").write_text(
+                " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raise on failure."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.atpt_error_string.argtypes = [i32]
+    lib.atpt_error_string.restype = ctypes.c_char_p
+    lib.atpt_sel_blocks.argtypes = [i64]
+    lib.atpt_sel_blocks.restype = i32
+    lib.atpt_sel_proj.argtypes = [i32, vp, i32, vp, i64, vp, i64, vp, vp, vp]
+    lib.atpt_sel_proj.restype = i32
+    lib.atpt_sel_update.argtypes = [i32, vp, vp, i32, vp, i64, vp, i64, vp,
+                                    vp, vp]
+    lib.atpt_sel_update.restype = i32
+    lib.atpt_rot_smem_bytes.argtypes = [i32, i32, i32]
+    lib.atpt_rot_smem_bytes.restype = i64
+    lib.atpt_rotate_rows.argtypes = [i32, vp, i32, i32, i32, vp, i64, i64,
+                                     vp]
+    lib.atpt_rotate_rows.restype = i32
+    _lib = lib
+    return lib
+
+
+def dtype_code(storage: torch.dtype, acc: torch.dtype) -> int:
+    try:
+        return DTYPE_CODES[(storage, acc)]
+    except KeyError:
+        raise TypeError(f"no CUDA kernel for storage {storage} with "
+                        f"accumulation {acc}; supported: "
+                        f"{sorted(map(str, DTYPE_CODES))}") from None
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a launch error reported by the C interface."""
+    if err != 0:
+        msg = lib.atpt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
