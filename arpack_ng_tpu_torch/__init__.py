@@ -5,10 +5,13 @@ Hopper (H100) on its main path.
 This package imports neither JAX nor ``arpack_ng_tpu``; its module names
 mirror ``arpack_ng_tpu`` so each counterpart is easy to find.  It covers
 the symmetric real path of ``eigsh`` (modes 1 and 2, float32/float64,
-``reorth`` selective or dgks, the implicit exact-shift restart) on any
-torch device: on a CUDA device the reorthogonalization events and the
-restart rotation run the kernels of ``csrc/``, built with ``nvcc`` at
-first use; on the CPU the same wrappers run their plain PyTorch twins.
+``reorth`` selective or dgks, the implicit exact-shift restart) for
+operators, dense matrices and scipy sparse matrices (``from_scipy``).
+Every entry point runs on the CUDA card unless the caller passes
+``device="cpu"``.  On the card the reorthogonalization passes, the restart
+rotation and the DIA and PSELL sparse products run the kernels of
+``csrc/``, built with ``nvcc`` at first use; on the CPU the same wrappers
+run their plain PyTorch twins.
 """
 
 from .api import ArpackError, ArpackNoConvergence, eigsh
@@ -17,6 +20,7 @@ from .core.arnoldi import FactorizationState
 from .core.extract import EigenResult, extract
 from .core.iram import IRAMResult
 from .ops.operator import Operator, from_dense, from_diagonal, from_matvec
+from .ops.sparse import from_scipy
 from .state import state_from_numpy, state_to_numpy
 
 __version__ = "0.1.0"
@@ -35,6 +39,7 @@ __all__ = [
     "from_dense",
     "from_diagonal",
     "from_matvec",
+    "from_scipy",
     "pad_dim",
     "state_from_numpy",
     "state_to_numpy",

@@ -1,13 +1,12 @@
 """User-facing solver API (port of the symmetric half of
 ``arpack_ng_tpu/api.py``): ``eigsh``, the dsaupd/dseupd driver pair.
 
-``eigsh`` takes the reference package's arguments plus ``device``.  The
-options outside this package's current slice raise
-``NotImplementedError`` rather than run a different algorithm: spectral
-transforms (``M``, ``sigma``, ``mode``), ``mesh``, ``shift_fn``,
-``restart='thick'``, ``validate``, ``select``, the hybrid strategy, the
-CGS kernels (``cgs_kernel='pallas'``), complex dtypes and scipy sparse
-inputs.
+``eigsh`` takes the reference package's arguments plus ``device`` (the
+CUDA card unless the caller asks for ``device="cpu"``).  The options
+outside this package's current slice raise ``NotImplementedError`` rather
+than run a different algorithm: spectral transforms (``M``, ``sigma``,
+``mode``), ``mesh``, ``shift_fn``, ``restart='thick'``, ``validate``,
+``select``, the hybrid strategy and complex dtypes.
 """
 from __future__ import annotations
 
@@ -20,25 +19,27 @@ from .config import IRAMConfig, default_ncv, pad_dim
 from .core.extract import EigenResult, extract
 from .ops import operator as op_mod
 from .ops.operator import Operator
+from .utils.device import DEFAULT
 
 
 def _as_operator(A, dtype=None, hermitian=False, device=None) -> Operator:
-    """Coerce a user input (Operator | dense array) into an Operator."""
+    """Coerce a user input (Operator | dense array | scipy sparse) into an
+    Operator on ``device`` (default: the operator's own device, else the
+    card)."""
     if isinstance(A, Operator):
         if device is not None and torch.device(device) != A.device:
             raise ValueError(f"operator lives on {A.device}, not {device}")
         return A
-    if hasattr(A, "tocsr"):
-        raise NotImplementedError("scipy sparse inputs (ops/sparse) are not "
-                                  "ported yet; wrap the matvec with "
-                                  "from_matvec")
+    device = DEFAULT if device is None else device
+    if hasattr(A, "tocsr"):  # scipy sparse
+        from .ops.sparse import from_scipy
+        return from_scipy(A, dtype=dtype, hermitian=hermitian, device=device)
     a = np.asarray(A)
     if a.ndim == 2:
         if dtype is not None:
             a = a.astype(dtype)
         return op_mod.from_dense(a, n_pad=pad_dim(a.shape[0]),
-                                 hermitian=hermitian,
-                                 device=device or "cpu")
+                                 hermitian=hermitian, device=device)
     raise TypeError(f"cannot build an Operator from {type(A)!r}")
 
 
@@ -143,10 +144,13 @@ def eigsh(
     """Symmetric eigensolver (dsaupd/dseupd equivalent), mode 1 (and
     mode 2 through a ``from_dense(a, m)`` operator).
 
-    ``A``: an :class:`Operator` (its device is the solve's device) or a
-    dense symmetric matrix, moved to ``device`` (default CPU).  Returns
-    ``values`` or ``(values, vectors)`` (and the :class:`EigenResult`
-    with ``return_stats``), as the reference package does.
+    ``A``: an :class:`Operator` (its device is the solve's device), a
+    dense symmetric matrix or a scipy sparse matrix (imported by
+    :func:`~arpack_ng_tpu_torch.ops.sparse.from_scipy`), moved to
+    ``device`` (default: the CUDA card; ``device="cpu"`` for the CPU).
+    Returns ``values`` or ``(values, vectors)`` (and the
+    :class:`EigenResult` with ``return_stats``), as the reference package
+    does.
     """
     if sigma is not None or mode != "normal" or M is not None:
         raise NotImplementedError("spectral transforms (M, sigma, mode) "

@@ -12,7 +12,10 @@ What the reference package computes and counts is kept exactly: the
 8-row buckets of the CGS passes and of the eta-subset events, the pair
 rule, the ``8*log2(n)*eps`` omega noise floor with its
 ``ARPACK_TPU_OMEGA_NOISE_MODEL`` hatch, ``eta_sub`` and the full
-fallback pass.  The basis is stored row-major as ``(ncv, n_pad)``; the
+fallback pass, and ``cgs_kernel='pallas'``, which sends the 8-, 16- and
+24-row buckets of the CGS passes (the dgks step and the selective step's
+full fallback) to the kernels of ``csrc/cgs.cu`` on real float32
+problems.  The basis is stored row-major as ``(ncv, n_pad)``; the
 reference's 3-D ``(ncv, n_pad/128, 128)`` layout was a TPU tiling fix and
 has the same element order.
 
@@ -29,10 +32,12 @@ import numpy as np
 import torch
 
 from ..config import IRAMConfig
+from ..ops.cuda_cgs import MAX_FAST_ROWS, cgs_proj, cgs_update
 from ..ops.cuda_rot import rotate_rows
 from ..ops.cuda_sel import sel_proj, sel_update
 from ..ops.operator import Operator
 from ..utils import dtypes as _dt
+from ..utils.device import require
 from ..utils.precision import pin_full_precision
 from ..utils.stats import OpCounts
 
@@ -148,11 +153,9 @@ def _check_slice(op: Operator, cfg: IRAMConfig) -> None:
     if not cfg.symmetric:
         raise NotImplementedError("non-symmetric problems are not ported "
                                   "yet")
-    if cfg.cgs_kernel == "pallas":
-        raise NotImplementedError("cgs_kernel='pallas' (the CGS kernels) "
-                                  "is not ported yet")
     if op.n != cfg.n or op.n_pad != cfg.n_pad:
         raise ValueError("operator/config dimension mismatch")
+    require(op.device)
 
 
 def make_init(op: Operator, cfg: IRAMConfig):
@@ -239,19 +242,55 @@ def make_extend(op: Operator, cfg: IRAMConfig):
     def _comb(h, Vr):
         return h @ (Vr.to(tdt) if mixed else Vr)
 
+    # CGS kernel routing (reference arnoldi.py:465-477, 505-567):
+    # cgs_kernel='pallas' sends the 8-, 16- and 24-row buckets of the CGS
+    # and DGKS passes to the kernels of csrc/cgs.cu; the 32-row bucket stays
+    # a GEMV, as in the reference.
+    kernels_ok = (dtype == np.float32
+                  and sdt in (torch.float32, torch.bfloat16)
+                  and n_pad % 128 == 0)
+    use_kernels = cfg.cgs_kernel == "pallas"
+    if use_kernels and not kernels_ok:
+        raise ValueError("cgs_kernel='pallas' requires real float32 "
+                         "compute, f32/bf16 storage, n_pad % 128 == 0")
+    # the kernel update carries ||r||^2 out of its pass (standard problems
+    # with plain norms; B-norms and safe norms keep their own pass)
+    fuse_norm = use_kernels and not is_g and not cfg.safe_norms
+
+    def _kernel_bucket(rows):
+        return use_kernels and rows % 8 == 0 and rows <= MAX_FAST_ROWS
+
     def _proj_upto(V, w, j):
         """``V[:rows] w`` padded to (ncv,) and masked to ``col <= j``; rows
         = the smallest bucket holding row j (bit-exact vs the full masked
         form: excluded rows contribute exact zeros)."""
         rows = _rows_upto(j)
         h = torch.zeros(ncv, dtype=tdt, device=device)
-        h[:rows] = _proj(V[:rows], w)
+        h[:rows] = (cgs_proj(V, w, rows) if _kernel_bucket(rows)
+                    else _proj(V[:rows], w))
         h[j + 1:] = 0
         return h
 
     def _update_upto(w, h, V, j):
         rows = _rows_upto(j)
+        if _kernel_bucket(rows):
+            return cgs_update(w, h[:rows], V)
         return w - _comb(h[:rows], V[:rows])
+
+    def _update_bnorm(w, h, V, j):
+        """One CGS subtraction and the new residual's B-norm:
+        ``(r, B r, ||r||_B)`` with the norm as a 0-d tensor."""
+        if not fuse_norm:
+            r = _update_upto(w, h, V, j)
+            br = b_apply(r)
+            return r, br, bnorm(r, br)
+        rows = _rows_upto(j)
+        if _kernel_bucket(rows):
+            r, rn2 = cgs_update(w, h[:rows], V, with_norm=True)
+        else:
+            r = w - _comb(h[:rows], V[:rows])
+            rn2 = torch.dot(r, r)
+        return r, r, torch.sqrt(rn2)
 
     def _orth_refine(V, j, r, br, rn_prev, max_iter):
         """CGS against rows ``< j`` with iterative refinement until the
@@ -320,9 +359,7 @@ def make_extend(op: Operator, cfg: IRAMConfig):
         v_j, w, bw, counts = _begin_step(j, st)
         wnorm_t = bnorm(w, bw)
         h_t = _proj_upto(V, bw, j)
-        r = _update_upto(w, h_t, V, j)
-        br = b_apply(r)
-        rnorm_t = bnorm(r, br)
+        r, br, rnorm_t = _update_bnorm(w, h_t, V, j)
         back = torch.cat([h_t, torch.stack([wnorm_t, rnorm_t]).to(tdt)])
         back = back.cpu().numpy()
         h = back[:ncv].astype(dtype)
@@ -339,9 +376,7 @@ def make_extend(op: Operator, cfg: IRAMConfig):
             rn_prev, passes, nfail = rnorm, 0, 0
             while True:
                 s_t = _proj_upto(V, br, j)
-                r = _update_upto(r, s_t, V, j)
-                br = b_apply(r)
-                rn_t = bnorm(r, br)
+                r, br, rn_t = _update_bnorm(r, s_t, V, j)
                 back = torch.cat([s_t, rn_t.reshape(1).to(tdt)])
                 back = back.cpu().numpy()
                 s_tot = s_tot + back[:ncv].astype(dtype)

@@ -38,6 +38,12 @@ __device__ __forceinline__ __nv_bfloat16 to_store<__nv_bfloat16, float>(float x)
   return __float2bfloat16(x);
 }
 
+// Product rounded on its own, never contracted into an FMA with a following
+// add: the sparse kernels then round exactly as their twins' separate
+// multiply and add.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
 template <typename A>
 __device__ __forceinline__ A warp_sum(A v) {
 #pragma unroll
@@ -61,6 +67,10 @@ __device__ __forceinline__ A block_sum(A v, A* smem) {
   return v;
 }
 
+// Kernels defined in headers have internal linkage, so two sources that
+// instantiate the same one link without clashing.
+namespace {
+
 // Second pass: out[k] = sum over b < nblk of partial[k * nblk + b], one
 // block per k.
 template <typename A, int BLOCK>
@@ -74,4 +84,5 @@ reduce_partials_kernel(const A* __restrict__ partial, int nblk, A* __restrict__ 
   if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
+}  // namespace
 }  // namespace atpt

@@ -5,10 +5,11 @@
   problem (EXAMPLES/SIMPLE/dssimp.f:47, ``av`` at :470-506).
 * :func:`laplacian_1d` — tridiag(-1, 2, -1), the dsdrv2-class model.
 
-The matvec is plain torch arithmetic on the operator's device: no matrix
-is stored.  The stencil is applied as the reference package applies it
-(``4u`` minus the four shifted neighbours, in the same order), so both
-packages round the same way.  Each constructor also returns the
+The matvec is plain torch arithmetic on the operator's device (the card
+unless ``device="cpu"`` is given): no matrix is stored.  The stencil is
+applied as the reference package applies it (``4u`` minus the four
+shifted neighbours, in the same order), so both packages round the same
+way.  Each constructor also returns the
 ``scipy.sparse`` matrix as the independent oracle.
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from ..config import pad_dim
 from ..ops.operator import Operator, from_matvec
+from ..utils.device import DEFAULT
 
 
 def _wrap_padded(stencil_fn, n, n_pad):
@@ -36,7 +38,7 @@ def _wrap_padded(stencil_fn, n, n_pad):
 
 
 def laplacian_1d(n: int, dtype=np.float32, *, pad: bool = True,
-                 scale: bool = False, device="cpu"
+                 scale: bool = False, device=DEFAULT
                  ) -> Tuple[Operator, sp.spmatrix]:
     """1-D Dirichlet Laplacian: tridiag(-1, 2, -1) (optionally / h^2)."""
     h2inv = (n + 1.0) ** 2 if scale else 1.0
@@ -56,7 +58,7 @@ def laplacian_1d(n: int, dtype=np.float32, *, pad: bool = True,
 
 
 def laplacian_2d(nx: int, dtype=np.float32, *, pad: bool = True,
-                 device="cpu") -> Tuple[Operator, sp.spmatrix]:
+                 device=DEFAULT) -> Tuple[Operator, sp.spmatrix]:
     """2-D Dirichlet Laplacian, 5-point stencil (diagonal 4, neighbours -1)
     on an nx*nx grid; eigenvalues 4 - 2cos(i*pi*h) - 2cos(j*pi*h)."""
     n = nx * nx

@@ -1,7 +1,8 @@
 """Build and load the package's hand-written CUDA kernels.
 
 The sources under ``arpack_ng_tpu_torch/csrc/`` are compiled with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, loaded with
+for ``sm_90a``, one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs at first use, under a file lock, into
 ``arpack_ng_tpu_torch/_build/``; the library's name carries a hash of the
 sources and flags, so an edited source is rebuilt and a finished build is
@@ -23,10 +24,14 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sel.cu", "rot.cu")
-HEADERS = ("common.cuh",)
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("sel.cu", "rot.cu", "cgs.cu", "dia.cu", "psell.cu")
+HEADERS = ("common.cuh", "rows.cuh")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: most basis rows one call of the row passes (sel and cgs kernels) takes
+#: (``ROW_MAX_K`` in csrc/rows.cuh)
+MAX_ROWS = 256
 
 #: dtype code of the C interface for each (storage, accumulation) pair
 DTYPE_CODES = {
@@ -58,10 +63,32 @@ def library_path() -> Path:
     return BUILD_DIR / f"libarpack_tpu_torch_{_digest()}.so"
 
 
+def _run_all(cmds, log) -> None:
+    """Run the commands concurrently; append each one's output to ``log``
+    and raise if any fails.  Every process is waited for or killed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            text, _ = proc.communicate(timeout=900)
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{text}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile the kernels if no build of the current sources exists.
-    The compiler's report (registers, shared memory, spills) goes to
-    ``<library>.log``."""
+    """Compile the kernels if no build of the current sources exists: one
+    ``nvcc`` per source, started together, then one link.  The compiler's
+    report (registers, shared memory, spills) goes to ``<library>.log``."""
     out = library_path()
     if out.exists():
         return out
@@ -71,16 +98,19 @@ def build() -> Path:
         try:
             if out.exists():
                 return out
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *FLAGS, "-o", str(tmp),
-                   *(str(CSRC / s) for s in SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=900)
-            out.with_suffix(".log").write_text(
-                " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+            objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+            log = []
+            try:
+                _run_all([[nvcc, *FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                          for s, o in zip(SOURCES, objs)], log)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                           *map(str, objs)]], log)
+            finally:
+                out.with_suffix(".log").write_text("\n".join(log))
+                for o in objs:
+                    o.unlink(missing_ok=True)
             os.replace(tmp, out)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
@@ -96,8 +126,8 @@ def load() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.atpt_error_string.argtypes = [i32]
     lib.atpt_error_string.restype = ctypes.c_char_p
-    lib.atpt_sel_blocks.argtypes = [i64]
-    lib.atpt_sel_blocks.restype = i32
+    lib.atpt_row_blocks.argtypes = [i64]
+    lib.atpt_row_blocks.restype = i32
     lib.atpt_sel_proj.argtypes = [i32, vp, i32, vp, i64, vp, i64, vp, vp, vp]
     lib.atpt_sel_proj.restype = i32
     lib.atpt_sel_update.argtypes = [i32, vp, vp, i32, vp, i64, vp, i64, vp,
@@ -108,6 +138,17 @@ def load() -> ctypes.CDLL:
     lib.atpt_rotate_rows.argtypes = [i32, vp, i32, i32, i32, vp, i64, i64,
                                      vp]
     lib.atpt_rotate_rows.restype = i32
+    lib.atpt_cgs_proj.argtypes = [i32, i32, vp, i64, vp, i64, vp, vp, vp]
+    lib.atpt_cgs_proj.restype = i32
+    lib.atpt_cgs_update.argtypes = [i32, vp, i32, vp, i64, vp, vp, i64, vp,
+                                    vp, vp]
+    lib.atpt_cgs_update.restype = i32
+    lib.atpt_dia_matvec.argtypes = [i32, vp, i32, vp, i64, vp, i64, i64, vp,
+                                    vp]
+    lib.atpt_dia_matvec.restype = i32
+    lib.atpt_psell_matvec.argtypes = [i32, vp, vp, vp, vp, i32, vp, i64, vp,
+                                      vp]
+    lib.atpt_psell_matvec.restype = i32
     _lib = lib
     return lib
 

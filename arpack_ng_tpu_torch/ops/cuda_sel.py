@@ -22,8 +22,7 @@ import torch
 
 from . import cuda_lib
 
-#: largest K the CUDA kernels take (``SEL_MAX_K`` in csrc/sel.cu)
-MAX_K = 256
+MAX_K = cuda_lib.MAX_ROWS
 
 
 def _check(idx, V, vec, name):
@@ -57,7 +56,7 @@ def sel_proj(idx: torch.Tensor, V: torch.Tensor, br: torch.Tensor
     code = cuda_lib.dtype_code(V.dtype, br.dtype)
     lib = cuda_lib.load()
     K, n = idx.shape[0], V.shape[1]
-    partial = torch.empty(K * lib.atpt_sel_blocks(n), dtype=br.dtype,
+    partial = torch.empty(K * lib.atpt_row_blocks(n), dtype=br.dtype,
                           device=V.device)
     s = torch.empty(K, dtype=br.dtype, device=V.device)
     err = lib.atpt_sel_proj(code, idx.data_ptr(), K, V.data_ptr(),
@@ -96,7 +95,7 @@ def sel_update(idx: torch.Tensor, s: torch.Tensor, r: torch.Tensor,
     lib = cuda_lib.load()
     K, n = idx.shape[0], V.shape[1]
     if with_norm:
-        partial = torch.empty(lib.atpt_sel_blocks(n), dtype=r.dtype,
+        partial = torch.empty(lib.atpt_row_blocks(n), dtype=r.dtype,
                               device=V.device)
         nrm = torch.empty((), dtype=r.dtype, device=V.device)
         pp, np_ = partial.data_ptr(), nrm.data_ptr()

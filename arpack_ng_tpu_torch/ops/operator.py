@@ -8,9 +8,11 @@ Contract (as in the reference package):
 * ``b_apply(v) -> B @ v`` (identity for ``bmat='I'``).
 * ``a_apply``/``m_apply``: raw problem matvecs for verification.
 
-Every vector is a torch tensor of length ``n_pad`` on ``device``;
+Every vector is a torch tensor of length ``n_pad`` on ``device``, the CUDA
+card unless the constructor is given another device (``device="cpu"``);
 implementations map zero padding to zero padding.  ``perm`` is an optional
-row permutation (internal row i holds logical coordinate ``perm[i]``).
+row permutation (internal row i holds logical coordinate ``perm[i]``);
+``format`` is the execution structure the sparse importer chose.
 """
 from __future__ import annotations
 
@@ -19,6 +21,9 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..utils import dtypes as _dt
+from ..utils.device import DEFAULT, require
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +41,10 @@ class Operator:
     n_pad: int = 0                  # padded dimension (0 => n)
     hermitian: bool = False         # A (and M) hermitian/symmetric
     perm: object = None             # optional row permutation (np.ndarray)
-    device: object = "cpu"          # torch device every vector lives on
+    format: Optional[str] = None    # structure chosen by the sparse importer
+    #   ('dense'/'dia'/'ell'/'hyb'/'psell'/'coo'); None for user-built
+    #   operators
+    device: object = DEFAULT        # torch device every vector lives on
 
     def __post_init__(self):
         if self.n_pad == 0:
@@ -45,6 +53,16 @@ class Operator:
             object.__setattr__(self, "b_apply", lambda v: v)
         object.__setattr__(self, "dtype", np.dtype(self.dtype))
         object.__setattr__(self, "device", torch.device(self.device))
+
+    def matvec(self, v) -> np.ndarray:
+        """Raw ``A @ v`` on a logical-length host vector (numpy in, numpy
+        out), in the operator's internal (possibly permuted) order."""
+        if self.a_apply is None:
+            raise ValueError("operator has no raw a_apply")
+        vp = torch.zeros(self.n_pad, dtype=_dt.torch_dtype(self.dtype),
+                         device=self.device)
+        vp[: self.n] = torch.from_numpy(np.asarray(v, self.dtype))
+        return self.a_apply(vp)[: self.n].cpu().numpy()
 
 
 def _pad_mat(a: np.ndarray, n_pad: int, fill_identity: bool = False
@@ -59,9 +77,11 @@ def _pad_mat(a: np.ndarray, n_pad: int, fill_identity: bool = False
 
 
 def from_dense(a, m=None, *, n_pad: int = 0, hermitian: bool = False,
-               device="cpu") -> Operator:
+               device=DEFAULT) -> Operator:
     """Standard (``m is None``: mode 1, ``OP = A``) or generalized mode-2
-    (``OP = inv(M) A``, ``B = M``) operator from dense matrices."""
+    (``OP = inv(M) A``, ``B = M``) operator from dense matrices, held on
+    ``device`` (the card unless told otherwise)."""
+    device = require(device)
     a = np.asarray(a)
     n = a.shape[0]
     n_pad = n_pad or n
@@ -75,7 +95,7 @@ def from_dense(a, m=None, *, n_pad: int = 0, hermitian: bool = False,
 
         return Operator(n=n, dtype=dtype, apply=apply, bmat="I", mode=1,
                         a_apply=lambda v: a_dev @ v, n_pad=n_pad,
-                        hermitian=hermitian, device=device)
+                        hermitian=hermitian, format="dense", device=device)
 
     # M is factored once on the host, as in the reference package
     import scipy.linalg as sla
@@ -97,9 +117,11 @@ def from_dense(a, m=None, *, n_pad: int = 0, hermitian: bool = False,
 
 
 def from_matvec(matvec: Callable, n: int, dtype, *, n_pad: int = 0,
-                hermitian: bool = False, device="cpu") -> Operator:
+                hermitian: bool = False, device=DEFAULT) -> Operator:
     """Mode-1 standard operator from a torch matvec on padded vectors
-    (the ``ido=1`` loop body of EXAMPLES/SIMPLE/dssimp.f)."""
+    (the ``ido=1`` loop body of EXAMPLES/SIMPLE/dssimp.f) on ``device``
+    (the card unless told otherwise).  No data moves here: a solve on a
+    device this process lacks raises when it starts."""
     def apply(v, bv):
         w = matvec(v)
         return w, w
@@ -109,9 +131,11 @@ def from_matvec(matvec: Callable, n: int, dtype, *, n_pad: int = 0,
                     hermitian=hermitian, device=device)
 
 
-def from_diagonal(d, *, n_pad: int = 0, device="cpu") -> Operator:
+def from_diagonal(d, *, n_pad: int = 0, device=DEFAULT) -> Operator:
     """Diagonal operator (the reference ICB test matrix,
-    TESTS/icb_arpack_c.c:20-40)."""
+    TESTS/icb_arpack_c.c:20-40) on ``device`` (the card unless told
+    otherwise)."""
+    device = require(device)
     d = np.asarray(d)
     n = d.shape[0]
     n_pad = n_pad or n

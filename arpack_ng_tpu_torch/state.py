@@ -3,10 +3,11 @@
 :func:`state_from_numpy` takes the fields of a reference-package
 ``FactorizationState`` after ``jax.device_get`` (V reshaped to
 ``(ncv, n_pad)``; ``counts`` as a mapping or a NamedTuple of integers) and
-builds this package's state on a device, so a solve can resume here from
-a state the reference package produced, and the other way round with
-:func:`state_to_numpy`.  The reference's PRNG key has no counterpart: the
-restart-vector generator is seeded from ``seed``.
+builds this package's state on a device (the card unless ``device="cpu"``
+is given), so a solve can resume here from a state the reference package
+produced, and the other way round with :func:`state_to_numpy`.  The
+reference's PRNG key has no counterpart: the restart-vector generator is
+seeded from ``seed``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from .core.arnoldi import FactorizationState
 from .utils import dtypes as _dt
+from .utils.device import DEFAULT, require
 from .utils.stats import OpCounts
 
 _VECTORS = ("resid", "b_resid")
@@ -27,11 +29,12 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def state_from_numpy(d: Mapping[str, object], device="cpu",
+def state_from_numpy(d: Mapping[str, object], device=DEFAULT,
                      seed: int = 0) -> FactorizationState:
     """Build a :class:`FactorizationState` on ``device`` from numpy
     fields ``V, H, resid, b_resid, rnorm, k, nev_cur, iter, info,
     counts``."""
+    device = require(device)
     H = np.array(d["H"])
     V = np.asarray(d["V"])
     V = V.reshape(V.shape[0], -1)

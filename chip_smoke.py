@@ -8,11 +8,13 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 1. device: require CUDA; print the card's name and its ``nvidia-smi``
    name and power limit;
 2. build: compile (or load) the CUDA kernels of ``arpack_ng_tpu_torch/csrc``
-   with nvcc for sm_90a and print the build time;
-3. kernels: every kernel of the main path against its plain PyTorch twin
-   on the card, at the flagship shapes (ncv = 32, n = 1,048,576), in
+   with nvcc for sm_90a (one nvcc per source, in parallel) and print the
+   build time;
+3. kernels: the event and rotation kernels against their plain PyTorch
+   twins on the card, at the flagship shapes (ncv = 32, n = 1,048,576), in
    float32 and bfloat16 storage (plus float64), with median CUDA-event
-   times of kernel and twin;
+   times of kernel, twin and the one PyTorch call that computes the same
+   function (float32), beside the least time the card could take;
 4. flagship solve through ``eigsh``: the 2-D Dirichlet Laplacian at
    nx = 1024 (n = 1,048,576), float32, k = 8, ncv = 32, which = 'LA',
    tol = 1e-5, first with the default selective reorthogonalization (the
@@ -21,11 +23,25 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    of an analytic eigenvalue and each residual ||Av - lambda v|| / |lambda|
    (scipy CSR, float64, on the host) must be <= 1e-3;
 5. basis defect: 30 selective cycles at the floor tolerance must keep
-   ``||V V^T - I||_max`` below ``64 sqrt(eps_f32)``.
+   ``||V V^T - I||_max`` below ``64 sqrt(eps_f32)``;
+6. the CGS, DIA and PSELL kernels against their twins at full size, timed
+   as in phase 3 beside ``torch.mv``/``torch.addmv`` (CGS) and cuSPARSE CSR
+   (``torch.mv`` of a ``torch.sparse_csr_tensor``; DIA and PSELL): CGS at
+   ncv = 32, n = 1,048,576, rows 8/16/24/32, float32 and bfloat16 storage;
+   DIA on the flagship Laplacian's table; PSELL (and the ELL gather) on
+   the RCM-ordered ``fem_triangulation(1_048_576)``;
+7. sparse-entry solves through ``eigsh`` on the default device, k = 8,
+   ncv = 32, which = 'LA', tol = 1e-5: (a) the flagship's scipy CSR matrix
+   (imported as DIA), (b) the same with ``reorth='dgks',
+   cgs_kernel='pallas'``, both under the phase-4 gates, and (c) the
+   RCM-ordered FEM matrix through ``format='psell'`` and ``format='auto'``
+   (ELL): residuals ``<= 1e-3``, the two value sets within 1e-4*|lambda|,
+   and the phase within 120 s.  Each path's kernel launches are counted
+   from zero and must be positive.
 
     python3 chip_smoke.py --profile
 
-runs phases 1-2 and then, in place of phases 3-5, the restart-cycle
+runs phases 1-2 and then, in place of phases 3-7, the restart-cycle
 profile of the flagship behind ``PERF.md`` section 5: for each reorth
 variant the wall per Lanczos step over steady cycles, the card's busy
 share and largest device items under ``torch.profiler``, and the host's
@@ -57,8 +73,16 @@ KS = (8, 16, 24, 32)
 ROWS = (8, 16, 24, 32)
 REPS = 20
 #: representative shapes for the JSON line: most events stream one 8-row
-#: bucket; the restart keeps kev ~ 9-12 rows, i.e. the 16-row bucket
+#: bucket; the restart keeps kev ~ 9-12 rows, i.e. the 16-row bucket, which
+#: is also the first bucket of the dgks steps after a restart
 JSON_K, JSON_ROWS = 8, 16
+FEM_POINTS = 1_048_576
+#: wall limit of the FEM phase (7c), seconds
+FEM_MAX_S = 120.0
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
+#: the tensor cores by accumulation dtype
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"torch.float32": 67e12, "torch.float64": 34e12}
 
 
 def _gpu_line() -> str:
@@ -98,6 +122,28 @@ def _compare(torch, out, ref, bf16: bool, what: str) -> float:
         raise AssertionError(f"{what}: kernel disagrees with its twin "
                              f"(max abs err {err:.3e}, scale {scale:.3e})")
     return err
+
+
+def _bound(nbytes: float, flops: float, acc: str):
+    """Least time the card could take, in ms: the larger of the bytes over
+    the memory rate and the operations over the peak rate of ``acc``."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / PEAK_FLOPS[acc] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _row(name, sdt, shape, nbytes, flops, acc, times):
+    """One timed entry: ``times`` = (kernel, twin, library or None) ms."""
+    bound, by = _bound(nbytes, flops, acc)
+    t_k, t_p, t_l = times
+    return {"name": name, "dtype": sdt, "shape": shape, "ms": t_k,
+            "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+            "bound_by": by, "bytes": nbytes}
+
+
+def _times(torch, flush, kernel, plain, library=None):
+    return (_median_ms(torch, kernel, flush), _median_ms(torch, plain, flush),
+            None if library is None else _median_ms(torch, library, flush))
 
 
 def check_kernels(torch, dev, n=N, timed=True):
@@ -143,16 +189,28 @@ def check_kernels(torch, dev, n=N, timed=True):
             if not torch.equal(untouched, r0):
                 raise AssertionError("sel_update: zero coefficients changed r")
             if timed and sdt != torch.float64:
-                t_k = _median_ms(torch, lambda: cuda_sel.sel_proj(idx, V, br),
-                                 flush)
-                t_p = _median_ms(
-                    torch, lambda: cuda_sel.sel_proj_plain(idx, V, br), flush)
-                u_k = _median_ms(torch, lambda: cuda_sel.sel_update(
-                    idx, coef, r0, V, with_norm=True), flush)
-                u_p = _median_ms(torch, lambda: cuda_sel.sel_update_plain(
-                    idx, coef, r0, V, with_norm=True), flush)
-                rows_out.append(("sel_proj", str(sdt), K, t_k, t_p))
-                rows_out.append(("sel_update", str(sdt), K, u_k, u_p))
+                f32 = sdt == torch.float32
+                idx_l = idx.long()
+                sb, ab, acc = V.element_size(), br.element_size(), str(adt)
+                rows_out.append(_row(
+                    "sel_proj", str(sdt), K, K * n * sb + n * ab + K * ab,
+                    2 * K * n, acc, _times(
+                        torch, flush,
+                        lambda: cuda_sel.sel_proj(idx, V, br),
+                        lambda: cuda_sel.sel_proj_plain(idx, V, br),
+                        (lambda: V.index_select(0, idx_l) @ br)
+                        if f32 else None)))
+                rows_out.append(_row(
+                    "sel_update", str(sdt), K,
+                    K * n * sb + 2 * n * ab + K * ab, 2 * K * n + 2 * n, acc,
+                    _times(torch, flush,
+                           lambda: cuda_sel.sel_update(idx, coef, r0, V,
+                                                       with_norm=True),
+                           lambda: cuda_sel.sel_update_plain(
+                               idx, coef, r0, V, with_norm=True),
+                           (lambda: torch.addmv(
+                               r0, V.index_select(0, idx_l).T, coef,
+                               alpha=-1)) if f32 else None)))
         Qm, _ = torch.linalg.qr(torch.randn(
             NCV, NCV, generator=torch.Generator().manual_seed(1),
             dtype=torch.float64))
@@ -168,14 +226,205 @@ def check_kernels(torch, dev, n=N, timed=True):
                 raise AssertionError(f"rotate_rows rows={rows}: rows past "
                                      "the bucket changed")
             if timed and sdt != torch.float64:
-                t_k = _median_ms(
-                    torch, lambda: cuda_rot.rotate_rows(Q, V1, rows), flush)
-                t_p = _median_ms(
-                    torch, lambda: cuda_rot.rotate_rows_plain(Q, V2, rows),
-                    flush)
-                rows_out.append(("rotate_rows", str(sdt), rows, t_k, t_p))
+                sb = V.element_size()
+                rows_out.append(_row(
+                    "rotate_rows", str(sdt), rows,
+                    (NCV + rows) * n * sb + NCV * rows * Q.element_size(),
+                    2 * NCV * rows * n, str(adt), _times(
+                        torch, flush,
+                        lambda: cuda_rot.rotate_rows(Q, V1, rows),
+                        lambda: cuda_rot.rotate_rows_plain(Q, V2, rows),
+                        (lambda: Q[:, :rows].T @ V)
+                        if sdt == torch.float32 else None)))
         del V, V1, V2
     return rec, rows_out
+
+
+def check_cgs(torch, dev, n=N, timed=True):
+    """Phase 6, CGS: ``cgs_proj`` and ``cgs_update`` (with and without the
+    fused norm) against their twins at rows 8/16/24/32, float32 and
+    bfloat16 storage; the library calls are ``torch.mv`` and
+    ``torch.addmv`` (which leaves out the fused norm)."""
+    from arpack_ng_tpu_torch.ops import cuda_cgs
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev) \
+        if timed else None
+    err, rows_out = {"cgs_proj": {}, "cgs_update": {}}, []
+    for sdt in (torch.float32, torch.bfloat16):
+        bf16, f32 = sdt == torch.bfloat16, sdt == torch.float32
+        V = torch.randn(NCV, n, generator=g, device=dev).to(sdt)
+        w = torch.randn(n, generator=g, device=dev)
+        w0 = w.clone()
+        for rows in ROWS:
+            h = cuda_cgs.cgs_proj(V, w, rows)
+            e = _compare(torch, h, cuda_cgs.cgs_proj_plain(V, w, rows), bf16,
+                         f"cgs_proj rows={rows} {sdt}")
+            err["cgs_proj"][str(sdt)] = max(err["cgs_proj"].get(str(sdt), 0),
+                                            e)
+            for with_norm in (False, True):
+                out = cuda_cgs.cgs_update(w, h, V, with_norm)
+                ref = cuda_cgs.cgs_update_plain(w, h, V, with_norm)
+                if with_norm:
+                    _compare(torch, out[1], ref[1], bf16,
+                             f"cgs_update norm rows={rows} {sdt}")
+                    out, ref = out[0], ref[0]
+                e = _compare(torch, out, ref, bf16,
+                             f"cgs_update rows={rows} {sdt}")
+                err["cgs_update"][str(sdt)] = max(
+                    err["cgs_update"].get(str(sdt), 0), e)
+            if not torch.equal(w, w0):
+                raise AssertionError("cgs_update changed w")
+            if not torch.equal(cuda_cgs.cgs_update(w, torch.zeros_like(h), V),
+                               w):
+                raise AssertionError("cgs_update: zero h changed w")
+            if not timed:
+                continue
+            sb = V.element_size()
+            rows_out.append(_row(
+                "cgs_proj", str(sdt), rows, rows * n * sb + 4 * (n + rows),
+                2 * rows * n, "torch.float32", _times(
+                    torch, flush, lambda: cuda_cgs.cgs_proj(V, w, rows),
+                    lambda: cuda_cgs.cgs_proj_plain(V, w, rows),
+                    (lambda: torch.mv(V[:rows], w)) if f32 else None)))
+            for with_norm in (False, True):
+                rows_out.append(_row(
+                    "cgs_update" + ("+norm" if with_norm else ""), str(sdt),
+                    rows, rows * n * sb + 4 * (2 * n + rows),
+                    2 * rows * n + 2 * n * with_norm, "torch.float32",
+                    _times(torch, flush,
+                           lambda: cuda_cgs.cgs_update(w, h, V, with_norm),
+                           lambda: cuda_cgs.cgs_update_plain(w, h, V,
+                                                             with_norm),
+                           (lambda: torch.addmv(w, V[:rows].T, h, alpha=-1))
+                           if f32 else None)))
+        del V
+    return err, rows_out
+
+
+def _csr_on(torch, a, dev):
+    """The cuSPARSE CSR yardstick: ``a`` as a torch sparse CSR tensor."""
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype(np.int64)),
+        torch.from_numpy(a.indices.astype(np.int64)),
+        torch.from_numpy(a.data), size=a.shape).to(dev)
+
+
+def check_dia(torch, dev, nx=NX, timed=True):
+    """Phase 6, DIA: the flagship Laplacian's 5-diagonal table, float32 and
+    float64, against the twin (same order and rounding, so equal bit for
+    bit) and cuSPARSE CSR."""
+    from arpack_ng_tpu_torch.config import pad_dim
+    from arpack_ng_tpu_torch.models import laplacian_2d
+    from arpack_ng_tpu_torch.ops import cuda_dia
+    from arpack_ng_tpu_torch.ops.sparse import dia_table
+
+    _, a_sp = laplacian_2d(nx, device=dev)
+    n = a_sp.shape[0]
+    n_pad = pad_dim(n, 1024)
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev) \
+        if timed else None
+    err, rows_out = {}, []
+    g = torch.Generator(device=dev).manual_seed(3)
+    for dtype in (np.float32, np.float64):
+        a = a_sp.astype(dtype)
+        offs, dtab = dia_table(a, n_pad)
+        offs, dtab = torch.from_numpy(offs).to(dev), \
+            torch.from_numpy(dtab).to(dev)
+        x = torch.zeros(n_pad, dtype=dtab.dtype, device=dev)
+        x[:n] = torch.randn(n, generator=g, device=dev, dtype=dtab.dtype)
+        y = cuda_dia.dia_matvec(offs, dtab, x, n)
+        ref = cuda_dia.dia_matvec_plain(offs, dtab, x, n)
+        err[str(dtab.dtype)] = _compare(torch, y, ref, False,
+                                        f"dia_matvec {dtype.__name__}")
+        if y[n:].any():
+            raise AssertionError("dia_matvec: pad rows not zero")
+        if not timed:
+            continue
+        csr = _csr_on(torch, a, dev)
+        xs = x[:n]
+        nd, ab = dtab.shape[0], dtab.element_size()
+        rows_out.append(_row(
+            "dia_matvec", str(dtab.dtype), nd,
+            nd * n_pad * ab + 2 * n_pad * ab + 8 * nd, 2 * a.nnz,
+            str(dtab.dtype), _times(
+                torch, flush, lambda: cuda_dia.dia_matvec(offs, dtab, x, n),
+                lambda: cuda_dia.dia_matvec_plain(offs, dtab, x, n),
+                lambda: torch.mv(csr, xs))))
+    return err, rows_out
+
+
+def fem_matrix(points=FEM_POINTS):
+    """``fem_triangulation(points)`` in reverse Cuthill-McKee order (host,
+    float64 CSR) and the seconds it took to build."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from arpack_ng_tpu_torch.models import fem_triangulation
+
+    t0 = time.perf_counter()
+    a = fem_triangulation(points)
+    p = np.asarray(reverse_cuthill_mckee(a, symmetric_mode=True))
+    return a[p][:, p].tocsr(), time.perf_counter() - t0
+
+
+def check_psell(torch, dev, fem, gpu, timed=True):
+    """Phase 6, PSELL: the uniform-W packing of the RCM-ordered FEM matrix,
+    float32 and float64, against the twin, cuSPARSE CSR and the plain ELL
+    gather of ``format='ell'``."""
+    from arpack_ng_tpu_torch.ops import cuda_psell, psell
+    from arpack_ng_tpu_torch.ops.sparse import _to_ell, ell_matvec
+
+    n = fem.shape[0]
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev) \
+        if timed else None
+    err, rows_out = {}, []
+    g = torch.Generator(device=dev).manual_seed(4)
+    for dtype in (np.float32, np.float64):
+        a = fem.astype(dtype)
+        t0 = time.perf_counter()
+        pk = psell.pack_psell_uniform(a)
+        tiles = cuda_psell.psell_tiles(pk, dev)
+        t_pack = time.perf_counter() - t0
+        ntiles = pk.vals.shape[0]
+        print(f"psell {dtype.__name__}: n {n}, nnz {pk.nnz}, W {pk.W}, "
+              f"tiles {ntiles}, slot fill {pk.nnz / (ntiles * 1024):.4f}, "
+              f"pack {t_pack:.2f} s", flush=True)
+        x = torch.randn(n, generator=g, device=dev,
+                        dtype=tiles.vals.dtype)
+        y = cuda_psell.psell_matvec(tiles, x)
+        ref = cuda_psell.psell_matvec_plain(tiles, x)
+        err[str(tiles.vals.dtype)] = _compare(
+            torch, y, ref, False, f"psell_matvec {dtype.__name__}")
+        if not torch.equal(y, cuda_psell.psell_matvec(tiles, x)):
+            raise AssertionError("psell_matvec is not deterministic")
+        if not timed:
+            continue
+        csr = _csr_on(torch, a, dev)
+        cols_np, vals_np, _ = _to_ell(a, pk.n_pad)
+        cols = torch.from_numpy(cols_np).long().to(dev)
+        vals = torch.from_numpy(vals_np).to(dev)
+        xp = torch.zeros(pk.n_pad, dtype=x.dtype, device=dev)
+        xp[:n] = x
+        ab = x.element_size()
+        row = _row("psell_matvec", str(x.dtype), pk.W,
+                   ntiles * 1024 * (ab + 4) + 4 * ntiles
+                   + 4 * (pk.n_pad // 1024 + 1) + (n + pk.n_pad) * ab,
+                   2 * pk.nnz, str(x.dtype), _times(
+                       torch, flush,
+                       lambda: cuda_psell.psell_matvec(tiles, x),
+                       lambda: cuda_psell.psell_matvec_plain(tiles, x),
+                       lambda: torch.mv(csr, x)))
+        row["ell_ms"] = _median_ms(torch, lambda: ell_matvec(cols, vals, xp),
+                                   flush)
+        row["csr_bytes"] = a.nnz * (ab + 8) + (n + 1) * 8 + 2 * n * ab
+        rows_out.append(row)
+        print(f"  psell {row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, "
+              f"cuSPARSE CSR {row['library_ms']:.4f} ms, ELL gather "
+              f"{row['ell_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bytes'] / 1e6:.1f} MB; CSR stores "
+              f"{row['csr_bytes'] / 1e6:.1f} MB); card {gpu}", flush=True)
+        del csr, cols, vals
+    return err, rows_out
 
 
 def _analytic_spectrum(nx: int) -> np.ndarray:
@@ -269,6 +518,107 @@ def basis_defect(torch, dev, gpu, nx=NX):
         raise AssertionError(f"basis defect {defect:.3e} >= {bound:.3e}")
 
 
+def _counted(torch, dev, need, fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before and
+    read just after; fail if a kernel of ``need`` was never launched.
+    Returns ``(fn(), wall seconds, counts)``."""
+    from arpack_ng_tpu_torch.ops import (cuda_cgs, cuda_dia, cuda_psell,
+                                         cuda_rot, cuda_sel)
+
+    every = (cuda_sel.sel_proj, cuda_sel.sel_update, cuda_rot.rotate_rows,
+             cuda_cgs.cgs_proj, cuda_cgs.cgs_update, cuda_dia.dia_matvec,
+             cuda_psell.psell_matvec)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    for k in every:
+        k.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in every}
+    idle = [k for k in need if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched: {idle}")
+    return out, wall, counts
+
+
+def _stats_line(st) -> str:
+    return (f"cycles {st.n_iter}, nopx {st.nopx}, nrorth {st.nrorth}, "
+            f"nrorthr {st.nrorthr}, nitref {st.nitref}, nrotr {st.nrotr}")
+
+
+def sparse_solves(torch, dev, gpu, fem, nx=NX, device=None):
+    """Phase 7: solves through the scipy-sparse entry of ``eigsh`` on the
+    default device (``device=None``).  Returns the launches of each
+    kernel in the path that exercises it."""
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.models import laplacian_2d
+
+    dkw = {} if device is None else {"device": device}
+    kw = dict(k=8, ncv=NCV, which="LA", tol=1e-5, return_stats=True)
+    _, a_sp = laplacian_2d(nx, device=dev)
+    spectrum = _analytic_spectrum(nx)
+    op = pt.from_scipy(a_sp, dtype=np.float32, hermitian=True, **dkw)
+    if op.format != "dia" or op.device.type != dev.type:
+        raise AssertionError(f"flagship CSR imported as {op.format} on "
+                             f"{op.device}, want dia on {dev.type}")
+    launches = {}
+    for tag, need, fn in (
+            ("(a) eigsh(A_csr)", ("dia_matvec",),
+             lambda: pt.eigsh(a_sp, dtype=np.float32, **kw, **dkw)),
+            ("(b) eigsh(A_csr) dgks, cgs_kernel='pallas'",
+             ("cgs_proj", "cgs_update", "dia_matvec", "rotate_rows"),
+             lambda: pt.eigsh(op, reorth="dgks", cgs_kernel="pallas",
+                              **kw))):
+        (vals, vecs, out), wall, counts = _counted(torch, dev, need, fn)
+        dmax, rmax = check_values(vals, vecs, a_sp, spectrum, tag)
+        print(f"sparse {tag}: format dia, wall {wall:.4f} s, "
+              f"{_stats_line(out.stats)}; max value dist {dmax:.2e}, max "
+              f"residual {rmax:.2e}; launches {counts}; card {gpu}",
+              flush=True)
+        for k in need:
+            launches.setdefault(k, counts[k])
+
+    t0 = time.perf_counter()
+    found = {}
+    for fmt in ("psell", "auto"):
+        need = ("psell_matvec",) if fmt == "psell" else ()
+        t1 = time.perf_counter()
+        op = pt.from_scipy(fem, dtype=np.float32, hermitian=True,
+                           format=fmt, **dkw)
+        t_import = time.perf_counter() - t1
+        if op.format != ("psell" if fmt == "psell" else "ell"):
+            raise AssertionError(f"FEM format={fmt} imported as {op.format}")
+        (vals, vecs, out), wall, counts = _counted(
+            torch, dev, need, lambda: pt.eigsh(op, **kw))
+        if len(vals) != 8:
+            raise AssertionError(f"FEM {fmt}: {len(vals)} values, want 8")
+        v64 = np.asarray(vecs, np.float64)
+        res = np.linalg.norm(fem @ v64 - v64 * vals[None, :], axis=0) \
+            / np.abs(vals)
+        if not np.all(np.isfinite(res)) or res.max() > 1e-3:
+            raise AssertionError(f"FEM {fmt}: residual {res.max():.3e}")
+        found[fmt] = vals
+        print(f"sparse (c) FEM n={fem.shape[0]} format={fmt} -> "
+              f"{op.format}: import {t_import:.2f} s, solve {wall:.4f} s, "
+              f"{_stats_line(out.stats)}; max residual {res.max():.2e}; "
+              f"launches {counts}; card {gpu}", flush=True)
+        print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+        if need:
+            launches["psell_matvec"] = counts["psell_matvec"]
+    gap = np.abs(found["psell"] - found["auto"])
+    if np.any(gap > 1e-4 * np.abs(found["auto"])):
+        raise AssertionError(f"FEM: psell and ell values differ by "
+                             f"{gap.max():.3e}")
+    elapsed = time.perf_counter() - t0
+    print(f"sparse (c): {elapsed:.2f} s (limit {FEM_MAX_S:.0f} s), values "
+          f"agree within {gap.max():.3e}", flush=True)
+    if elapsed > FEM_MAX_S:
+        raise AssertionError(f"FEM phase took {elapsed:.1f} s")
+    return launches
+
+
 def _device_ms(evt) -> float:
     """Self device time of a profiler average, in ms (the attribute was
     renamed from ``self_cuda_time_total`` in newer torch)."""
@@ -360,6 +710,44 @@ def profile_cycles(torch, dev, gpu, nx=NX, warm=3, steady=20, profiled=5):
         print(buf.getvalue(), flush=True)
 
 
+def kernel_entries(rows, launches, errs):
+    """The ``kernels`` JSON entries: each kernel at the float32 shape its
+    solve runs most (the update of the dgks path carries the fused norm),
+    with the launches of the path that exercises it."""
+    src = {"sel_proj": ("sel.cu", "pallas_sel.py:90", JSON_K),
+           "sel_update": ("sel.cu", "pallas_sel.py:141", JSON_K),
+           "rotate_rows": ("rot.cu", "pallas_rot.py:91", JSON_ROWS),
+           "cgs_proj": ("cgs.cu", "pallas_cgs.py:58", JSON_ROWS),
+           "cgs_update": ("cgs.cu", "pallas_cgs.py:116", JSON_ROWS),
+           "dia_matvec": ("dia.cu", "pallas_dia.py:47", None),
+           "psell_matvec": ("psell.cu", "pallas_psell.py:262", None)}
+    entries = []
+    for kname, (source, replaces, shape) in src.items():
+        timed = "cgs_update+norm" if kname == "cgs_update" else kname
+        r = next(r for r in rows if r["name"] == timed
+                 and r["dtype"] == "torch.float32"
+                 and (shape is None or r["shape"] == shape))
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": f"arpack_ng_tpu_torch/csrc/{source}",
+            "replaces": f"arpack_ng_tpu/ops/{replaces}",
+            "launches": launches[kname], "max_abs_err": errs[kname],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "lib_ms": r["library_ms"],
+            "shape": f"{timed} shape={r['shape']} float32"})
+    return entries
+
+
+def _print_rows(rows) -> None:
+    for r in rows:
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {r['name']:15s} {r['dtype']:15s} shape={r['shape']:2d}: "
+              f"kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
+              f"library {lib} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -394,9 +782,7 @@ def main() -> int:
     rec, rows = check_kernels(torch, dev)
     print(f"kernels vs twins at ncv={NCV}, n={N} (median of {REPS}, "
           f"L2 flushed; card {gpu}):", flush=True)
-    for kname, sdt, shape, t_k, t_p in rows:
-        print(f"  {kname:12s} {sdt:15s} K/rows={shape:2d}: kernel "
-              f"{t_k:.4f} ms, twin {t_p:.4f} ms", flush=True)
+    _print_rows(rows)
     print("  max abs err (f32, bf16, f64): "
           + ", ".join(f"{k} {v['err']:.3e} / {v['err_bf16']:.3e} / "
                       f"{v['err_f64']:.3e}" for k, v in rec.items()),
@@ -405,25 +791,27 @@ def main() -> int:
     launches = flagship(torch, dev, gpu)
     basis_defect(torch, dev, gpu)
 
-    def pick(kname, shape):
-        return next(r for r in rows if r[0] == kname
-                    and r[1] == "torch.float32" and r[2] == shape)
+    err_cgs, rows_cgs = check_cgs(torch, dev)
+    err_dia, rows_dia = check_dia(torch, dev)
+    fem, t_fem = fem_matrix()
+    print(f"fem_triangulation({FEM_POINTS}) + RCM: {t_fem:.2f} s",
+          flush=True)
+    err_ps, rows_ps = check_psell(torch, dev, fem, gpu)
+    print(f"phase 6 kernels vs twins (median of {REPS}, L2 flushed; card "
+          f"{gpu}):", flush=True)
+    _print_rows(rows_cgs + rows_dia + rows_ps)
+    errs = {**{k: v["torch.float32"] for k, v in err_cgs.items()},
+            "dia_matvec": err_dia["torch.float32"],
+            "psell_matvec": err_ps["torch.float32"]}
+    print(f"  max abs err: cgs {err_cgs}, dia {err_dia}, psell {err_ps}",
+          flush=True)
+    # each kernel's launches come from the first solve that runs it
+    for k, v in sparse_solves(torch, dev, gpu, fem).items():
+        launches.setdefault(k, v)
+    errs.update({k: rec[k]["err"] for k in rec})
 
-    src = {"sel_proj": ("arpack_ng_tpu_torch/csrc/sel.cu",
-                        "arpack_ng_tpu/ops/pallas_sel.py:90", JSON_K),
-           "sel_update": ("arpack_ng_tpu_torch/csrc/sel.cu",
-                          "arpack_ng_tpu/ops/pallas_sel.py:141", JSON_K),
-           "rotate_rows": ("arpack_ng_tpu_torch/csrc/rot.cu",
-                           "arpack_ng_tpu/ops/pallas_rot.py:91", JSON_ROWS)}
-    entries = []
-    for kname, (source, replaces, shape) in src.items():
-        _, _, _, t_k, t_p = pick(kname, shape)
-        entries.append({"name": kname, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[kname],
-                        "max_abs_err": rec[kname]["err"], "ms": t_k,
-                        "plain_ms": t_p, "shape": f"ncv={NCV} n={N} "
-                        f"{'K' if kname != 'rotate_rows' else 'rows'}="
-                        f"{shape} float32"})
+    entries = kernel_entries(rows + rows_cgs + rows_dia + rows_ps, launches,
+                             errs)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

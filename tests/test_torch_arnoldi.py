@@ -31,7 +31,7 @@ def _problem(name, dtype):
     """(reference operator, port operator, ncv)."""
     if name == "lap2d":
         return (jmodels.laplacian_2d(16, dtype)[0],
-                pmodels.laplacian_2d(16, dtype)[0], 24)
+                pmodels.laplacian_2d(16, dtype, device="cpu")[0], 24)
     if name == "diag":
         d = np.linspace(1.0, 100.0, 400).astype(dtype)
     elif name == "geo":
@@ -40,10 +40,11 @@ def _problem(name, dtype):
         a = np.random.default_rng(42).standard_normal((300, 300))
         a = ((a + a.T) / 2).astype(dtype)
         return (at.from_dense(a, n_pad=at.pad_dim(300)),
-                pt.from_dense(a, n_pad=pt.pad_dim(300)), 20)
+                pt.from_dense(a, n_pad=pt.pad_dim(300), device="cpu"), 20)
     n_pad = at.pad_dim(d.shape[0])
     return (at.from_diagonal(d, n_pad=n_pad),
-            pt.from_diagonal(d, n_pad=n_pad), 48 if name == "geo" else 20)
+            pt.from_diagonal(d, n_pad=n_pad, device="cpu"),
+            48 if name == "geo" else 20)
 
 
 def _extend_both(name, dtype, reorth):

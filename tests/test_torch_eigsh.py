@@ -24,10 +24,10 @@ TOL = {np.float64: 1e-10, np.float32: 1e-5}
 def _problem(name, dtype):
     if name == "lap2d":
         opj, a = jmodels.laplacian_2d(16, dtype=dtype)
-        opp, _ = pmodels.laplacian_2d(16, dtype=dtype)
+        opp, _ = pmodels.laplacian_2d(16, dtype=dtype, device="cpu")
     else:
         opj, a = jmodels.laplacian_1d(200, dtype=dtype)
-        opp, _ = pmodels.laplacian_1d(200, dtype=dtype)
+        opp, _ = pmodels.laplacian_1d(200, dtype=dtype, device="cpu")
     return opj, opp, a
 
 
@@ -57,7 +57,8 @@ def test_eigsh_matches_reference(name, dtype, which):
 def test_dense_input_matches_numpy(reorth, which):
     a = np.random.default_rng(42).standard_normal((120, 120))
     a = (a + a.T) / 2
-    vals, vecs = pt.eigsh(a, k=5, which=which, tol=1e-10, reorth=reorth)
+    vals, vecs = pt.eigsh(a, k=5, which=which, tol=1e-10, reorth=reorth,
+                          device="cpu")
     ev = np.linalg.eigvalsh(a)
     ref = np.sort(ev[np.argsort(ev if which == "LA" else np.abs(ev))[-5:]])
     np.testing.assert_allclose(vals, ref, rtol=1e-9, atol=1e-9)
@@ -76,7 +77,8 @@ def test_generalized_mode2_matches_reference(reorth):
     kw = dict(k=4, which="LM", tol=1e-10, v0=v0, maxiter=600,
               reorth=reorth, return_stats=True)
     vj, _, oj = at.eigsh(at.from_dense(a, m, n_pad=at.pad_dim(n)), **kw)
-    vp, xp, op_ = pt.eigsh(pt.from_dense(a, m, n_pad=pt.pad_dim(n)), **kw)
+    vp, xp, op_ = pt.eigsh(
+        pt.from_dense(a, m, n_pad=pt.pad_dim(n), device="cpu"), **kw)
     np.testing.assert_allclose(np.sort(vp), np.sort(vj), rtol=1e-9)
     assert residual(a, vp, xp, m).max() < 1e-7
     assert (op_.stats.nopx, op_.stats.nbx) == (oj.stats.nopx, oj.stats.nbx)
@@ -86,7 +88,7 @@ def test_generalized_mode2_matches_reference(reorth):
 def test_single_bucket_ncv_matches_reference(reorth):
     # ncv <= 8: every CGS pass, event and rotation is one bucket of ncv rows
     opj, a = jmodels.laplacian_1d(200, dtype=np.float64)
-    opp, _ = pmodels.laplacian_1d(200, dtype=np.float64)
+    opp, _ = pmodels.laplacian_1d(200, dtype=np.float64, device="cpu")
     kw = dict(k=3, which="LA", ncv=8, tol=1e-8, maxiter=3000, reorth=reorth,
               v0=np.random.default_rng(0).uniform(-1, 1, 200),
               return_stats=True)
@@ -108,7 +110,8 @@ def test_invariant_subspace_restart(reorth):
     kw = dict(k=2, which="LA", ncv=10, tol=1e-10, v0=v0, reorth=reorth,
               maxiter=300, return_stats=True)
     vj, _, oj = at.eigsh(at.from_diagonal(d, n_pad=at.pad_dim(60)), **kw)
-    vp, xp, op_ = pt.eigsh(pt.from_diagonal(d, n_pad=pt.pad_dim(60)), **kw)
+    vp, xp, op_ = pt.eigsh(
+        pt.from_diagonal(d, n_pad=pt.pad_dim(60), device="cpu"), **kw)
     np.testing.assert_allclose(vp, d[-2:], rtol=1e-10)
     np.testing.assert_allclose(vp, vj, rtol=1e-10)
     assert op_.stats.nrstrt == oj.stats.nrstrt == 1
@@ -117,7 +120,7 @@ def test_invariant_subspace_restart(reorth):
 
 def test_stats_summary_format():
     # mirrors tests/test_regression.py::test_stats_summary_format
-    op, _ = pmodels.laplacian_2d(8, dtype=np.float64)
+    op, _ = pmodels.laplacian_2d(8, dtype=np.float64, device="cpu")
     vals, vecs, out = pt.eigsh(op, k=3, ncv=12, which="LA", tol=1e-8,
                                maxiter=300, return_stats=True)
     s = out.stats.summary()
@@ -131,7 +134,7 @@ def test_stats_summary_format():
 
 
 def test_no_convergence_raises_with_partial_results():
-    op, _ = pmodels.laplacian_2d(16, dtype=np.float64)
+    op, _ = pmodels.laplacian_2d(16, dtype=np.float64, device="cpu")
     with pytest.raises(pt.ArpackNoConvergence) as ei:
         pt.eigsh(op, k=4, which="LA", ncv=9, tol=1e-14, maxiter=2)
     assert ei.value.info == 1
@@ -141,7 +144,7 @@ def test_solve_pins_full_precision_matmuls():
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.set_float32_matmul_precision("high")
     try:
-        op, _ = pmodels.laplacian_1d(64, dtype=np.float32)
+        op, _ = pmodels.laplacian_1d(64, dtype=np.float32, device="cpu")
         pt.eigsh(op, k=2, which="LA", tol=1e-4, return_eigenvectors=False)
         assert not torch.backends.cuda.matmul.allow_tf32
         assert not torch.backends.cudnn.allow_tf32
@@ -155,14 +158,67 @@ def test_solve_pins_full_precision_matmuls():
     dict(restart="thick"), dict(validate="f64"), dict(strategy="hybrid"),
     dict(cgs_kernel="pallas")])
 def test_outside_the_slice_raises(kwargs):
-    op, _ = pmodels.laplacian_1d(64, dtype=np.float64)
-    with pytest.raises(NotImplementedError):
+    # cgs_kernel='pallas' is ported; on float64 it raises the reference's
+    # ValueError (real float32 compute only)
+    op, _ = pmodels.laplacian_1d(64, dtype=np.float64, device="cpu")
+    exc = ValueError if "cgs_kernel" in kwargs else NotImplementedError
+    with pytest.raises(exc):
         pt.eigsh(op, k=2, which="LA", **kwargs)
+    if "cgs_kernel" in kwargs:
+        opj, _ = jmodels.laplacian_1d(64, dtype=np.float64)
+        with pytest.raises(ValueError):
+            at.eigsh(opj, k=2, which="LA", **kwargs)
 
 
 def test_complex_and_sparse_inputs_raise():
+    # scipy sparse inputs are ported (tests/test_torch_sparse.py); complex
+    # ones, sparse or dense, are not yet
     import scipy.sparse as sp
     with pytest.raises(NotImplementedError):
-        pt.eigsh(sp.identity(50, format="csr"), k=2)
+        pt.eigsh(sp.identity(50, format="csr", dtype=np.complex128), k=2,
+                 device="cpu")
     with pytest.raises(NotImplementedError):
-        pt.eigsh(np.eye(50, dtype=np.complex128), k=2)
+        pt.eigsh(np.eye(50, dtype=np.complex128), k=2, device="cpu")
+
+
+@pytest.mark.parametrize("storage,tol", [(None, 1e-5), ("bfloat16", 1e-2)])
+def test_dgks_cgs_kernels_match_reference(storage, tol):
+    # reorth='dgks' with cgs_kernel='pallas': the 8/16/24-row buckets run
+    # the CGS kernels (their twins here, Pallas in interpret mode in the
+    # reference), the 32-row bucket a GEMV.  Values within 10*tol*|lambda|
+    # and equal counters, in float32 compute with float32 or bfloat16
+    # basis storage (bfloat16 at the tolerance where 'auto' picks it)
+    opj, a = jmodels.laplacian_2d(24, dtype=np.float32)
+    opp, _ = pmodels.laplacian_2d(24, dtype=np.float32, device="cpu")
+    v0 = np.random.default_rng(3).uniform(-1, 1, opj.n)
+    kw = dict(k=4, which="LA", ncv=32, tol=tol, v0=v0, maxiter=500,
+              reorth="dgks", cgs_kernel="pallas", return_stats=True)
+    vj, _, oj = at.eigsh(opj, storage_dtype=storage, **kw)
+    vp, xp, op_ = pt.eigsh(
+        opp, storage_dtype=torch.bfloat16 if storage else None, **kw)
+    np.testing.assert_allclose(vp, vj, rtol=0,
+                               atol=10 * tol * np.abs(vj).max())
+    assert residual(a, vp, xp).max() < 100 * tol
+    assert (op_.stats.nopx, op_.stats.nrorth, op_.n_iter) == \
+        (oj.stats.nopx, oj.stats.nrorth, oj.n_iter)
+
+
+def test_default_device_is_the_card():
+    # no device= means the CUDA card: the constructor records it, and a
+    # solve (or a constructor that moves data) on a machine without CUDA
+    # raises instead of running on the CPU
+    import scipy.sparse as sp
+    op, _ = pmodels.laplacian_2d(8, dtype=np.float64)
+    assert op.device.type == "cuda"
+    if torch.cuda.is_available():
+        assert pt.from_scipy(sp.identity(3000, format="csr")).device.type \
+            == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.eigsh(op, k=2, which="LA")
+    for build in (lambda: pt.eigsh(sp.identity(3000, format="csr"), k=2),
+                  lambda: pt.from_dense(np.eye(8)),
+                  lambda: pt.from_diagonal(np.ones(8)),
+                  lambda: pt.state_from_numpy({})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()

@@ -1,8 +1,9 @@
 """The port's kernel wrappers (arpack_ng_tpu_torch/ops/cuda_sel.py,
-cuda_rot.py) against the reference package's Pallas kernels run in
-interpret mode, on the same numpy inputs, plus the package rules: no JAX
-import anywhere in the port, and kernel modules that import and run on a
-machine without nvcc or a CUDA device.
+cuda_rot.py, cuda_cgs.py, cuda_dia.py) against the reference package's
+Pallas kernels run in interpret mode, on the same numpy inputs, plus the
+package rules: no JAX import anywhere in the port, and kernel modules that
+import and run on a machine without nvcc or a CUDA device.  The PSELL
+kernel's twin is held to its Pallas kernel in tests/test_torch_psell.py.
 
 On the CPU the wrappers run their plain PyTorch twins; the CUDA kernels
 themselves are compared with the twins on the card by ``chip_smoke.py``
@@ -17,8 +18,11 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from arpack_ng_tpu.ops import pallas_rot, pallas_sel  # noqa: E402
-from arpack_ng_tpu_torch.ops import cuda_lib, cuda_rot, cuda_sel  # noqa: E402
+import scipy.sparse as sp  # noqa: E402
+from arpack_ng_tpu.ops import pallas_cgs, pallas_rot, pallas_sel  # noqa: E402
+from arpack_ng_tpu.ops.pallas_dia import make_pallas_dia_matvec  # noqa: E402
+from arpack_ng_tpu_torch.ops import (  # noqa: E402
+    cuda_cgs, cuda_dia, cuda_lib, cuda_psell, cuda_rot, cuda_sel)
 
 PORT = pathlib.Path(__file__).resolve().parent.parent / "arpack_ng_tpu_torch"
 
@@ -193,23 +197,137 @@ def test_non_cuda_devices_raise_instead_of_falling_back(data):
         cuda_sel.sel_proj(idx, Vm, torch.empty(npan * 128, device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         cuda_rot.rotate_rows(torch.empty((ncv, ncv), device="meta"), Vm, 8)
+    wm = torch.empty(npan * 128, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_cgs.cgs_proj(Vm, wm, 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_cgs.cgs_update(wm, torch.empty(8, device="meta"), Vm)
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_dia.dia_matvec(torch.zeros(1, dtype=torch.int64, device="meta"),
+                            torch.empty((1, npan * 128), device="meta"), wm,
+                            npan * 128)
 
 
 def test_kernel_modules_import_without_nvcc_or_cuda(data):
     # importing and running the wrappers on CPU tensors neither builds nor
     # loads the CUDA library, and counts no kernel launch
     import importlib
-    for name in ("cuda_lib", "cuda_sel", "cuda_rot"):
+    for name in ("cuda_lib", "cuda_sel", "cuda_rot", "cuda_cgs", "cuda_dia",
+                 "cuda_psell"):
         importlib.import_module(f"arpack_ng_tpu_torch.ops.{name}")
     ncv, npan, V, br, r = data
-    before = (cuda_sel.sel_proj.launches, cuda_rot.rotate_rows.launches)
-    cuda_sel.sel_proj(torch.arange(8, dtype=torch.int32),
-                      _t(V.reshape(ncv, -1)), _t(br))
+    kernels = (cuda_sel.sel_proj, cuda_sel.sel_update, cuda_rot.rotate_rows,
+               cuda_cgs.cgs_proj, cuda_cgs.cgs_update, cuda_dia.dia_matvec,
+               cuda_psell.psell_matvec)
+    before = [k.launches for k in kernels]
+    Vt = _t(V.reshape(ncv, -1))
+    cuda_sel.sel_proj(torch.arange(8, dtype=torch.int32), Vt, _t(br))
     cuda_rot.rotate_rows(torch.eye(ncv), _t(V.reshape(ncv, -1).copy()), 8)
-    assert (cuda_sel.sel_proj.launches,
-            cuda_rot.rotate_rows.launches) == before
+    cuda_cgs.cgs_update(_t(br), cuda_cgs.cgs_proj(Vt, _t(br), 8), Vt)
+    cuda_dia.dia_matvec(torch.zeros(1, dtype=torch.int64),
+                        torch.ones((1, br.size), dtype=torch.float32),
+                        _t(br), br.size)
+    assert [k.launches for k in kernels] == before
     assert cuda_lib._lib is None
     assert set(cuda_lib.SOURCES) <= {p.name for p in cuda_lib.CSRC.iterdir()}
+
+
+@pytest.mark.parametrize("rows", [8, 16, 24])
+@pytest.mark.parametrize("with_norm", [False, True])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_cgs_kernels_match_pallas(storage, with_norm, rows):
+    # pallas_cgs.make_proj / make_update (tests/test_pallas.py:64-92):
+    # h = V[:rows] w, r = w - h V[:rows] (+ ||r||^2), V stored in float32 or
+    # bfloat16, accumulated in float32
+    rng = np.random.default_rng(rows)
+    ncv, n_pad = 32, 128 * 40
+    V = rng.standard_normal((ncv, n_pad)).astype(np.float32)
+    w = rng.standard_normal(n_pad).astype(np.float32)
+    Vj = jnp.asarray(V).astype(storage)
+    Vt = _t(V).to(getattr(torch, storage))
+    proj = pallas_cgs.make_proj(rows, ncv, n_pad, storage, "float32",
+                                interpret=True)
+    upd = pallas_cgs.make_update(rows, ncv, n_pad, storage, "float32",
+                                 interpret=True, with_norm=with_norm)
+    h_ref = np.asarray(proj(Vj, jnp.asarray(w)))
+    h = cuda_cgs.cgs_proj(Vt, _t(w), rows)
+    np.testing.assert_allclose(h.numpy(), h_ref, rtol=2e-5, atol=1e-3)
+    wt = _t(w.copy())
+    out = cuda_cgs.cgs_update(wt, _t(h_ref.copy()), Vt,
+                              with_norm=with_norm)
+    ref = upd(jnp.asarray(w), jnp.asarray(h_ref), Vj)
+    if with_norm:
+        (out, n2), (ref, n2_ref) = out, ref
+        assert abs(float(n2) - float(n2_ref)) < 1e-5 * float(n2_ref)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref).reshape(-1),
+                               rtol=1e-4, atol=1e-3)
+    assert torch.equal(wt, _t(w))  # out of place: w untouched
+
+
+def test_cgs_zero_coefficients_leave_w_unchanged():
+    # the solver masks h past row j to zero: those rows are exact no-ops
+    rng = np.random.default_rng(9)
+    V = _t(rng.standard_normal((16, 1024)).astype(np.float32))
+    w = _t(rng.standard_normal(1024).astype(np.float32))
+    h = torch.zeros(16)
+    h[:3] = torch.tensor([0.5, -1.0, 2.0])
+    r = cuda_cgs.cgs_update(w, h, V)
+    torch.testing.assert_close(r, w - h[:3] @ V[:3], rtol=1e-6, atol=1e-6)
+    assert torch.equal(cuda_cgs.cgs_update(w, torch.zeros(8), V), w)
+
+
+def _dia_case(offs, n, rng):
+    # the banded matrices of tests/test_pallas.py:13-26
+    diags, mats = [], []
+    for o in offs:
+        arr = np.zeros(n)
+        m = n - abs(o)
+        vals = rng.standard_normal(m)
+        if o >= 0:
+            arr[:m] = vals
+        else:
+            arr[-o:] = vals
+        mats.append(sp.diags(vals, o, shape=(n, n)))
+        diags.append(arr)
+    return diags, sum(mats).tocsr()
+
+
+@pytest.mark.parametrize("offs", [
+    [0],
+    [-1, 0, 1],
+    [-130, -63, -1, 0, 1, 63, 130],
+    [-256, 0, 256],
+])
+def test_dia_matvec_matches_pallas(offs):
+    rng = np.random.default_rng(len(offs))
+    n, n_pad = 4000, 4096
+    diags, a = _dia_case(offs, n, rng)
+    mv = make_pallas_dia_matvec(offs, diags, n, n_pad, tile_rows=8,
+                                interpret=True)
+    x = np.zeros(n_pad)
+    x[:n] = rng.standard_normal(n)
+    ref = np.asarray(mv(jnp.asarray(x)))
+    dtab = np.zeros((len(offs), n_pad))
+    for k, d in enumerate(diags):
+        dtab[k, :n] = d
+    y = cuda_dia.dia_matvec(torch.tensor(offs), _t(dtab), _t(x), n).numpy()
+    np.testing.assert_allclose(y, ref, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(y[:n], a @ x[:n], atol=1e-12)
+    assert np.abs(y[n:]).max() == 0.0
+
+
+def test_dia_matvec_reads_zero_outside_the_matrix():
+    # x past n is not read even where it is not zero, and y's pad is zero
+    rng = np.random.default_rng(11)
+    n, n_pad = 1000, 1024
+    diags, a = _dia_case([-3, 0, 5], n, rng)
+    dtab = np.zeros((3, n_pad))
+    for k, d in enumerate(diags):
+        dtab[k, :n] = d
+    x = rng.standard_normal(n_pad)
+    y = cuda_dia.dia_matvec(torch.tensor([-3, 0, 5]), _t(dtab), _t(x), n)
+    np.testing.assert_allclose(y[:n].numpy(), a @ x[:n], atol=1e-12)
+    assert not y[n:].any()
 
 
 def _imported_modules(path):

@@ -64,7 +64,7 @@ def _assert_close(dj, dp):
 def test_mid_solve_handover(reorth):
     nx, ncv = 16, 20
     opj, _ = jmodels.laplacian_2d(nx, dtype=np.float64)
-    opp, _ = pmodels.laplacian_2d(nx, dtype=np.float64)
+    opp, _ = pmodels.laplacian_2d(nx, dtype=np.float64, device="cpu")
     kw = dict(n=opj.n, nev=4, ncv=ncv, which="LA", symmetric=True,
               dtype=np.dtype(np.float64), n_pad=opj.n_pad, tol=1e-14,
               max_iter=500, reorth=reorth)
@@ -80,7 +80,7 @@ def test_mid_solve_handover(reorth):
 
     pcfg = PConfig(**kw)
     head, tail = psym.make_sym_head(opp, pcfg), psym.make_sym_tail(opp, pcfg)
-    st = state_from_numpy(d2)
+    st = state_from_numpy(d2, device="cpu")
     pout = tail(head(st), False)  # port: cycle 3
     assert pout.done == bool(out.done) and pout.nconv == int(out.nconv)
     dp3 = state_to_numpy(pout.state)
@@ -93,14 +93,14 @@ def test_mid_solve_handover(reorth):
 
 
 def test_numpy_round_trip_is_exact():
-    op, _ = pmodels.laplacian_1d(100, dtype=np.float32)
+    op, _ = pmodels.laplacian_1d(100, dtype=np.float32, device="cpu")
     cfg = PConfig(n=op.n, nev=3, ncv=12, which="LA", symmetric=True,
                   dtype=np.dtype(np.float32), n_pad=op.n_pad)
     head, tail = psym.make_sym_head(op, cfg), psym.make_sym_tail(op, cfg)
     solver = psym.FusedSymSolver(op, cfg)
     st = tail(head(solver.init_state()), False).state
     d = state_to_numpy(st)
-    back = state_to_numpy(state_from_numpy(d))
+    back = state_to_numpy(state_from_numpy(d, device="cpu"))
     assert back.keys() == d.keys()
     for f in d:
         if f == "counts":
