@@ -1,11 +1,10 @@
-// Row-streaming projection and update passes over the Lanczos basis, shared
-// by the eta-subset event (sel.cu: K rows picked by index) and the bucketed
-// classical Gram-Schmidt passes (cgs.cu: the first K rows).
+// Row-streaming projection and update passes over the Lanczos basis, used
+// by the eta-subset event (sel.cu: K rows picked by index).
 //
 //   proj:    s[k] = <V[row(k)], x>                     k < K
 //   update:  r = w - sum_k s[k] * V[row(k)]   (+ ||r||^2)
 // row(k) = idx[k] when an index array is given, else k.  `r` may alias `w`
-// (the in-place event update) or not (the out-of-place CGS update).
+// (the in-place event update) or not.
 //
 // Bound: device-memory bandwidth.  A call streams K basis rows of n values
 // (plus x, or w and r); the arithmetic is one FMA per element read.  Every

@@ -30,7 +30,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: most basis rows one call of the row passes (sel and cgs kernels) takes
-#: (``ROW_MAX_K`` in csrc/rows.cuh)
+#: (``ROW_MAX_K`` in csrc/rows.cuh, ``CGS_MAX_ROWS`` in csrc/cgs.cu)
 MAX_ROWS = 256
 
 #: dtype code of the C interface for each (storage, accumulation) pair
@@ -138,10 +138,11 @@ def load() -> ctypes.CDLL:
     lib.atpt_rotate_rows.argtypes = [i32, vp, i32, i32, i32, vp, i64, i64,
                                      vp]
     lib.atpt_rotate_rows.restype = i32
-    lib.atpt_cgs_proj.argtypes = [i32, i32, vp, i64, vp, i64, vp, vp, vp]
+    lib.atpt_cgs_proj.argtypes = [i32, i32, i32, i32, i32, vp, i64, vp, i64,
+                                  vp, vp, vp, vp]
     lib.atpt_cgs_proj.restype = i32
-    lib.atpt_cgs_update.argtypes = [i32, vp, i32, vp, i64, vp, vp, i64, vp,
-                                    vp, vp]
+    lib.atpt_cgs_update.argtypes = [i32, i32, i32, i32, vp, i32, vp, i64, vp,
+                                    vp, i64, vp, vp, vp, vp]
     lib.atpt_cgs_update.restype = i32
     lib.atpt_dia_matvec.argtypes = [i32, vp, i32, vp, i64, vp, i64, i64, vp,
                                     vp]

@@ -12,9 +12,12 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    build time;
 3. kernels: the event and rotation kernels against their plain PyTorch
    twins on the card, at the flagship shapes (ncv = 32, n = 1,048,576), in
-   float32 and bfloat16 storage (plus float64), with median CUDA-event
-   times of kernel, twin and the one PyTorch call that computes the same
-   function (float32), beside the least time the card could take;
+   float32 and bfloat16 storage (plus float64), with device-only median
+   CUDA-event times of kernel, twin and the one PyTorch call that computes
+   the same function (float32), timed in alternation, each launch after a
+   read-only L2 flush and a device-side wait that covers the host's
+   enqueue; beside them the least time the card could take and the host
+   microseconds per call of the wrapper and of the library call;
 4. flagship solve through ``eigsh``: the 2-D Dirichlet Laplacian at
    nx = 1024 (n = 1,048,576), float32, k = 8, ncv = 32, which = 'LA',
    tol = 1e-5, first with the default selective reorthogonalization (the
@@ -27,13 +30,19 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 6. the CGS, DIA and PSELL kernels against their twins at full size, timed
    as in phase 3 beside ``torch.mv``/``torch.addmv`` (CGS) and cuSPARSE CSR
    (``torch.mv`` of a ``torch.sparse_csr_tensor``; DIA and PSELL): CGS at
-   ncv = 32, n = 1,048,576, rows 8/16/24/32, float32 and bfloat16 storage;
-   DIA on the flagship Laplacian's table; PSELL (and the ELL gather) on
-   the RCM-ordered ``fem_triangulation(1_048_576)``;
+   ncv = 32, n = 1,048,576, every row count 1..32 in float32, bfloat16 and
+   float64 storage, also at n + 3 and with w at a 4-byte offset, two calls
+   bit-equal, a zero h an exact no-op; timed at rows 8/16/24/32 (float32
+   and bfloat16); DIA on the flagship Laplacian's table;
+   PSELL (and the ELL gather) on the RCM-ordered
+   ``fem_triangulation(1_048_576)``;
 7. sparse-entry solves through ``eigsh`` on the default device, k = 8,
    ncv = 32, which = 'LA', tol = 1e-5: (a) the flagship's scipy CSR matrix
    (imported as DIA), (b) the same with ``reorth='dgks',
-   cgs_kernel='pallas'``, both under the phase-4 gates, and (c) the
+   cgs_kernel='pallas'``, both under the phase-4 gates, then (b) again
+   with the plain twins in place of the CGS kernels and with the kernels
+   but ``||r||^2`` summed in float64 (witnesses of how far the summation
+   order alone moves its counters; same gates, not counted), and (c) the
    RCM-ordered FEM matrix through ``format='psell'`` and ``format='auto'``
    (ELL): residuals ``<= 1e-3``, the two value sets within 1e-4*|lambda|,
    and the phase within 120 s.  Each path's kernel launches are counted
@@ -72,6 +81,13 @@ N = NX * NX
 KS = (8, 16, 24, 32)
 ROWS = (8, 16, 24, 32)
 REPS = 20
+#: device-side wait before each timed launch, in SM clock cycles (~1 ms at
+#: 1.98 GHz): longer than any wrapper's host enqueue
+SLEEP_CYCLES = 2_000_000
+#: L2 flush: a read of this many bytes (the H100's L2 holds 50 MB)
+FLUSH_BYTES = 128 * 2**20
+#: enqueues behind each host cost per call
+HOST_CALLS = 200
 #: representative shapes for the JSON line: most events stream one 8-row
 #: bucket; the restart keeps kev ~ 9-12 rows, i.e. the 16-row bucket, which
 #: is also the first bucket of the dgks steps after a restart
@@ -93,22 +109,52 @@ def _gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _median_ms(torch, fn, flush) -> float:
-    """Median CUDA-event time of ``fn`` over REPS launches, each after an
-    L2 flush (the solver finds the basis cold)."""
-    for _ in range(3):
+def _flush_buffer(torch, dev):
+    """A buffer larger than the 50 MB L2; a read of it evicts the operands
+    of the next launch (the solver finds the basis cold)."""
+    return torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+
+def _alternating_ms(torch, fns, flush) -> list:
+    """Device-only median time (ms) of each of ``fns``, timed in turns over
+    REPS rounds (forward order, then reverse: kernel, library, library,
+    kernel, ...).  Before each launch: a read-only pass over ``flush`` and a
+    device-side wait of SLEEP_CYCLES, so that the card is still busy when
+    the host has enqueued the timed call and ``t0`` .. ``t1`` holds only the
+    call's own device work."""
+    for fn in fns:
         fn()
-    times = []
-    for _ in range(REPS):
-        flush.zero_()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
+    torch.cuda.synchronize()
+    marks = [[] for _ in fns]
+    for rep in range(REPS):
+        order = range(len(fns)) if rep % 2 == 0 else \
+            range(len(fns) - 1, -1, -1)
+        for i in order:
+            flush.sum()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fns[i]()
+            t1.record()
+            marks[i].append((t0, t1))
+    torch.cuda.synchronize()
+    return [statistics.median(a.elapsed_time(b) for a, b in m)
+            for m in marks]
+
+
+def _host_us(torch, fn) -> float:
+    """Host microseconds per call of ``fn``: ``time.perf_counter`` over
+    HOST_CALLS enqueues (the solver is host-bound, so this cost is real on
+    its path)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
         fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / HOST_CALLS * 1e6
 
 
 def _compare(torch, out, ref, bf16: bool, what: str) -> float:
@@ -132,26 +178,29 @@ def _bound(nbytes: float, flops: float, acc: str):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def _row(name, sdt, shape, nbytes, flops, acc, times):
-    """One timed entry: ``times`` = (kernel, twin, library or None) ms."""
+def _timed_row(torch, flush, name, sdt, shape, nbytes, flops, acc, kernel,
+               plain, library=None, ell=None):
+    """One timed entry: kernel, twin, the library call (or None) and the
+    plain ELL gather (PSELL only, or None) timed in alternation, beside the
+    bound; where there is a library call, also both host costs per call."""
     bound, by = _bound(nbytes, flops, acc)
-    t_k, t_p, t_l = times
-    return {"name": name, "dtype": sdt, "shape": shape, "ms": t_k,
-            "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
-            "bound_by": by, "bytes": nbytes}
-
-
-def _times(torch, flush, kernel, plain, library=None):
-    return (_median_ms(torch, kernel, flush), _median_ms(torch, plain, flush),
-            None if library is None else _median_ms(torch, library, flush))
+    fns = {k: f for k, f in (("ms", kernel), ("plain_ms", plain),
+                             ("library_ms", library), ("ell_ms", ell))
+           if f is not None}
+    row = {"name": name, "dtype": sdt, "shape": shape, "library_ms": None,
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes}
+    row.update(zip(fns, _alternating_ms(torch, list(fns.values()), flush)))
+    if library is not None:
+        row["host_us"] = _host_us(torch, kernel)
+        row["library_host_us"] = _host_us(torch, library)
+    return row
 
 
 def check_kernels(torch, dev, n=N, timed=True):
     from arpack_ng_tpu_torch.ops import cuda_rot, cuda_sel
 
     g = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev) \
-        if timed else None
+    flush = _flush_buffer(torch, dev) if timed else None
     rec = {k: {"err": 0.0, "err_bf16": 0.0, "err_f64": 0.0}
            for k in ("sel_proj", "sel_update", "rotate_rows")}
     rows_out = []
@@ -192,25 +241,22 @@ def check_kernels(torch, dev, n=N, timed=True):
                 f32 = sdt == torch.float32
                 idx_l = idx.long()
                 sb, ab, acc = V.element_size(), br.element_size(), str(adt)
-                rows_out.append(_row(
-                    "sel_proj", str(sdt), K, K * n * sb + n * ab + K * ab,
-                    2 * K * n, acc, _times(
-                        torch, flush,
-                        lambda: cuda_sel.sel_proj(idx, V, br),
-                        lambda: cuda_sel.sel_proj_plain(idx, V, br),
-                        (lambda: V.index_select(0, idx_l) @ br)
-                        if f32 else None)))
-                rows_out.append(_row(
-                    "sel_update", str(sdt), K,
+                rows_out.append(_timed_row(
+                    torch, flush, "sel_proj", str(sdt), K,
+                    K * n * sb + n * ab + K * ab, 2 * K * n, acc,
+                    lambda: cuda_sel.sel_proj(idx, V, br),
+                    lambda: cuda_sel.sel_proj_plain(idx, V, br),
+                    (lambda: V.index_select(0, idx_l) @ br)
+                    if f32 else None))
+                rows_out.append(_timed_row(
+                    torch, flush, "sel_update", str(sdt), K,
                     K * n * sb + 2 * n * ab + K * ab, 2 * K * n + 2 * n, acc,
-                    _times(torch, flush,
-                           lambda: cuda_sel.sel_update(idx, coef, r0, V,
-                                                       with_norm=True),
-                           lambda: cuda_sel.sel_update_plain(
-                               idx, coef, r0, V, with_norm=True),
-                           (lambda: torch.addmv(
-                               r0, V.index_select(0, idx_l).T, coef,
-                               alpha=-1)) if f32 else None)))
+                    lambda: cuda_sel.sel_update(idx, coef, r0, V,
+                                                with_norm=True),
+                    lambda: cuda_sel.sel_update_plain(idx, coef, r0, V,
+                                                      with_norm=True),
+                    (lambda: torch.addmv(r0, V.index_select(0, idx_l).T,
+                                         coef, alpha=-1)) if f32 else None))
         Qm, _ = torch.linalg.qr(torch.randn(
             NCV, NCV, generator=torch.Generator().manual_seed(1),
             dtype=torch.float64))
@@ -227,77 +273,128 @@ def check_kernels(torch, dev, n=N, timed=True):
                                      "the bucket changed")
             if timed and sdt != torch.float64:
                 sb = V.element_size()
-                rows_out.append(_row(
-                    "rotate_rows", str(sdt), rows,
+                rows_out.append(_timed_row(
+                    torch, flush, "rotate_rows", str(sdt), rows,
                     (NCV + rows) * n * sb + NCV * rows * Q.element_size(),
-                    2 * NCV * rows * n, str(adt), _times(
-                        torch, flush,
-                        lambda: cuda_rot.rotate_rows(Q, V1, rows),
-                        lambda: cuda_rot.rotate_rows_plain(Q, V2, rows),
-                        (lambda: Q[:, :rows].T @ V)
-                        if sdt == torch.float32 else None)))
+                    2 * NCV * rows * n, str(adt),
+                    lambda: cuda_rot.rotate_rows(Q, V1, rows),
+                    lambda: cuda_rot.rotate_rows_plain(Q, V2, rows),
+                    (lambda: Q[:, :rows].T @ V)
+                    if sdt == torch.float32 else None))
         del V, V1, V2
     return rec, rows_out
 
 
-def check_cgs(torch, dev, n=N, timed=True):
+def _cgs_cases(torch, cuda_cgs, V, w, bf16, what, err):
+    """Every row count 1..NCV against the twins, w left untouched; the
+    largest error of each kernel goes into ``err``."""
+    w0 = w.clone()
+    for rows in range(1, NCV + 1):
+        tag = f"rows={rows} {what}"
+        h = cuda_cgs.cgs_proj(V, w, rows)
+        err["cgs_proj"] = max(err["cgs_proj"], _compare(
+            torch, h, cuda_cgs.cgs_proj_plain(V, w, rows), bf16,
+            f"cgs_proj {tag}"))
+        for with_norm in (False, True):
+            out = cuda_cgs.cgs_update(w, h, V, with_norm)
+            ref = cuda_cgs.cgs_update_plain(w, h, V, with_norm)
+            if with_norm:
+                _compare(torch, out[1], ref[1], bf16,
+                         f"cgs_update norm {tag}")
+                out, ref = out[0], ref[0]
+            err["cgs_update"] = max(err["cgs_update"], _compare(
+                torch, out, ref, bf16, f"cgs_update {tag}"))
+    if not torch.equal(w, w0):
+        raise AssertionError(f"cgs_update changed w ({what})")
+
+
+def _cgs_accuracy(torch, cuda_cgs, V, w, gpu):
+    """Kernel and library call against a float64 reference (float32
+    storage): the largest error relative to the largest value, for h, r
+    and ||r||^2."""
+    for rows in ROWS:
+        Vd, wd = V[:rows].double(), w.double()
+        h_ex = Vd @ wd
+        h_k, h_l = cuda_cgs.cgs_proj(V, w, rows), torch.mv(V[:rows], w)
+        r_ex = wd - h_k.double() @ Vd
+        (r_k, n_k), r_l = cuda_cgs.cgs_update(w, h_k, V, True), \
+            torch.addmv(w, V[:rows].T, h_k, alpha=-1)
+        n_ex, n_l = torch.dot(r_ex, r_ex), torch.dot(r_l, r_l)
+
+        def rel(a, ref):
+            return float((a.double() - ref).abs().max() / ref.abs().max())
+        print(f"  float64 reference, rows={rows}: h kernel "
+              f"{rel(h_k, h_ex):.3e}, torch.mv {rel(h_l, h_ex):.3e}; r kernel "
+              f"{rel(r_k, r_ex):.3e}, addmv {rel(r_l, r_ex):.3e}; ||r||^2 "
+              f"kernel {rel(n_k, n_ex):.3e}, addmv + dot {rel(n_l, n_ex):.3e}"
+              f"; card {gpu}", flush=True)
+
+
+def check_cgs(torch, dev, gpu, n=N, timed=True):
     """Phase 6, CGS: ``cgs_proj`` and ``cgs_update`` (with and without the
-    fused norm) against their twins at rows 8/16/24/32, float32 and
-    bfloat16 storage; the library calls are ``torch.mv`` and
-    ``torch.addmv`` (which leaves out the fused norm)."""
+    fused norm) against their twins in float32, bfloat16
+    and float64 storage: every row count 1..32, at n and at n + 3 (a tail
+    past the last 16-byte vector), with w at a 4-byte offset (the scalar
+    path); two calls equal bit for bit; a zero h returns w bit for bit.
+    Timed at rows 8/16/24/32, n = N, float32 and bfloat16 storage, beside
+    the twin and ``torch.mv``/``torch.addmv`` (which leaves out the fused
+    norm)."""
     from arpack_ng_tpu_torch.ops import cuda_cgs
 
     g = torch.Generator(device=dev).manual_seed(2)
-    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev) \
-        if timed else None
+    flush = _flush_buffer(torch, dev) if timed else None
     err, rows_out = {"cgs_proj": {}, "cgs_update": {}}, []
-    for sdt in (torch.float32, torch.bfloat16):
+    for sdt in (torch.float32, torch.bfloat16, torch.float64):
         bf16, f32 = sdt == torch.bfloat16, sdt == torch.float32
+        adt = torch.float64 if sdt == torch.float64 else torch.float32
+        e = {"cgs_proj": 0.0, "cgs_update": 0.0}
+        for m in (n, n + 3):
+            V = torch.randn(NCV, m, generator=g, device=dev, dtype=adt).to(sdt)
+            buf = torch.randn(m + 1, generator=g, device=dev, dtype=adt)
+            w = buf[:m]
+            _cgs_cases(torch, cuda_cgs, V, w, bf16, f"n={m} {sdt}", e)
+            _cgs_cases(torch, cuda_cgs, V, buf[1:], bf16,
+                       f"n={m} {sdt} w at +{buf.element_size()} bytes", e)
+            for rows in (5, 16, 32):
+                h = cuda_cgs.cgs_proj(V, w, rows)
+                r, nrm = cuda_cgs.cgs_update(w, h, V, True)
+                r2, nrm2 = cuda_cgs.cgs_update(w, h, V, True)
+                if not (torch.equal(h, cuda_cgs.cgs_proj(V, w, rows))
+                        and torch.equal(r, r2) and torch.equal(nrm, nrm2)):
+                    raise AssertionError(f"cgs rows={rows} n={m} {sdt}: two "
+                                         "calls differ")
+                zero = cuda_cgs.cgs_update(w, torch.zeros_like(h), V)
+                if not torch.equal(zero, w):
+                    raise AssertionError(f"cgs_update rows={rows} n={m} "
+                                         f"{sdt}: zero h changed w")
+            del V, buf
+        for k in err:
+            err[k][str(sdt)] = e[k]
+        if not timed or sdt == torch.float64:
+            continue
         V = torch.randn(NCV, n, generator=g, device=dev).to(sdt)
         w = torch.randn(n, generator=g, device=dev)
-        w0 = w.clone()
+        sb = V.element_size()
         for rows in ROWS:
             h = cuda_cgs.cgs_proj(V, w, rows)
-            e = _compare(torch, h, cuda_cgs.cgs_proj_plain(V, w, rows), bf16,
-                         f"cgs_proj rows={rows} {sdt}")
-            err["cgs_proj"][str(sdt)] = max(err["cgs_proj"].get(str(sdt), 0),
-                                            e)
+            rows_out.append(_timed_row(
+                torch, flush, "cgs_proj", str(sdt), rows,
+                rows * n * sb + 4 * (n + rows), 2 * rows * n, "torch.float32",
+                lambda: cuda_cgs.cgs_proj(V, w, rows),
+                lambda: cuda_cgs.cgs_proj_plain(V, w, rows),
+                (lambda: torch.mv(V[:rows], w)) if f32 else None))
             for with_norm in (False, True):
-                out = cuda_cgs.cgs_update(w, h, V, with_norm)
-                ref = cuda_cgs.cgs_update_plain(w, h, V, with_norm)
-                if with_norm:
-                    _compare(torch, out[1], ref[1], bf16,
-                             f"cgs_update norm rows={rows} {sdt}")
-                    out, ref = out[0], ref[0]
-                e = _compare(torch, out, ref, bf16,
-                             f"cgs_update rows={rows} {sdt}")
-                err["cgs_update"][str(sdt)] = max(
-                    err["cgs_update"].get(str(sdt), 0), e)
-            if not torch.equal(w, w0):
-                raise AssertionError("cgs_update changed w")
-            if not torch.equal(cuda_cgs.cgs_update(w, torch.zeros_like(h), V),
-                               w):
-                raise AssertionError("cgs_update: zero h changed w")
-            if not timed:
-                continue
-            sb = V.element_size()
-            rows_out.append(_row(
-                "cgs_proj", str(sdt), rows, rows * n * sb + 4 * (n + rows),
-                2 * rows * n, "torch.float32", _times(
-                    torch, flush, lambda: cuda_cgs.cgs_proj(V, w, rows),
-                    lambda: cuda_cgs.cgs_proj_plain(V, w, rows),
-                    (lambda: torch.mv(V[:rows], w)) if f32 else None)))
-            for with_norm in (False, True):
-                rows_out.append(_row(
+                rows_out.append(_timed_row(
+                    torch, flush,
                     "cgs_update" + ("+norm" if with_norm else ""), str(sdt),
                     rows, rows * n * sb + 4 * (2 * n + rows),
                     2 * rows * n + 2 * n * with_norm, "torch.float32",
-                    _times(torch, flush,
-                           lambda: cuda_cgs.cgs_update(w, h, V, with_norm),
-                           lambda: cuda_cgs.cgs_update_plain(w, h, V,
-                                                             with_norm),
-                           (lambda: torch.addmv(w, V[:rows].T, h, alpha=-1))
-                           if f32 else None)))
+                    lambda: cuda_cgs.cgs_update(w, h, V, with_norm),
+                    lambda: cuda_cgs.cgs_update_plain(w, h, V, with_norm),
+                    (lambda: torch.addmv(w, V[:rows].T, h, alpha=-1))
+                    if f32 else None))
+        if f32:
+            _cgs_accuracy(torch, cuda_cgs, V, w, gpu)
         del V
     return err, rows_out
 
@@ -322,8 +419,7 @@ def check_dia(torch, dev, nx=NX, timed=True):
     _, a_sp = laplacian_2d(nx, device=dev)
     n = a_sp.shape[0]
     n_pad = pad_dim(n, 1024)
-    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev) \
-        if timed else None
+    flush = _flush_buffer(torch, dev) if timed else None
     err, rows_out = {}, []
     g = torch.Generator(device=dev).manual_seed(3)
     for dtype in (np.float32, np.float64):
@@ -344,13 +440,12 @@ def check_dia(torch, dev, nx=NX, timed=True):
         csr = _csr_on(torch, a, dev)
         xs = x[:n]
         nd, ab = dtab.shape[0], dtab.element_size()
-        rows_out.append(_row(
-            "dia_matvec", str(dtab.dtype), nd,
+        rows_out.append(_timed_row(
+            torch, flush, "dia_matvec", str(dtab.dtype), nd,
             nd * n_pad * ab + 2 * n_pad * ab + 8 * nd, 2 * a.nnz,
-            str(dtab.dtype), _times(
-                torch, flush, lambda: cuda_dia.dia_matvec(offs, dtab, x, n),
-                lambda: cuda_dia.dia_matvec_plain(offs, dtab, x, n),
-                lambda: torch.mv(csr, xs))))
+            str(dtab.dtype), lambda: cuda_dia.dia_matvec(offs, dtab, x, n),
+            lambda: cuda_dia.dia_matvec_plain(offs, dtab, x, n),
+            lambda: torch.mv(csr, xs)))
     return err, rows_out
 
 
@@ -375,8 +470,7 @@ def check_psell(torch, dev, fem, gpu, timed=True):
     from arpack_ng_tpu_torch.ops.sparse import _to_ell, ell_matvec
 
     n = fem.shape[0]
-    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev) \
-        if timed else None
+    flush = _flush_buffer(torch, dev) if timed else None
     err, rows_out = {}, []
     g = torch.Generator(device=dev).manual_seed(4)
     for dtype in (np.float32, np.float64):
@@ -406,16 +500,15 @@ def check_psell(torch, dev, fem, gpu, timed=True):
         xp = torch.zeros(pk.n_pad, dtype=x.dtype, device=dev)
         xp[:n] = x
         ab = x.element_size()
-        row = _row("psell_matvec", str(x.dtype), pk.W,
-                   ntiles * 1024 * (ab + 4) + 4 * ntiles
-                   + 4 * (pk.n_pad // 1024 + 1) + (n + pk.n_pad) * ab,
-                   2 * pk.nnz, str(x.dtype), _times(
-                       torch, flush,
-                       lambda: cuda_psell.psell_matvec(tiles, x),
-                       lambda: cuda_psell.psell_matvec_plain(tiles, x),
-                       lambda: torch.mv(csr, x)))
-        row["ell_ms"] = _median_ms(torch, lambda: ell_matvec(cols, vals, xp),
-                                   flush)
+        row = _timed_row(
+            torch, flush, "psell_matvec", str(x.dtype), pk.W,
+            ntiles * 1024 * (ab + 4) + 4 * ntiles
+            + 4 * (pk.n_pad // 1024 + 1) + (n + pk.n_pad) * ab,
+            2 * pk.nnz, str(x.dtype),
+            lambda: cuda_psell.psell_matvec(tiles, x),
+            lambda: cuda_psell.psell_matvec_plain(tiles, x),
+            lambda: torch.mv(csr, x),
+            ell=lambda: ell_matvec(cols, vals, xp))
         row["csr_bytes"] = a.nnz * (ab + 8) + (n + 1) * 8 + 2 * n * ab
         rows_out.append(row)
         print(f"  psell {row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, "
@@ -548,6 +641,40 @@ def _stats_line(st) -> str:
             f"nrorthr {st.nrorthr}, nitref {st.nitref}, nrotr {st.nrotr}")
 
 
+def _dgks_witnesses(torch, dev, gpu, op, a_sp, spectrum, kw):
+    """Phase 7b's solve again, with the plain twins in place of the CGS
+    kernels, and with the kernels but ``||r||^2`` summed in float64: each
+    rounds the CGS passes in another order, which alone moves the counters
+    of this clustered spectrum.  Same gates; the launches are not the main
+    path's."""
+    from unittest import mock
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core import arnoldi
+    from arpack_ng_tpu_torch.ops import cuda_cgs
+
+    def norm64(w, h, V, with_norm=False):
+        r = cuda_cgs.cgs_update(w, h, V)
+        if not with_norm:
+            return r
+        r64 = r.double()
+        return r, torch.dot(r64, r64).to(r.dtype)
+
+    for tag, proj, update in (
+            ("twins", cuda_cgs.cgs_proj_plain, cuda_cgs.cgs_update_plain),
+            ("kernels, ||r||^2 in float64", cuda_cgs.cgs_proj, norm64)):
+        with mock.patch.object(arnoldi, "cgs_proj", proj), \
+                mock.patch.object(arnoldi, "cgs_update", update):
+            (vals, vecs, out), wall, _ = _counted(
+                torch, dev, (), lambda: pt.eigsh(
+                    op, reorth="dgks", cgs_kernel="pallas", **kw))
+        dmax, rmax = check_values(vals, vecs, a_sp, spectrum,
+                                  f"(b) witness, {tag}")
+        print(f"sparse (b) witness, {tag}: wall {wall:.4f} s, "
+              f"{_stats_line(out.stats)}; max value dist {dmax:.2e}, max "
+              f"residual {rmax:.2e}; card {gpu}", flush=True)
+
+
 def sparse_solves(torch, dev, gpu, fem, nx=NX, device=None):
     """Phase 7: solves through the scipy-sparse entry of ``eigsh`` on the
     default device (``device=None``).  Returns the launches of each
@@ -579,6 +706,7 @@ def sparse_solves(torch, dev, gpu, fem, nx=NX, device=None):
               flush=True)
         for k in need:
             launches.setdefault(k, counts[k])
+    _dgks_witnesses(torch, dev, gpu, op, a_sp, spectrum, kw)
 
     t0 = time.perf_counter()
     found = {}
@@ -735,6 +863,7 @@ def kernel_entries(rows, launches, errs):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "lib_ms": r["library_ms"],
+            "host_us": r["host_us"], "library_host_us": r["library_host_us"],
             "shape": f"{timed} shape={r['shape']} float32"})
     return entries
 
@@ -742,10 +871,15 @@ def kernel_entries(rows, launches, errs):
 def _print_rows(rows) -> None:
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        host = "" if "host_us" not in r else \
+            (f"; host {r['host_us']:.1f} us/call, library "
+             f"{r['library_host_us']:.1f} us/call")
         print(f"  {r['name']:15s} {r['dtype']:15s} shape={r['shape']:2d}: "
               f"kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)", flush=True)
+              f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of it){host}",
+              flush=True)
 
 
 def main() -> int:
@@ -780,8 +914,9 @@ def main() -> int:
         return 0
 
     rec, rows = check_kernels(torch, dev)
-    print(f"kernels vs twins at ncv={NCV}, n={N} (median of {REPS}, "
-          f"L2 flushed; card {gpu}):", flush=True)
+    print(f"kernels vs twins at ncv={NCV}, n={N} (device-only median of "
+          f"{REPS} in alternation, L2 flushed by a read; card {gpu}):",
+          flush=True)
     _print_rows(rows)
     print("  max abs err (f32, bf16, f64): "
           + ", ".join(f"{k} {v['err']:.3e} / {v['err_bf16']:.3e} / "
@@ -791,14 +926,14 @@ def main() -> int:
     launches = flagship(torch, dev, gpu)
     basis_defect(torch, dev, gpu)
 
-    err_cgs, rows_cgs = check_cgs(torch, dev)
+    err_cgs, rows_cgs = check_cgs(torch, dev, gpu)
     err_dia, rows_dia = check_dia(torch, dev)
     fem, t_fem = fem_matrix()
     print(f"fem_triangulation({FEM_POINTS}) + RCM: {t_fem:.2f} s",
           flush=True)
     err_ps, rows_ps = check_psell(torch, dev, fem, gpu)
-    print(f"phase 6 kernels vs twins (median of {REPS}, L2 flushed; card "
-          f"{gpu}):", flush=True)
+    print(f"phase 6 kernels vs twins (device-only median of {REPS} in "
+          f"alternation, L2 flushed by a read; card {gpu}):", flush=True)
     _print_rows(rows_cgs + rows_dia + rows_ps)
     errs = {**{k: v["torch.float32"] for k, v in err_cgs.items()},
             "dia_matvec": err_dia["torch.float32"],

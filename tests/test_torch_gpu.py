@@ -72,25 +72,69 @@ def test_rotate_rows_matches_twin_on_card(dev, sdt):
     torch.cuda.synchronize()
 
 
+def _cgs_case(dev, sdt, n):
+    store = getattr(torch, sdt)
+    acc = torch.float64 if store == torch.float64 else torch.float32
+    g = torch.Generator(device=dev).manual_seed(3)
+    V = torch.randn(32, n, generator=g, device=dev, dtype=acc).to(store)
+    buf = torch.randn(n + 1, generator=g, device=dev, dtype=acc)
+    # dots of 2^16 terms reach ~1e3: the atol covers the summation order
+    tol = dict(rtol=1e-2, atol=1e-1) if store == torch.bfloat16 else \
+        dict(rtol=1e-5, atol=1e-3)
+    return V, buf, tol
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("sdt", ["float32", "bfloat16"])
-def test_cgs_kernels_match_twins_on_card(dev, sdt):
-    g, V, acc, tol = _case(dev, sdt)
-    w = torch.randn(V.shape[1], generator=g, device=dev, dtype=acc)
-    for rows in (8, 16, 24):
-        h = cuda_cgs.cgs_proj(V, w, rows)
-        torch.testing.assert_close(h, cuda_cgs.cgs_proj_plain(V, w, rows),
-                                   **tol)
-        w0 = w.clone()
-        for with_norm in (False, True):
-            out = cuda_cgs.cgs_update(w, h, V, with_norm)
-            ref = cuda_cgs.cgs_update_plain(w, h, V, with_norm)
-            if with_norm:
-                torch.testing.assert_close(out[1], ref[1], **tol)
-                out, ref = out[0], ref[0]
-            torch.testing.assert_close(out, ref, **tol)
-        assert torch.equal(w, w0)  # out of place
-        assert torch.equal(cuda_cgs.cgs_update(w, torch.zeros_like(h), V), w)
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 3])
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "float64"])
+def test_cgs_kernels_match_twins_on_card(dev, sdt, n):
+    # every row count 1..32, with w aligned (16-byte
+    # vectors, n % vec values in the tail) and at a one-value offset (the
+    # scalar path); w is never written
+    V, buf, tol = _cgs_case(dev, sdt, n)
+    keep = buf.clone()
+    for w in (buf[:n], buf[1:]):
+        for rows in range(1, 33):
+            h = cuda_cgs.cgs_proj(V, w, rows)
+            torch.testing.assert_close(
+                h, cuda_cgs.cgs_proj_plain(V, w, rows), **tol)
+            for with_norm in (False, True):
+                out = cuda_cgs.cgs_update(w, h, V, with_norm)
+                ref = cuda_cgs.cgs_update_plain(w, h, V, with_norm)
+                if with_norm:
+                    torch.testing.assert_close(out[1], ref[1], **tol)
+                    out, ref = out[0], ref[0]
+                torch.testing.assert_close(out, ref, **tol)
+    assert torch.equal(buf, keep)  # out of place
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "float64"])
+def test_cgs_kernels_repeat_bit_for_bit_on_card(dev, sdt):
+    # a fixed grid and summation order: two calls agree bit for bit
+    V, buf, _ = _cgs_case(dev, sdt, (1 << 16) + 3)
+    for w in (buf[:-1], buf[1:]):
+        for rows in (3, 8, 21, 32):
+            h = cuda_cgs.cgs_proj(V, w, rows)
+            assert torch.equal(h, cuda_cgs.cgs_proj(V, w, rows))
+            r, nrm = cuda_cgs.cgs_update(w, h, V, True)
+            r2, nrm2 = cuda_cgs.cgs_update(w, h, V, True)
+            assert torch.equal(r, r2) and torch.equal(nrm, nrm2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "float64"])
+def test_cgs_update_zero_h_returns_w_on_card(dev, sdt):
+    V, buf, _ = _cgs_case(dev, sdt, (1 << 16) + 3)
+    for w in (buf[:-1], buf[1:]):
+        for rows in (1, 8, 13, 32):
+            h = torch.zeros(rows, dtype=w.dtype, device=dev)
+            r, nrm = cuda_cgs.cgs_update(w, h, V, True)
+            assert torch.equal(r, w)
+            torch.testing.assert_close(nrm, torch.dot(w, w), rtol=1e-5,
+                                       atol=0)
     torch.cuda.synchronize()
 
 

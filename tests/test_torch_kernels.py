@@ -232,7 +232,7 @@ def test_kernel_modules_import_without_nvcc_or_cuda(data):
     assert set(cuda_lib.SOURCES) <= {p.name for p in cuda_lib.CSRC.iterdir()}
 
 
-@pytest.mark.parametrize("rows", [8, 16, 24])
+@pytest.mark.parametrize("rows", [5, 8, 13, 16, 24])
 @pytest.mark.parametrize("with_norm", [False, True])
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
 def test_cgs_kernels_match_pallas(storage, with_norm, rows):
@@ -274,6 +274,53 @@ def test_cgs_zero_coefficients_leave_w_unchanged():
     r = cuda_cgs.cgs_update(w, h, V)
     torch.testing.assert_close(r, w - h[:3] @ V[:3], rtol=1e-6, atol=1e-6)
     assert torch.equal(cuda_cgs.cgs_update(w, torch.zeros(8), V), w)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 3, 5000, 3])
+def test_cgs_plan_rows_1_to_32(n, aligned):
+    # one launch per call: the bucket holds the rows, 16-byte vectors only
+    # when every pointer allows them, a grid that fills the 132 SMs and
+    # keeps each thread's run at RUN vectors, scratch for rows x grid
+    for itemsize in (4, 2, 8):
+        vec = 16 // itemsize if aligned else 1
+        for rows in range(1, 33):
+            p = cuda_cgs.plan(rows, n, itemsize, aligned)
+            assert p.bucket == 8 * -(-rows // 8)
+            assert p.vec == vec
+            assert p.grid >= cuda_cgs.SMS
+            assert p.grid * cuda_cgs.THREADS * cuda_cgs.RUN >= n // vec
+            assert p.grid == cuda_cgs.SMS or \
+                (p.grid - 1) * cuda_cgs.THREADS * cuda_cgs.RUN < n // vec
+            assert p.scratch == rows * p.grid
+
+
+def test_cgs_plan_more_rows_and_bad_arguments():
+    # more than 32 rows loop over the 32-row bucket
+    for rows in (33, 100, 256):
+        p = cuda_cgs.plan(rows, 1 << 20, 4, True)
+        assert (p.bucket, p.vec) == (32, 4)
+        assert p.scratch == rows * p.grid
+    # at the flagship size the grid is the 132 SMs in every width
+    assert {cuda_cgs.plan(16, 1 << 20, s, a).grid
+            for s in (2, 4, 8) for a in (True, False)} == {132}
+    # a larger n grows the grid so that no thread sums more than RUN
+    # vectors
+    assert cuda_cgs.plan(8, 1 << 24, 4, True).grid == (1 << 22) // (256 * 32)
+    with pytest.raises(ValueError):
+        cuda_cgs.plan(0, 1024, 4, True)
+    with pytest.raises(ValueError):
+        cuda_cgs.plan(257, 1024, 4, True)
+
+
+def test_cgs_alignment_picks_the_vector_width():
+    # a w one value into its buffer, or a row stride that is not a multiple
+    # of 16 bytes, takes the scalar path
+    V = torch.zeros((4, 1024))
+    buf = torch.zeros(1025)
+    assert cuda_cgs._aligned(V, buf[:1024])
+    assert not cuda_cgs._aligned(V, buf[1:])
+    assert not cuda_cgs._aligned(torch.zeros((4, 1027)), torch.zeros(1027))
 
 
 def _dia_case(offs, n, rng):
