@@ -133,10 +133,8 @@ def load() -> ctypes.CDLL:
     lib.atpt_sel_update.argtypes = [i32, vp, vp, i32, vp, i64, vp, i64, vp,
                                     vp, vp]
     lib.atpt_sel_update.restype = i32
-    lib.atpt_rot_smem_bytes.argtypes = [i32, i32, i32]
-    lib.atpt_rot_smem_bytes.restype = i64
-    lib.atpt_rotate_rows.argtypes = [i32, vp, i32, i32, i32, vp, i64, i64,
-                                     vp]
+    lib.atpt_rotate_rows.argtypes = [i32, i32, i32, i32, vp, i32, i32, i32,
+                                     vp, i64, i64, vp]
     lib.atpt_rotate_rows.restype = i32
     lib.atpt_cgs_proj.argtypes = [i32, i32, i32, i32, i32, vp, i64, vp, i64,
                                   vp, vp, vp, vp]
@@ -147,8 +145,8 @@ def load() -> ctypes.CDLL:
     lib.atpt_dia_matvec.argtypes = [i32, vp, i32, vp, i64, vp, i64, i64, vp,
                                     vp]
     lib.atpt_dia_matvec.restype = i32
-    lib.atpt_psell_matvec.argtypes = [i32, vp, vp, vp, vp, i32, vp, i64, vp,
-                                      vp]
+    lib.atpt_psell_matvec.argtypes = [i32, vp, vp, vp, vp, vp, i32, vp, i64,
+                                      vp, vp]
     lib.atpt_psell_matvec.restype = i32
     _lib = lib
     return lib

@@ -4,8 +4,10 @@ in ``csrc/psell.cu``).
 
 :func:`psell_tiles` moves a packing of ``ops/psell.py`` (:class:`PSell` or
 :class:`PSellU`) to a device as one chunk-sorted tile list with per-chunk
-tile offsets, after checking on the host what the kernel relies on;
-:func:`psell_matvec` computes ``y = A x`` over it.
+tile offsets and per-tile live lengths (one past the last nonzero slot, 0
+for an all-zero tile: the kernel reads no slot from there on), after
+checking on the host what the kernel relies on; :func:`psell_matvec`
+computes ``y = A x`` over it.
 
 The wrapper runs its plain twin (:func:`psell_matvec_plain`: decode the
 metadata, then ``index_add`` in tile order) for tensors on the CPU and
@@ -31,6 +33,7 @@ class PSellTiles(NamedTuple):
     meta: torch.Tensor      # (ntiles, TILE) int32 packed coordinates
     p_idx: torch.Tensor     # (ntiles,) int32 x panel of each tile
     tile_ptr: torch.Tensor  # (nchunks + 1,) int32 chunk offsets
+    tile_len: torch.Tensor  # (ntiles,) int32 one past the last nonzero slot
     n: int                  # logical dimension
     n_pad: int              # nchunks * CHUNK, the length of y
     nnz: int
@@ -45,21 +48,28 @@ def _decode(meta: np.ndarray, p_idx: np.ndarray):
     return row, col
 
 
-def _check_tiles(vals: np.ndarray, meta: np.ndarray, p_idx: np.ndarray,
-                 n: int) -> None:
-    """Raise unless every nonzero slot reads a column below ``n`` and, in
-    every tile, the nonzero slots of one row form one run of consecutive
-    slots, as the packers' CSR order gives: the kernel adds each run to its
-    row from one thread."""
-    row, col = _decode(meta, p_idx)
+def tile_lengths(vals: np.ndarray) -> np.ndarray:
+    """One past the last nonzero slot of every tile; 0 for an all-zero
+    tile."""
     live = vals != 0
-    if np.any(col[live] >= n):
+    last = TILE - np.argmax(live[:, ::-1], axis=1)
+    return np.where(live.any(axis=1), last, 0).astype(np.int32)
+
+
+def _check_tiles(meta: np.ndarray, p_idx: np.ndarray, tile_len: np.ndarray,
+                 n: int) -> None:
+    """Raise unless every slot before its tile's length reads a column
+    below ``n`` and, in every tile, the slots of one row before that length
+    form one run of consecutive slots, as the packers' CSR order gives: the
+    kernel adds each run to its row once, from the thread holding its last
+    slot."""
+    row, col = _decode(meta, p_idx)
+    on = np.arange(TILE)[None, :] < tile_len[:, None]
+    if np.any(col[on] >= n):
         raise ValueError("a PSELL entry addresses a column >= n")
     head = np.ones(row.shape, bool)
     head[:, 1:] = row[:, 1:] != row[:, :-1]
-    run = np.cumsum(head.ravel()) - 1
-    run_live = np.bincount(run, weights=live.ravel()) > 0
-    heads = np.flatnonzero(head.ravel())[run_live]
+    heads = np.flatnonzero((head & on).ravel())
     key = (heads // TILE) * CHUNK + row.ravel()[heads]
     if np.unique(key).size != key.size:
         raise ValueError("a PSELL tile holds one row in two separate runs "
@@ -82,13 +92,15 @@ def psell_tiles(pk, device) -> PSellTiles:
         tile_ptr = np.searchsorted(c_idx, np.arange(nchunks + 1))
     if tile_ptr[-1] != vals.shape[0] or p_idx.shape != (vals.shape[0],):
         raise ValueError("PSELL tile list and chunk offsets disagree")
-    _check_tiles(vals, meta, p_idx, pk.n)
+    tile_len = tile_lengths(vals)
+    _check_tiles(meta, p_idx, tile_len, pk.n)
     dev = torch.device(device)
     return PSellTiles(
         vals=torch.from_numpy(vals).to(dev),
         meta=torch.from_numpy(meta.astype(np.int32)).to(dev),
         p_idx=torch.from_numpy(p_idx).to(dev),
         tile_ptr=torch.from_numpy(tile_ptr.astype(np.int32)).to(dev),
+        tile_len=torch.from_numpy(tile_len).to(dev),
         n=int(pk.n), n_pad=int(pk.n_pad), nnz=int(pk.nnz))
 
 
@@ -120,12 +132,16 @@ def psell_matvec(t: PSellTiles, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     code = cuda_lib.dtype_code(x.dtype, x.dtype)
+    if t.vals.data_ptr() % 16 or t.meta.data_ptr() % 16:
+        raise ValueError("the tiles' values and metadata must be 16-byte "
+                         "aligned")
     lib = cuda_lib.load()
     y = torch.empty(t.n_pad, dtype=x.dtype, device=x.device)
     err = lib.atpt_psell_matvec(code, t.vals.data_ptr(), t.meta.data_ptr(),
                                 t.p_idx.data_ptr(), t.tile_ptr.data_ptr(),
-                                t.n_pad // CHUNK, x.data_ptr(), x.shape[0],
-                                y.data_ptr(), cuda_lib.stream_handle(x.device))
+                                t.tile_len.data_ptr(), t.n_pad // CHUNK,
+                                x.data_ptr(), x.shape[0], y.data_ptr(),
+                                cuda_lib.stream_handle(x.device))
     cuda_lib.check(lib, err, "psell_matvec")
     psell_matvec.launches += 1
     return y

@@ -12,12 +12,15 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    build time;
 3. kernels: the event and rotation kernels against their plain PyTorch
    twins on the card, at the flagship shapes (ncv = 32, n = 1,048,576), in
-   float32 and bfloat16 storage (plus float64), with device-only median
-   CUDA-event times of kernel, twin and the one PyTorch call that computes
-   the same function (float32), timed in alternation, each launch after a
-   read-only L2 flush and a device-side wait that covers the host's
-   enqueue; beside them the least time the card could take and the host
-   microseconds per call of the wrapper and of the library call;
+   float32 and bfloat16 storage (plus float64), two rotations equal bit for
+   bit, with device-only median CUDA-event times of kernel, twin and the
+   one PyTorch call that computes the same function (float32; for the
+   rotation also bfloat16, with Q rounded to bfloat16), timed in
+   alternation, each launch after a read-only L2 flush and a device-side
+   wait that covers the host's enqueue; beside them the least time the
+   card could take and the host microseconds per call of the wrapper and
+   of the library call; the rotation at rows 8/16/24/32, also with fewer
+   columns per thread than the plan's;
 4. flagship solve through ``eigsh``: the 2-D Dirichlet Laplacian at
    nx = 1024 (n = 1,048,576), float32, k = 8, ncv = 32, which = 'LA',
    tol = 1e-5, first with the default selective reorthogonalization (the
@@ -35,7 +38,8 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    bit-equal, a zero h an exact no-op; timed at rows 8/16/24/32 (float32
    and bfloat16); DIA on the flagship Laplacian's table;
    PSELL (and the ELL gather) on the RCM-ordered
-   ``fem_triangulation(1_048_576)``;
+   ``fem_triangulation(1_048_576)``, two calls bit-equal, beside the bound
+   of every packed slot and that of the nonzero slots alone;
 7. sparse-entry solves through ``eigsh`` on the default device, k = 8,
    ncv = 32, which = 'LA', tol = 1e-5: (a) the flagship's scipy CSR matrix
    (imported as DIA), (b) the same with ``reorth='dgks',
@@ -46,7 +50,8 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    RCM-ordered FEM matrix through ``format='psell'`` and ``format='auto'``
    (ELL): residuals ``<= 1e-3``, the two value sets within 1e-4*|lambda|,
    and the phase within 120 s.  Each path's kernel launches are counted
-   from zero and must be positive.
+   from zero and must be positive.  Phases 4 and 7 print each solve's
+   counters beside those recorded in ``PERF.md``.
 
     python3 chip_smoke.py --profile
 
@@ -93,6 +98,16 @@ HOST_CALLS = 200
 #: is also the first bucket of the dgks steps after a restart
 JSON_K, JSON_ROWS = 8, 16
 FEM_POINTS = 1_048_576
+#: each solve's counters as ``PERF.md`` records them for the kernels
+#: before the PSELL and rotation redesign (the rotation keeps their FMA
+#: order, so they should repeat exactly)
+RECORDED_COUNTERS = {
+    "flagship selective": "cycles 369, nopx 7814, nrorth 2716",
+    "flagship dgks": "cycles 320, nopx 6962",
+    "(a)": "cycles 294, nopx 6402",
+    "(b)": "cycles 381, nopx 7832",
+    "(c)": "cycles 1, nopx 33",
+}
 #: wall limit of the FEM phase (7c), seconds
 FEM_MAX_S = 120.0
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
@@ -179,13 +194,15 @@ def _bound(nbytes: float, flops: float, acc: str):
 
 
 def _timed_row(torch, flush, name, sdt, shape, nbytes, flops, acc, kernel,
-               plain, library=None, ell=None):
+               plain, library=None, extra=None):
     """One timed entry: kernel, twin, the library call (or None) and the
-    plain ELL gather (PSELL only, or None) timed in alternation, beside the
-    bound; where there is a library call, also both host costs per call."""
+    ``extra`` calls (name -> call: the ELL gather beside PSELL, the
+    rotation under narrower words) timed in alternation, beside the bound;
+    where there is a library call, also both host costs per call."""
     bound, by = _bound(nbytes, flops, acc)
     fns = {k: f for k, f in (("ms", kernel), ("plain_ms", plain),
-                             ("library_ms", library), ("ell_ms", ell))
+                             ("library_ms", library),
+                             *(extra or {}).items())
            if f is not None}
     row = {"name": name, "dtype": sdt, "shape": shape, "library_ms": None,
            "bound_ms": bound, "bound_by": by, "bytes": nbytes}
@@ -261,6 +278,7 @@ def check_kernels(torch, dev, n=N, timed=True):
             NCV, NCV, generator=torch.Generator().manual_seed(1),
             dtype=torch.float64))
         Q = Qm.to(device=dev, dtype=adt).contiguous()
+        Qs = Q.to(sdt)  # the library call's Q for bfloat16 storage
         for rows in ROWS:
             V1 = V.clone()
             cuda_rot.rotate_rows(Q, V1, rows)
@@ -271,16 +289,27 @@ def check_kernels(torch, dev, n=N, timed=True):
             if not torch.equal(V1[rows:], V[rows:]):
                 raise AssertionError(f"rotate_rows rows={rows}: rows past "
                                      "the bucket changed")
+            if not torch.equal(V1, cuda_rot.rotate_rows(Q, V.clone(), rows)):
+                raise AssertionError(f"rotate_rows rows={rows} {sdt}: two "
+                                     "calls differ")
             if timed and sdt != torch.float64:
                 sb = V.element_size()
+                # the register kernel at the narrower word widths beside
+                # the plan's
+                pv = cuda_rot.plan(NCV, rows, n, sb, 4, 16)
+                words = {f"word{v * sb}_ms":
+                         cuda_rot.regs_plan(pv.bucket, v, n, 4)
+                         for v in (1, 2, 4) if v < pv.vec}
                 rows_out.append(_timed_row(
                     torch, flush, "rotate_rows", str(sdt), rows,
                     (NCV + rows) * n * sb + NCV * rows * Q.element_size(),
                     2 * NCV * rows * n, str(adt),
                     lambda: cuda_rot.rotate_rows(Q, V1, rows),
                     lambda: cuda_rot.rotate_rows_plain(Q, V2, rows),
-                    (lambda: Q[:, :rows].T @ V)
-                    if sdt == torch.float32 else None))
+                    lambda: Qs[:, :rows].T @ V,
+                    extra={k: (lambda p=p: cuda_rot.launch(Q, V1, rows, p))
+                           for k, p in words.items()}))
+                rows_out[-1]["word"] = pv.vec * sb
         del V, V1, V2
     return rec, rows_out
 
@@ -465,7 +494,10 @@ def fem_matrix(points=FEM_POINTS):
 def check_psell(torch, dev, fem, gpu, timed=True):
     """Phase 6, PSELL: the uniform-W packing of the RCM-ordered FEM matrix,
     float32 and float64, against the twin, cuSPARSE CSR and the plain ELL
-    gather of ``format='ell'``."""
+    gather of ``format='ell'``; two calls equal bit for bit.  Two bounds:
+    every packed slot's value and metadata (``slot_bound_ms``, PRs 2-3),
+    and what the inputs need (``bound_ms``): the nonzero slots, the tile
+    lengths and panels, x and y."""
     from arpack_ng_tpu_torch.ops import cuda_psell, psell
     from arpack_ng_tpu_torch.ops.sparse import _to_ell, ell_matvec
 
@@ -500,22 +532,34 @@ def check_psell(torch, dev, fem, gpu, timed=True):
         xp = torch.zeros(pk.n_pad, dtype=x.dtype, device=dev)
         xp[:n] = x
         ab = x.element_size()
+        ptr_bytes = 4 * (pk.n_pad // 1024 + 1)
+        live = int((tiles.tile_len > 0).sum())
+        slot_bytes = ntiles * 1024 * (ab + 4) + 4 * ntiles + ptr_bytes \
+            + (n + pk.n_pad) * ab
         row = _timed_row(
             torch, flush, "psell_matvec", str(x.dtype), pk.W,
-            ntiles * 1024 * (ab + 4) + 4 * ntiles
-            + 4 * (pk.n_pad // 1024 + 1) + (n + pk.n_pad) * ab,
+            pk.nnz * (ab + 4) + 4 * ntiles + 4 * live + ptr_bytes
+            + (n + pk.n_pad) * ab,
             2 * pk.nnz, str(x.dtype),
             lambda: cuda_psell.psell_matvec(tiles, x),
             lambda: cuda_psell.psell_matvec_plain(tiles, x),
             lambda: torch.mv(csr, x),
-            ell=lambda: ell_matvec(cols, vals, xp))
+            extra={"ell_ms": lambda: ell_matvec(cols, vals, xp)})
+        row["slot_bytes"] = slot_bytes
+        row["slot_bound_ms"] = _bound(slot_bytes, 2 * pk.nnz,
+                                      str(x.dtype))[0]
         row["csr_bytes"] = a.nnz * (ab + 8) + (n + 1) * 8 + 2 * n * ab
         rows_out.append(row)
         print(f"  psell {row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, "
               f"cuSPARSE CSR {row['library_ms']:.4f} ms, ELL gather "
-              f"{row['ell_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bytes'] / 1e6:.1f} MB; CSR stores "
-              f"{row['csr_bytes'] / 1e6:.1f} MB); card {gpu}", flush=True)
+              f"{row['ell_ms']:.4f} ms; bound of every packed slot "
+              f"{row['slot_bound_ms']:.4f} ms ({slot_bytes / 1e6:.1f} MB, "
+              f"{100 * row['slot_bound_ms'] / row['ms']:.1f}% of it), of "
+              f"what the inputs need {row['bound_ms']:.4f} ms "
+              f"({row['bytes'] / 1e6:.1f} MB, "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}%); live tiles "
+              f"{live} of {ntiles}; CSR stores "
+              f"{row['csr_bytes'] / 1e6:.1f} MB; card {gpu}", flush=True)
         del csr, cols, vals
     return err, rows_out
 
@@ -582,6 +626,8 @@ def flagship(torch, dev, gpu, nx=NX):
               f"{5 * nx * nx * st.nopx / wall / 1e9:.4f} Gnnz/s; "
               f"max value dist {dmax:.2e}, max residual {rmax:.2e}; "
               f"launches {counts}; card {gpu}", flush=True)
+        print(f"  recorded: {RECORDED_COUNTERS['flagship ' + reorth]}",
+              flush=True)
         print(f"  values {np.array2string(vals, precision=7)}", flush=True)
     return launches
 
@@ -704,6 +750,7 @@ def sparse_solves(torch, dev, gpu, fem, nx=NX, device=None):
               f"{_stats_line(out.stats)}; max value dist {dmax:.2e}, max "
               f"residual {rmax:.2e}; launches {counts}; card {gpu}",
               flush=True)
+        print(f"  recorded: {RECORDED_COUNTERS[tag[:3]]}", flush=True)
         for k in need:
             launches.setdefault(k, counts[k])
     _dgks_witnesses(torch, dev, gpu, op, a_sp, spectrum, kw)
@@ -732,6 +779,7 @@ def sparse_solves(torch, dev, gpu, fem, nx=NX, device=None):
               f"{op.format}: import {t_import:.2f} s, solve {wall:.4f} s, "
               f"{_stats_line(out.stats)}; max residual {res.max():.2e}; "
               f"launches {counts}; card {gpu}", flush=True)
+        print(f"  recorded: {RECORDED_COUNTERS['(c)']}", flush=True)
         print(f"  values {np.array2string(vals, precision=7)}", flush=True)
         if need:
             launches["psell_matvec"] = counts["psell_matvec"]
@@ -874,6 +922,10 @@ def _print_rows(rows) -> None:
         host = "" if "host_us" not in r else \
             (f"; host {r['host_us']:.1f} us/call, library "
              f"{r['library_host_us']:.1f} us/call")
+        if "word" in r:
+            host += f"; {r['word']}-byte words (the plan's), " + ", ".join(
+                f"{k[4:-3]}-byte {v:.4f} ms" for k, v in r.items()
+                if k.startswith("word") and k.endswith("_ms"))
         print(f"  {r['name']:15s} {r['dtype']:15s} shape={r['shape']:2d}: "
               f"kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms "

@@ -72,6 +72,33 @@ def test_rotate_rows_matches_twin_on_card(dev, sdt):
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 3])
+@pytest.mark.parametrize("ncv", [20, 32, 40])
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "float64"])
+def test_rotate_rows_every_row_count_on_card(dev, sdt, ncv, n):
+    # every rows 1..ncv: the register buckets (ncv 20 and 32; 16-byte words
+    # at n = 2^16, single columns at n + 3, whose rows are not 16-byte
+    # aligned) and the shared-memory slab kernel (ncv 40); two calls agree
+    # bit for bit and rows past `rows` are untouched
+    store = getattr(torch, sdt)
+    acc = torch.float64 if store == torch.float64 else torch.float32
+    g = torch.Generator(device=dev).manual_seed(5)
+    V = torch.randn(ncv, n, generator=g, device=dev, dtype=acc).to(store)
+    Q = torch.linalg.qr(torch.randn(ncv, ncv, dtype=torch.float64))[0]
+    Q = Q.to(device=dev, dtype=acc).contiguous()
+    tol = dict(rtol=1e-2, atol=1e-1) if store == torch.bfloat16 else \
+        dict(rtol=1e-5, atol=1e-3)
+    for rows in range(1, ncv + 1):
+        out = cuda_rot.rotate_rows(Q, V.clone(), rows)
+        assert torch.equal(out, cuda_rot.rotate_rows(Q, V.clone(), rows))
+        ref = cuda_rot.rotate_rows_plain(Q, V.clone(), rows)
+        torch.testing.assert_close(out[:rows].to(acc), ref[:rows].to(acc),
+                                   **tol)
+        assert torch.equal(out[rows:], V[rows:])
+    torch.cuda.synchronize()
+
+
 def _cgs_case(dev, sdt, n):
     store = getattr(torch, sdt)
     acc = torch.float64 if store == torch.float64 else torch.float32
@@ -170,4 +197,44 @@ def test_psell_matvec_matches_twin_on_card(dev, dtype):
                                    a @ x.cpu().numpy(), **tol)
         # deterministic: a fixed order per output, no atomics
         assert torch.equal(y, cuda_psell.psell_matvec(tiles, x))
+    torch.cuda.synchronize()
+
+
+def _psell_cases():
+    # a hub row of the power-law graph spans several tiles (one per x panel)
+    # and, within one, several warps; the uniform packing pads chunks with
+    # all-zero tiles, and n_pad two chunks past n leaves chunks empty
+    fem = corpus.fem_triangulation(20_000)
+    return (("powerlaw", corpus.powerlaw_graph(100_000)),
+            ("saddle", corpus.saddle_point(100)),
+            ("fem", fem))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_psell_matvec_corpus_on_card(dev, dtype):
+    tol = dict(rtol=1e-12, atol=1e-12) if dtype == np.float64 else \
+        dict(rtol=2e-5, atol=2e-4)
+    for name, a in _psell_cases():
+        a = a.astype(dtype)
+        n = a.shape[0]
+        n_pad = -(-n // psell.CHUNK) * psell.CHUNK + 2 * psell.CHUNK
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            n).astype(dtype)).to(dev)
+        ax = a @ x.cpu().numpy()
+        scale = max(1.0, float(np.abs(ax).max()))
+        for pk in (psell.pack_psell(a, n_pad),
+                   psell.pack_psell_uniform(a, n_pad)):
+            tiles = cuda_psell.psell_tiles(pk, dev)
+            lens = tiles.tile_len.cpu().numpy()
+            assert (lens == 0).any() and (lens > 0).any(), name
+            y = cuda_psell.psell_matvec(tiles, x)
+            torch.testing.assert_close(
+                y, cuda_psell.psell_matvec_plain(tiles, x), rtol=tol["rtol"],
+                atol=tol["atol"] * scale)
+            np.testing.assert_allclose(y[:n].cpu().numpy(), ax,
+                                       rtol=tol["rtol"],
+                                       atol=tol["atol"] * scale)
+            assert not y[n:].any(), name
+            assert torch.equal(y, cuda_psell.psell_matvec(tiles, x)), name
     torch.cuda.synchronize()

@@ -323,6 +323,67 @@ def test_cgs_alignment_picks_the_vector_width():
     assert not cuda_cgs._aligned(torch.zeros((4, 1027)), torch.zeros(1027))
 
 
+@pytest.mark.parametrize("ncv", [5, 16, 20, 24, 32])
+def test_rot_plan_register_buckets(ncv):
+    # ncv up to 32 takes the register kernel in the smallest bucket that
+    # holds it; at the flagship size one wave of resident blocks strides
+    # over the words, whatever `rows`
+    bucket = max(16, 8 * -(-ncv // 8))
+    for rows in range(1, ncv + 1):
+        p = cuda_rot.plan(ncv, rows, 1 << 20, 4, 4, 16)
+        assert (p.bucket, p.vec, p.smem) == (bucket, 2, 0)
+        assert p.grid == cuda_rot.SMS * cuda_rot.blocks_per_sm(bucket, 2, 4)
+
+
+@pytest.mark.parametrize("itemsize, acc, words", [
+    (4, 4, {16: 2, 8: 2, 4: 1}),
+    (2, 4, {16: 4, 8: 4, 4: 2, 2: 1}),
+    (8, 8, {16: 2, 8: 1}),
+])
+def test_rot_plan_word_follows_alignment(itemsize, acc, words):
+    # the plan's word (8 bytes of float32 or bfloat16, 16 of float64) where
+    # the address and the row stride allow it, else the widest they allow
+    for align, vec in words.items():
+        p = cuda_rot.plan(32, 16, 1 << 20, itemsize, acc, align)
+        assert p.vec == vec, align
+        assert p.grid == min(cuda_rot.SMS * cuda_rot.blocks_per_sm(
+            32, vec, acc), -(-(1 << 20) // vec // cuda_rot.THREADS))
+
+
+def test_rot_plan_grid_blocks_and_slab_path():
+    # two resident blocks of the float32 8-byte kernel, one of the
+    # bfloat16 and float64 kernels at ncv 32; a small n needs fewer blocks
+    # than one wave
+    assert cuda_rot.blocks_per_sm(32, 2, 4) == 2
+    assert cuda_rot.blocks_per_sm(32, 4, 4) == 1
+    assert cuda_rot.blocks_per_sm(32, 2, 8) == 1
+    assert cuda_rot.plan(32, 8, 100, 4, 4, 16).grid == 1
+    p = cuda_rot.plan(32, 8, (1 << 16) + 3, 4, 4, 4)
+    assert (p.vec, p.grid) == (1, -(-((1 << 16) + 3) // cuda_rot.THREADS))
+    # ncv above the buckets: the shared-memory slab kernel
+    p = cuda_rot.plan(40, 17, 1 << 20, 4, 4, 16)
+    assert p == cuda_rot.Plan(0, 1, cuda_rot.SMS * 4, 40 * cuda_rot.SLAB * 4)
+    assert cuda_rot.plan(40, 40, 50, 8, 8, 16).grid == 2
+
+
+@pytest.mark.parametrize("args", [
+    (32, 0, 1024, 4, 4, 16),     # rows below 1
+    (32, 33, 1024, 4, 4, 16),    # rows above ncv
+    (32, 8, 0, 4, 4, 16),        # no columns
+    (2000, 8, 1024, 4, 4, 16),   # a slab above the 227 KB of shared memory
+])
+def test_rot_plan_refuses(args):
+    with pytest.raises(ValueError):
+        cuda_rot.plan(*args)
+
+
+def test_rot_alignment_of_the_basis():
+    assert cuda_rot._align(torch.zeros((4, 1024))) == 16
+    assert cuda_rot._align(torch.zeros(4 * 1024 + 2)[2:].view(4, 1024)) == 8
+    assert cuda_rot._align(torch.zeros((4, 1027))) == 4
+    assert cuda_rot._align(torch.zeros((4, 1027), dtype=torch.bfloat16)) == 2
+
+
 def _dia_case(offs, n, rng):
     # the banded matrices of tests/test_pallas.py:13-26
     diags, mats = [], []

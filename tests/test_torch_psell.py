@@ -132,6 +132,36 @@ def test_tiles_that_break_the_run_order_are_refused():
         cuda_psell.psell_tiles(pk._replace(n=10), "cpu")
 
 
+@pytest.mark.parametrize("uniform", [False, True])
+@pytest.mark.parametrize("pattern", ["uniform", "powerlaw", "fem"])
+def test_tile_lengths_match_the_packing(pattern, uniform):
+    # one past each tile's last nonzero slot, 0 for an all-zero tile (the
+    # uniform packing's padding tiles; a chunk past n, empty in both)
+    a, _ = _case(pattern, np.float64)
+    fn = pps.pack_psell_uniform if uniform else pps.pack_psell
+    pk = fn(a, n_pad=4096)
+    vals = pk.vals.reshape(-1, pps.TILE)
+    lens = cuda_psell.psell_tiles(pk, "cpu").tile_len.numpy()
+    want = [nz[-1] + 1 if nz.size else 0
+            for nz in map(np.flatnonzero, vals)]
+    np.testing.assert_array_equal(lens, want)
+    assert lens.dtype == np.int32 and (lens == 0).any() and lens.max() > 0
+
+
+def test_tile_check_covers_zero_slots_before_the_length():
+    # the kernel sums every slot before a tile's length, zeros included: a
+    # zero slot that puts one row in two runs there is refused too
+    a, _ = _case("fem", np.float64)
+    pk = pps.pack_psell_uniform(a)
+    meta, vals = pk.meta.copy(), pk.vals.copy()
+    live = np.flatnonzero(vals[0])
+    mid = live[live.size // 2]
+    assert meta[0, mid] != meta[0, 0]
+    meta[0, mid], vals[0, mid] = meta[0, 0], 0.0
+    with pytest.raises(ValueError, match="two separate runs"):
+        cuda_psell.psell_tiles(pk._replace(meta=meta, vals=vals), "cpu")
+
+
 def test_wrapper_rejects_bad_arguments():
     a, x = _case("uniform", np.float64)
     tiles = cuda_psell.psell_tiles(pps.pack_psell_uniform(a), "cpu")
