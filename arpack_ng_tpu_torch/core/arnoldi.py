@@ -11,7 +11,8 @@ read back once per step (twice on a step with an event).
 What the reference package computes and counts is kept exactly: the
 8-row buckets of the CGS passes and of the eta-subset events, the pair
 rule, the ``8*log2(n)*eps`` omega noise floor with its
-``ARPACK_TPU_OMEGA_NOISE_MODEL`` hatch, ``eta_sub`` and the full
+``ARPACK_TPU_OMEGA_NOISE_MODEL`` hatch, ``eta_sub``, the event hatches
+``ARPACK_TPU_FULL_REORTH`` and ``ARPACK_TPU_SEL_EXTRA_BUCKET``, the full
 fallback pass, and ``cgs_kernel='pallas'``, which sends the 8-, 16- and
 24-row buckets of the CGS passes (the dgks step and the selective step's
 full fallback) to the kernels of ``csrc/cgs.cu`` on real float32
@@ -230,6 +231,11 @@ def make_extend(op: Operator, cfg: IRAMConfig):
     bnorm = make_bnorm(op, cfg)
     rows_list = bucket_rows(ncv)
     nbuckets = len(rows_list)
+    # debug hatches of the selective events, read once, when the solver is
+    # built: every event over all ncv rows, or one bucket more than the
+    # eta-selection needs (reference arnoldi.py:357-363, 975-979)
+    full_reorth = bool(os.environ.get("ARPACK_TPU_FULL_REORTH"))
+    sel_extra = int(os.environ.get("ARPACK_TPU_SEL_EXTRA_BUCKET", "0"))
 
     def _rows_upto(j):
         return rows_list[min(j // _BUCKET, nbuckets - 1)]
@@ -452,11 +458,12 @@ def make_extend(op: Operator, cfg: IRAMConfig):
         Returns ``(r2, rn2_or_None, reset, K)``."""
         sel_key = np.where(col_idx <= j, wn, neg_inf)
         order = np.argsort(-sel_key, kind="stable")
-        if nbuckets == 1:
+        if nbuckets == 1 or full_reorth:
             K = ncv
         else:
             cnt = int(np.sum(sel_key > eta_sub))
-            K = rows_list[min(max(cnt - 1, 0) // _BUCKET, nbuckets - 1)]
+            b = max(cnt - 1, 0) // _BUCKET + sel_extra
+            K = rows_list[min(max(b, 0), nbuckets - 1)]
         idx = order[:K]
         valid = sel_key[idx] > neg_inf
         idx_t = torch.from_numpy(idx.astype(np.int32)).to(device)

@@ -6,12 +6,12 @@
 //   1: __nv_bfloat16 storage,  float accumulation
 //   2: double storage,         double accumulation
 //
-// Reductions are trees with a fixed shape (warp shuffles, then one warp
-// over the per-warp sums, then a second pass over per-block partials),
+// Reductions are trees with a fixed shape (warp shuffles, then the warps
+// in order, then the last block over the per-block partials; passes.cuh),
 // so every sum is deterministic from run to run and rounds like a
 // pairwise sum: the 8*log2(n)*eps noise model of the selective
 // reorthogonalization (arpack_ng_tpu/core/arnoldi.py:773-801) assumes
-// exactly that.  No atomics.
+// exactly that.  No floating-point atomics.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,38 +51,4 @@ __device__ __forceinline__ A warp_sum(A v) {
   return v;
 }
 
-// Sum of v over a block of BLOCK threads (BLOCK a multiple of 32, at most
-// 1024).  The result is valid in thread 0.  `smem` holds BLOCK/32 values;
-// it may be reused as soon as the call returns.
-template <typename A, int BLOCK>
-__device__ __forceinline__ A block_sum(A v, A* smem) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  v = (threadIdx.x < BLOCK / 32) ? smem[lane] : A(0);
-  if (warp == 0) v = warp_sum(v);
-  __syncthreads();
-  return v;
-}
-
-// Kernels defined in headers have internal linkage, so two sources that
-// instantiate the same one link without clashing.
-namespace {
-
-// Second pass: out[k] = sum over b < nblk of partial[k * nblk + b], one
-// block per k.
-template <typename A, int BLOCK>
-__global__ void __launch_bounds__(BLOCK)
-reduce_partials_kernel(const A* __restrict__ partial, int nblk, A* __restrict__ out) {
-  __shared__ A smem[BLOCK / 32];
-  const A* p = partial + static_cast<int64_t>(blockIdx.x) * nblk;
-  A acc = A(0);
-  for (int b = threadIdx.x; b < nblk; b += BLOCK) acc += p[b];
-  acc = block_sum<A, BLOCK>(acc, smem);
-  if (threadIdx.x == 0) out[blockIdx.x] = acc;
-}
-
-}  // namespace
 }  // namespace atpt

@@ -35,12 +35,12 @@ MAX_FAST_ROWS = 24
 
 #: row counts compiled into the kernels; more than 32 rows loop over 32
 BUCKETS = (8, 16, 24, 32)
-#: threads per block (``CGS_THREADS`` in csrc/cgs.cu)
+#: threads per block (``PASS_THREADS`` in csrc/passes.cuh)
 THREADS = 256
 #: the grid fills the H100's 132 SMs, one block each ...
 SMS = 132
 #: ... or grows so that no thread adds more than RUN vectors into one sum
-#: (``CGS_RUN``: the kernels refuse a grid that breaks it)
+#: (``PASS_RUN``: the kernels refuse a grid that breaks it)
 RUN = 32
 
 

@@ -25,12 +25,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sel.cu", "rot.cu", "cgs.cu", "dia.cu", "psell.cu")
-HEADERS = ("common.cuh", "rows.cuh")
+HEADERS = ("common.cuh", "passes.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: most basis rows one call of the row passes (sel and cgs kernels) takes
-#: (``ROW_MAX_K`` in csrc/rows.cuh, ``CGS_MAX_ROWS`` in csrc/cgs.cu)
+#: (``PASS_MAX_ROWS`` in csrc/passes.cuh)
 MAX_ROWS = 256
 
 #: dtype code of the C interface for each (storage, accumulation) pair
@@ -126,12 +126,11 @@ def load() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.atpt_error_string.argtypes = [i32]
     lib.atpt_error_string.restype = ctypes.c_char_p
-    lib.atpt_row_blocks.argtypes = [i64]
-    lib.atpt_row_blocks.restype = i32
-    lib.atpt_sel_proj.argtypes = [i32, vp, i32, vp, i64, vp, i64, vp, vp, vp]
+    lib.atpt_sel_proj.argtypes = [i32, i32, i32, i32, vp, i32, vp, i64, vp,
+                                  i64, vp, vp, vp, vp]
     lib.atpt_sel_proj.restype = i32
-    lib.atpt_sel_update.argtypes = [i32, vp, vp, i32, vp, i64, vp, i64, vp,
-                                    vp, vp]
+    lib.atpt_sel_update.argtypes = [i32, i32, i32, i32, vp, vp, i32, vp, i64,
+                                    vp, i64, vp, vp, vp, vp]
     lib.atpt_sel_update.restype = i32
     lib.atpt_rotate_rows.argtypes = [i32, i32, i32, i32, vp, i32, i32, i32,
                                      vp, i64, i64, vp]
@@ -162,7 +161,10 @@ def dtype_code(storage: torch.dtype, acc: torch.dtype) -> int:
 
 
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current CUDA stream of ``device``: read
+    without building a ``torch.cuda.Stream``, which costs a wrapper call
+    more host time than the rest of its argument checks."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

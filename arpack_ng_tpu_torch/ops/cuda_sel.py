@@ -12,6 +12,13 @@ accumulation dtype (float32 for float32 and bfloat16 storage, float64 for
 float64).  ``idx`` is int32 on the same device, values in ``[0, ncv)``.
 A row with ``s[k] == 0`` leaves ``r`` unchanged.
 
+Each call is one kernel launch, laid out by :func:`plan`: the CGS passes'
+plan (``ops/cuda_cgs.py``), since both run the passes of
+``csrc/passes.cuh``, here over rows picked by index.  It is in Python, so
+that it is tested without a card.  The partial sums and the ticket the
+kernel's last block takes live in the scratch the CGS passes cache per
+stream.
+
 Each wrapper runs its plain twin (``*_plain``) for tensors on the CPU and
 launches its CUDA kernel for tensors on a CUDA device; ``launches``
 counts the kernel launches.
@@ -21,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
+from .cuda_cgs import _aligned, _scratch_for, plan
 
 MAX_K = cuda_lib.MAX_ROWS
 
@@ -56,13 +64,13 @@ def sel_proj(idx: torch.Tensor, V: torch.Tensor, br: torch.Tensor
     code = cuda_lib.dtype_code(V.dtype, br.dtype)
     lib = cuda_lib.load()
     K, n = idx.shape[0], V.shape[1]
-    partial = torch.empty(K * lib.atpt_row_blocks(n), dtype=br.dtype,
-                          device=V.device)
+    p = plan(K, n, V.element_size(), _aligned(V, br))
+    stream, (partial, ticket) = _scratch_for(V.device, p.scratch)
     s = torch.empty(K, dtype=br.dtype, device=V.device)
-    err = lib.atpt_sel_proj(code, idx.data_ptr(), K, V.data_ptr(),
-                            V.stride(0), br.data_ptr(), n,
-                            partial.data_ptr(), s.data_ptr(),
-                            cuda_lib.stream_handle(V.device))
+    err = lib.atpt_sel_proj(code, p.bucket, p.vec > 1, p.grid,
+                            idx.data_ptr(), K, V.data_ptr(), V.stride(0),
+                            br.data_ptr(), n, partial.data_ptr(),
+                            ticket.data_ptr(), s.data_ptr(), stream)
     cuda_lib.check(lib, err, "sel_proj")
     sel_proj.launches += 1
     return s
@@ -94,16 +102,16 @@ def sel_update(idx: torch.Tensor, s: torch.Tensor, r: torch.Tensor,
     s = s.contiguous()
     lib = cuda_lib.load()
     K, n = idx.shape[0], V.shape[1]
-    if with_norm:
-        partial = torch.empty(lib.atpt_row_blocks(n), dtype=r.dtype,
-                              device=V.device)
-        nrm = torch.empty((), dtype=r.dtype, device=V.device)
-        pp, np_ = partial.data_ptr(), nrm.data_ptr()
-    else:
-        pp = np_ = None
-    err = lib.atpt_sel_update(code, idx.data_ptr(), s.data_ptr(), K,
-                              V.data_ptr(), V.stride(0), r.data_ptr(), n,
-                              pp, np_, cuda_lib.stream_handle(V.device))
+    p = plan(K, n, V.element_size(), _aligned(V, r))
+    stream, (partial, ticket) = _scratch_for(V.device, p.grid)
+    nrm = torch.empty((), dtype=r.dtype, device=V.device) if with_norm \
+        else None
+    err = lib.atpt_sel_update(code, p.bucket, p.vec > 1, p.grid,
+                              idx.data_ptr(), s.data_ptr(), K, V.data_ptr(),
+                              V.stride(0), r.data_ptr(), n,
+                              partial.data_ptr(), ticket.data_ptr(),
+                              None if nrm is None else nrm.data_ptr(),
+                              stream)
     cuda_lib.check(lib, err, "sel_update")
     sel_update.launches += 1
     return (r, nrm) if with_norm else r

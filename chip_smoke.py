@@ -12,19 +12,25 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    build time;
 3. kernels: the event and rotation kernels against their plain PyTorch
    twins on the card, at the flagship shapes (ncv = 32, n = 1,048,576), in
-   float32 and bfloat16 storage (plus float64), two rotations equal bit for
-   bit, with device-only median CUDA-event times of kernel, twin and the
-   one PyTorch call that computes the same function (float32; for the
+   float32 and bfloat16 storage (plus float64): the event kernels at every
+   K 1..32, also at n + 3 and with br and r at a one-value offset (the
+   scalar path), two calls equal bit for bit and an all-zero s returning r
+   bit for bit; two rotations equal bit for bit; then device-only median
+   CUDA-event times of kernel, twin and the one PyTorch call that
+   computes the same function (float32; for the
    rotation also bfloat16, with Q rounded to bfloat16), timed in
    alternation, each launch after a read-only L2 flush and a device-side
    wait that covers the host's enqueue; beside them the least time the
    card could take and the host microseconds per call of the wrapper and
-   of the library call; the rotation at rows 8/16/24/32, also with fewer
-   columns per thread than the plan's;
+   of the library call (events at K = 8/16/24/32, with the fixed cost of a
+   call at n = 4096 beside ``torch.mv``); the rotation at rows 8/16/24/32,
+   also with fewer columns per thread than the plan's;
 4. flagship solve through ``eigsh``: the 2-D Dirichlet Laplacian at
    nx = 1024 (n = 1,048,576), float32, k = 8, ncv = 32, which = 'LA',
    tol = 1e-5, first with the default selective reorthogonalization (the
-   main path, whose kernel launches are counted) and then with
+   main path, whose kernel launches are counted), then again with the
+   plain twins in place of the event kernels (a witness of how far their
+   summation order alone moves the counters; not counted), and then with
    ``reorth='dgks'``.  Each returned value must lie within 1e-4*|lambda|
    of an analytic eigenvalue and each residual ||Av - lambda v|| / |lambda|
    (scipy CSR, float64, on the host) must be <= 1e-3;
@@ -98,13 +104,14 @@ HOST_CALLS = 200
 #: is also the first bucket of the dgks steps after a restart
 JSON_K, JSON_ROWS = 8, 16
 FEM_POINTS = 1_048_576
-#: each solve's counters as ``PERF.md`` records them for the kernels
-#: before the PSELL and rotation redesign (the rotation keeps their FMA
-#: order, so they should repeat exactly)
+#: each solve's counters as ``PERF.md`` records them for the current
+#: kernels (every kernel sums in a fixed order, so they repeat exactly; the
+#: twin witness of the selective solve gives cycles 288, nopx 6278, nrorth
+#: 2248)
 RECORDED_COUNTERS = {
-    "flagship selective": "cycles 369, nopx 7814, nrorth 2716",
+    "flagship selective": "cycles 299, nopx 6446, nrorth 2270",
     "flagship dgks": "cycles 320, nopx 6962",
-    "(a)": "cycles 294, nopx 6402",
+    "(a)": "cycles 311, nopx 6783",
     "(b)": "cycles 381, nopx 7832",
     "(c)": "cycles 1, nopx 33",
 }
@@ -213,7 +220,68 @@ def _timed_row(torch, flush, name, sdt, shape, nbytes, flops, acc, kernel,
     return row
 
 
+def _sel_cases(torch, cuda_sel, V, vec, g, bf16, what, err):
+    """Every K 1..NCV against the twins, rows picked by index: the
+    projection and the in-place update with and without the fused norm (a
+    zero coefficient in each), two calls equal bit for bit, and an all-zero
+    s returning r bit for bit.  The largest error of each kernel goes into
+    ``err``."""
+    dev = V.device
+    for K in range(1, NCV + 1):
+        tag = f"K={K} {what}"
+        idx = torch.randperm(NCV, generator=g, device=dev)[:K].to(torch.int32)
+        s = cuda_sel.sel_proj(idx, V, vec)
+        err["sel_proj"] = max(err["sel_proj"], _compare(
+            torch, s, cuda_sel.sel_proj_plain(idx, V, vec), bf16,
+            f"sel_proj {tag}"))
+        if not torch.equal(s, cuda_sel.sel_proj(idx, V, vec)):
+            raise AssertionError(f"sel_proj {tag}: two calls differ")
+        coef = torch.randn(K, generator=g, device=dev, dtype=vec.dtype)
+        coef[K // 2] = 0  # a masked row
+        for with_norm in (False, True):
+            r = vec.clone()
+            out = cuda_sel.sel_update(idx, coef, r, V, with_norm=with_norm)
+            ref = cuda_sel.sel_update_plain(idx, coef, vec.clone(), V,
+                                            with_norm=with_norm)
+            if with_norm:
+                _compare(torch, out[1], ref[1], bf16, f"sel_update norm {tag}")
+                again = cuda_sel.sel_update(idx, coef, vec.clone(), V, True)
+                if not (torch.equal(out[0], again[0])
+                        and torch.equal(out[1], again[1])):
+                    raise AssertionError(f"sel_update {tag}: two calls "
+                                         "differ")
+                out, ref = out[0], ref[0]
+            if out is not r:
+                raise AssertionError(f"sel_update {tag}: not in place")
+            err["sel_update"] = max(err["sel_update"], _compare(
+                torch, out, ref, bf16, f"sel_update {tag}"))
+        zero = cuda_sel.sel_update(idx, torch.zeros_like(coef), vec.clone(),
+                                   V, True)[0]
+        if not torch.equal(zero, vec):
+            raise AssertionError(f"sel_update {tag}: zero s changed r")
+
+
+def _fixed_cost(torch, cuda_sel, V, br, flush, n=4096, K=8):
+    """The event kernels and ``torch.mv`` at K = 8 rows of n = 4096 values,
+    timed as the full-size rows: what a call costs that moves next to no
+    bytes (launch, ramp, the last block's sum and the method's own floor)."""
+    Vs, bs = V[:, :n].contiguous(), br[:n].contiguous()
+    idx = torch.arange(K, dtype=torch.int32, device=V.device)
+    coef, rs = bs[:K].clone(), bs.clone()
+    ms = _alternating_ms(torch, [
+        lambda: cuda_sel.sel_proj(idx, Vs, bs),
+        lambda: cuda_sel.sel_update(idx, coef, rs, Vs, with_norm=True),
+        lambda: torch.mv(Vs[:K], bs)], flush)
+    print(f"  fixed cost, K={K} rows of n={n} float32: sel_proj {ms[0]:.4f} "
+          f"ms, sel_update+norm {ms[1]:.4f} ms, torch.mv {ms[2]:.4f} ms",
+          flush=True)
+
+
 def check_kernels(torch, dev, n=N, timed=True):
+    """Phase 3: the event kernels at every K 1..32 in float32, bfloat16 and
+    float64 storage, at n and at n + 3 (a tail past the last 16-byte
+    vector), with br and r aligned and at a one-value offset (the scalar
+    path), timed at K = 8/16/24/32; then the rotation."""
     from arpack_ng_tpu_torch.ops import cuda_rot, cuda_sel
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -227,53 +295,48 @@ def check_kernels(torch, dev, n=N, timed=True):
         bf16 = sdt == torch.bfloat16
         tag = {torch.float32: "err", torch.bfloat16: "err_bf16",
                torch.float64: "err_f64"}[sdt]
+        e = {"sel_proj": 0.0, "sel_update": 0.0}
+        for m in (n, n + 3):
+            Vm = torch.randn(NCV, m, generator=g, device=dev,
+                             dtype=adt).to(sdt)
+            buf = torch.randn(m + 1, generator=g, device=dev, dtype=adt)
+            _sel_cases(torch, cuda_sel, Vm, buf[:m], g, bf16,
+                       f"n={m} {sdt}", e)
+            _sel_cases(torch, cuda_sel, Vm, buf[1:], g, bf16,
+                       f"n={m} {sdt} at +{buf.element_size()} bytes", e)
+            del Vm, buf
+        for k, v in e.items():
+            rec[k][tag] = v
         V = torch.randn(NCV, n, generator=g, device=dev, dtype=adt).to(sdt)
         br = torch.randn(n, generator=g, device=dev, dtype=adt)
         r0 = torch.randn(n, generator=g, device=dev, dtype=adt)
-        for K in KS:
+        for K in KS if timed and sdt != torch.float64 else ():
             idx = torch.randperm(NCV, generator=g, device=dev)[:K].to(
                 torch.int32)
-            s = cuda_sel.sel_proj(idx, V, br)
-            s_ref = cuda_sel.sel_proj_plain(idx, V, br)
-            rec["sel_proj"][tag] = max(rec["sel_proj"][tag], _compare(
-                torch, s, s_ref, bf16, f"sel_proj K={K} {sdt}"))
+            # every coefficient non-zero: the kernel reads all K rows, as
+            # the bound counts
             coef = torch.randn(K, generator=g, device=dev, dtype=adt)
-            coef[K // 2] = 0  # a masked row
-            for with_norm in (False, True):
-                out = cuda_sel.sel_update(idx, coef, r0.clone(), V,
-                                          with_norm=with_norm)
-                ref = cuda_sel.sel_update_plain(idx, coef, r0.clone(), V,
-                                                with_norm=with_norm)
-                if with_norm:
-                    _compare(torch, out[1], ref[1], bf16,
-                             f"sel_update norm K={K} {sdt}")
-                    out, ref = out[0], ref[0]
-                rec["sel_update"][tag] = max(rec["sel_update"][tag], _compare(
-                    torch, out, ref, bf16, f"sel_update K={K} {sdt}"))
-            untouched = cuda_sel.sel_update(idx, torch.zeros_like(coef),
-                                            r0.clone(), V)
-            if not torch.equal(untouched, r0):
-                raise AssertionError("sel_update: zero coefficients changed r")
-            if timed and sdt != torch.float64:
-                f32 = sdt == torch.float32
-                idx_l = idx.long()
-                sb, ab, acc = V.element_size(), br.element_size(), str(adt)
-                rows_out.append(_timed_row(
-                    torch, flush, "sel_proj", str(sdt), K,
-                    K * n * sb + n * ab + K * ab, 2 * K * n, acc,
-                    lambda: cuda_sel.sel_proj(idx, V, br),
-                    lambda: cuda_sel.sel_proj_plain(idx, V, br),
-                    (lambda: V.index_select(0, idx_l) @ br)
-                    if f32 else None))
-                rows_out.append(_timed_row(
-                    torch, flush, "sel_update", str(sdt), K,
-                    K * n * sb + 2 * n * ab + K * ab, 2 * K * n + 2 * n, acc,
-                    lambda: cuda_sel.sel_update(idx, coef, r0, V,
-                                                with_norm=True),
-                    lambda: cuda_sel.sel_update_plain(idx, coef, r0, V,
-                                                      with_norm=True),
-                    (lambda: torch.addmv(r0, V.index_select(0, idx_l).T,
-                                         coef, alpha=-1)) if f32 else None))
+            f32 = sdt == torch.float32
+            idx_l = idx.long()
+            sb, ab, acc = V.element_size(), br.element_size(), str(adt)
+            rows_out.append(_timed_row(
+                torch, flush, "sel_proj", str(sdt), K,
+                K * n * sb + n * ab + K * ab, 2 * K * n, acc,
+                lambda: cuda_sel.sel_proj(idx, V, br),
+                lambda: cuda_sel.sel_proj_plain(idx, V, br),
+                (lambda: V.index_select(0, idx_l) @ br)
+                if f32 else None))
+            rows_out.append(_timed_row(
+                torch, flush, "sel_update", str(sdt), K,
+                K * n * sb + 2 * n * ab + K * ab, 2 * K * n + 2 * n, acc,
+                lambda: cuda_sel.sel_update(idx, coef, r0, V,
+                                            with_norm=True),
+                lambda: cuda_sel.sel_update_plain(idx, coef, r0, V,
+                                                  with_norm=True),
+                (lambda: torch.addmv(r0, V.index_select(0, idx_l).T,
+                                     coef, alpha=-1)) if f32 else None))
+        if timed and sdt == torch.float32:
+            _fixed_cost(torch, cuda_sel, V, br, flush)
         Qm, _ = torch.linalg.qr(torch.randn(
             NCV, NCV, generator=torch.Generator().manual_seed(1),
             dtype=torch.float64))
@@ -626,10 +689,35 @@ def flagship(torch, dev, gpu, nx=NX):
               f"{5 * nx * nx * st.nopx / wall / 1e9:.4f} Gnnz/s; "
               f"max value dist {dmax:.2e}, max residual {rmax:.2e}; "
               f"launches {counts}; card {gpu}", flush=True)
+        if reorth == "selective":
+            _sel_witness(torch, dev, gpu, op, a_sp, spectrum)
         print(f"  recorded: {RECORDED_COUNTERS['flagship ' + reorth]}",
               flush=True)
         print(f"  values {np.array2string(vals, precision=7)}", flush=True)
     return launches
+
+
+def _sel_witness(torch, dev, gpu, op, a_sp, spectrum):
+    """Phase 4's selective solve again with the plain twins in place of the
+    event kernels: they sum in another order, which alone can move the
+    counters of this clustered spectrum.  Same gates; its launches are not
+    the main path's."""
+    from unittest import mock
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core import arnoldi
+    from arpack_ng_tpu_torch.ops import cuda_sel
+
+    with mock.patch.object(arnoldi, "sel_proj", cuda_sel.sel_proj_plain), \
+            mock.patch.object(arnoldi, "sel_update",
+                              cuda_sel.sel_update_plain):
+        (vals, vecs, out), wall, _ = _counted(torch, dev, (), lambda: pt.eigsh(
+            op, k=8, ncv=NCV, which="LA", tol=1e-5, return_stats=True))
+    dmax, rmax = check_values(vals, vecs, a_sp, spectrum,
+                              "flagship selective witness, twins")
+    print(f"  witness, twins in place of the event kernels: wall {wall:.4f} "
+          f"s, {_stats_line(out.stats)}; max value dist {dmax:.2e}, max "
+          f"residual {rmax:.2e}; card {gpu}", flush=True)
 
 
 def basis_defect(torch, dev, gpu, nx=NX):

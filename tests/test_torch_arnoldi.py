@@ -87,3 +87,23 @@ def test_geo_extension_fires_events_in_f64():
     # the f64 parity above covers the event path, not only the recurrence
     _, stp = _extend_both("geo", np.float64, "selective")
     assert stp.counts.nrorth > 0 and stp.counts.nrorthr > 0
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("hatch,value", [("ARPACK_TPU_FULL_REORTH", "1"),
+                                         ("ARPACK_TPU_SEL_EXTRA_BUCKET", "1")])
+def test_event_hatches_match_reference(monkeypatch, hatch, value, dtype):
+    # each debug hatch set in both packages (read when the extension is
+    # built): the events take all ncv rows, or one bucket more than the
+    # selection needs, so they run the kernels' 16- to 48-row buckets
+    monkeypatch.setenv(hatch, value)
+    stj, stp = _extend_both("geo", dtype, "selective")
+    tol = 1e-12 if dtype == np.float64 else 1e-4
+    Hj = np.asarray(stj.H, np.float64)
+    assert np.max(np.abs(stp.H - Hj)) <= tol * np.max(np.abs(Hj))
+    got = {f: getattr(stp.counts, f) for f in COUNTS}
+    assert got == {f: int(getattr(stj.counts, f)) for f in COUNTS}
+    ncv = stp.V.shape[0]
+    per_event = ncv if hatch == "ARPACK_TPU_FULL_REORTH" else 16
+    assert stp.counts.nrorth > 0
+    assert stp.counts.nrorthr >= per_event * stp.counts.nrorth

@@ -37,24 +37,82 @@ def _case(dev, sdt):
     return g, V, acc, tol
 
 
+def _sel_case(dev, sdt, n):
+    # V with n columns (n + 3: rows not 16-byte aligned, the scalar path)
+    # and a buffer whose [:n] is aligned and [1:] sits 4 or 8 bytes in
+    store = getattr(torch, sdt)
+    acc = torch.float64 if store == torch.float64 else torch.float32
+    g = torch.Generator(device=dev).manual_seed(4)
+    V = torch.randn(32, n, generator=g, device=dev, dtype=acc).to(store)
+    buf = torch.randn(n + 1, generator=g, device=dev, dtype=acc)
+    tol = dict(rtol=1e-2, atol=1e-1) if store == torch.bfloat16 else \
+        dict(rtol=1e-5, atol=1e-3)
+    return g, V, buf, tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 3])
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "float64"])
+def test_sel_kernels_match_twins_on_card(dev, sdt, n):
+    # every K 1..32 (masked inside its bucket), rows picked by index, with
+    # br and r aligned and at a one-value offset (the scalar path); the
+    # update is in place and a zero coefficient skips its row
+    g, V, buf, tol = _sel_case(dev, sdt, n)
+    for vec in (buf[:n], buf[1:]):
+        for K in range(1, 33):
+            idx = torch.randperm(32, device=dev, generator=g)[:K].int()
+            torch.testing.assert_close(cuda_sel.sel_proj(idx, V, vec),
+                                       cuda_sel.sel_proj_plain(idx, V, vec),
+                                       **tol)
+            s = torch.randn(K, generator=g, device=dev, dtype=vec.dtype)
+            s[K // 2] = 0
+            for with_norm in (False, True):
+                r = vec.clone()
+                out = cuda_sel.sel_update(idx, s, r, V, with_norm)
+                ref = cuda_sel.sel_update_plain(idx, s, vec.clone(), V,
+                                                with_norm)
+                if with_norm:
+                    torch.testing.assert_close(out[1], ref[1], **tol)
+                    out, ref = out[0], ref[0]
+                assert out is r
+                torch.testing.assert_close(out, ref, **tol)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("sdt", ["float32", "bfloat16", "float64"])
-def test_sel_kernels_match_twins_on_card(dev, sdt):
-    g, V, acc, tol = _case(dev, sdt)
-    br = torch.randn(V.shape[1], generator=g, device=dev, dtype=acc)
-    for K in (8, 16, 24, 32):
-        idx = torch.randperm(32, device=dev, generator=g)[:K].int()
-        torch.testing.assert_close(cuda_sel.sel_proj(idx, V, br),
-                                   cuda_sel.sel_proj_plain(idx, V, br),
-                                   **tol)
-        s = torch.randn(K, generator=g, device=dev, dtype=acc)
-        s[0] = 0
-        out, nrm = cuda_sel.sel_update(idx, s, br.clone(), V, True)
-        ref, nref = cuda_sel.sel_update_plain(idx, s, br.clone(), V, True)
-        torch.testing.assert_close(out, ref, **tol)
-        torch.testing.assert_close(nrm, nref, **tol)
-        same = cuda_sel.sel_update(idx, torch.zeros_like(s), br.clone(), V)
-        assert torch.equal(same, br)
+def test_sel_kernels_repeat_bit_for_bit_on_card(dev, sdt):
+    # a fixed grid and summation order: two calls agree bit for bit
+    n = (1 << 16) + 3
+    g, V, buf, _ = _sel_case(dev, sdt, n)
+    for vec in (buf[:n], buf[1:]):
+        for K in (3, 8, 21, 32, 40):
+            idx = torch.randint(0, 32, (K,), generator=g, device=dev).int()
+            s = cuda_sel.sel_proj(idx, V, vec)
+            assert torch.equal(s, cuda_sel.sel_proj(idx, V, vec))
+            r, nrm = cuda_sel.sel_update(idx, s, vec.clone(), V, True)
+            r2, nrm2 = cuda_sel.sel_update(idx, s, vec.clone(), V, True)
+            assert torch.equal(r, r2) and torch.equal(nrm, nrm2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "float64"])
+def test_sel_update_zero_s_returns_r_on_card(dev, sdt):
+    # the valid-mask contract: an all-zero s leaves r bit for bit, in place
+    n = (1 << 16) + 3
+    g, V, buf, _ = _sel_case(dev, sdt, n)
+    for vec in (buf[:n], buf[1:]):
+        for K in (1, 8, 13, 32):
+            idx = torch.randperm(32, device=dev, generator=g)[:K].int()
+            s = torch.zeros(K, dtype=vec.dtype, device=dev)
+            r = vec.clone()
+            out, nrm = cuda_sel.sel_update(idx, s, r, V, True)
+            assert out is r and torch.equal(r, vec)
+            torch.testing.assert_close(nrm, torch.dot(vec, vec), rtol=1e-5,
+                                       atol=0)
+            assert torch.equal(cuda_sel.sel_update(idx, s, vec.clone(), V),
+                               vec)
     torch.cuda.synchronize()
 
 

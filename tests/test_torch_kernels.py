@@ -74,6 +74,88 @@ def test_sel_update_matches_pallas(data, K, with_norm):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("with_norm", [False, True])
+@pytest.mark.parametrize("K", [5, 13, 20])
+def test_sel_masked_buckets_match_pallas(K, with_norm):
+    # ncv = 20: K that is not a multiple of 8 (the last bucket is ncv, and
+    # one bucket gives K = ncv) is masked inside the kernels' bucket
+    rng = np.random.default_rng(20 + K)
+    ncv, npan = 20, 16
+    V = rng.standard_normal((ncv, npan, 128)).astype(np.float32)
+    br = rng.standard_normal(npan * 128).astype(np.float32)
+    r = rng.standard_normal(npan * 128).astype(np.float32)
+    idx = rng.permutation(ncv)[:K].astype(np.int32)
+    Vt = _t(V.reshape(ncv, -1))
+    proj = pallas_sel.make_sel_proj(K, ncv, npan, "float32", "float32",
+                                    panels=8, interpret=True)
+    s_ref = np.asarray(proj(jnp.asarray(idx), jnp.asarray(V),
+                            jnp.asarray(br)))
+    s = cuda_sel.sel_proj(_t(idx), Vt, _t(br))
+    np.testing.assert_allclose(s.numpy(), s_ref, rtol=1e-5, atol=1e-4)
+    upd = pallas_sel.make_sel_update(K, ncv, npan, "float32", "float32",
+                                     panels=8, with_norm=with_norm,
+                                     interpret=True)
+    ref = upd(jnp.asarray(idx), jnp.asarray(s_ref), jnp.asarray(r),
+              jnp.asarray(V))
+    rt = _t(r.copy())
+    out = cuda_sel.sel_update(_t(idx), _t(s_ref.copy()), rt, Vt,
+                              with_norm=with_norm)
+    if with_norm:
+        (out, nrm), (ref, nref) = out, ref
+        np.testing.assert_allclose(float(nrm), float(nref), rtol=1e-5)
+    assert out is rt  # updated in place
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 3, 5000, 3])
+def test_sel_plan_K_1_to_32(n, aligned):
+    # one launch per event: the bucket holds K (a K that is not a multiple
+    # of 8 is masked inside it), 16-byte vectors only when every pointer
+    # allows them, a grid of at least 132 blocks that grows only so that no
+    # thread adds more than RUN vectors into one sum, scratch for K x grid
+    for itemsize in (4, 2, 8):
+        vec = 16 // itemsize if aligned else 1
+        for K in range(1, 33):
+            p = cuda_sel.plan(K, n, itemsize, aligned)
+            assert p.bucket == 8 * -(-K // 8)
+            assert p.vec == vec
+            assert p.grid >= 132
+            assert p.grid * cuda_cgs.THREADS * cuda_cgs.RUN >= n // vec
+            assert p.grid == 132 or \
+                (p.grid - 1) * cuda_cgs.THREADS * cuda_cgs.RUN < n // vec
+            assert p.scratch == K * p.grid
+
+
+def test_sel_plan_more_rows_and_refusals():
+    # K > 32 loops over groups of 32 in the 32-row bucket
+    for K in (33, 48, 256):
+        p = cuda_sel.plan(K, 1 << 20, 4, True)
+        assert (p.bucket, p.vec, p.grid) == (32, 4, 132)
+        assert p.scratch == K * 132
+    # a longer basis grows the grid: at most RUN vectors per thread
+    p = cuda_sel.plan(8, 1 << 24, 4, True)
+    assert p.grid == (1 << 22) // (cuda_cgs.THREADS * cuda_cgs.RUN)
+    assert cuda_sel.plan(8, 1 << 24, 4, False).grid == 4 * p.grid
+    for K in (0, -1, cuda_sel.MAX_K + 1):
+        with pytest.raises(ValueError):
+            cuda_sel.plan(K, 1024, 4, True)
+
+
+def test_sel_alignment_picks_the_vector_width():
+    # br or r one value into its buffer, or a row stride that is not a
+    # multiple of 16 bytes, takes the scalar path
+    V = torch.zeros((4, 1024))
+    buf = torch.zeros(1025)
+    assert cuda_sel._aligned(V, buf[:1024])
+    assert not cuda_sel._aligned(V, buf[1:])
+    assert not cuda_sel._aligned(torch.zeros((4, 1027)), torch.zeros(1027))
+    Vb = torch.zeros((4, 1028), dtype=torch.bfloat16)  # 2056-byte rows
+    assert not cuda_sel._aligned(Vb, torch.zeros(1028))
+    assert cuda_sel.plan(8, 1028, 2, False).vec == 1
+
+
 def test_masked_rows_are_noops(data):
     # a zero coefficient makes the streamed stale row a no-op
     ncv, npan, V, br, r = data
@@ -229,7 +311,8 @@ def test_kernel_modules_import_without_nvcc_or_cuda(data):
                         _t(br), br.size)
     assert [k.launches for k in kernels] == before
     assert cuda_lib._lib is None
-    assert set(cuda_lib.SOURCES) <= {p.name for p in cuda_lib.CSRC.iterdir()}
+    assert set(cuda_lib.SOURCES + cuda_lib.HEADERS) <= {
+        p.name for p in cuda_lib.CSRC.iterdir()}
 
 
 @pytest.mark.parametrize("rows", [5, 8, 13, 16, 24])
