@@ -1,11 +1,12 @@
-"""arpack_ng_tpu_torch: the implicitly restarted Lanczos solver of
-``arpack_ng_tpu`` on PyTorch, with hand-written CUDA kernels for NVIDIA
-Hopper (H100) on its main path.
+"""arpack_ng_tpu_torch: the implicitly restarted Lanczos and Arnoldi
+solvers of ``arpack_ng_tpu`` on PyTorch, with hand-written CUDA kernels
+for NVIDIA Hopper (H100) on their main paths.
 
 This package imports neither JAX nor ``arpack_ng_tpu``; its module names
 mirror ``arpack_ng_tpu`` so each counterpart is easy to find.  It covers
 the symmetric real path of ``eigsh`` (modes 1 and 2, float32/float64,
-``reorth`` selective or dgks, the implicit exact-shift restart) for
+``reorth`` selective or dgks, the implicit exact-shift restart) and the
+real non-symmetric path of ``eigs`` (mode 1, the fused real driver) for
 operators, dense matrices and scipy sparse matrices (``from_scipy``).
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``.  On the card the reorthogonalization passes, the restart
@@ -14,7 +15,7 @@ rotation and the DIA and PSELL sparse products run the kernels of
 run their plain PyTorch twins.
 """
 
-from .api import ArpackError, ArpackNoConvergence, eigsh
+from .api import ArpackError, ArpackNoConvergence, eigs, eigsh
 from .config import IRAMConfig, default_ncv, pad_dim
 from .core.arnoldi import FactorizationState
 from .core.extract import EigenResult, extract
@@ -34,6 +35,7 @@ __all__ = [
     "IRAMResult",
     "Operator",
     "default_ncv",
+    "eigs",
     "eigsh",
     "extract",
     "from_dense",

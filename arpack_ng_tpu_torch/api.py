@@ -1,12 +1,13 @@
-"""User-facing solver API (port of the symmetric half of
-``arpack_ng_tpu/api.py``): ``eigsh``, the dsaupd/dseupd driver pair.
+"""User-facing solver API (port of ``arpack_ng_tpu/api.py``): ``eigsh``,
+the dsaupd/dseupd driver pair, and ``eigs``, the dnaupd/dneupd pair for
+real non-symmetric problems.
 
-``eigsh`` takes the reference package's arguments plus ``device`` (the
-CUDA card unless the caller asks for ``device="cpu"``).  The options
-outside this package's current slice raise ``NotImplementedError`` rather
-than run a different algorithm: spectral transforms (``M``, ``sigma``,
+Both take the reference package's arguments plus ``device`` (the CUDA
+card unless the caller asks for ``device="cpu"``).  The options outside
+this package's current slice raise ``NotImplementedError`` rather than
+run a different algorithm: spectral transforms (``M``, ``sigma``,
 ``mode``), ``mesh``, ``shift_fn``, ``restart='thick'``, ``validate``,
-``select``, the hybrid strategy and complex dtypes.
+``select``, the hybrid and complex fused strategies and complex dtypes.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from .core.extract import EigenResult, extract
 from .ops import operator as op_mod
 from .ops.operator import Operator
 from .utils.device import DEFAULT
+from .utils.device import same as same_device
 
 
 def _as_operator(A, dtype=None, hermitian=False, device=None) -> Operator:
@@ -27,7 +29,7 @@ def _as_operator(A, dtype=None, hermitian=False, device=None) -> Operator:
     Operator on ``device`` (default: the operator's own device, else the
     card)."""
     if isinstance(A, Operator):
-        if device is not None and torch.device(device) != A.device:
+        if device is not None and not same_device(device, A.device):
             raise ValueError(f"operator lives on {A.device}, not {device}")
         return A
     device = DEFAULT if device is None else device
@@ -64,16 +66,11 @@ def _resolve_sym_reorth(reorth: str) -> str:
     return reorth
 
 
-def _make_solver(op, cfg, strategy="auto"):
-    """'auto' and 'fused' run the symmetric cycle driver; the hybrid
-    driver is not ported yet."""
-    if strategy not in ("auto", "fused"):
-        raise NotImplementedError(f"strategy={strategy!r} is not ported "
-                                  "yet")
-    if not cfg.symmetric:
-        raise NotImplementedError("non-symmetric solves are not ported yet")
-    from .core.device_sym import FusedSymSolver
-    return FusedSymSolver(op, cfg)
+def _refuse(**options) -> None:
+    """Raise ``NotImplementedError`` for an option outside the slice."""
+    for name, val in options.items():
+        if val is not None:
+            raise NotImplementedError(f"{name}= is not ported yet")
 
 
 class ArpackError(RuntimeError):
@@ -155,10 +152,10 @@ def eigsh(
     if sigma is not None or mode != "normal" or M is not None:
         raise NotImplementedError("spectral transforms (M, sigma, mode) "
                                   "are not ported yet")
-    for name, val in (("mesh", mesh), ("shift_fn", shift_fn),
-                      ("validate", validate), ("select", select)):
-        if val is not None:
-            raise NotImplementedError(f"{name}= is not ported yet")
+    _refuse(mesh=mesh, shift_fn=shift_fn, validate=validate, select=select)
+    if strategy not in ("auto", "fused"):
+        raise NotImplementedError(f"strategy={strategy!r} is not ported "
+                                  "yet")
     if restart != "implicit":
         raise NotImplementedError(f"restart={restart!r} is not ported yet")
     op = _as_operator(A, dtype=dtype, hermitian=True, device=device)
@@ -178,8 +175,8 @@ def eigsh(
         symmetric=True, dtype=np.dtype(op.dtype), n_pad=op.n_pad, seed=seed,
         exact_shifts=True, storage_dtype=storage_dtype,
         cgs_kernel=cgs_kernel, restart=restart, reorth=reorth)
-    solver = _make_solver(op, cfg, strategy=strategy)
-    res = solver.solve(v0=v0)
+    from .core.device_sym import FusedSymSolver
+    res = FusedSymSolver(op, cfg).solve(v0=v0)
     if res.info < 0:
         raise ArpackError(res.info)
     out = extract(op, cfg, res, rvec=return_eigenvectors)
@@ -188,4 +185,80 @@ def eigsh(
     ret = (out.values, out.vectors) if return_eigenvectors else out.values
     if return_stats:
         return ret + (out,) if return_eigenvectors else (ret, out)
+    return ret
+
+
+def eigs(
+    A,
+    k: int = 6,
+    *,
+    M=None,
+    sigma: Optional[complex] = None,
+    which: str = "LM",
+    v0=None,
+    ncv: Optional[int] = None,
+    maxiter: Optional[int] = None,
+    tol: float = 0.0,
+    return_eigenvectors: bool = True,
+    return_stats: bool = False,
+    return_schur: bool = False,
+    dtype=None,
+    seed: int = 0,
+    mesh=None,
+    strategy: str = "auto",
+    cgs_kernel: str = "auto",
+    reorth: str = "auto",
+    select=None,
+    validate=None,
+    device=None,
+):
+    """Real non-symmetric eigensolver (dnaupd/dneupd equivalent), mode 1.
+
+    ``A``: an :class:`Operator`, a dense matrix or a scipy sparse matrix
+    (imported by :func:`~arpack_ng_tpu_torch.ops.sparse.from_scipy` with
+    ``hermitian=False``), moved to ``device`` (default: the CUDA card).
+    ``strategy='auto'`` is the reference's default for real dtypes,
+    ``'fused_real'``: the restart cycle of
+    :mod:`~arpack_ng_tpu_torch.core.device_realnonsym` with its reduced
+    space in the problem dtype.  ``reorth='auto'`` is ``'dgks'``: the
+    semi-orthogonality argument behind ``'selective'`` is a Lanczos result.
+    Values come wanted first; a conjugate pair is never split, so k + 1
+    values may come back.  ``return_schur`` returns the Schur vectors of
+    the wanted invariant subspace in place of the eigenvectors.
+
+    Not ported yet (``NotImplementedError``): ``sigma``, ``M``, ``select``,
+    ``validate``, ``mesh``, ``strategy='fused'`` and ``'hybrid'``, complex
+    dtypes.  ``validate`` raises even under ``return_schur``, where the
+    reference skips it without a word.
+    """
+    if sigma is not None or M is not None:
+        raise NotImplementedError("spectral transforms (M, sigma) are not "
+                                  "ported yet")
+    _refuse(mesh=mesh, select=select, validate=validate)
+    if strategy not in ("auto", "fused_real"):
+        raise NotImplementedError(f"strategy={strategy!r} is not ported "
+                                  "yet")
+    op = _as_operator(A, dtype=dtype, hermitian=False, device=device)
+    if np.issubdtype(op.dtype, np.complexfloating):
+        raise NotImplementedError("complex problems are not ported yet")
+    n = op.n
+    ncv = ncv if ncv is not None else default_ncv(n, k, symmetric=False)
+    cfg = IRAMConfig(
+        n=n, nev=k, ncv=min(ncv, n), which=which, bmat=op.bmat,
+        mode=op.mode, tol=tol,
+        max_iter=maxiter if maxiter is not None else 10 * n,
+        symmetric=False, dtype=np.dtype(op.dtype), n_pad=op.n_pad, seed=seed,
+        cgs_kernel=cgs_kernel, reorth="dgks" if reorth == "auto" else reorth)
+    from .core.device_realnonsym import FusedRealNonsymSolver
+    res = FusedRealNonsymSolver(op, cfg).solve(v0=v0)
+    if res.info < 0:
+        raise ArpackError(res.info)
+    rvec = return_eigenvectors or return_schur
+    out = extract(op, cfg, res, rvec=rvec,
+                  howmny="P" if return_schur else "A")
+    if res.info in (1, 2) and out.nconv < cfg.nev:
+        raise ArpackNoConvergence(out, cfg)
+    ret = (out.values, out.vectors) if rvec else out.values
+    if return_stats:
+        return ret + (out,) if rvec else (ret, out)
     return ret

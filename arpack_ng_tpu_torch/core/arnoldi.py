@@ -1,5 +1,10 @@
-"""Lanczos factorization engine for symmetric problems: ``dsaitr`` +
-``dgetv0`` (port of ``arpack_ng_tpu/core/arnoldi.py``).
+"""Lanczos/Arnoldi factorization engine: ``dsaitr``/``dnaitr`` +
+``dgetv0`` (port of ``arpack_ng_tpu/core/arnoldi.py``) for real problems,
+symmetric and non-symmetric.  ``H`` is a full ``(ncv, ncv)`` matrix: the
+CGS + DGKS step (``_step``) writes whole Hessenberg columns, which the
+non-symmetric driver reads; the selective step (``_step_pro``) is the
+Lanczos recurrence and runs for symmetric problems only, as in the
+reference package (a non-symmetric ``reorth='selective'`` runs ``_step``).
 
 The loop runs on the host and the O(n) work on the operator's device:
 the matvec, the three-term recurrence, the reorthogonalization passes,
@@ -151,9 +156,6 @@ def _random_vector(gen: torch.Generator, n_pad: int, n: int, dtype,
 def _check_slice(op: Operator, cfg: IRAMConfig) -> None:
     if _dt.is_complex(cfg.dtype):
         raise NotImplementedError("complex dtypes are not ported yet")
-    if not cfg.symmetric:
-        raise NotImplementedError("non-symmetric problems are not ported "
-                                  "yet")
     if op.n != cfg.n or op.n_pad != cfg.n_pad:
         raise ValueError("operator/config dimension mismatch")
     require(op.device)

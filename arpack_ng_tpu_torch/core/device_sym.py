@@ -16,7 +16,7 @@ Not ported yet: ``restart='thick'`` and caller-supplied shifts
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,11 +25,10 @@ from ..config import IRAMConfig
 from ..ops.operator import Operator
 from ..utils import dtypes as _dt
 from ..utils.debug import debug, trace
-from ..utils.stats import SolverStats, Timers
 from . import reduced
 from .arnoldi import (FactorizationState, _host, make_bnorm, make_extend,
-                      make_init, rotate_basis_kev)
-from .iram import IRAMResult
+                      rotate_basis_kev)
+from .iram import HostLoopSolver
 
 
 def _which_key(which: str, vals):
@@ -223,7 +222,7 @@ def make_sym_tail(op: Operator, cfg: IRAMConfig):
     return tail
 
 
-class FusedSymSolver:
+class FusedSymSolver(HostLoopSolver):
     """dsaupd-equivalent driver over the symmetric cycle, with the name of
     the reference package's driver.  The restart loop runs on the host."""
 
@@ -231,70 +230,24 @@ class FusedSymSolver:
         if not cfg.exact_shifts:
             raise NotImplementedError("caller-supplied shifts (shift_fn) "
                                       "are not ported yet")
-        self.op, self.cfg = op, cfg
-        self._init = make_init(op, cfg)
-        self._head = make_sym_head(op, cfg)
-        self._tail = make_sym_tail(op, cfg)
+        super().__init__(op, cfg, make_sym_head, make_sym_tail)
 
-    def init_state(self, gen: Optional[torch.Generator] = None, v0=None
-                   ) -> FactorizationState:
-        if v0 is None:
-            return self._init(gen, None)
-        v0 = np.asarray(v0)
-        if self.op.perm is not None and v0.shape[0] == self.cfg.n:
-            v0 = v0[np.asarray(self.op.perm)]
-        if v0.shape[0] == self.cfg.n and self.cfg.n_pad != self.cfg.n:
-            v0p = np.zeros((self.cfg.n_pad,), v0.dtype)
-            v0p[: self.cfg.n] = v0
-            v0 = v0p
-        return self._init(gen, v0.astype(self.cfg.dtype))
+    def _start(self, state: FactorizationState) -> CycleOut:
+        z = np.zeros(self.cfg.ncv, _dt.real_dtype(self.cfg.dtype))
+        return CycleOut(state=state, done=False, nconv=0, ritz_s=z,
+                        bounds_s=z)
 
-    def solve(self, gen: Optional[torch.Generator] = None, v0=None,
-              state: Optional[FactorizationState] = None) -> IRAMResult:
+    def _exit(self, out: CycleOut):
         cfg = self.cfg
-        ncv = cfg.ncv
-        rdt = _dt.real_dtype(cfg.dtype)
-        dev = self.op.device
-        timers = Timers()
-        with timers.timed("taupd", dev):
-            if state is None:
-                with timers.timed("tgetv0", dev):
-                    state = self.init_state(gen=gen, v0=v0)
-            if state.info < 0:
-                z = np.zeros(ncv)
-                return self._result(state, z, z, 0, state.info, 0, timers)
-            out = CycleOut(state=state, done=False, nconv=0,
-                           ritz_s=np.zeros(ncv, rdt),
-                           bounds_s=np.zeros(ncv, rdt))
-            while (not out.done and out.state.iter < cfg.max_iter
-                   and out.state.info == 0):
-                is_last = out.state.iter + 1 >= cfg.max_iter
-                with timers.timed("taitr", dev):
-                    h = self._head(out.state)
-                with timers.timed("tapps", dev):
-                    out = self._tail(h, is_last)
-        state = out.state
-        it, info = state.iter, state.info
-        if info != 0:
-            z = np.zeros(ncv)
-            return self._result(state, z, z, 0,
-                                -9999 if info > 0 else info, it, timers)
         nconv = out.nconv
         r_s = np.asarray(out.ritz_s, np.float64)
         b_s = np.asarray(out.bounds_s, np.float64)
         r_x, b_x = reduced.exit_sort(cfg.which, cfg.nev, nconv, r_s.copy(),
                                      b_s.copy(), cfg.eps23, True, False)
         info = 0
-        if it >= cfg.max_iter and nconv < cfg.nev:
+        if out.state.iter >= cfg.max_iter and nconv < cfg.nev:
             info = 1
-        np_rem = int(np.count_nonzero(b_s[: ncv - cfg.nev] == 0))
-        if (ncv - cfg.nev - np_rem) == 0 and nconv < cfg.nev:
+        np_rem = int(np.count_nonzero(b_s[: cfg.ncv - cfg.nev] == 0))
+        if (cfg.ncv - cfg.nev - np_rem) == 0 and nconv < cfg.nev:
             info = 2
-        return self._result(state, r_x, b_x, nconv, info, it, timers)
-
-    def _result(self, state, ritz, bounds, nconv, info, n_iter, timers
-                ) -> IRAMResult:
-        stats = SolverStats(n_iter=n_iter, n_conv=nconv, timers=timers)
-        stats.absorb_counts(state.counts)
-        return IRAMResult(ritz=ritz, bounds=bounds, nconv=nconv, info=info,
-                          n_iter=n_iter, state=state, stats=stats)
+        return r_x, b_x, info

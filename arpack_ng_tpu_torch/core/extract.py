@@ -1,13 +1,20 @@
-"""Eigenpair extraction for symmetric problems: the dseupd equivalent
-(port of the symmetric path of ``arpack_ng_tpu/core/extract.py``).
+"""Eigenpair extraction: the dseupd / dneupd equivalent (port of the real
+paths of ``arpack_ng_tpu/core/extract.py``).
 
-* re-derive the reduced eigensystem from the final H and re-apply the
-  eps^(2/3) convergence test (dseupd re-solves at :536; a count mismatch
-  with the iteration phase is reference info = -14);
-* select the converged wanted subset per ``which``;
-* form Ritz vectors ``S^T V`` on the basis' device (one GEMM);
-* untransform mode 1 and 2 (the identity).  The spectral-transform
-  modes 3-5, purification and ``howmny='S'`` are not ported yet.
+* re-derive the reduced eigensystem from the final H (the tridiagonal
+  solve, or LAPACK geev of the Hessenberg) and re-apply the eps^(2/3)
+  convergence test (dseupd re-solves at :536; a count mismatch with the
+  iteration phase is reference info = -14);
+* select the converged wanted subset per ``which``; for real
+  non-symmetric problems a conjugate pair is never split at the boundary,
+  so nev+1 values may come back (dneupd);
+* form Ritz vectors on the basis' device with one GEMM: ``S^T V``, or for
+  complex Ritz vectors of a real basis the stacked ``[Re; Im]`` GEMM; or,
+  with ``howmny='P'``, the Schur vectors of the wanted invariant subspace
+  (a sorted real Schur form from ``scipy.linalg.schur`` on the host);
+* output order: ascending (symmetric), wanted first (non-symmetric);
+* untransform mode 1 and 2 (the identity).  The spectral-transform modes
+  3-5, purification and ``howmny='S'`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import scipy.linalg as sla
 import torch
 
 from ..config import IRAMConfig
@@ -38,22 +46,25 @@ class EigenResult:
 
 
 def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
-            rvec: bool = True) -> EigenResult:
-    if not cfg.symmetric:
-        raise NotImplementedError("non-symmetric extraction is not ported "
-                                  "yet")
+            rvec: bool = True, howmny: str = "A") -> EigenResult:
     if op.mode not in (1, 2):
         raise NotImplementedError(f"mode {op.mode} (spectral transforms) is "
                                   "not ported yet")
+    if howmny not in ("A", "P"):
+        raise NotImplementedError(f"howmny={howmny!r} is not ported yet")
+    sym = cfg.symmetric
     state = result.state
     tol, eps23 = cfg.tol_effective, cfg.eps23
     rnorm = float(state.rnorm)
     info = result.info if result.info in (1, 2) else 0
 
     H = np.asarray(state.H, np.float64)
-    alpha = np.diag(H).copy()
-    beta = np.diag(H, -1).copy()
-    theta_all, bounds_all, S = reduced.sym_eigt(alpha, beta, rnorm)
+    if sym:
+        alpha = np.diag(H).copy()
+        beta = np.diag(H, -1).copy()
+        theta_all, bounds_all, S = reduced.sym_eigt(alpha, beta, rnorm)
+    else:
+        theta_all, bounds_all, S = reduced.nonsym_eigt(H, rnorm)
 
     # ---- converged subset (dseupd re-test; mismatch -> info=-14) ----
     idx_conv = np.where(reduced.conv_mask(theta_all, bounds_all, tol,
@@ -67,7 +78,8 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
                            info=info, bounds=np.zeros(0),
                            n_iter=result.n_iter, stats=result.stats)
 
-    if cfg.which == "BE":
+    real_pairs = not sym
+    if sym and cfg.which == "BE":
         # nconv//2 from the low end, the rest from the high end
         # (dsgets.f:166-171)
         order = np.argsort(theta_all[idx_conv], kind="stable")
@@ -76,25 +88,60 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
         pick = np.concatenate([order[:half_lo],
                                order[len(order) - half_hi:]])
     else:
-        key = reduced.sort_key(cfg.which, theta_all[idx_conv], False)
+        key = reduced.sort_key(cfg.which, theta_all[idx_conv], real_pairs)
         pick = np.argsort(key, kind="stable")[len(idx_conv) - nconv:]
     sel = idx_conv[np.sort(pick)]
+    if real_pairs:
+        # dneupd may return nev+1 values rather than split a conjugate pair
+        # at the selection boundary (scipy allocates k+1 slots for this)
+        selset = set(sel.tolist())
+        for i in sel:
+            ti = theta_all[i]
+            if ti.imag == 0:
+                continue
+            partner = np.where(
+                np.isclose(theta_all[idx_conv], np.conj(ti)))[0]
+            if len(partner) and idx_conv[partner[0]] not in selset:
+                sel = np.sort(np.append(sel, idx_conv[partner[0]]))
+                nconv += 1
+                break
 
     lam = theta_all[sel].copy()
     lam_bounds = bounds_all[sel].copy()
-    # ascending output order (dseupd's final dsortr 'LA', :697-707)
-    order_out = np.argsort(lam, kind="stable")
+    # output order: ascending for symmetric problems (dseupd's final dsortr
+    # 'LA', :697-707), wanted first for non-symmetric ones (dneupd)
+    if sym:
+        order_out = np.argsort(lam, kind="stable")
+    else:
+        order_out = np.argsort(
+            -reduced.sort_key(cfg.which, lam, real_pairs), kind="stable")
     lam, lam_bounds, sel = lam[order_out], lam_bounds[order_out], \
         sel[order_out]
 
     vectors = None
     if rvec:
-        V = state.V
-        tdt = _dt.torch_dtype(cfg.dtype)
-        s_dev = torch.from_numpy(
-            np.ascontiguousarray(S[:, sel].T.astype(cfg.dtype))).to(V.device)
-        z = (s_dev @ V.to(tdt)).cpu().numpy().astype(np.float64)
-        vectors = z[:, : cfg.n].T  # (n, nconv)
+        if howmny == "P" and not sym:
+            # Schur basis of the wanted invariant subspace (dneupd
+            # howmny='P'): reorder the real Schur form of H so the selected
+            # values lead and take the first nconv Schur vectors
+            wanted_vals = theta_all[sel]
+
+            def _sort(w_r, w_i=None):
+                w = complex(w_r) if w_i is None else complex(w_r) \
+                    + 1j * complex(w_i)
+                return bool(np.min(np.abs(wanted_vals - w))
+                            < 1e-8 * max(1.0, abs(w)))
+
+            _, QQ, _ = sla.schur(H, output="real", sort=_sort)
+            Scols = QQ[:, :nconv]
+        else:
+            Scols = S[:, sel]
+            if not sym:
+                # unit 2-norm Ritz vectors in the small system (the basis
+                # is orthonormal, so Z inherits it; dneupd via dtrevc)
+                Scols = Scols / np.linalg.norm(Scols, axis=0, keepdims=True)
+        Z = _basis_product(Scols, state.V, cfg.dtype)
+        vectors = Z[:, : cfg.n].T  # (n, nconv)
         if op.perm is not None:
             # internal row i holds logical coordinate perm[i]
             unperm = np.empty_like(vectors)
@@ -104,3 +151,18 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
     return EigenResult(values=lam, vectors=vectors, nconv=nconv, info=info,
                        bounds=lam_bounds, n_iter=result.n_iter,
                        stats=result.stats)
+
+
+def _basis_product(Scols: np.ndarray, V: torch.Tensor, dtype) -> np.ndarray:
+    """``Scols^T V`` on the basis' device, one GEMM in the compute dtype,
+    returned on the host as ``(m, n_pad)`` (float64, or complex128 for
+    complex ``Scols``: the real GEMM of the stacked ``[Re; Im]``
+    coefficients, dneupd's packed pair storage)."""
+    tdt = _dt.torch_dtype(dtype)
+    m = Scols.shape[1]
+    cplx = np.iscomplexobj(Scols)
+    coef = np.concatenate([Scols.real.T, Scols.imag.T]) if cplx else Scols.T
+    s_dev = torch.from_numpy(np.ascontiguousarray(coef.astype(dtype))).to(
+        V.device)
+    z = (s_dev @ V.to(tdt)).cpu().numpy().astype(np.float64)
+    return z[:m] + 1j * z[m:] if cplx else z

@@ -1,15 +1,19 @@
-"""Host-side reduced-space (NCV-sized) kernels of the symmetric path;
-port of the symmetric half of ``arpack_ng_tpu/core/reduced.py``.
+"""Host-side reduced-space (NCV-sized) kernels; port of
+``arpack_ng_tpu/core/reduced.py``.
 
 The reference keeps every NCV-sized quantity replicated and computes on
 it redundantly (SRC/dsaupd.f:331-348).  This package keeps the split: O(n)
 work on the device, the tiny dense subproblem here in numpy.
 
-* :func:`sym_eigt`    — dseigt + dstqrb (tridiagonal eig + bounds)
-* :func:`sym_gets`    — dsgets (wanted/unwanted split + exact shifts)
-* :func:`conv_mask`   — dsconv (eps^(2/3)-floored test)
-* :func:`sym_shift_q` — dsapps (implicit-shift QR, accumulated Q)
-* :func:`exit_sort`   — the exit ordering of dsaup2.f:524-667
+* :func:`sym_eigt`       — dseigt + dstqrb (tridiagonal eig + bounds)
+* :func:`nonsym_eigt`    — dneigh (Hessenberg eig + bounds)
+* :func:`sym_gets`       — dsgets (wanted/unwanted split + exact shifts)
+* :func:`nonsym_gets`    — dngets (with conjugate-pair keeping)
+* :func:`conv_mask`      — dsconv / dnconv (eps^(2/3)-floored test)
+* :func:`sym_shift_q`    — dsapps (implicit-shift QR, accumulated Q)
+* :func:`nonsym_shift_q` — dnapps (single real shifts, double shifts for
+  conjugate pairs)
+* :func:`exit_sort`      — the exit ordering of dsaup2.f:524-667
 """
 from __future__ import annotations
 
@@ -44,6 +48,16 @@ def _stable_order(key: np.ndarray) -> np.ndarray:
     return np.argsort(key, kind="stable")
 
 
+def sortc_order(which: str, vals: np.ndarray, real_pairs: bool) -> np.ndarray:
+    """Permutation of dngets' two-stage sort that keeps conjugate pairs
+    adjacent (SRC/dngets.f:147-170): a stable lexsort with the pair key
+    secondary, the member with +imag first (dsortc's swap convention)."""
+    primary = sort_key(which, vals, real_pairs)
+    if real_pairs:
+        return np.lexsort((-vals.imag, primary))
+    return _stable_order(primary)
+
+
 def sym_eigt(alpha: np.ndarray, beta: np.ndarray, rnorm: float,
              need_vectors: bool = True
              ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
@@ -72,6 +86,19 @@ def sym_eigt(alpha: np.ndarray, beta: np.ndarray, rnorm: float,
     ritz, S = sla.eigh_tridiagonal(alpha, beta[: k - 1])
     bounds = np.abs(rnorm * S[-1, :])
     return ritz, bounds, (S if need_vectors else None)
+
+
+def nonsym_eigt(H: np.ndarray, rnorm: float
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Eigenvalues of the Hessenberg H and Ritz-estimate bounds
+    ``rnorm * |last component of the unit eigenvector|`` (dneigh,
+    SRC/dneigh.f:194-213); LAPACK geev normalizes the eigenvectors.
+
+    Returns (ritz complex, bounds real, Y eigenvector matrix complex).
+    """
+    ritz, Y = sla.eig(H)
+    bounds = np.abs(rnorm) * np.abs(Y[-1, :])
+    return ritz, bounds, Y
 
 
 def sym_gets(which: str, kev: int, np_: int, ritz: np.ndarray,
@@ -104,6 +131,30 @@ def sym_gets(which: str, kev: int, np_: int, ritz: np.ndarray,
         so = np.argsort(-np.abs(b[:np_]), kind="stable")
         shifts = shifts[so]
     return r, b, shifts
+
+
+def nonsym_gets(which: str, kev: int, np_: int, ritz: np.ndarray,
+                bounds: np.ndarray, real_pairs: bool
+                ) -> Tuple[int, int, np.ndarray, np.ndarray, np.ndarray]:
+    """dngets: sort so the wanted values are last; for real problems keep
+    conjugate pairs together, growing kev by one where the boundary would
+    split a pair (SRC/dngets.f:165-176).  The shifts come largest bound
+    first (SRC/dngets.f:180-187).
+
+    Returns (kev, np_, ritz_sorted, bounds_sorted, shifts).
+    """
+    k = kev + np_
+    order = sortc_order(which, ritz, real_pairs)
+    r, b = ritz[order], bounds[order]
+    if real_pairs and 0 < np_ < k:
+        if (r[np_ - 1] == np.conj(r[np_])) and r[np_ - 1].imag != 0:
+            np_ -= 1
+            kev += 1
+    shifts = r[:np_].copy()
+    if np_ > 0:
+        so = np.argsort(-b[:np_].real, kind="stable")
+        shifts = shifts[so]
+    return kev, np_, r, b, shifts
 
 
 def conv_mask(ritz: np.ndarray, bounds: np.ndarray, tol: float,
@@ -163,6 +214,68 @@ def sym_shift_q(alpha: np.ndarray, beta: np.ndarray, shifts: np.ndarray,
     beta_out = np.zeros_like(beta, dtype=np.float64)
     beta_out[: k - 1] = e
     return d, beta_out, Q
+
+
+def _deflate_hess(H: np.ndarray, eps_m: float, smlnum: float) -> None:
+    """dnapps deflation: ``|h(i+1,i)| <= max(ulp*(|h(i,i)|+|h(i+1,i+1)|),
+    smlnum)`` -> zero (SRC/dnapps.f:328-336)."""
+    k = H.shape[0]
+    for i in range(k - 1):
+        tst1 = abs(H[i, i]) + abs(H[i + 1, i + 1])
+        if tst1 == 0.0:
+            tst1 = np.abs(np.diag(H)).sum()
+        if abs(H[i + 1, i]) <= max(eps_m * tst1, smlnum):
+            H[i + 1, i] = 0.0
+
+
+def _truncate_hessenberg(H: np.ndarray) -> np.ndarray:
+    return np.triu(H, -1)
+
+
+def nonsym_shift_q(H: np.ndarray, shifts: np.ndarray, eps_m: float,
+                   smlnum: float, real_arith: bool
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Apply the shifts to the Hessenberg H, accumulating the orthogonal
+    (unitary) Q, each as an explicit QR of the shifted matrix (dnapps /
+    znapps as explicit steps):
+
+    * real shift mu:            QR(H - mu I)
+    * conjugate pair (mu,~mu):  QR(H^2 - 2 Re(mu) H + |mu|^2 I)  [real Q]
+    * complex shift (complex arithmetic): QR(H - mu I)           [unitary Q]
+
+    Returns (H', Q).
+    """
+    k = H.shape[0]
+    work_dtype = np.complex128 if np.iscomplexobj(H) else np.float64
+    Hc = H.astype(work_dtype)
+    Q = np.eye(k, dtype=work_dtype)
+    eye = np.eye(k, dtype=work_dtype)
+
+    shifts = np.asarray(shifts)
+    used = np.zeros(len(shifts), dtype=bool)
+    for i, mu in enumerate(shifts):
+        if used[i]:
+            continue
+        used[i] = True
+        if real_arith and mu.imag != 0.0:
+            # consume the conjugate partner (dngets keeps pairs in the
+            # shift set, SRC/dngets.f:165-176)
+            for jj in range(i + 1, len(shifts)):
+                if not used[jj] and np.isclose(shifts[jj], np.conj(mu)):
+                    used[jj] = True
+                    break
+            M = Hc @ Hc - 2.0 * mu.real * Hc + (abs(mu) ** 2) * eye
+            q, _ = np.linalg.qr(M.real.astype(np.float64))
+            q = q.astype(work_dtype)
+        else:
+            mu_use = mu.real if (real_arith and not np.iscomplexobj(Hc)) \
+                else mu
+            q, _ = np.linalg.qr(Hc - mu_use * eye)
+        Hc = q.conj().T @ Hc @ q
+        Hc = _truncate_hessenberg(Hc)
+        _deflate_hess(Hc, eps_m, smlnum)
+        Q = Q @ q
+    return Hc, Q
 
 
 def exit_sort(which: str, nev0: int, nconv: int, ritz: np.ndarray,

@@ -24,7 +24,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sel.cu", "rot.cu", "cgs.cu", "dia.cu", "psell.cu")
+SOURCES = ("sel.cu", "rot.cu", "cgs.cu", "dia.cu", "psell.cu", "gather.cu")
 HEADERS = ("common.cuh", "passes.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -147,6 +147,10 @@ def load() -> ctypes.CDLL:
     lib.atpt_psell_matvec.argtypes = [i32, vp, vp, vp, vp, vp, i32, vp, i64,
                                       vp, vp]
     lib.atpt_psell_matvec.restype = i32
+    lib.atpt_take_flat.argtypes = [i32, vp, vp, i64, vp, vp]
+    lib.atpt_take_flat.restype = i32
+    lib.atpt_take_lanes.argtypes = [vp, vp, i64, vp, vp]
+    lib.atpt_take_lanes.restype = i32
     _lib = lib
     return lib
 

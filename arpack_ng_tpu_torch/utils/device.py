@@ -12,6 +12,25 @@ import torch
 DEFAULT = "cuda"
 
 
+def normalized(device) -> tuple:
+    """``(type, index)`` of ``device`` with the index filled in: the
+    current CUDA device for ``"cuda"`` (0 where this process has no CUDA),
+    0 for any other device given without one.  ``torch.device("cuda")``
+    and ``torch.device("cuda:0")`` compare unequal; their normal forms do
+    not."""
+    dev = torch.device(device)
+    if dev.index is not None:
+        return dev.type, dev.index
+    if dev.type == "cuda" and torch.cuda.is_available():
+        return dev.type, torch.cuda.current_device()
+    return dev.type, 0
+
+
+def same(a, b) -> bool:
+    """Whether two device specifications name the same device."""
+    return normalized(a) == normalized(b)
+
+
 def require(device) -> torch.device:
     """``device`` as a ``torch.device``; raise a clear error when it is a
     CUDA device and this process has no CUDA."""

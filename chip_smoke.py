@@ -57,7 +57,28 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    (ELL): residuals ``<= 1e-3``, the two value sets within 1e-4*|lambda|,
    and the phase within 120 s.  Each path's kernel launches are counted
    from zero and must be positive.  Phases 4 and 7 print each solve's
-   counters beside those recorded in ``PERF.md``.
+   counters beside those recorded in ``PERF.md``;
+8. the gather kernels (``take_flat``, ``take_lanes``) against their twins
+   at the gather probe's shapes, equal bit for bit (a gather does no
+   arithmetic), with indices 0 and n - 1, a tail past the last 16-byte
+   vector and a misaligned index buffer; each timed as in phase 3 beside
+   its twin and library call (``index_select``; ``torch.gather``); then the
+   gather probe's six forms once (``arpack_ng_tpu_torch.bench.
+   gather_primitives``: the main path of these kernels, whose launches are
+   counted);
+9. ``eigs`` at full width: the convection-diffusion operator of
+   ``benchmarks/bench_nonsym.py`` (nx = 1024, rho = 100, float32, k = 8,
+   ncv = 32, which = 'LM'): (a) the reference's timing protocol, 2 warm
+   cycles and 20 timed cycles at tol = 1e-30 (ms/cycle), then the basis
+   defect ``||V V^T - I||_max <= 64 sqrt(eps)`` after one more extension;
+   (b) a solve to tol = 1e-5 through ``eigs`` (at most EIGS_MAX_RESTARTS
+   restarts; at nx = EIGS_SOLVE_NX = 512, see there) and (c) the same
+   through ``eigs(A_csr)`` (DIA) with ``cgs_kernel='pallas'``: 8 or 9 values, conjugate-closed, every
+   residual ``||Av - lambda v|| / |lambda| <= 1e-3`` (scipy CSR, float64,
+   complex vectors, on the host), the rotation kernel launched, and the
+   phase within EIGS_MAX_S.  No value is held to the analytic spectrum: the
+   operator is strongly non-normal, and float32 pairs converged by
+   residual may lie in its pseudospectrum.
 
     python3 chip_smoke.py --profile
 
@@ -79,26 +100,19 @@ import cProfile
 import io
 import json
 import pstats
-import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
 
+from arpack_ng_tpu_torch.bench import timing
+
 NCV = 32
 NX = 1024
 N = NX * NX
 KS = (8, 16, 24, 32)
 ROWS = (8, 16, 24, 32)
-REPS = 20
-#: device-side wait before each timed launch, in SM clock cycles (~1 ms at
-#: 1.98 GHz): longer than any wrapper's host enqueue
-SLEEP_CYCLES = 2_000_000
-#: L2 flush: a read of this many bytes (the H100's L2 holds 50 MB)
-FLUSH_BYTES = 128 * 2**20
-#: enqueues behind each host cost per call
-HOST_CALLS = 200
 #: representative shapes for the JSON line: most events stream one 8-row
 #: bucket; the restart keeps kev ~ 9-12 rows, i.e. the 16-row bucket, which
 #: is also the first bucket of the dgks steps after a restart
@@ -117,6 +131,17 @@ RECORDED_COUNTERS = {
 }
 #: wall limit of the FEM phase (7c), seconds
 FEM_MAX_S = 120.0
+#: phase 9: grid of the convection-diffusion operator (bench_nonsym.py:34-38)
+#: for the timed cycles (a) and for the solves (b, c); restart cap of the
+#: solves; wall limit of the phase, seconds.  The solves run at nx = 512,
+#: the largest grid of 1024, 768 and 512 whose default-seed float32 solve
+#: ends with 8 or 9 values on the H100: at 1024 (6 values) and 768 (7) the
+#: float32 reduced space counts 8 converged where the float64 re-test of
+#: the extraction finds fewer (reference info -14; PERF.md section 6)
+EIGS_NX = 1024
+EIGS_SOLVE_NX = 512
+EIGS_MAX_RESTARTS = 300
+EIGS_MAX_S = 150.0
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
 #: the tensor cores by accumulation dtype
 HBM_BYTES_PER_S = 3.35e12
@@ -129,54 +154,6 @@ def _gpu_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def _flush_buffer(torch, dev):
-    """A buffer larger than the 50 MB L2; a read of it evicts the operands
-    of the next launch (the solver finds the basis cold)."""
-    return torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-
-
-def _alternating_ms(torch, fns, flush) -> list:
-    """Device-only median time (ms) of each of ``fns``, timed in turns over
-    REPS rounds (forward order, then reverse: kernel, library, library,
-    kernel, ...).  Before each launch: a read-only pass over ``flush`` and a
-    device-side wait of SLEEP_CYCLES, so that the card is still busy when
-    the host has enqueued the timed call and ``t0`` .. ``t1`` holds only the
-    call's own device work."""
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    marks = [[] for _ in fns]
-    for rep in range(REPS):
-        order = range(len(fns)) if rep % 2 == 0 else \
-            range(len(fns) - 1, -1, -1)
-        for i in order:
-            flush.sum()
-            torch.cuda._sleep(SLEEP_CYCLES)
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            fns[i]()
-            t1.record()
-            marks[i].append((t0, t1))
-    torch.cuda.synchronize()
-    return [statistics.median(a.elapsed_time(b) for a, b in m)
-            for m in marks]
-
-
-def _host_us(torch, fn) -> float:
-    """Host microseconds per call of ``fn``: ``time.perf_counter`` over
-    HOST_CALLS enqueues (the solver is host-bound, so this cost is real on
-    its path)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(HOST_CALLS):
-        fn()
-    elapsed = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return elapsed / HOST_CALLS * 1e6
 
 
 def _compare(torch, out, ref, bf16: bool, what: str) -> float:
@@ -213,10 +190,10 @@ def _timed_row(torch, flush, name, sdt, shape, nbytes, flops, acc, kernel,
            if f is not None}
     row = {"name": name, "dtype": sdt, "shape": shape, "library_ms": None,
            "bound_ms": bound, "bound_by": by, "bytes": nbytes}
-    row.update(zip(fns, _alternating_ms(torch, list(fns.values()), flush)))
+    row.update(zip(fns, timing.alternating_ms(list(fns.values()), flush)))
     if library is not None:
-        row["host_us"] = _host_us(torch, kernel)
-        row["library_host_us"] = _host_us(torch, library)
+        row["host_us"] = timing.host_us(kernel)
+        row["library_host_us"] = timing.host_us(library)
     return row
 
 
@@ -268,7 +245,7 @@ def _fixed_cost(torch, cuda_sel, V, br, flush, n=4096, K=8):
     Vs, bs = V[:, :n].contiguous(), br[:n].contiguous()
     idx = torch.arange(K, dtype=torch.int32, device=V.device)
     coef, rs = bs[:K].clone(), bs.clone()
-    ms = _alternating_ms(torch, [
+    ms = timing.alternating_ms([
         lambda: cuda_sel.sel_proj(idx, Vs, bs),
         lambda: cuda_sel.sel_update(idx, coef, rs, Vs, with_norm=True),
         lambda: torch.mv(Vs[:K], bs)], flush)
@@ -285,7 +262,7 @@ def check_kernels(torch, dev, n=N, timed=True):
     from arpack_ng_tpu_torch.ops import cuda_rot, cuda_sel
 
     g = torch.Generator(device=dev).manual_seed(0)
-    flush = _flush_buffer(torch, dev) if timed else None
+    flush = timing.flush_buffer(dev) if timed else None
     rec = {k: {"err": 0.0, "err_bf16": 0.0, "err_f64": 0.0}
            for k in ("sel_proj", "sel_update", "rotate_rows")}
     rows_out = []
@@ -434,7 +411,7 @@ def check_cgs(torch, dev, gpu, n=N, timed=True):
     from arpack_ng_tpu_torch.ops import cuda_cgs
 
     g = torch.Generator(device=dev).manual_seed(2)
-    flush = _flush_buffer(torch, dev) if timed else None
+    flush = timing.flush_buffer(dev) if timed else None
     err, rows_out = {"cgs_proj": {}, "cgs_update": {}}, []
     for sdt in (torch.float32, torch.bfloat16, torch.float64):
         bf16, f32 = sdt == torch.bfloat16, sdt == torch.float32
@@ -511,7 +488,7 @@ def check_dia(torch, dev, nx=NX, timed=True):
     _, a_sp = laplacian_2d(nx, device=dev)
     n = a_sp.shape[0]
     n_pad = pad_dim(n, 1024)
-    flush = _flush_buffer(torch, dev) if timed else None
+    flush = timing.flush_buffer(dev) if timed else None
     err, rows_out = {}, []
     g = torch.Generator(device=dev).manual_seed(3)
     for dtype in (np.float32, np.float64):
@@ -565,7 +542,7 @@ def check_psell(torch, dev, fem, gpu, timed=True):
     from arpack_ng_tpu_torch.ops.sparse import _to_ell, ell_matvec
 
     n = fem.shape[0]
-    flush = _flush_buffer(torch, dev) if timed else None
+    flush = timing.flush_buffer(dev) if timed else None
     err, rows_out = {}, []
     g = torch.Generator(device=dev).manual_seed(4)
     for dtype in (np.float32, np.float64):
@@ -749,12 +726,13 @@ def _counted(torch, dev, need, fn):
     """Run ``fn`` with every kernel's launch count set to 0 just before and
     read just after; fail if a kernel of ``need`` was never launched.
     Returns ``(fn(), wall seconds, counts)``."""
-    from arpack_ng_tpu_torch.ops import (cuda_cgs, cuda_dia, cuda_psell,
-                                         cuda_rot, cuda_sel)
+    from arpack_ng_tpu_torch.ops import (cuda_cgs, cuda_dia, cuda_gather,
+                                         cuda_psell, cuda_rot, cuda_sel)
 
     every = (cuda_sel.sel_proj, cuda_sel.sel_update, cuda_rot.rotate_rows,
              cuda_cgs.cgs_proj, cuda_cgs.cgs_update, cuda_dia.dia_matvec,
-             cuda_psell.psell_matvec)
+             cuda_psell.psell_matvec, cuda_gather.take_flat,
+             cuda_gather.take_lanes)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     for k in every:
         k.launches = 0
@@ -883,6 +861,164 @@ def sparse_solves(torch, dev, gpu, fem, nx=NX, device=None):
     return launches
 
 
+def _gather_cases(torch, cuda_gather, inp):
+    """Both gather kernels against their twins, bit for bit: the probe's
+    indices with 0 and n - 1 written in at both ends, a tail past the last
+    16-byte vector, and an index buffer one value in (the scalar path)."""
+    from arpack_ng_tpu_torch.bench.gather_primitives import N, W
+
+    X2 = inp["X2"]
+    cols = inp["cols2"].clone()
+    flat = cols.view(-1)
+    flat[:2], flat[-2:] = torch.tensor([0, N - 1]), torch.tensor([N - 1, 0])
+    lidx = inp["lidx"].clone()
+    lidx[0, :2], lidx[-1, -2:] = torch.tensor([0, W - 1]), \
+        torch.tensor([W - 1, 0])
+    for what, c in (("boundary indices", cols), ("tail", flat[:1001]),
+                    ("misaligned", flat[1:4098])):
+        if not torch.equal(cuda_gather.take_flat(X2, c),
+                           cuda_gather.take_flat_plain(X2, c)):
+            raise AssertionError(f"take_flat ({what}) differs from its twin")
+    if not torch.equal(cuda_gather.take_lanes(X2, lidx),
+                       cuda_gather.take_lanes_plain(X2, lidx)):
+        raise AssertionError("take_lanes differs from its twin")
+    return {"take_flat": 0.0, "take_lanes": 0.0}
+
+
+def check_gather(torch, dev, gpu):
+    """Phase 8: the gather kernels bit-equal to their twins, each timed
+    beside its twin and library call, then the gather probe's six forms
+    once, with every kernel launch counted.  Returns ``(errs, rows,
+    launches)``."""
+    from arpack_ng_tpu_torch.bench import gather_primitives as gp
+    from arpack_ng_tpu_torch.ops import cuda_gather
+
+    inp = gp.make_inputs(dev)
+    errs = _gather_cases(torch, cuda_gather, inp)
+    flush = timing.flush_buffer(dev)
+    X2, x, cols, cols2, lidx = (inp[k] for k in ("X2", "x", "cols", "cols2",
+                                                 "lidx"))
+    rows = [
+        _timed_row(torch, flush, "take_flat", "torch.float32", cols2.shape[0],
+                   4 * (2 * gp.NEL + gp.N), 0, "torch.float32",
+                   lambda: cuda_gather.take_flat(X2, cols2,
+                                                 check_range=False),
+                   lambda: cuda_gather.take_flat_plain(X2, cols2),
+                   lambda: x.index_select(0, cols)),
+        _timed_row(torch, flush, "take_lanes", "torch.float32", lidx.shape[0],
+                   4 * 3 * gp.N, 0, "torch.float32",
+                   lambda: cuda_gather.take_lanes(X2, lidx,
+                                                  check_range=False),
+                   lambda: cuda_gather.take_lanes_plain(X2, lidx),
+                   lambda: torch.gather(X2, 1, lidx))]
+    print(f"gather kernels vs twins at n={gp.N}, {gp.NEL} elements "
+          f"(device-only median of {timing.REPS} in alternation, L2 flushed by a "
+          f"read; card {gpu}):", flush=True)
+    _print_rows(rows)
+    print(f"gather probe, six forms (card {gpu}):", flush=True)
+    _, wall, counts = _counted(torch, dev, ("take_flat", "take_lanes"),
+                               lambda: gp.run(dev))
+    launches = {k: counts[k] for k in ("take_flat", "take_lanes")}
+    print(f"  probe wall {wall:.2f} s; launches {launches}", flush=True)
+    return errs, rows, launches
+
+
+def check_nonsym(vals, vecs, a_sp, what):
+    """8 or 9 values (a conjugate pair is never split), closed under
+    conjugation, every residual ||Av - lambda v|| / |lambda| <= 1e-3 (scipy
+    CSR, float64, complex vectors)."""
+    if len(vals) not in (8, 9):
+        raise AssertionError(f"{what}: {len(vals)} values returned, want 8 "
+                             "or 9")
+    for v in vals[vals.imag != 0]:
+        if np.min(np.abs(vals - np.conj(v))) > 1e-12 * abs(v):
+            raise AssertionError(f"{what}: the conjugate of {v} is missing")
+    v = np.asarray(vecs, np.complex128)
+    res = np.linalg.norm(a_sp @ v - v * vals[None, :], axis=0) \
+        / np.abs(vals)
+    if not np.all(np.isfinite(res)) or res.max() > 1e-3:
+        raise AssertionError(f"{what}: residual {res.max():.3e} > 1e-3")
+    return float(res.max())
+
+
+def eigs_cycles(torch, dev, gpu, nx=EIGS_NX):
+    """Phase 9a: the reference's timing protocol for the non-symmetric
+    driver (bench_nonsym.py --fused): 2 warm cycles, then 20 timed cycles
+    at tol = 1e-30, then one more extension and the basis defect."""
+    from arpack_ng_tpu_torch.config import IRAMConfig
+    from arpack_ng_tpu_torch.core.arnoldi import make_init
+    from arpack_ng_tpu_torch.core.device_realnonsym import (
+        make_realnonsym_head, make_realnonsym_tail)
+    from arpack_ng_tpu_torch.models import convection_diffusion_2d
+
+    op, _ = convection_diffusion_2d(nx, dtype=np.float32, device=dev)
+    cfg = IRAMConfig(n=op.n, nev=8, ncv=NCV, which="LM", symmetric=False,
+                     dtype=np.dtype(np.float32), n_pad=op.n_pad, tol=1e-30,
+                     max_iter=10_000)
+    head, tail = make_realnonsym_head(op, cfg), make_realnonsym_tail(op, cfg)
+
+    def cycles(state, m, last=False):
+        for i in range(m):
+            state = tail(head(state), last and i == m - 1).state
+        return state
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def run():
+        state = cycles(make_init(op, cfg)(), 2)
+        sync()
+        c0, t0 = state.counts, time.perf_counter()
+        state = cycles(state, 20)
+        sync()
+        return state, c0, time.perf_counter() - t0
+
+    (state, c0, wall), _, counts = _counted(torch, dev, ("rotate_rows",), run)
+    state = cycles(state, 1, last=True)  # a full factorization
+    V = state.V.double()
+    eye = torch.eye(NCV, dtype=torch.float64, device=dev)
+    defect = float((V @ V.T - eye).abs().max())
+    bound = 64 * float(np.sqrt(np.finfo(np.float32).eps))
+    c = state.counts
+    print(f"eigs (a) conv-diff nx={nx} float32, 20 cycles after 2: "
+          f"{wall * 1e3 / 20:.4f} ms/cycle (wall {wall:.4f} s; nopx "
+          f"{c.nopx - c0.nopx}, nrorth {c.nrorth - c0.nrorth}, nitref "
+          f"{c.nitref - c0.nitref}, nrotr {c.nrotr - c0.nrotr} over the 20 "
+          f"and the last extension); basis defect {defect:.4e} (bound "
+          f"{bound:.4e}); launches {counts}; card {gpu}", flush=True)
+    if not defect <= bound:
+        raise AssertionError(f"eigs basis defect {defect:.3e} > {bound:.3e}")
+
+
+def eigs_solves(torch, dev, gpu, nx=EIGS_SOLVE_NX, device=None):
+    """Phase 9b-c: solves to tol = 1e-5 through ``eigs``, on the stencil
+    operator and on its scipy CSR matrix (DIA, CGS kernels; imported on the
+    default device, ``device=None``), under the gates of
+    :func:`check_nonsym`.  Returns the launches of (b)."""
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.models import convection_diffusion_2d
+
+    op, a_sp = convection_diffusion_2d(nx, dtype=np.float32, device=dev)
+    kw = dict(k=8, ncv=NCV, which="LM", tol=1e-5,
+              maxiter=EIGS_MAX_RESTARTS, return_stats=True)
+    launches = {}
+    for tag, need, fn in (
+            ("(b) eigs(op)", ("rotate_rows",), lambda: pt.eigs(op, **kw)),
+            ("(c) eigs(A_csr), cgs_kernel='pallas'",
+             ("rotate_rows", "cgs_proj", "cgs_update", "dia_matvec"),
+             lambda: pt.eigs(a_sp, dtype=np.float32, cgs_kernel="pallas",
+                             device=device, **kw))):
+        (vals, vecs, out), wall, counts = _counted(torch, dev, need, fn)
+        print(f"eigs {tag} conv-diff nx={nx}: wall {wall:.4f} s, "
+              f"{_stats_line(out.stats)}; {len(vals)} values, extraction "
+              f"info {out.info}; launches {counts}; card {gpu}", flush=True)
+        print(f"  values {np.array2string(vals, precision=8)}", flush=True)
+        rmax = check_nonsym(vals, vecs, a_sp, f"eigs {tag}")
+        print(f"  max residual {rmax:.2e}", flush=True)
+        if not launches:
+            launches = {k: counts[k] for k in need}
+    return launches
+
+
 def _device_ms(evt) -> float:
     """Self device time of a profiler average, in ms (the attribute was
     renamed from ``self_cuda_time_total`` in newer torch)."""
@@ -978,13 +1114,17 @@ def kernel_entries(rows, launches, errs):
     """The ``kernels`` JSON entries: each kernel at the float32 shape its
     solve runs most (the update of the dgks path carries the fused norm),
     with the launches of the path that exercises it."""
-    src = {"sel_proj": ("sel.cu", "pallas_sel.py:90", JSON_K),
-           "sel_update": ("sel.cu", "pallas_sel.py:141", JSON_K),
-           "rotate_rows": ("rot.cu", "pallas_rot.py:91", JSON_ROWS),
-           "cgs_proj": ("cgs.cu", "pallas_cgs.py:58", JSON_ROWS),
-           "cgs_update": ("cgs.cu", "pallas_cgs.py:116", JSON_ROWS),
-           "dia_matvec": ("dia.cu", "pallas_dia.py:47", None),
-           "psell_matvec": ("psell.cu", "pallas_psell.py:262", None)}
+    ops = "arpack_ng_tpu/ops/"
+    probe = "benchmarks/bench_gather_primitives.py"
+    src = {"sel_proj": ("sel.cu", ops + "pallas_sel.py:90", JSON_K),
+           "sel_update": ("sel.cu", ops + "pallas_sel.py:141", JSON_K),
+           "rotate_rows": ("rot.cu", ops + "pallas_rot.py:91", JSON_ROWS),
+           "cgs_proj": ("cgs.cu", ops + "pallas_cgs.py:58", JSON_ROWS),
+           "cgs_update": ("cgs.cu", ops + "pallas_cgs.py:116", JSON_ROWS),
+           "dia_matvec": ("dia.cu", ops + "pallas_dia.py:47", None),
+           "psell_matvec": ("psell.cu", ops + "pallas_psell.py:262", None),
+           "take_flat": ("gather.cu", probe + ":118", None),
+           "take_lanes": ("gather.cu", probe + ":139", None)}
     entries = []
     for kname, (source, replaces, shape) in src.items():
         timed = "cgs_update+norm" if kname == "cgs_update" else kname
@@ -994,7 +1134,7 @@ def kernel_entries(rows, launches, errs):
         entries.append({
             "name": kname, "route": "cuda",
             "source": f"arpack_ng_tpu_torch/csrc/{source}",
-            "replaces": f"arpack_ng_tpu/ops/{replaces}",
+            "replaces": replaces,
             "launches": launches[kname], "max_abs_err": errs[kname],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1055,7 +1195,7 @@ def main() -> int:
 
     rec, rows = check_kernels(torch, dev)
     print(f"kernels vs twins at ncv={NCV}, n={N} (device-only median of "
-          f"{REPS} in alternation, L2 flushed by a read; card {gpu}):",
+          f"{timing.REPS} in alternation, L2 flushed by a read; card {gpu}):",
           flush=True)
     _print_rows(rows)
     print("  max abs err (f32, bf16, f64): "
@@ -1072,7 +1212,7 @@ def main() -> int:
     print(f"fem_triangulation({FEM_POINTS}) + RCM: {t_fem:.2f} s",
           flush=True)
     err_ps, rows_ps = check_psell(torch, dev, fem, gpu)
-    print(f"phase 6 kernels vs twins (device-only median of {REPS} in "
+    print(f"phase 6 kernels vs twins (device-only median of {timing.REPS} in "
           f"alternation, L2 flushed by a read; card {gpu}):", flush=True)
     _print_rows(rows_cgs + rows_dia + rows_ps)
     errs = {**{k: v["torch.float32"] for k, v in err_cgs.items()},
@@ -1084,9 +1224,23 @@ def main() -> int:
     for k, v in sparse_solves(torch, dev, gpu, fem).items():
         launches.setdefault(k, v)
     errs.update({k: rec[k]["err"] for k in rec})
+    del fem
 
-    entries = kernel_entries(rows + rows_cgs + rows_dia + rows_ps, launches,
-                             errs)
+    err_g, rows_g, launches_g = check_gather(torch, dev, gpu)
+    launches.update(launches_g)
+    errs.update(err_g)
+
+    t0 = time.perf_counter()
+    eigs_cycles(torch, dev, gpu)
+    eigs_solves(torch, dev, gpu)
+    elapsed = time.perf_counter() - t0
+    print(f"eigs phase: {elapsed:.2f} s (limit {EIGS_MAX_S:.0f} s)",
+          flush=True)
+    if elapsed > EIGS_MAX_S:
+        raise AssertionError(f"eigs phase took {elapsed:.1f} s")
+
+    entries = kernel_entries(rows + rows_cgs + rows_dia + rows_ps + rows_g,
+                             launches, errs)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

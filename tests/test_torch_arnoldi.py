@@ -107,3 +107,47 @@ def test_event_hatches_match_reference(monkeypatch, hatch, value, dtype):
     per_event = ncv if hatch == "ARPACK_TPU_FULL_REORTH" else 16
     assert stp.counts.nrorth > 0
     assert stp.counts.nrorthr >= per_event * stp.counts.nrorth
+
+
+def _nonsym_problem(name, dtype):
+    """(reference operator, port operator) of a non-symmetric problem."""
+    if name == "convdiff":
+        return (jmodels.convection_diffusion_2d(14, dtype=dtype)[0],
+                pmodels.convection_diffusion_2d(14, dtype=dtype,
+                                                device="cpu")[0])
+    a = np.random.default_rng(7).standard_normal((300, 300)) / np.sqrt(300)
+    a = a.astype(dtype)
+    return (at.from_dense(a, n_pad=at.pad_dim(300)),
+            pt.from_dense(a, n_pad=pt.pad_dim(300), device="cpu"))
+
+
+@pytest.mark.parametrize("reorth", ["dgks", "selective"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name", ["convdiff", "dense"])
+def test_nonsym_extend_matches_reference(name, dtype, reorth):
+    # the Arnoldi step on a non-symmetric problem: full Hessenberg columns
+    # of H, the same tolerances as above; reorth='selective' runs the same
+    # CGS + DGKS step in both packages (Simon's recurrence is a Lanczos
+    # result, so the selective step is for symmetric problems only)
+    opj, opp = _nonsym_problem(name, dtype)
+    ncv = 24
+    kw = dict(n=opj.n, nev=4, ncv=ncv, which="LM", symmetric=False,
+              dtype=np.dtype(dtype), n_pad=opj.n_pad, reorth=reorth)
+    v0 = np.zeros(opj.n_pad)
+    v0[: opj.n] = np.random.default_rng(0).uniform(-1, 1, opj.n)
+    v0 = v0.astype(dtype)
+    cj, cp = JConfig(**kw), PConfig(**kw)
+    stj = jarn.make_init(opj, cj)(jax.random.key(0), jnp.asarray(v0))
+    ext = jarn.make_extend(opj, cj)
+    stj = jax.device_get(jax.jit(lambda s: ext(s, jnp.int32(ncv)))(stj))
+    stp = parn.make_extend(opp, cp)(parn.make_init(opp, cp)(None, v0), ncv)
+    tol = 1e-12 if dtype == np.float64 else 1e-4
+    Hj = np.asarray(stj.H, np.float64)
+    assert np.abs(np.triu(stp.H, 1)).max() > 0.1 * np.abs(Hj).max()
+    assert np.max(np.abs(stp.H - Hj)) <= tol * np.max(np.abs(Hj))
+    np.testing.assert_allclose(parn.v_matrix(stp.V),
+                               jarn.v_matrix(stj.V).astype(np.float64),
+                               rtol=0, atol=1e3 * tol)
+    got = {f: getattr(stp.counts, f) for f in COUNTS}
+    assert got == {f: int(getattr(stj.counts, f)) for f in COUNTS}
+    assert stp.counts.nrorthr == 0  # no selective event ran

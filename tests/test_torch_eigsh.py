@@ -140,12 +140,21 @@ def test_no_convergence_raises_with_partial_results():
     assert ei.value.info == 1
 
 
-def test_solve_pins_full_precision_matmuls():
+@pytest.mark.parametrize("solver", ["eigsh", "eigs"])
+def test_solve_pins_full_precision_matmuls(solver):
+    # both drivers build through make_init, which pins full-precision
+    # float32 matmuls whatever the caller set
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.set_float32_matmul_precision("high")
     try:
-        op, _ = pmodels.laplacian_1d(64, dtype=np.float32, device="cpu")
-        pt.eigsh(op, k=2, which="LA", tol=1e-4, return_eigenvectors=False)
+        if solver == "eigsh":
+            op, _ = pmodels.laplacian_1d(64, dtype=np.float32, device="cpu")
+            pt.eigsh(op, k=2, which="LA", tol=1e-4,
+                     return_eigenvectors=False)
+        else:
+            op, _ = pmodels.convection_diffusion_1d(64, dtype=np.float32,
+                                                    device="cpu")
+            pt.eigs(op, k=2, tol=1e-4, return_eigenvectors=False)
         assert not torch.backends.cuda.matmul.allow_tf32
         assert not torch.backends.cudnn.allow_tf32
         assert torch.get_float32_matmul_precision() == "highest"

@@ -16,7 +16,7 @@ import numpy as np  # noqa: E402
 
 from arpack_ng_tpu_torch.models import corpus  # noqa: E402
 from arpack_ng_tpu_torch.ops import (  # noqa: E402
-    cuda_cgs, cuda_dia, cuda_psell, cuda_rot, cuda_sel, psell)
+    cuda_cgs, cuda_dia, cuda_gather, cuda_psell, cuda_rot, cuda_sel, psell)
 
 
 @pytest.fixture
@@ -296,3 +296,81 @@ def test_psell_matvec_corpus_on_card(dev, dtype):
             assert not y[n:].any(), name
             assert torch.equal(y, cuda_psell.psell_matvec(tiles, x)), name
     torch.cuda.synchronize()
+
+
+def _gather_case(dev):
+    g = torch.Generator(device=dev).manual_seed(6)
+    X = torch.randn(2048, 128, generator=g, device=dev)
+    cols = torch.randint(0, X.numel(), (16_384 * 128,), generator=g,
+                         device=dev, dtype=torch.int32)
+    cols[:2] = torch.tensor([0, X.numel() - 1])
+    cols[-2:] = torch.tensor([X.numel() - 1, 0])
+    lidx = torch.randint(0, 128, (2048, 128), generator=g, device=dev,
+                         dtype=torch.int32)
+    lidx[0, :2] = torch.tensor([0, 127])
+    lidx[-1, -2:] = torch.tensor([127, 0])
+    return X, cols, lidx
+
+
+@pytest.mark.gpu
+def test_gather_kernels_match_twins_on_card(dev):
+    # a gather does no arithmetic: bit for bit, with indices 0 and n - 1,
+    # a tail past the last 16-byte vector and a misaligned index buffer
+    X, cols, lidx = _gather_case(dev)
+    for c in (cols.view(-1, 128), cols[:1001], cols[1:4098], cols[:3]):
+        assert torch.equal(cuda_gather.take_flat(X, c),
+                           cuda_gather.take_flat_plain(X, c))
+    assert torch.equal(cuda_gather.take_lanes(X, lidx),
+                       cuda_gather.take_lanes_plain(X, lidx))
+    assert torch.equal(cuda_gather.take_lanes(X[:5], lidx[:5]),
+                       cuda_gather.take_lanes_plain(X[:5], lidx[:5]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["device", "contiguity", "dtype", "range",
+                                  "lanes_shape"])
+def test_gather_wrappers_refuse_on_card(dev, case):
+    X, cols, lidx = _gather_case(dev)
+    with pytest.raises((ValueError, IndexError)):
+        if case == "device":
+            cuda_gather.take_flat(X, cols.cpu())
+        elif case == "contiguity":
+            cuda_gather.take_lanes(X.t(), lidx)
+        elif case == "dtype":
+            cuda_gather.take_flat(X.double(), cols)
+        elif case == "range":
+            bad = cols.clone()
+            bad[7] = X.numel()
+            cuda_gather.take_flat(X, bad)
+        else:
+            cuda_gather.take_lanes(X[:, :64].contiguous(),
+                                   lidx[:, :64].contiguous())
+
+
+@pytest.mark.gpu
+def test_eigs_on_card_counts_equal_twins(dev):
+    # a small float64 eigs solve on the card: the restart rotation runs its
+    # kernel, and the counters equal the same solve with the twin
+    from unittest import mock
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core import arnoldi
+    from arpack_ng_tpu_torch.models import convection_diffusion_2d
+
+    op, a = convection_diffusion_2d(24, dtype=np.float64, device=dev)
+    kw = dict(k=6, ncv=24, which="LM", tol=1e-10, maxiter=500,
+              return_stats=True,
+              v0=np.random.default_rng(0).uniform(-1, 1, op.n))
+    cuda_rot.rotate_rows.launches = 0
+    vals, vecs, out = pt.eigs(op, **kw)
+    assert cuda_rot.rotate_rows.launches > 0
+    with mock.patch.object(arnoldi, "rotate_rows", cuda_rot.rotate_rows_plain):
+        vals2, _, out2 = pt.eigs(op, **kw)
+    s, s2 = out.stats, out2.stats
+    assert (s.n_iter, s.nopx, s.nrorth, s.nitref, s.nrotr) == \
+        (s2.n_iter, s2.nopx, s2.nrorth, s2.nitref, s2.nrotr)
+    np.testing.assert_allclose(np.sort_complex(vals), np.sort_complex(vals2),
+                               rtol=1e-9)
+    res = np.linalg.norm(a @ vecs - vecs * vals[None, :], axis=0)
+    assert res.max() < 1e-8 * np.abs(vals).max()

@@ -1,6 +1,8 @@
 """The port's kernel wrappers (arpack_ng_tpu_torch/ops/cuda_sel.py,
-cuda_rot.py, cuda_cgs.py, cuda_dia.py) against the reference package's
-Pallas kernels run in interpret mode, on the same numpy inputs, plus the
+cuda_rot.py, cuda_cgs.py, cuda_dia.py, cuda_gather.py) against the
+reference package's Pallas kernels run in interpret mode, on the same numpy
+inputs (the gather probes' kernel bodies are rebuilt here from
+benchmarks/bench_gather_primitives.py, which is not imported), plus the
 package rules: no JAX import anywhere in the port, and kernel modules that
 import and run on a machine without nvcc or a CUDA device.  The PSELL
 kernel's twin is held to its Pallas kernel in tests/test_torch_psell.py.
@@ -22,7 +24,7 @@ import scipy.sparse as sp  # noqa: E402
 from arpack_ng_tpu.ops import pallas_cgs, pallas_rot, pallas_sel  # noqa: E402
 from arpack_ng_tpu.ops.pallas_dia import make_pallas_dia_matvec  # noqa: E402
 from arpack_ng_tpu_torch.ops import (  # noqa: E402
-    cuda_cgs, cuda_dia, cuda_lib, cuda_psell, cuda_rot, cuda_sel)
+    cuda_cgs, cuda_dia, cuda_gather, cuda_lib, cuda_psell, cuda_rot, cuda_sel)
 
 PORT = pathlib.Path(__file__).resolve().parent.parent / "arpack_ng_tpu_torch"
 
@@ -519,6 +521,109 @@ def test_dia_matvec_reads_zero_outside_the_matrix():
     y = cuda_dia.dia_matvec(torch.tensor([-3, 0, 5]), _t(dtab), _t(x), n)
     np.testing.assert_allclose(y[:n].numpy(), a @ x[:n], atol=1e-12)
     assert not y[n:].any()
+
+
+def _gather_data(seed=8):
+    # the probes' shapes cut to x (64, 128): n = 8192 values
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((64, 128)).astype(np.float32)
+    cols = rng.integers(0, X.size, (256, 128)).astype(np.int32)
+    cols.flat[:2], cols.flat[-2:] = [0, X.size - 1], [X.size - 1, 0]
+    lidx = rng.integers(0, 128, (64, 128)).astype(np.int32)
+    lidx[0, :2], lidx[-1, -2:] = [0, 127], [127, 0]
+    return X, cols, lidx
+
+
+def test_take_flat_matches_pallas_take():
+    # pl_take (bench_gather_primitives.py:118): jnp.take of the flattened
+    # VMEM-resident x; a gather does no arithmetic, so exactly equal
+    from jax.experimental import pallas as pl
+    import jax
+
+    X, cols, _ = _gather_data()
+
+    def kernel(x_ref, i_ref, o_ref):
+        o_ref[...] = jnp.take(x_ref[...].reshape(-1), i_ref[...], axis=0)
+
+    ref = np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct(cols.shape, jnp.float32),
+        interpret=True)(X, cols))
+    out = cuda_gather.take_flat(_t(X), _t(cols))
+    assert out.shape == cols.shape
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_take_lanes_matches_pallas_tal():
+    # pl_tal (bench_gather_primitives.py:139): take_along_axis over lanes
+    from jax.experimental import pallas as pl
+    import jax
+
+    X, _, lidx = _gather_data()
+
+    def kernel(x_ref, i_ref, o_ref):
+        o_ref[...] = jnp.take_along_axis(x_ref[...], i_ref[...], axis=1)
+
+    ref = np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct(X.shape, jnp.float32),
+        interpret=True)(X, lidx))
+    np.testing.assert_array_equal(
+        cuda_gather.take_lanes(_t(X), _t(lidx)).numpy(), ref)
+
+
+@pytest.mark.parametrize("case", ["values_dtype", "index_dtype",
+                                  "noncontiguous", "lanes_width",
+                                  "lanes_shape", "device_mismatch",
+                                  "meta_device"])
+def test_gather_wrappers_reject_bad_arguments(case):
+    X, cols, lidx = (_t(a) for a in _gather_data())
+    with pytest.raises(ValueError):
+        if case == "values_dtype":
+            cuda_gather.take_flat(X.double(), cols)
+        elif case == "index_dtype":
+            cuda_gather.take_lanes(X, lidx.long())
+        elif case == "noncontiguous":
+            cuda_gather.take_flat(X.t(), cols)
+        elif case == "lanes_width":
+            cuda_gather.take_lanes(X[:, :64].contiguous(),
+                                   lidx[:, :64].contiguous())
+        elif case == "lanes_shape":
+            cuda_gather.take_lanes(X, lidx[:32])
+        elif case == "device_mismatch":
+            cuda_gather.take_flat(X, cols.to("meta"))
+        else:  # neither the CPU nor a CUDA device: no twin, no kernel
+            cuda_gather.take_lanes(X.to("meta"), lidx.to("meta"))
+
+
+def test_gather_twins_out_of_range_raise():
+    X, cols, lidx = (_t(a) for a in _gather_data())
+    cols[3, 5] = X.numel()
+    with pytest.raises(IndexError):
+        cuda_gather.take_flat(X, cols)
+    lidx[1, 1] = 128
+    with pytest.raises((IndexError, RuntimeError)):
+        cuda_gather.take_lanes(X, lidx)
+    assert cuda_gather.take_flat.launches == cuda_gather.take_lanes.launches \
+        == 0
+
+
+def test_gather_probe_forms_on_cpu(monkeypatch):
+    # the probe's six forms at a CPU size: forms 4-6 equal the direct
+    # gathers bit for bit, and every form has the reference's output shape
+    from arpack_ng_tpu_torch.bench import gather_primitives as gp
+    monkeypatch.setattr(gp, "N", 1 << 14)
+    monkeypatch.setattr(gp, "NEL", 1 << 13)
+    inp = gp.make_inputs("cpu")
+    gp.check(inp)
+    shapes = [tuple(fn().shape) for _, fn, _ in gp.forms(inp)]
+    assert shapes == [(1 << 13,), (64, 128), (128, 128), (64, 128, 128),
+                      (64, 128), (64, 128), (128, 128)]
+
+
+def test_gather_probe_needs_the_card():
+    from arpack_ng_tpu_torch.bench import gather_primitives as gp
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert gp.main() == 2
 
 
 def _imported_modules(path):
