@@ -6,12 +6,15 @@ non-symmetric driver reads; the selective step (``_step_pro``) is the
 Lanczos recurrence and runs for symmetric problems only, as in the
 reference package (a non-symmetric ``reorth='selective'`` runs ``_step``).
 
-The loop runs on the host and the O(n) work on the operator's device:
-the matvec, the three-term recurrence, the reorthogonalization passes,
-the restart rotation and the norms.  The per-step decisions — Simon's
-omega recurrence, whether a step needs a reorthogonalization event, the
-event's row bucket, the DGKS test — are taken on the host from scalars
-read back once per step (twice on a step with an event).
+The selective step runs on the operator's device with no device-to-host
+read (``Extension.run``, what the device restart loop captures as a CUDA
+graph): Simon's omega recurrence, the event decision, its row bucket and
+the eta-selected rows are device tensors, and the event kernels read
+their row count from device memory (0: no event).  A breakdown
+(rnorm <= 0) and the rare doubtful event (the norm still collapsed after
+it) are finished by the host (``Extension.recover``): it draws restart
+vectors on its generator and runs the doubtful pass.  The dgks step (``_step``) still takes
+its DGKS test on the host from scalars read back once per step.
 
 What the reference package computes and counts is kept exactly: the
 8-row buckets of the CGS passes and of the eta-subset events, the pair
@@ -58,6 +61,9 @@ _MAX_GETV0_REFINE = 5
 _MAX_RESTART_TRIES = 3
 #: row-bucket granularity of CGS passes, events and restart rotations
 _BUCKET = 8
+#: the breakdown word of an extension that met a doubtful event: the host
+#: runs the whole extension again (``Extension.recover``)
+REDO = -2
 
 
 @dataclasses.dataclass
@@ -84,6 +90,53 @@ class FactorizationState:
         return dataclasses.replace(self, **changes)
 
 
+@dataclasses.dataclass
+class DeviceLanczos:
+    """What the selective extension reads and writes, on the operator's
+    device, in place: the buffers a captured extension (a CUDA graph) is
+    bound to.  ``b[j]`` is the residual norm after step j (the subdiagonal
+    of T below row ncv - 1); ``cnt`` the events' counters (nrorth, nitref,
+    nbx, nrorthr); ``brk`` the first step that met rnorm <= 0 (-1: none;
+    ``REDO``: a doubtful event) and ``force`` the pair rule's flag entering
+    it; ``resid0``, ``b_resid0``, ``rnorm0`` and ``cnt0`` the extension's
+    entry, which ``REDO`` restores."""
+
+    V: torch.Tensor
+    resid: torch.Tensor
+    b_resid: torch.Tensor    # the same tensor as resid for bmat 'I'
+    rnorm: torch.Tensor      # () real compute dtype
+    a: torch.Tensor          # (ncv,) diagonal of T
+    b: torch.Tensor          # (ncv,)
+    cnt: torch.Tensor        # (4,) int64
+    brk: torch.Tensor        # () int32
+    force: torch.Tensor      # () int32
+    resid0: torch.Tensor
+    b_resid0: torch.Tensor
+    rnorm0: torch.Tensor
+    cnt0: torch.Tensor
+
+
+class Extension:
+    """``extend(state, k_end)``, and for the selective step the pieces the
+    device restart loop drives: ``load`` (a state's device buffers),
+    ``run`` (steps with no device-to-host read), ``recover`` (the host's
+    steps after a breakdown or a doubtful event) and ``static_counts``."""
+
+    def __init__(self, extend, load=None, run=None, recover=None,
+                 static_counts=None):
+        self._extend = extend
+        self.load, self.run, self.recover = load, run, recover
+        self.static_counts = static_counts
+
+    @property
+    def read_free(self) -> bool:
+        return self.run is not None
+
+    def __call__(self, st: FactorizationState, k_end: int
+                 ) -> FactorizationState:
+        return self._extend(st, k_end)
+
+
 def v_matrix(V: torch.Tensor) -> np.ndarray:
     """Host matrix view (ncv, n_pad) of the basis."""
     if V.dtype == torch.bfloat16:
@@ -107,16 +160,20 @@ def rotate_basis_kev(Q: torch.Tensor, V: torch.Tensor, kev: int,
 
     Returns ``(V, v_next_row, rows_written)``; ``v_next_row`` is row
     ``kev`` of the rotated basis (a view, storage dtype)."""
-    ncv = Q.shape[0]
+    R = kev_rows(Q.shape[0], kev, need_next)
+    rotate_rows(Q, V, R)
+    return V, V[min(kev, R - 1)], R
+
+
+def kev_rows(ncv: int, kev: int, need_next: bool = True) -> int:
+    """Rows the restart rotation writes: ``kev`` (+1 with ``need_next``)
+    bucketed up to a multiple of 8 (all ncv rows when ncv is one
+    bucket)."""
     rows_list = bucket_rows(ncv)
     nrows = kev + (1 if need_next else 0)
     if len(rows_list) == 1:
-        R = ncv
-    else:
-        R = rows_list[min((max(nrows, 1) - 1) // _BUCKET,
-                          len(rows_list) - 1)]
-    rotate_rows(Q, V, R)
-    return V, V[min(kev, R - 1)], R
+        return ncv
+    return rows_list[min((max(nrows, 1) - 1) // _BUCKET, len(rows_list) - 1)]
 
 
 def _host(t: torch.Tensor, rdt) -> np.floating:
@@ -203,14 +260,15 @@ def make_init(op: Operator, cfg: IRAMConfig):
     return init
 
 
-def make_extend(op: Operator, cfg: IRAMConfig):
+def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
     """Build ``extend(state, k_end)``: extend a ``state.k``-step Lanczos
     factorization to ``k_end`` steps (dsaitr).
 
     ``reorth='selective'`` runs the three-term recurrence with Simon's
     omega recurrence and eta-subset reorthogonalization events
-    (``_step_pro``); ``reorth='dgks'`` runs the reference's bucketed CGS
-    with the DGKS 0.717 refinement test (``_step``)."""
+    (``_pro_step``, read-free; ``extend`` reads the results back once at
+    its end); ``reorth='dgks'`` runs the reference's bucketed CGS with the
+    DGKS 0.717 refinement test (``_step``)."""
     _check_slice(op, cfg)
     pin_full_precision()
     ncv, n_pad, n = cfg.ncv, cfg.n_pad, cfg.n
@@ -228,7 +286,6 @@ def make_extend(op: Operator, cfg: IRAMConfig):
     tiny = R(_dt.safmin(dtype))
     use_pro = (cfg.reorth == "selective" and cfg.symmetric
                and cfg.restart in ("implicit", "thick"))
-    col_idx = np.arange(ncv)
     b_apply = op.b_apply if is_g else (lambda r: r)
     bnorm = make_bnorm(op, cfg)
     rows_list = bucket_rows(ncv)
@@ -409,6 +466,21 @@ def make_extend(op: Operator, cfg: IRAMConfig):
                           counts=counts)
 
     # ---- partial reorthogonalization (reorth='selective') --------------
+    def static_counts(counts: OpCounts, steps: int) -> OpCounts:
+        """What ``steps`` selective steps count whatever the data: one OP
+        (and its B) per step, one B for the recurrence's residual."""
+        return counts.add(nopx=steps, nbx=steps * (nbx_op + nbx1))
+
+    if not use_pro:
+        def extend(st: FactorizationState, k_end: int) -> FactorizationState:
+            """Extend from the state's current length ``st.k`` to
+            ``k_end``."""
+            for j in range(st.k, k_end):
+                st = _step(j, st)
+            return st
+
+        return Extension(extend)
+
     # Noise floor of an inner product: 8*log2(n)*eps under pairwise/tree
     # summation (every reduction of this package and of its CUDA kernels is
     # a tree), plus the storage representation error.  The 'sequential'
@@ -420,156 +492,340 @@ def make_extend(op: Operator, cfg: IRAMConfig):
     else:
         eps_eff = float(8.0 * np.log2(max(float(n), 2.0)) * _dt.eps(dtype)
                         + _dt.eps(sdt))
-    tau = R(np.sqrt(eps_eff) / _dt.SELECTIVE_SAFETY)
-    eps1 = R(eps_eff)
+    tau = float(R(np.sqrt(eps_eff) / _dt.SELECTIVE_SAFETY))
+    eps1 = float(R(eps_eff))
     # eta-subset selection threshold, capped below tau so the selection
     # always includes the rows that caused the event
-    eta_sub = R(min(eps_eff ** 0.75,
-                    float(np.sqrt(eps_eff) / _dt.SELECTIVE_SAFETY) / 2.0))
-    neg_inf = R(-np.inf)
+    eta_sub = float(R(min(eps_eff ** 0.75,
+                          float(np.sqrt(eps_eff) / _dt.SELECTIVE_SAFETY)
+                          / 2.0)))
+    eta_f, tiny_f = float(eta), float(tiny)
     # fused ||r'||^2 from the event update: standard problems, plain norms
     fuse_sel_norm = not is_g and not cfg.safe_norms
+    # device constants, made here: a captured extension copies no host data
+    rtd = _dt.torch_dtype(rdt)
+    # (each torch op of a step is one node of the captured graph, and on
+    # the card a node costs about as much as its work: the masks and
+    # tables below save ops)
+    col = torch.arange(ncv, device=device)
+    rows_all = col.to(torch.int32)
+    before = col[None, :] < col[:, None]          # [i, l]: l < i
+    past = col[None, :] > col[:, None]            # [j, i]: i > j
+    upto = ~past                                  # [j, i]: i <= j
+    eye = torch.eye(ncv, dtype=torch.bool, device=device)
+    # the event's bucket K by the count of rows above eta_sub (the
+    # reference's rule, tabulated)
+    ktab = torch.tensor(
+        [ncv if nbuckets == 1 or full_reorth else
+         rows_list[min(max(max(c - 1, 0) // _BUCKET + sel_extra, 0),
+                       nbuckets - 1)] for c in range(ncv + 1)],
+        dtype=torch.int32, device=device)
+    one_r = torch.ones((), dtype=rtd, device=device)
+    zero_r = torch.zeros((), dtype=rtd, device=device)
+    zero_1 = torch.zeros(1, dtype=rtd, device=device)
+    ninf_r = torch.full((), -np.inf, dtype=rtd, device=device)
+    zero_i = torch.zeros((), dtype=torch.int32, device=device)
+    zero_l = torch.zeros((), dtype=torch.int64, device=device)
+    tau_vec = torch.full((ncv,), tau, dtype=rtd, device=device)
+    eps1_vec = torch.full((ncv,), eps1, dtype=rtd, device=device)
+    no_force = torch.zeros((), dtype=torch.bool, device=device)
+    no_brk = torch.full((), -1, dtype=torch.int32, device=device)
+    redo_brk = torch.full((), REDO, dtype=torch.int32, device=device)
+    live0 = torch.ones((), dtype=torch.bool, device=device)
 
     def _omega_update(a, b, wp, wc, j, wnorm, beta_j):
         """One row of Simon's omega recurrence (signed terms, abs at the
         end, additive noise eps1*wnorm):  beta_j w_{j+1,i} =
         beta_i w_{j,i+1} + (alpha_i - alpha_j) w_{j,i}
-        + beta_{i-1} w_{j,i-1} - beta_{j-1} w_{j-1,i}."""
+        + beta_{i-1} w_{j,i-1} - beta_{j-1} w_{j-1,i}.
+        One torch op per float32 op of the numpy recurrence it replaced,
+        in the same order (no fused forms), so every decision repeats; the
+        entries past j of a and b are stale and masked out.  Constants go
+        in as device tensors or with ``fill_`` (an indexed assignment of a
+        Python number copies a host tensor, which a CUDA graph cannot
+        hold)."""
         aj = a[j]
-        bjm1 = b[j - 1] if j > 0 else R(0)
-        wc_full = wc.copy()
-        wc_full[j] = 1
-        wp_full = wp.copy()
-        if j > 0:
-            wp_full[j - 1] = 1
-        wc_p1 = np.roll(wc_full, -1)
-        wc_m1 = np.roll(wc_full, 1)
-        wc_m1[0] = 0
-        b_m1 = np.roll(b, 1)
-        b_m1[0] = 0
+        bjm1 = b[j - 1] if j > 0 else zero_r
+        wc_full = torch.where(eye[j], one_r, wc)
+        wp_full = torch.where(eye[j - 1], one_r, wp) if j > 0 else wp
+        wc_p1 = torch.roll(wc_full, -1)
+        wc_m1 = torch.cat([zero_1, wc_full[:-1]])
+        b_m1 = torch.cat([zero_1, b[:-1]])
         t = b * wc_p1 + (a - aj) * wc_full + b_m1 * wc_m1 - bjm1 * wp_full
-        den = np.maximum(beta_j, tiny)
-        wn = (np.abs(t) + eps1 * wnorm) / den
-        wn[j] = eps1 * wnorm / den
-        wn[col_idx > j] = 0
-        return wn.astype(rdt)
+        den = torch.clamp_min(beta_j, tiny_f)
+        ew = wnorm * eps1
+        wn = (torch.abs(t) + ew) / den
+        wn = torch.where(eye[j], ew / den, wn)
+        wn[j + 1:].fill_(0)
+        return wn
 
-    def _subset_pass(j, V, wn, r, br):
-        """One CGS pass against the eta-selected rows (Larsen/PROPACK),
-        padded up to an 8-row bucket K; rows past j are masked out.
-        Returns ``(r2, rn2_or_None, reset, K)``."""
-        sel_key = np.where(col_idx <= j, wn, neg_inf)
-        order = np.argsort(-sel_key, kind="stable")
-        if nbuckets == 1 or full_reorth:
-            K = ncv
-        else:
-            cnt = int(np.sum(sel_key > eta_sub))
-            b = max(cnt - 1, 0) // _BUCKET + sel_extra
-            K = rows_list[min(max(b, 0), nbuckets - 1)]
-        idx = order[:K]
-        valid = sel_key[idx] > neg_inf
-        idx_t = torch.from_numpy(idx.astype(np.int32)).to(device)
-        s = sel_proj(idx_t, V, br)
-        if not valid.all():
-            s.masked_fill_(torch.from_numpy(~valid).to(device), 0)
-        reset = np.zeros(ncv, bool)
-        reset[idx] = valid
+    def _descending(key):
+        """numpy's stable argsort of ``-key`` without a sort: each entry's
+        rank counts the larger keys and the equal ones before it.  A NaN
+        (only in the steps after a breakdown, which commit nothing) ranks
+        as -inf, so the order is always a permutation."""
+        key = torch.where(torch.isnan(key), ninf_r, key)
+        rank = ((key[None, :] > key[:, None])
+                | ((key[None, :] == key[:, None]) & before)).sum(1)
+        order = torch.empty(ncv, dtype=torch.int32, device=device)
+        return order.scatter_(0, rank, rows_all), rank
+
+    def _pass(idx, word, V, r, br, s):
+        """The in-place update ``r -= sum_{k < word} s[k] V[idx[k]]`` of an
+        event pass and the new residual's B-norm (garbage where word = 0:
+        the caller selects).  Returns ``(r, br, norm)``."""
         if fuse_sel_norm:
-            r2, rn2 = sel_update(idx_t, s, r, V, with_norm=True)
-            return r2, rn2, reset, K
-        return sel_update(idx_t, s, r, V), None, reset, K
-
-    def _step_pro(j, st, wp, wc, force):
-        rstart = st.rnorm <= 0
-        if rstart and st.info == 0:
-            st = _restart_vector(st, j)
-        if rstart:
-            # a fresh restart vector is fully orthogonalized
-            wp = np.full(ncv, eps1, rdt)
-            wc = np.full(ncv, eps1, rdt)
-        if st.info != 0:
-            return st, wp, wc, force
-        rnorm_prev = st.rnorm
-        V = st.V
-        v_j, w, bw, counts = _begin_step(j, st)
-        wnorm_t = bnorm(w, bw)
-        # three-term recurrence: reads one stored row, v_{j-1}
-        alpha_t = torch.dot(v_j, bw)
-        beta_prev = R(0) if (rstart or j == 0) else rnorm_prev
-        v_jm1 = V[max(j - 1, 0)].to(tdt)
-        r = w - alpha_t * v_j - float(beta_prev) * v_jm1
+            r, rn2 = sel_update(idx, s, r, V, with_norm=True, word=word)
+            return r, r, torch.sqrt(rn2)
+        sel_update(idx, s, r, V, word=word)
         br = b_apply(r)
-        counts = counts.add(nbx=nbx1)
-        rnorm_t = bnorm(r, br)
-        alpha, wnorm, rnorm = (R(x) for x in torch.stack(
-            [alpha_t, wnorm_t, rnorm_t]).cpu().numpy())
-        H = st.H
-        H[j, j] = alpha
+        return r, br, bnorm(r, br)
+
+    def _doubtful_pass(j, ds, r, br, rn1):
+        """The doubtful case (the norm still collapsed after the event), on
+        the host: one full bucketed CGS pass, then the reference's
+        span-declare give-up (SRC/dsaitr.f:773-781).  Its counters go into
+        ``ds.cnt``.  Returns ``(r, br, rnorm)``."""
+        V = ds.V
+        h = _proj_upto(V, br, j)
+        r = _update_upto(r, h, V, j)
+        br = b_apply(r)
+        rn2 = bnorm(r, br)
+        in_span = not _host(rn2, rdt) > eta * _host(rn1, rdt)
+        if in_span:
+            r, br, rn2 = torch.zeros_like(r), torch.zeros_like(br), zero_r
+        ds.cnt.add_(torch.tensor([0, 1 + int(in_span), nbx1, _rows_upto(j)],
+                                 dtype=torch.int64, device=device))
+        return r, (br if is_g else r), rn2
+
+    def _pro_step(j, ds, c, restarted, host_doubt):
+        """Lanczos step j (dsaitr with Simon's recurrence and an eta-subset
+        event) with no device-to-host read: every decision is a device
+        tensor, and an event that does not fire is a pair of kernel
+        launches whose row-count word is 0.  ``c`` carries (r, br, rnorm,
+        wp, wc, force, live) and the extension's per-step records (the
+        breakdown flags, each event's and doubtful case's flags, the
+        words); ``restarted``: the step follows a fresh restart vector
+        (host-known).  A step entering with rnorm <= 0 is a breakdown: it
+        and every later step of the extension commit no counter, flag or
+        omega (``live``), and the first breakdown flag names it for the
+        host.  A doubtful event is only flagged, and the host runs the
+        extension again (``recover``) with ``host_doubt``: the step then
+        reads the flag and runs the doubtful pass itself."""
+        r, br, rn_prev, wp, wc, force, live, bds, ev, words = c
+        if restarted:
+            # a fresh restart vector is fully orthogonalized
+            wp = wc = eps1_vec
+        else:
+            live = live & ~torch.le(rn_prev, 0, out=bds[j])
+        V = ds.V
+        inv = one_r / torch.clamp_min(rn_prev, tiny_f)
+        v_j = r * inv
+        bv_j = br * inv if is_g else v_j
+        V[j] = v_j
+        w, bw = op.apply(v_j, bv_j)
+        wnorm = bnorm(w, bw)
+        # three-term recurrence: reads one stored row, v_{j-1}
+        alpha = torch.dot(v_j, bw)
+        beta = zero_r if (restarted or j == 0) else rn_prev
+        v_jm1 = V[max(j - 1, 0)].to(tdt)
+        r = w - alpha * v_j - beta * v_jm1
+        br = b_apply(r)
+        rnorm = bnorm(r, br)
+        ds.a[j] = alpha
         if j > 0:
-            H[j, j - 1] = beta_prev
-            H[j - 1, j] = beta_prev
-        a_vec = np.diagonal(H).real.astype(rdt)
-        b_vec = np.concatenate([np.diagonal(H, offset=-1).real.astype(rdt),
-                                np.zeros(1, rdt)])
-        b_vec[j] = rnorm
-        wn = _omega_update(a_vec, b_vec, wp, wc, j, wnorm, rnorm)
-        need = bool(np.max(wn) > tau) or force > 0
-        if need:
-            counts = counts.add(nrorth=1)
-            rn_prev = rnorm
-            r, rn2_t, reset, K = _subset_pass(j, V, wn, r, br)
-            if rn2_t is not None:
-                br = r
-                rn1 = R(np.sqrt(_host(rn2_t, rdt)))
-            else:
-                br = b_apply(r)
-                rn1 = _host(bnorm(r, br), rdt)
-            nfail, passes, extra_rows = 0, 1, 0
-            if not rn1 > eta * rn_prev:
-                # doubtful case (norm still collapsed): one full bucketed
-                # pass, then the reference's span-declare give-up
-                # (SRC/dsaitr.f:773-781)
-                s_t = _proj_upto(V, br, j)
-                r = _update_upto(r, s_t, V, j)
-                br = b_apply(r)
-                rn2 = _host(bnorm(r, br), rdt)
-                in_span = not rn2 > eta * rn1
-                if in_span:
-                    r, br, rn2 = torch.zeros_like(r), torch.zeros_like(br), \
-                        R(0)
-                rn1 = rn2
-                nfail, passes = 1 + int(in_span), 2
-                extra_rows = _rows_upto(j)
-                reset[:] = True
-            rnorm = rn1
-            counts = counts.add(nitref=nfail, nbx=passes * nbx1,
-                                nrorthr=K + extra_rows)
-            # reorthogonalized rows drop to the eps floor
-            wn = np.where(reset, eps1, wn).astype(rdt)
+            ds.b[j - 1] = beta
+        ds.b[j] = rnorm
+        wn = _omega_update(ds.a, ds.b, wp, wc, j, wnorm, rnorm)
+        need = ((torch.max(wn) > tau) | force) & live
+        # the event: one CGS pass against the eta-selected rows
+        # (Larsen/PROPACK), padded up to an 8-row bucket K; rows past j are
+        # masked out (their keys are -inf: they sort last)
+        sel_key = torch.where(past[j], ninf_r, wn)
+        idx, rank = _descending(sel_key)
+        cnt = torch.sum(sel_key > eta_sub).reshape(1)
+        word = torch.where(need, torch.gather(ktab, 0, cnt).reshape(()),
+                           zero_i)
+        take = (col < word) & upto[j]
+        s = torch.where(take, sel_proj(idx, V, br, word=word), zero_r)
+        reset = torch.gather(take, 0, rank)
+        r, br_ev, rn_ev = _pass(idx, word, V, r, br, s)
+        br = torch.where(need, br_ev, br) if is_g else r
+        rn_out = torch.where(need, rn_ev, rnorm)
+        # reorthogonalized rows drop to the eps floor
+        wn = torch.where(reset, eps1_vec, wn)
+        # doubtful case: the norm still collapsed
+        doubt = need & ~(rn_out > rnorm * eta_f)
+        if not host_doubt:
+            ev[j] = torch.stack([need, doubt])
+        else:
+            ev[j, 0] = need
+            if bool(doubt):
+                r, br, rn_out = _doubtful_pass(j, ds, r, br, rn_out)
+                wn = eps1_vec
+        words[j] = word
         # pair rule: reorthogonalize the next step too, unless this event
         # was the forced follow-up
+        force_out = need & ~force
         if cfg.pair_rule == "clean":
-            carrier_dirty = bool(np.max(np.where(col_idx < j, wc, R(0)))
-                                 > eta_sub)
-            force_out = int(need and force == 0 and carrier_dirty)
+            force_out = force_out & (torch.max(torch.where(
+                col < j, wc, zero_r)) > eta_sub)
+        force = torch.where(live, force_out, force)
+        return r, br, rn_out, wc, wn, force, live, bds, ev, words
+
+    def load(st: FactorizationState) -> DeviceLanczos:
+        """The device buffers of an extension from a state: T's diagonals
+        from ``st.H``, copies of the residual (the state is not changed),
+        the basis itself (updated in place), room for the entry."""
+        a = torch.from_numpy(np.ascontiguousarray(
+            np.diagonal(st.H).real.astype(rdt))).to(device)
+        b = torch.zeros(ncv, dtype=rtd, device=device)
+        b[:ncv - 1] = torch.from_numpy(np.ascontiguousarray(
+            np.diagonal(st.H, offset=-1).real.astype(rdt)))
+        resid = st.resid.clone()
+        resid0 = torch.empty_like(resid)
+        return DeviceLanczos(
+            V=st.V, resid=resid,
+            b_resid=st.b_resid.clone() if is_g else resid,
+            rnorm=torch.tensor(float(st.rnorm), dtype=rtd, device=device),
+            a=a, b=b, cnt=torch.zeros(4, dtype=torch.int64, device=device),
+            brk=no_brk.clone(), force=torch.zeros((), dtype=torch.int32,
+                                                  device=device),
+            resid0=resid0,
+            b_resid0=torch.empty_like(resid) if is_g else resid0,
+            rnorm0=torch.empty((), dtype=rtd, device=device),
+            cnt0=torch.empty(4, dtype=torch.int64, device=device))
+
+    def run(ds: DeviceLanczos, k0: int, k_end: int, carry=None,
+            restarted: bool = False, host_doubt: bool = False):
+        """Steps ``k0 .. k_end - 1`` with no device-to-host read (what a
+        CUDA graph captures): the results go into ``ds`` in place.
+        ``carry`` is the ``(wp, wc, force)`` of the previous step, or None
+        at an extension's start (omega starts AT tau: the mutual defect of
+        carried-over columns is unknown at a restart boundary; the entry
+        is saved for ``REDO``); ``restarted``: step ``k0`` follows a fresh
+        restart vector; ``host_doubt``: the steps run the doubtful pass
+        (eager, with host reads: ``recover``).  Returns the carry after the
+        last step."""
+        if carry is None:
+            wp, wc, force = tau_vec, tau_vec, no_force
+            ds.resid0.copy_(ds.resid)
+            if is_g:
+                ds.b_resid0.copy_(ds.b_resid)
+            ds.rnorm0.copy_(ds.rnorm)
+            ds.cnt0.copy_(ds.cnt)
         else:
-            force_out = int(need and force == 0)
-        st = st.replace(H=H, resid=r, b_resid=br, rnorm=rnorm, k=j + 1,
-                        counts=counts)
-        return st, wc, wn, force_out
+            wp, wc, force = carry
+        # each step's breakdown flag, (event, doubtful case) and row-count
+        # word, summed into the results once at the end
+        bds = torch.zeros(ncv, dtype=torch.bool, device=device)
+        ev = torch.zeros((ncv, 2), dtype=torch.bool, device=device)
+        words = torch.zeros(ncv, dtype=torch.int32, device=device)
+        c = (ds.resid, ds.b_resid, ds.rnorm, wp, wc, force, live0, bds, ev,
+             words)
+        for j in range(k0, k_end):
+            c = _pro_step(j, ds, c, restarted and j == k0, host_doubt)
+        r, br, rn, wp, wc, force, _, _, _, _ = c
+        # a doubtful event, else the first breakdown (argmax takes the
+        # first of equal maxima)
+        brk = torch.where(
+            ev[k0:k_end, 1].any(), redo_brk,
+            torch.where(bds.any(), torch.argmax(bds.to(torch.int32)), no_brk))
+        n_ev = ev[k0:k_end, 0].long().sum()
+        ds.cnt.add_(torch.stack([n_ev, zero_l, n_ev * nbx1,
+                                 words[k0:k_end].long().sum()]))
+        if r is not ds.resid:
+            ds.resid.copy_(r)
+            if is_g:
+                ds.b_resid.copy_(br)
+            ds.rnorm.copy_(rn)
+        ds.brk.copy_(brk)
+        ds.force.copy_(force)
+        return wp, wc, force
+
+    def recover(ds: DeviceLanczos, brk: int, k0: int, k_end: int, gen,
+                counts, info, force: int):
+        """The host's steps after an extension ``k0 .. k_end - 1`` whose
+        breakdown word is ``brk``: from the breakdown step ``brk`` on, or,
+        after a doubtful event (``brk == REDO``), the whole extension again
+        from its saved entry.  One step at a time with a host read of rnorm
+        each: an invariant-subspace hit draws a restart vector on the host
+        generator (dsaitr.f:380-427) and a doubtful event runs its pass.
+        ``force``: the pair rule's flag entering ``brk``.  Returns
+        ``(counts, info, k_stop)``."""
+        if brk == REDO:
+            ds.resid.copy_(ds.resid0)
+            if is_g:
+                ds.b_resid.copy_(ds.b_resid0)
+            ds.rnorm.copy_(ds.rnorm0)
+            ds.cnt.copy_(ds.cnt0)
+            j0, broken, force = k0, False, 0
+        else:
+            counts = static_counts(counts, brk - k0)
+            j0, broken = brk, True
+        # rows past j0 hold the first run's values (after a breakdown, not
+        # finite); zero them, as a masked product of them then reads
+        ds.V[j0:] = 0
+        carry = (tau_vec, tau_vec, torch.full((), bool(force),
+                                              dtype=torch.bool,
+                                              device=device))
+        for j in range(j0, k_end):
+            # step j0 of a breakdown met rnorm <= 0; ds.rnorm holds the
+            # broken steps' value
+            rn = R(0) if broken and j == j0 else _host(ds.rnorm, rdt)
+            rstart = rn <= 0
+            if rstart and info == 0:
+                st = _restart_vector(FactorizationState(
+                    V=ds.V, H=None, resid=ds.resid, b_resid=ds.b_resid,
+                    rnorm=rn, k=j, nev_cur=0, iter=0, info=info, gen=gen,
+                    counts=counts), j)
+                counts, info = st.counts, st.info
+                ds.resid.copy_(st.resid)
+                if is_g:
+                    ds.b_resid.copy_(st.b_resid)
+                ds.rnorm.fill_(float(st.rnorm))
+            if info != 0:
+                return counts, info, j
+            carry = run(ds, j, j + 1, carry, restarted=rstart,
+                        host_doubt=True)
+            counts = static_counts(counts, 1)
+        return counts, info, k_end
+
+    def finish(ds: DeviceLanczos, st: FactorizationState, k0: int,
+               k_end: int) -> FactorizationState:
+        """The state after :func:`run` of steps ``k0 .. k_end - 1``: one
+        read of the device results, the host's rerun after a breakdown,
+        the host fields (H, rnorm, counters)."""
+        counts, info, k_stop = st.counts, st.info, k_end
+        brk = int(ds.brk)
+        if brk != -1:
+            counts, info, k_stop = recover(ds, brk, k0, k_end, st.gen, counts,
+                                           info, int(ds.force))
+        else:
+            counts = static_counts(counts, k_end - k0)
+        back = torch.cat([ds.a.double(), ds.b.double(),
+                          ds.rnorm.double().reshape(1),
+                          ds.cnt.double()]).cpu().numpy()
+        a, b = back[:ncv], back[ncv:2 * ncv]
+        ev = back[2 * ncv + 1:].astype(np.int64)
+        counts = counts.add(nrorth=ev[0], nitref=ev[1], nbx=ev[2],
+                            nrorthr=ev[3])
+        H = st.H.copy()
+        for j in range(k0, k_stop):
+            H[j, j] = a[j]
+            if j > 0:
+                H[j, j - 1] = H[j - 1, j] = b[j - 1]
+        return st.replace(V=ds.V, H=H, resid=ds.resid, b_resid=ds.b_resid,
+                          rnorm=R(back[2 * ncv]), k=k_stop, info=info,
+                          counts=counts)
 
     def extend(st: FactorizationState, k_end: int) -> FactorizationState:
         """Extend from the state's current length ``st.k`` to ``k_end``."""
-        if not use_pro:
-            for j in range(st.k, k_end):
-                st = _step(j, st)
+        if st.info != 0 or st.k >= k_end:
             return st
-        # omega starts AT tau: the mutual defect of carried-over columns is
-        # unknown at a restart boundary
-        w0 = np.full(ncv, tau, rdt)
-        wp, wc, force = w0, w0, 0
-        for j in range(st.k, k_end):
-            st, wp, wc, force = _step_pro(j, st, wp, wc, force)
-        return st
+        ds = load(st)
+        run(ds, st.k, k_end)
+        return finish(ds, st, st.k, k_end)
 
-    return extend
+    return Extension(extend, load=load, run=run, recover=recover,
+                     static_counts=static_counts)

@@ -1,47 +1,52 @@
-"""Symmetric restart cycle driven from the host (port of
-``arpack_ng_tpu/core/device_sym.py``).
+"""Symmetric restart cycle (port of ``arpack_ng_tpu/core/device_sym.py``).
 
 One major iteration of dsaup2: factorization extension (dsaitr), the
 tridiagonal eigensolve (dseigt), shift selection (dsgets), the convergence
 count (dsconv), nev inflation, the implicit exact-shift QR with
 accumulated Q (dsapps), the kev-row basis rotation and the residual
-update.  The reference package fuses the whole loop into one device
-computation; here the loop runs on the host, the O(n) work (extension,
-rotation, norms) on the operator's device and the ncv-sized reduced work
-in numpy, in the compute dtype, exactly as the reference computes it on
-its device.
+update.
+
+:class:`FusedSymSolver` runs the selective loop (``reorth='selective'``,
+the default) on the operator's device, the counterpart of the reference's
+on-device ``make_sym_multi_cycle``: each cycle is the restart rotation and
+residual update of the previous cycle plus the Lanczos extension, with no
+device-to-host read (on a CUDA card, one CUDA graph per start ``k``), then
+the reduced space as one kernel (``ops/cuda_sym_cycle.py``), then one read
+of a small packet.  ``make_sym_head`` / ``make_sym_tail`` keep the host
+loop, its reduced space in numpy, which ``reorth='dgks'`` runs and the
+mid-solve hand-over drives cycle by cycle.
 
 Not ported yet: ``restart='thick'`` and caller-supplied shifts
 (``shift_fn``); both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import IRAMConfig
+from ..ops import cuda_dia, cuda_psell, cuda_rot, cuda_sel, cuda_sym_cycle
+from ..ops.cuda_sym_cycle import (P_BRK, P_CNT, P_DONE, P_FORCE, P_HEAD,
+                                  P_INFO, P_NCONV, P_NEV, P_RNORM, Params,
+                                  head_plain, packet_size, shifts_plain,
+                                  sym_cycle)
 from ..ops.operator import Operator
 from ..utils import dtypes as _dt
 from ..utils.debug import debug, trace
+from ..utils.stats import Timers
 from . import reduced
-from .arnoldi import (FactorizationState, _host, make_bnorm, make_extend,
-                      rotate_basis_kev)
-from .iram import HostLoopSolver
+from .arnoldi import (FactorizationState, _host, kev_rows, make_bnorm,
+                      make_extend, rotate_basis_kev)
+from .iram import HostLoopSolver, IRAMResult
 
-
-def _which_key(which: str, vals):
-    """Sort key: ascending order puts the WANTED nev last (dsortr)."""
-    if which == "LA":
-        return vals
-    if which == "SA":
-        return -vals
-    if which == "LM":
-        return np.abs(vals)
-    if which == "SM":
-        return -np.abs(vals)
-    raise ValueError(f"device path does not support which={which!r}")
+#: the kernel wrappers whose launches a captured graph holds: on each
+#: replay the solver adds the launches its capture counted
+GRAPH_KERNELS = (cuda_sel.sel_proj, cuda_sel.sel_update,
+                 cuda_rot.rotate_rows, cuda_dia.dia_matvec,
+                 cuda_psell.psell_matvec)
 
 
 class CycleOut(NamedTuple):
@@ -68,85 +73,43 @@ class HeadOut(NamedTuple):
     np_eff: int
 
 
-def _make_be_arrange(ncv: int):
-    """'BE' arrangement over the ascending order: [unwanted middle, low
-    half, high half]; low share nev//2 (dsgets.f:166-171)."""
-    iota = np.arange(ncv)
-
-    def be_arrange(vals_a, nev):
-        lo = nev // 2
-        hi = nev - lo
-        np_ = ncv - nev
-        src = np.where(iota < np_, lo + iota,
-                       np.where(iota < np_ + lo, iota - np_,
-                                (ncv - hi) + (iota - np_ - lo)))
-        return vals_a[src]
-
-    return be_arrange
+def _params(cfg: IRAMConfig, inflate: bool = True) -> Params:
+    if cfg.which not in cuda_sym_cycle.WHICH:
+        raise ValueError(f"device path does not support which={cfg.which!r}")
+    rdt = _dt.real_dtype(cfg.dtype)
+    return Params(which=cfg.which, nev=cfg.nev,
+                  tol=float(rdt.type(cfg.tol_effective)),
+                  eps23=float(rdt.type(cfg.eps23)),
+                  eps_m=float(rdt.type(_dt.eps(cfg.dtype))), inflate=inflate)
 
 
 def make_sym_head(op: Operator, cfg: IRAMConfig, inflate: bool = True):
     """Build ``head(state) -> HeadOut``: dsaup2 from the extension through
     shift-count fixing (dsaitr, dseigt, dsgets, dsconv, the zero-bound
-    shift removal and the stagnation nev inflation, dsaup2.f:368-693)."""
+    shift removal and the stagnation nev inflation, dsaup2.f:368-693),
+    the reduced space on the host."""
     if not cfg.symmetric:
         raise ValueError("the symmetric cycle is for symmetric problems")
     if cfg.restart == "thick":
         raise NotImplementedError("restart='thick' is not ported yet")
-    ncv, nev0 = cfg.ncv, cfg.nev
-    np0 = ncv - nev0
+    ncv = cfg.ncv
     rdt = _dt.real_dtype(cfg.dtype)
-    tol = rdt.type(cfg.tol_effective)
-    eps23 = rdt.type(cfg.eps23)
+    p = _params(cfg, inflate)
     extend = make_extend(op, cfg)
-    be_arrange = _make_be_arrange(ncv) if cfg.which == "BE" else None
 
     def head(state: FactorizationState) -> HeadOut:
         state = extend(state, ncv)
-        # ---- dseigt ----
         d = np.diag(state.H).real.astype(rdt)
         e = np.diag(state.H, -1).real.astype(rdt)
-        T = np.diag(d) + np.diag(e, 1) + np.diag(e, -1)
-        evals, S = np.linalg.eigh(T)
-        bounds = np.abs(state.rnorm * S[ncv - 1, :]).astype(rdt)
-        # ---- dsgets: wanted last ----
-        if cfg.which == "BE":
-            order_a = np.argsort(evals, kind="stable")
-            r_a, b_a = evals[order_a], bounds[order_a]
-            r_s, b_s = be_arrange(r_a, nev0), be_arrange(b_a, nev0)
-        else:
-            order = np.argsort(_which_key(cfg.which, evals), kind="stable")
-            r_s, b_s = evals[order], bounds[order]
-        # ---- dsconv over the nev0 wanted ----
-        wanted, wb = r_s[np0:], b_s[np0:]
-        nconv = int(np.sum(wb <= tol * np.maximum(eps23, np.abs(wanted))))
-        # ---- zero-bound unwanted (cannot be shifted away) ----
-        nz = int(np.sum(b_s[:np0] == 0))
-        np_eff = np0 - nz
-        nev_eff = nev0 + nz
-        done = nconv >= nev0 or np_eff == 0
+        h = head_plain(d, e, state.rnorm, p)
         trace(debug.maup2, 0, "_sym_cycle: iter {i}: nconv={nc} rnorm={rn}",
-              i=state.iter, nc=nconv, rn=state.rnorm)
+              i=state.iter, nc=h.nconv, rn=state.rnorm)
         trace(debug.maup2, 1, "_sym_cycle: ritz (wanted last) {r}\n"
-              " _sym_cycle: bounds {b}", r=r_s, b=b_s)
-        trace(debug.meigt, 0, "_sym_cycle: eigenvalues of T {e}", e=evals)
-        if inflate:
-            # stagnation guard: nev inflation (dsaup2.f:673-693)
-            nev_inf = nev_eff + min(nconv, np_eff // 2)
-            if nev_inf == 1 and ncv >= 6:
-                nev_inf = ncv // 2
-            elif nev_inf == 1 and ncv > 3:
-                nev_inf = 2
-            nev_eff = min(nev_inf, ncv - 1)
-            np_eff = ncv - nev_eff
-        if cfg.which == "BE":
-            # the BE split moves with the inflated nev (dsaup2.f:690-693)
-            r_si, b_si = be_arrange(r_a, nev_eff), be_arrange(b_a, nev_eff)
-        else:
-            r_si, b_si = r_s, b_s
-        return HeadOut(state=state, T=T, r_s=r_s, b_s=b_s,
-                       r_si=r_si, b_si=b_si, nconv=nconv, done=done,
-                       nev_eff=nev_eff, np_eff=np_eff)
+              " _sym_cycle: bounds {b}", r=h.r_s, b=h.b_s)
+        trace(debug.meigt, 0, "_sym_cycle: eigenvalues of T {e}", e=h.evals)
+        return HeadOut(state=state, T=h.T, r_s=h.r_s, b_s=h.b_s,
+                       r_si=h.r_si, b_si=h.b_si, nconv=h.nconv, done=h.done,
+                       nev_eff=h.nev_eff, np_eff=h.np_eff)
 
     return head
 
@@ -154,60 +117,31 @@ def make_sym_head(op: Operator, cfg: IRAMConfig, inflate: bool = True):
 def make_sym_tail(op: Operator, cfg: IRAMConfig):
     """Build the exact-shift restart tail ``tail(h, is_last) -> CycleOut``
     (dsapps with the shifts from dsgets)."""
-    ncv, nev0 = cfg.ncv, cfg.nev
-    np0 = ncv - nev0
+    ncv = cfg.ncv
     rdt = _dt.real_dtype(cfg.dtype)
-    eps_m = rdt.type(_dt.eps(cfg.dtype))
+    p = _params(cfg)
     is_g = op.bmat == "G"
-    iota = np.arange(ncv)
     bnorm = make_bnorm(op, cfg)
     device = op.device
     tdt = _dt.torch_dtype(cfg.dtype)
 
     def apply_shifts(h: HeadOut) -> FactorizationState:
         state = h.state
-        nev_eff, np_eff = h.nev_eff, h.np_eff
-        # exact shifts: the np_eff least-wanted values, largest Ritz
-        # estimate first; masked-out slots are skipped
-        active = (iota < np_eff)[:np0]
-        skey = np.where(active, -np.abs(h.b_si[:np0]), rdt.type(np.inf))
-        shifts = h.r_si[:np0][np.argsort(skey, kind="stable")]
-        eyek = np.eye(ncv, dtype=rdt)
-        Tc, Q = h.T, eyek
-        for mu, act in zip(shifts, active):
-            if not act:
-                continue
-            q, _ = np.linalg.qr(Tc - mu * eyek)
-            Tn = q.T @ Tc @ q
-            dn = np.diag(Tn)
-            en = 0.5 * (np.diag(Tn, 1) + np.diag(Tn, -1))
-            Tc = np.diag(dn) + np.diag(en, 1) + np.diag(en, -1)
-            Q = Q @ q
-        dn = np.diag(Tc).copy()
-        en = np.diag(Tc, -1).copy()
-        # deflation sweep (dsapps.f:430-443)
-        big = np.abs(dn[:-1]) + np.abs(dn[1:])
-        en = np.where(np.abs(en) <= eps_m * big, rdt.type(0), en)
-        # subdiagonal sign normalization via a diagonal similarity
-        sgn = np.where(en >= 0, rdt.type(1), rdt.type(-1))
-        phi = np.concatenate([np.ones(1, rdt), np.cumprod(sgn)])
-        en = np.abs(en)
-        Q = (Q * phi[None, :]).astype(rdt)
+        Q, dn, en, sigmak, betak = shifts_plain(h.T, h.r_si, h.b_si,
+                                                h.nev_eff, h.np_eff, p)
         H_new = (np.diag(dn) + np.diag(en, 1)
                  + np.diag(en, -1)).astype(cfg.dtype)
-        sigmak = Q[ncv - 1, nev_eff - 1]
-        betak = en[nev_eff - 1] if nev_eff < ncv else rdt.type(0)
         # dsapps-parity kev-row update of the basis (SRC/dsapps.f:445-481)
         Q_dev = torch.from_numpy(np.ascontiguousarray(Q)).to(
             device=device, dtype=tdt)
-        V, v_next, rots = rotate_basis_kev(Q_dev, state.V, nev_eff)
+        V, v_next, rots = rotate_basis_kev(Q_dev, state.V, h.nev_eff)
         resid = (float(sigmak) * state.resid
                  + float(betak) * v_next.to(tdt))
         b_resid = op.b_apply(resid) if is_g else resid
         counts = state.counts.add(nbx=1 if is_g else 0, nrotr=rots)
         rnorm = _host(bnorm(resid, b_resid), rdt)
         return state.replace(V=V, H=H_new, resid=resid, b_resid=b_resid,
-                             rnorm=rnorm, k=nev_eff, nev_cur=nev_eff,
+                             rnorm=rnorm, k=h.nev_eff, nev_cur=h.nev_eff,
                              iter=state.iter + 1, counts=counts)
 
     def tail(h: HeadOut, is_last: bool) -> CycleOut:
@@ -224,13 +158,34 @@ def make_sym_tail(op: Operator, cfg: IRAMConfig):
 
 class FusedSymSolver(HostLoopSolver):
     """dsaupd-equivalent driver over the symmetric cycle, with the name of
-    the reference package's driver.  The restart loop runs on the host."""
+    the reference package's driver.
+
+    ``reorth='selective'`` (``'auto'``) runs the restart loop on the
+    operator's device (:class:`_DeviceLoop`): per cycle, the restart
+    rotation and residual update of the previous cycle and the Lanczos
+    extension from ``k`` with no device-to-host read, the reduced space as
+    one kernel launch, and one read of a small packet (exit test, next
+    ``k``, counters; ``ops/cuda_sym_cycle.py``).  On a CUDA card, for an
+    operator that declares itself ``capturable``, the rotation and
+    extension from each ``k`` are captured once as a CUDA graph (all in one
+    memory pool, on the solver's stream) and replayed; the first cycle runs
+    eagerly on that stream, which warms it up.  A capture that fails
+    raises.
+
+    The reference runs up to ``cycles_per_dispatch`` cycles in one
+    ``lax.while_loop``; here the unit of dispatch is one cycle, because the
+    next extension's start ``k = nev_eff`` picks the graph to replay and is
+    known only from the cycle's packet.
+
+    ``reorth='dgks'`` keeps the host loop (:class:`HostLoopSolver` over
+    ``make_sym_head``/``make_sym_tail``)."""
 
     def __init__(self, op: Operator, cfg: IRAMConfig):
         if not cfg.exact_shifts:
             raise NotImplementedError("caller-supplied shifts (shift_fn) "
                                       "are not ported yet")
         super().__init__(op, cfg, make_sym_head, make_sym_tail)
+        self._ext = make_extend(op, cfg)
 
     def _start(self, state: FactorizationState) -> CycleOut:
         z = np.zeros(self.cfg.ncv, _dt.real_dtype(self.cfg.dtype))
@@ -251,3 +206,239 @@ class FusedSymSolver(HostLoopSolver):
         if (cfg.ncv - cfg.nev - np_rem) == 0 and nconv < cfg.nev:
             info = 2
         return r_x, b_x, info
+
+    def solve(self, gen=None, v0=None, state=None) -> IRAMResult:
+        if not self._ext.read_free:
+            return super().solve(gen=gen, v0=v0, state=state)
+        timers = Timers()
+        t0 = time.perf_counter()
+        if state is None:
+            with timers.timed("tgetv0", self.op.device):
+                state = self.init_state(gen=gen, v0=v0)
+        if state.info < 0:
+            z = np.zeros(self.cfg.ncv)
+            return self._result(state, z, z, 0, state.info, 0, timers)
+        loop = _DeviceLoop(self, state)
+        out = loop.run()
+        timers.taupd = time.perf_counter() - t0
+        timers.taitr, timers.tapps = loop.times()
+        state = out.state
+        if state.info != 0:
+            z = np.zeros(self.cfg.ncv)
+            res = self._result(state, z, z, 0, -9999 if state.info > 0
+                               else state.info, state.iter, timers)
+        else:
+            ritz, bounds, info = self._exit(out)
+            res = self._result(state, ritz, bounds, out.nconv, info,
+                               state.iter, timers)
+        loop.record(res.stats)
+        return res
+
+
+class _DeviceLoop:
+    """One solve of the selective restart loop on the operator's device
+    (see :class:`FusedSymSolver`): its buffers, graphs, stream and
+    packet."""
+
+    def __init__(self, solver: FusedSymSolver, state: FactorizationState):
+        op, cfg = solver.op, solver.cfg
+        self.op, self.cfg, self.ext = op, cfg, solver._ext
+        self.state = state
+        self.params = _params(cfg)
+        self.ncv = ncv = cfg.ncv
+        dev = op.device
+        self.cuda = dev.type == "cuda"
+        rtd = _dt.torch_dtype(_dt.real_dtype(cfg.dtype))
+        self.tdt = _dt.torch_dtype(cfg.dtype)
+        self.is_g = op.bmat == "G"
+        self.bnorm = make_bnorm(op, cfg)
+        self.ds = self.ext.load(state)
+        self.Q = torch.zeros((ncv, ncv), dtype=rtd, device=dev)
+        self.sk = torch.zeros(2, dtype=rtd, device=dev)
+        self.packet = torch.zeros(packet_size(ncv), dtype=torch.float64,
+                                  device=dev)
+        self.capture = self.cuda and op.capturable
+        self.graphs = {}          # k -> (graph, launches per replay)
+        self.replays = 0
+        self.packets = 0
+        self.events = []
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device=dev)
+            self.pool = torch.cuda.graph_pool_handle()
+            self.pk_host = torch.empty(packet_size(ncv), dtype=torch.float64,
+                                       pin_memory=True)
+            self.done_evt = torch.cuda.Event()
+        self.t_ext = self.t_red = 0.0
+
+    # ---- one cycle's pieces --------------------------------------------
+    def _prefix(self, k: int) -> int:
+        """The previous cycle's restart: the kev-row rotation by Q and the
+        residual update from the device sigmak/betak (dsapps.f:445-481),
+        then its B-norm.  Returns the rotated row count."""
+        ds, tdt = self.ds, self.tdt
+        rows = kev_rows(self.ncv, k)
+        cuda_rot.rotate_rows(self.Q, ds.V, rows)
+        resid = self.sk[0] * ds.resid + self.sk[1] * ds.V[k].to(tdt)
+        ds.resid.copy_(resid)
+        if self.is_g:
+            ds.b_resid.copy_(self.op.b_apply(ds.resid))
+        ds.rnorm.copy_(self.bnorm(ds.resid, ds.b_resid))
+        return rows
+
+    def _cycle_body(self, k: int) -> None:
+        self._prefix(k)
+        self.ext.run(self.ds, k, self.ncv)
+
+    def _replay(self, k: int) -> None:
+        """The cycle's rotation and extension from ``k`` as a CUDA graph,
+        captured on first use.  A kernel wrapper counts its launch when the
+        capture records it; the capture's counts are taken back and added
+        again on every replay."""
+        entry = self.graphs.get(k)
+        if entry is None:
+            before = [f.launches for f in GRAPH_KERNELS]
+            g = torch.cuda.CUDAGraph()
+            g.capture_begin(pool=self.pool)
+            try:
+                self._cycle_body(k)
+            finally:
+                g.capture_end()
+            delta = [f.launches - b for f, b in zip(GRAPH_KERNELS, before)]
+            for f, d in zip(GRAPH_KERNELS, delta):
+                f.launches -= d
+            entry = self.graphs[k] = (g, delta)
+        g, delta = entry
+        g.replay()
+        for f, d in zip(GRAPH_KERNELS, delta):
+            f.launches += d
+        self.replays += 1
+
+    def _reduce(self, is_last: bool) -> np.ndarray:
+        """The cycle's reduced space and its packet, read once."""
+        ds = self.ds
+        args = (ds.a, ds.b, ds.rnorm, ds.brk, ds.force, ds.cnt, self.Q,
+                self.sk, self.packet)
+        self.packets += 1
+        sym_cycle(*args, self.params, is_last)
+        if not self.cuda:
+            return self.packet.numpy().copy()
+        self.pk_host.copy_(self.packet, non_blocking=True)
+        self.done_evt.record()
+        self.done_evt.synchronize()
+        return self.pk_host.numpy().copy()
+
+    # ---- the loop ------------------------------------------------------
+    def run(self) -> CycleOut:
+        if not self.cuda:
+            return self._loop()
+        cur = torch.cuda.current_stream(self.op.device)
+        self.stream.wait_stream(cur)
+        try:
+            with torch.cuda.stream(self.stream):
+                return self._loop()
+        finally:
+            cur.wait_stream(self.stream)
+
+    def _timed(self, fn, *args):
+        if not self.cuda:
+            t0 = time.perf_counter()
+            out = fn(*args)
+            return out, time.perf_counter() - t0
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn(*args)
+        e1.record()
+        self.events.append((e0, e1))
+        return out, None
+
+    def _loop(self) -> CycleOut:
+        cfg, ext, ncv = self.cfg, self.ext, self.ncv
+        st = self.state
+        counts, it, info, k = st.counts, st.iter, st.info, st.k
+        nev_cur = st.nev_cur
+        pk = None
+        first = True
+        while it < cfg.max_iter and info == 0:
+            is_last = it + 1 >= cfg.max_iter
+            k0 = k
+            if first:
+                _, dt = self._timed(ext.run, self.ds, k, ncv)
+                first = False
+            else:
+                counts = counts.add(nbx=int(self.is_g),
+                                    nrotr=kev_rows(ncv, k))
+                body = self._replay if self.capture else self._cycle_body
+                _, dt = self._timed(body, k)
+            self.t_ext += dt or 0.0
+            pk, dt = self._timed(self._reduce, is_last)
+            self.t_red += dt or 0.0
+            brk = int(pk[P_BRK])
+            if brk != -1:
+                counts, info, k = ext.recover(self.ds, brk, k0, ncv, st.gen,
+                                              counts, info, int(pk[P_FORCE]))
+                if info != 0:
+                    it += 1
+                    break
+                pk = self._reduce(is_last)
+            else:
+                counts = ext.static_counts(counts, ncv - k0)
+            it += 1
+            if int(pk[P_INFO]) != 0:
+                info = int(pk[P_INFO])
+                break
+            if pk[P_DONE] or is_last:
+                k = ncv
+                break
+            k = nev_cur = int(pk[P_NEV])
+        return self._out(pk, counts, it, info, k, nev_cur)
+
+    def _out(self, pk, counts, it, info, k, nev_cur) -> CycleOut:
+        """The state's host fields from the last packet (the factorization
+        before its shifts: every exit skips them), or, after a failed
+        restart vector, from one read."""
+        ds, ncv, cfg = self.ds, self.ncv, self.cfg
+        if pk is None or info > 0:
+            back = torch.cat([ds.a.double(), ds.b.double(),
+                              ds.rnorm.double().reshape(1),
+                              ds.cnt.double()]).cpu().numpy()
+            a, b, rn = back[:ncv], back[ncv:2 * ncv - 1], back[2 * ncv]
+            ev = back[2 * ncv + 1:]
+            ritz = bounds = np.zeros(ncv)
+            done, nconv = False, 0
+        else:
+            a = pk[P_HEAD:P_HEAD + ncv]
+            b = pk[P_HEAD + ncv:P_HEAD + 2 * ncv - 1]
+            rn, ev = pk[P_RNORM], pk[P_CNT:P_CNT + 4]
+            ritz = pk[P_HEAD + 2 * ncv:P_HEAD + 3 * ncv]
+            bounds = pk[P_HEAD + 3 * ncv:]
+            done, nconv = bool(pk[P_DONE]), int(pk[P_NCONV])
+        ev = np.asarray(ev).astype(np.int64)
+        counts = counts.add(nrorth=ev[0], nitref=ev[1], nbx=ev[2],
+                            nrorthr=ev[3])
+        H = (np.diag(a) + np.diag(b, 1) + np.diag(b, -1)).astype(cfg.dtype)
+        rdt = _dt.real_dtype(cfg.dtype)
+        state = self.state.replace(
+            V=ds.V, H=H, resid=ds.resid, b_resid=ds.b_resid,
+            rnorm=rdt.type(rn), k=k, nev_cur=nev_cur, iter=it, info=info,
+            counts=counts)
+        return CycleOut(state=state, done=done, nconv=nconv,
+                        ritz_s=ritz.astype(rdt), bounds_s=bounds.astype(rdt))
+
+    def times(self):
+        """Seconds of the extensions (with the restart rotations) and of
+        the reduced spaces: CUDA-event device time on a card."""
+        if self.cuda:
+            torch.cuda.synchronize(self.op.device)
+            ms = [e0.elapsed_time(e1) for e0, e1 in self.events]
+            self.t_ext = sum(ms[0::2]) / 1e3
+            self.t_red = sum(ms[1::2]) / 1e3
+        return self.t_ext, self.t_red
+
+    def record(self, stats) -> None:
+        """The dispatch counters in the solve's statistics."""
+        stats.packets = self.packets
+        stats.graphs_captured = len(self.graphs)
+        stats.graph_replays = self.replays
+        stats.replay_launches = {
+            k: {f.__name__: d for f, d in zip(GRAPH_KERNELS, delta) if d}
+            for k, (_, delta) in sorted(self.graphs.items())}

@@ -23,8 +23,8 @@ extern "C" {
 int atpt_cgs_proj(int code, int bucket, int vect, int grid, int rows, const void* V,
                   long long ld, const void* w, long long n, void* partial, void* ticket,
                   void* out, void* stream) {
-  return atpt::proj_code<false>(code, atpt::Plan{bucket, vect, grid}, nullptr, rows, V, ld, w,
-                                n, partial, ticket, out, static_cast<cudaStream_t>(stream));
+  return atpt::proj_code(code, atpt::Plan{bucket, vect, grid}, rows, V, ld, w, n, partial,
+                         ticket, out, static_cast<cudaStream_t>(stream));
 }
 
 // r = w - sum_{k < rows} h[k] V[k], out of place, in one launch; with
@@ -33,9 +33,8 @@ int atpt_cgs_proj(int code, int bucket, int vect, int grid, int rows, const void
 int atpt_cgs_update(int code, int bucket, int vect, int grid, const void* h, int rows,
                     const void* V, long long ld, const void* w, void* r, long long n,
                     void* partial, void* ticket, void* norm_out, void* stream) {
-  return atpt::update_code<false>(code, atpt::Plan{bucket, vect, grid}, nullptr, h, rows, V,
-                                  ld, w, r, n, partial, ticket, norm_out,
-                                  static_cast<cudaStream_t>(stream));
+  return atpt::update_code(code, atpt::Plan{bucket, vect, grid}, h, rows, V, ld, w, r, n,
+                           partial, ticket, norm_out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -412,14 +412,6 @@ cgs_proj_regs(int rows, const T* __restrict__ V, int64_t ld, const A* __restrict
   proj_pass<T, A, R, VECT, false>(nullptr, rows, V, ld, w, n, partial, ticket, out);
 }
 
-template <typename T, typename A, int R, bool VECT>
-__global__ void __launch_bounds__(PASS_THREADS, 1)
-sel_proj_regs(const int* __restrict__ idx, int rows, const T* __restrict__ V, int64_t ld,
-              const A* __restrict__ w, int64_t n, A* __restrict__ partial,
-              unsigned* __restrict__ ticket, A* __restrict__ out) {
-  proj_pass<T, A, R, VECT, true>(idx, rows, V, ld, w, n, partial, ticket, out);
-}
-
 template <typename T, typename A, int R, bool VECT, bool NORM>
 __global__ void __launch_bounds__(PASS_THREADS, 1)
 cgs_update_regs(const A* __restrict__ h, int rows, const T* __restrict__ V, int64_t ld,
@@ -430,15 +422,57 @@ cgs_update_regs(const A* __restrict__ h, int rows, const T* __restrict__ V, int6
                                           norm_out);
 }
 
-// In place: r is both w and the output, so it carries no __restrict__.
-template <typename T, typename A, int R, bool VECT, bool NORM>
+// ---- rows counted on the device ---------------------------------------------
+
+// The event kernels (sel.cu) read their row count K from device memory
+// (`word`, one int32), so that a step whose event the device decides needs
+// no host read: 0 returns at once, leaving r and the norm untouched;
+// otherwise K = min(*word, nidx) rows idx[0..K) run the pass of K's bucket,
+// chosen at block entry, on the host plan's grid, which does not depend on
+// the row count: K rows sum the same whatever nidx is.  The projection
+// writes zeros to out[K..nidx) (all of out when K = 0).  In place, the
+// update's r carries no __restrict__.
+template <typename T, typename A, bool VECT>
 __global__ void __launch_bounds__(PASS_THREADS, 1)
-sel_update_regs(const int* __restrict__ idx, const A* __restrict__ s, int rows,
-                const T* __restrict__ V, int64_t ld, A* r, int64_t n,
-                A* __restrict__ partial, unsigned* __restrict__ ticket,
+sel_proj_word(const int* __restrict__ idx, int nidx, const int* __restrict__ word,
+              const T* __restrict__ V, int64_t ld, const A* __restrict__ w, int64_t n,
+              A* __restrict__ partial, unsigned* __restrict__ ticket, A* __restrict__ out) {
+  const int rows = max(min(*word, nidx), 0);
+  if (blockIdx.x == 0)
+    for (int k = rows + static_cast<int>(threadIdx.x); k < nidx; k += PASS_THREADS) out[k] = A(0);
+  if (rows == 0) return;
+  if (rows <= 8) {
+    proj_pass<T, A, 8, VECT, true>(idx, rows, V, ld, w, n, partial, ticket, out);
+  } else if (rows <= 16) {
+    proj_pass<T, A, 16, VECT, true>(idx, rows, V, ld, w, n, partial, ticket, out);
+  } else if (rows <= 24) {
+    proj_pass<T, A, 24, VECT, true>(idx, rows, V, ld, w, n, partial, ticket, out);
+  } else {
+    proj_pass<T, A, 32, VECT, true>(idx, rows, V, ld, w, n, partial, ticket, out);
+  }
+}
+
+template <typename T, typename A, bool VECT, bool NORM>
+__global__ void __launch_bounds__(PASS_THREADS, 1)
+sel_update_word(const int* __restrict__ idx, const A* __restrict__ s, int nidx,
+                const int* __restrict__ word, const T* __restrict__ V, int64_t ld, A* r,
+                int64_t n, A* __restrict__ partial, unsigned* __restrict__ ticket,
                 A* __restrict__ norm_out) {
-  update_pass<T, A, R, VECT, NORM, true>(idx, s, rows, V, ld, r, r, n, partial, ticket,
-                                         norm_out);
+  const int rows = min(*word, nidx);
+  if (rows <= 0) return;
+  if (rows <= 8) {
+    update_pass<T, A, 8, VECT, NORM, true>(idx, s, rows, V, ld, r, r, n, partial, ticket,
+                                           norm_out);
+  } else if (rows <= 16) {
+    update_pass<T, A, 16, VECT, NORM, true>(idx, s, rows, V, ld, r, r, n, partial, ticket,
+                                            norm_out);
+  } else if (rows <= 24) {
+    update_pass<T, A, 24, VECT, NORM, true>(idx, s, rows, V, ld, r, r, n, partial, ticket,
+                                            norm_out);
+  } else {
+    update_pass<T, A, 32, VECT, NORM, true>(idx, s, rows, V, ld, r, r, n, partial, ticket,
+                                            norm_out);
+  }
 }
 
 // ---- launches ---------------------------------------------------------------
@@ -467,127 +501,144 @@ bool plan_ok(const Plan& p, int rows, const void* V, int64_t ld, const void* w, 
   return static_cast<int64_t>(p.grid) * PASS_THREADS * PASS_RUN >= nv;
 }
 
-template <typename T, typename A, int R, bool VECT, bool IDX>
-void proj_launch(const Plan& p, const int* idx, int rows, const T* V, int64_t ld, const A* w,
-                 int64_t n, A* partial, unsigned* ticket, A* out, cudaStream_t st) {
-  if constexpr (IDX) {
-    sel_proj_regs<T, A, R, VECT><<<p.grid, PASS_THREADS, 0, st>>>(idx, rows, V, ld, w, n,
-                                                                  partial, ticket, out);
-  } else {
-    cgs_proj_regs<T, A, R, VECT><<<p.grid, PASS_THREADS, 0, st>>>(rows, V, ld, w, n, partial,
-                                                                  ticket, out);
-  }
-}
-
-template <typename T, typename A, int R, bool IDX>
-int proj_bucket(const Plan& p, const int* idx, int rows, const T* V, int64_t ld, const A* w,
-                int64_t n, A* partial, unsigned* ticket, A* out, cudaStream_t st) {
+template <typename T, typename A, int R>
+int proj_bucket(const Plan& p, int rows, const T* V, int64_t ld, const A* w, int64_t n,
+                A* partial, unsigned* ticket, A* out, cudaStream_t st) {
   if (p.vect) {
-    proj_launch<T, A, R, true, IDX>(p, idx, rows, V, ld, w, n, partial, ticket, out, st);
+    cgs_proj_regs<T, A, R, true><<<p.grid, PASS_THREADS, 0, st>>>(rows, V, ld, w, n, partial,
+                                                                  ticket, out);
   } else {
-    proj_launch<T, A, R, false, IDX>(p, idx, rows, V, ld, w, n, partial, ticket, out, st);
+    cgs_proj_regs<T, A, R, false><<<p.grid, PASS_THREADS, 0, st>>>(rows, V, ld, w, n, partial,
+                                                                   ticket, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename A, bool IDX>
-int proj_typed(const Plan& p, const void* idx, int rows, const void* V, int64_t ld,
-               const void* w, int64_t n, void* partial, void* ticket, void* out,
-               cudaStream_t st) {
-  if (!plan_ok<T>(p, rows, V, ld, w, nullptr, n) || (IDX && idx == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto it = static_cast<const int*>(idx);
+template <typename T, typename A>
+int proj_typed(const Plan& p, int rows, const void* V, int64_t ld, const void* w, int64_t n,
+               void* partial, void* ticket, void* out, cudaStream_t st) {
+  if (!plan_ok<T>(p, rows, V, ld, w, nullptr, n)) return static_cast<int>(cudaErrorInvalidValue);
   auto Vt = static_cast<const T*>(V);
   auto wt = static_cast<const A*>(w);
   auto pt = static_cast<A*>(partial);
   auto tk = static_cast<unsigned*>(ticket);
   auto ot = static_cast<A*>(out);
   switch (p.bucket) {
-    case 8: return proj_bucket<T, A, 8, IDX>(p, it, rows, Vt, ld, wt, n, pt, tk, ot, st);
-    case 16: return proj_bucket<T, A, 16, IDX>(p, it, rows, Vt, ld, wt, n, pt, tk, ot, st);
-    case 24: return proj_bucket<T, A, 24, IDX>(p, it, rows, Vt, ld, wt, n, pt, tk, ot, st);
-    default: return proj_bucket<T, A, 32, IDX>(p, it, rows, Vt, ld, wt, n, pt, tk, ot, st);
+    case 8: return proj_bucket<T, A, 8>(p, rows, Vt, ld, wt, n, pt, tk, ot, st);
+    case 16: return proj_bucket<T, A, 16>(p, rows, Vt, ld, wt, n, pt, tk, ot, st);
+    case 24: return proj_bucket<T, A, 24>(p, rows, Vt, ld, wt, n, pt, tk, ot, st);
+    default: return proj_bucket<T, A, 32>(p, rows, Vt, ld, wt, n, pt, tk, ot, st);
   }
 }
 
-template <typename T, typename A, int R, bool VECT, bool NORM, bool IDX>
-void update_launch(const Plan& p, const int* idx, const A* h, int rows, const T* V, int64_t ld,
-                   const A* w, A* r, int64_t n, A* partial, unsigned* ticket, A* norm_out,
-                   cudaStream_t st) {
-  if constexpr (IDX) {
-    sel_update_regs<T, A, R, VECT, NORM><<<p.grid, PASS_THREADS, 0, st>>>(
-        idx, h, rows, V, ld, r, n, partial, ticket, norm_out);
-  } else {
-    cgs_update_regs<T, A, R, VECT, NORM><<<p.grid, PASS_THREADS, 0, st>>>(
-        h, rows, V, ld, w, r, n, partial, ticket, norm_out);
-  }
-}
-
-template <typename T, typename A, int R, bool NORM, bool IDX>
-int update_bucket(const Plan& p, const int* idx, const A* h, int rows, const T* V, int64_t ld,
-                  const A* w, A* r, int64_t n, A* partial, unsigned* ticket, A* norm_out,
-                  cudaStream_t st) {
+template <typename T, typename A, int R, bool NORM>
+int update_bucket(const Plan& p, const A* h, int rows, const T* V, int64_t ld, const A* w, A* r,
+                  int64_t n, A* partial, unsigned* ticket, A* norm_out, cudaStream_t st) {
   if (p.vect) {
-    update_launch<T, A, R, true, NORM, IDX>(p, idx, h, rows, V, ld, w, r, n, partial, ticket,
-                                            norm_out, st);
+    cgs_update_regs<T, A, R, true, NORM><<<p.grid, PASS_THREADS, 0, st>>>(
+        h, rows, V, ld, w, r, n, partial, ticket, norm_out);
   } else {
-    update_launch<T, A, R, false, NORM, IDX>(p, idx, h, rows, V, ld, w, r, n, partial, ticket,
-                                             norm_out, st);
+    cgs_update_regs<T, A, R, false, NORM><<<p.grid, PASS_THREADS, 0, st>>>(
+        h, rows, V, ld, w, r, n, partial, ticket, norm_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename A, bool NORM, bool IDX>
-int update_norm(const Plan& p, const int* idx, const A* h, int rows, const T* V, int64_t ld,
-                const A* w, A* r, int64_t n, A* partial, unsigned* ticket, A* norm_out,
-                cudaStream_t st) {
+template <typename T, typename A, bool NORM>
+int update_norm(const Plan& p, const A* h, int rows, const T* V, int64_t ld, const A* w, A* r,
+                int64_t n, A* partial, unsigned* ticket, A* norm_out, cudaStream_t st) {
   switch (p.bucket) {
-    case 8: return update_bucket<T, A, 8, NORM, IDX>(p, idx, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
-    case 16: return update_bucket<T, A, 16, NORM, IDX>(p, idx, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
-    case 24: return update_bucket<T, A, 24, NORM, IDX>(p, idx, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
-    default: return update_bucket<T, A, 32, NORM, IDX>(p, idx, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
+    case 8: return update_bucket<T, A, 8, NORM>(p, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
+    case 16: return update_bucket<T, A, 16, NORM>(p, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
+    case 24: return update_bucket<T, A, 24, NORM>(p, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
+    default: return update_bucket<T, A, 32, NORM>(p, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
   }
 }
 
-template <typename T, typename A, bool IDX>
-int update_typed(const Plan& p, const void* idx, const void* h, int rows, const void* V,
-                 int64_t ld, const void* w, void* r, int64_t n, void* partial, void* ticket,
-                 void* norm_out, cudaStream_t st) {
-  if (!plan_ok<T>(p, rows, V, ld, w, r, n) || (IDX && idx == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, typename A>
+int update_typed(const Plan& p, const void* h, int rows, const void* V, int64_t ld,
+                 const void* w, void* r, int64_t n, void* partial, void* ticket, void* norm_out,
+                 cudaStream_t st) {
+  if (!plan_ok<T>(p, rows, V, ld, w, r, n)) return static_cast<int>(cudaErrorInvalidValue);
   auto args = [&](auto norm) {
-    return update_norm<T, A, decltype(norm)::value, IDX>(
-        p, static_cast<const int*>(idx), static_cast<const A*>(h), rows,
-        static_cast<const T*>(V), ld, static_cast<const A*>(w), static_cast<A*>(r), n,
-        static_cast<A*>(partial), static_cast<unsigned*>(ticket), static_cast<A*>(norm_out),
-        st);
+    return update_norm<T, A, decltype(norm)::value>(
+        p, static_cast<const A*>(h), rows, static_cast<const T*>(V), ld,
+        static_cast<const A*>(w), static_cast<A*>(r), n, static_cast<A*>(partial),
+        static_cast<unsigned*>(ticket), static_cast<A*>(norm_out), st);
   };
   return norm_out != nullptr ? args(std::true_type{}) : args(std::false_type{});
 }
 
-// The dtype code of the C interface (common.cuh) -> the typed pass.
-template <bool IDX>
-int proj_code(int code, const Plan& p, const void* idx, int rows, const void* V, int64_t ld,
-              const void* w, int64_t n, void* partial, void* ticket, void* out,
-              cudaStream_t st) {
+// The dtype code of the C interface (common.cuh) -> the typed CGS pass.
+inline int proj_code(int code, const Plan& p, int rows, const void* V, int64_t ld, const void* w,
+                     int64_t n, void* partial, void* ticket, void* out, cudaStream_t st) {
   switch (code) {
-    case 0: return proj_typed<float, float, IDX>(p, idx, rows, V, ld, w, n, partial, ticket, out, st);
-    case 1: return proj_typed<__nv_bfloat16, float, IDX>(p, idx, rows, V, ld, w, n, partial, ticket, out, st);
-    case 2: return proj_typed<double, double, IDX>(p, idx, rows, V, ld, w, n, partial, ticket, out, st);
+    case 0: return proj_typed<float, float>(p, rows, V, ld, w, n, partial, ticket, out, st);
+    case 1: return proj_typed<__nv_bfloat16, float>(p, rows, V, ld, w, n, partial, ticket, out, st);
+    case 2: return proj_typed<double, double>(p, rows, V, ld, w, n, partial, ticket, out, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool IDX>
-int update_code(int code, const Plan& p, const void* idx, const void* h, int rows,
-                const void* V, int64_t ld, const void* w, void* r, int64_t n, void* partial,
-                void* ticket, void* norm_out, cudaStream_t st) {
+inline int update_code(int code, const Plan& p, const void* h, int rows, const void* V,
+                       int64_t ld, const void* w, void* r, int64_t n, void* partial,
+                       void* ticket, void* norm_out, cudaStream_t st) {
   switch (code) {
-    case 0: return update_typed<float, float, IDX>(p, idx, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
-    case 1: return update_typed<__nv_bfloat16, float, IDX>(p, idx, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
-    case 2: return update_typed<double, double, IDX>(p, idx, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
+    case 0: return update_typed<float, float>(p, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
+    case 1: return update_typed<__nv_bfloat16, float>(p, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
+    case 2: return update_typed<double, double>(p, h, rows, V, ld, w, r, n, partial, ticket, norm_out, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The word-counted event passes (sel_proj_word, sel_update_word): the plan's
+// vector width and grid, checked as for a launch of nidx rows.
+template <typename T, typename A>
+int proj_word_typed(int vect, int grid, const void* idx, int nidx, const void* word,
+                    const void* V, int64_t ld, const void* w, int64_t n, void* partial,
+                    void* ticket, void* out, cudaStream_t st) {
+  const Plan p{32, vect, grid};
+  if (!plan_ok<T>(p, nidx, V, ld, w, nullptr, n) || idx == nullptr || word == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto args = [&](auto vec) {
+    sel_proj_word<T, A, decltype(vec)::value><<<grid, PASS_THREADS, 0, st>>>(
+        static_cast<const int*>(idx), nidx, static_cast<const int*>(word),
+        static_cast<const T*>(V), ld, static_cast<const A*>(w), n, static_cast<A*>(partial),
+        static_cast<unsigned*>(ticket), static_cast<A*>(out));
+  };
+  if (vect) {
+    args(std::true_type{});
+  } else {
+    args(std::false_type{});
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename A>
+int update_word_typed(int vect, int grid, const void* idx, const void* s, int nidx,
+                      const void* word, const void* V, int64_t ld, void* r, int64_t n,
+                      void* partial, void* ticket, void* norm_out, cudaStream_t st) {
+  const Plan p{32, vect, grid};
+  if (!plan_ok<T>(p, nidx, V, ld, r, r, n) || idx == nullptr || word == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto args = [&](auto vec, auto norm) {
+    sel_update_word<T, A, decltype(vec)::value, decltype(norm)::value>
+        <<<grid, PASS_THREADS, 0, st>>>(
+            static_cast<const int*>(idx), static_cast<const A*>(s), nidx,
+            static_cast<const int*>(word), static_cast<const T*>(V), ld, static_cast<A*>(r), n,
+            static_cast<A*>(partial), static_cast<unsigned*>(ticket),
+            static_cast<A*>(norm_out));
+  };
+  if (vect && norm_out != nullptr) {
+    args(std::true_type{}, std::true_type{});
+  } else if (vect) {
+    args(std::true_type{}, std::false_type{});
+  } else if (norm_out != nullptr) {
+    args(std::false_type{}, std::true_type{});
+  } else {
+    args(std::false_type{}, std::false_type{});
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -14,6 +14,8 @@
 // per-block partials in a fixed order (two calls are bit-equal).  A zero
 // coefficient skips its row (the caller's valid-mask contract of the TPU
 // kernel): an all-zero s returns r bit for bit.  The update is in place.
+// K is read from device memory (a word of 0 is no event), so that the
+// selective step decides its events with no host read.
 #include "passes.cuh"
 
 extern "C" {
@@ -22,25 +24,39 @@ const char* atpt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// s[k] = <V[idx[k]], br> for k < K, in one launch.  V: (rows, ld) storage;
-// br and s in the accumulation type; `partial` holds K * grid values of it
-// and `ticket` one zeroed unsigned int, both reused from call to call on
-// one stream.  (bucket, vect, grid) is the host plan.
-int atpt_sel_proj(int code, int bucket, int vect, int grid, const void* idx, int K,
+// s[k] = <V[idx[k]], br> for k < K, in one launch, K = min(*word, nidx):
+// `word` points to one int32, 0 for "no event" (s is all zero) or K in
+// [1, nidx]; idx holds nidx >= K rows, of which the first K are used; s
+// (nidx values) is zero at and past K.  V: (rows, ld) storage; br and s in
+// the accumulation type; `partial` holds nidx * grid values of it and
+// `ticket` one zeroed unsigned int, both reused from call to call on one
+// stream.  (vect, grid) is the host plan of nidx rows, whose grid and
+// vector width do not depend on the row count.
+int atpt_sel_proj(int code, int vect, int grid, const void* idx, int nidx, const void* word,
                   const void* V, long long ld, const void* br, long long n, void* partial,
                   void* ticket, void* out, void* stream) {
-  return atpt::proj_code<true>(code, atpt::Plan{bucket, vect, grid}, idx, K, V, ld, br, n,
-                               partial, ticket, out, static_cast<cudaStream_t>(stream));
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (code) {
+    case 0: return atpt::proj_word_typed<float, float>(vect, grid, idx, nidx, word, V, ld, br, n, partial, ticket, out, st);
+    case 1: return atpt::proj_word_typed<__nv_bfloat16, float>(vect, grid, idx, nidx, word, V, ld, br, n, partial, ticket, out, st);
+    case 2: return atpt::proj_word_typed<double, double>(vect, grid, idx, nidx, word, V, ld, br, n, partial, ticket, out, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// r <- r - sum_k s[k] * V[idx[k]] in place, in one launch; with norm_out !=
-// NULL also norm_out[0] = ||r'||^2 (`partial` then holds grid values).
-int atpt_sel_update(int code, int bucket, int vect, int grid, const void* idx, const void* s,
-                    int K, const void* V, long long ld, void* r, long long n, void* partial,
-                    void* ticket, void* norm_out, void* stream) {
-  return atpt::update_code<true>(code, atpt::Plan{bucket, vect, grid}, idx, s, K, V, ld, r, r,
-                                 n, partial, ticket, norm_out,
-                                 static_cast<cudaStream_t>(stream));
+// r <- r - sum_{k < K} s[k] * V[idx[k]] in place, in one launch, K as above
+// (0 leaves r and the norm untouched); with norm_out != NULL also
+// norm_out[0] = ||r'||^2 (`partial` then holds grid values).
+int atpt_sel_update(int code, int vect, int grid, const void* idx, const void* s, int nidx,
+                    const void* word, const void* V, long long ld, void* r, long long n,
+                    void* partial, void* ticket, void* norm_out, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (code) {
+    case 0: return atpt::update_word_typed<float, float>(vect, grid, idx, s, nidx, word, V, ld, r, n, partial, ticket, norm_out, st);
+    case 1: return atpt::update_word_typed<__nv_bfloat16, float>(vect, grid, idx, s, nidx, word, V, ld, r, n, partial, ticket, norm_out, st);
+    case 2: return atpt::update_word_typed<double, double>(vect, grid, idx, s, nidx, word, V, ld, r, n, partial, ticket, norm_out, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

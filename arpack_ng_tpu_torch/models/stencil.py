@@ -51,7 +51,8 @@ def laplacian_1d(n: int, dtype=np.float32, *, pad: bool = True,
         return h2inv * y if scale else y
 
     op = from_matvec(_wrap_padded(stencil, n, n_pad), n, dtype,
-                     n_pad=n_pad, hermitian=True, device=device)
+                     n_pad=n_pad, hermitian=True, device=device,
+                     capturable=True)
     a = h2inv * sp.diags([-np.ones(n - 1), 2 * np.ones(n),
                           -np.ones(n - 1)], [-1, 0, 1], format="csr")
     return op, a.astype(np.float64)
@@ -74,7 +75,8 @@ def laplacian_2d(nx: int, dtype=np.float32, *, pad: bool = True,
         return y.view(-1)
 
     op = from_matvec(_wrap_padded(stencil, n, n_pad), n, dtype,
-                     n_pad=n_pad, hermitian=True, device=device)
+                     n_pad=n_pad, hermitian=True, device=device,
+                     capturable=True)
     t = sp.diags([-np.ones(nx - 1), 2 * np.ones(nx), -np.ones(nx - 1)],
                  [-1, 0, 1])
     eye = sp.identity(nx)
@@ -99,7 +101,8 @@ def convection_diffusion_1d(n: int, rho: float = 10.0, dtype=np.float32, *,
         return y
 
     op = from_matvec(_wrap_padded(stencil, n, n_pad), n, dtype,
-                     n_pad=n_pad, hermitian=False, device=device)
+                     n_pad=n_pad, hermitian=False, device=device,
+                     capturable=True)
     a = sp.diags([dl * np.ones(n - 1), dd * np.ones(n),
                   du * np.ones(n - 1)], [-1, 0, 1], format="csr")
     return op, a.astype(np.float64)
@@ -127,7 +130,8 @@ def convection_diffusion_2d(nx: int, rho: float = 100.0, dtype=np.float32,
         return y.view(-1)
 
     op = from_matvec(_wrap_padded(stencil, n, n_pad), n, dtype,
-                     n_pad=n_pad, hermitian=False, device=device)
+                     n_pad=n_pad, hermitian=False, device=device,
+                     capturable=True)
     t = sp.diags([dl * np.ones(nx - 1), dd * np.ones(nx),
                   du * np.ones(nx - 1)], [-1, 0, 1])
     t0 = sp.diags([-np.ones(nx - 1), np.zeros(nx), -np.ones(nx - 1)],

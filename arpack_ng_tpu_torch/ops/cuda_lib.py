@@ -24,7 +24,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sel.cu", "rot.cu", "cgs.cu", "dia.cu", "psell.cu", "gather.cu")
+SOURCES = ("sel.cu", "rot.cu", "cgs.cu", "dia.cu", "psell.cu", "gather.cu",
+           "sym_cycle.cu")
 HEADERS = ("common.cuh", "passes.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -126,12 +127,17 @@ def load() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.atpt_error_string.argtypes = [i32]
     lib.atpt_error_string.restype = ctypes.c_char_p
-    lib.atpt_sel_proj.argtypes = [i32, i32, i32, i32, vp, i32, vp, i64, vp,
+    lib.atpt_sel_proj.argtypes = [i32, i32, i32, vp, i32, vp, vp, i64, vp,
                                   i64, vp, vp, vp, vp]
     lib.atpt_sel_proj.restype = i32
-    lib.atpt_sel_update.argtypes = [i32, i32, i32, i32, vp, vp, i32, vp, i64,
+    lib.atpt_sel_update.argtypes = [i32, i32, i32, vp, vp, i32, vp, vp, i64,
                                     vp, i64, vp, vp, vp, vp]
     lib.atpt_sel_update.restype = i32
+    f64 = ctypes.c_double
+    lib.atpt_sym_cycle.argtypes = [i32, i32, i32, i32, i32, i32, f64, f64,
+                                   f64, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                   vp, vp]
+    lib.atpt_sym_cycle.restype = i32
     lib.atpt_rotate_rows.argtypes = [i32, i32, i32, i32, vp, i32, i32, i32,
                                      vp, i64, i64, vp]
     lib.atpt_rotate_rows.restype = i32

@@ -12,7 +12,10 @@ Every vector is a torch tensor of length ``n_pad`` on ``device``, the CUDA
 card unless the constructor is given another device (``device="cpu"``);
 implementations map zero padding to zero padding.  ``perm`` is an optional
 row permutation (internal row i holds logical coordinate ``perm[i]``);
-``format`` is the execution structure the sparse importer chose.
+``format`` is the execution structure the sparse importer chose;
+``capturable`` says whether a CUDA graph may capture ``apply`` (the
+operator's declared property: the package's own operators set it, a
+caller's ``from_matvec`` callable does not unless told).
 """
 from __future__ import annotations
 
@@ -45,6 +48,10 @@ class Operator:
     #   ('dense'/'dia'/'ell'/'hyb'/'psell'/'coo'); None for user-built
     #   operators
     device: object = DEFAULT        # torch device every vector lives on
+    capturable: bool = False        # apply/b_apply are torch ops and
+    #   kernels with no host read or sync, which a CUDA graph can hold
+    #   (the restart loop then replays its extensions as graphs); False
+    #   for a caller's Python matvec, which may do anything
 
     def __post_init__(self):
         if self.n_pad == 0:
@@ -95,7 +102,8 @@ def from_dense(a, m=None, *, n_pad: int = 0, hermitian: bool = False,
 
         return Operator(n=n, dtype=dtype, apply=apply, bmat="I", mode=1,
                         a_apply=lambda v: a_dev @ v, n_pad=n_pad,
-                        hermitian=hermitian, format="dense", device=device)
+                        hermitian=hermitian, format="dense", device=device,
+                        capturable=True)
 
     # M is factored once on the host, as in the reference package
     import scipy.linalg as sla
@@ -113,22 +121,27 @@ def from_dense(a, m=None, *, n_pad: int = 0, hermitian: bool = False,
                     b_apply=lambda v: m_dev @ v,
                     a_apply=lambda v: a_dev @ v,
                     m_apply=lambda v: m_dev @ v,
-                    n_pad=n_pad, hermitian=hermitian, device=device)
+                    n_pad=n_pad, hermitian=hermitian, device=device,
+                    capturable=True)
 
 
 def from_matvec(matvec: Callable, n: int, dtype, *, n_pad: int = 0,
-                hermitian: bool = False, device=DEFAULT) -> Operator:
+                hermitian: bool = False, device=DEFAULT,
+                capturable: bool = False) -> Operator:
     """Mode-1 standard operator from a torch matvec on padded vectors
     (the ``ido=1`` loop body of EXAMPLES/SIMPLE/dssimp.f) on ``device``
     (the card unless told otherwise).  No data moves here: a solve on a
-    device this process lacks raises when it starts."""
+    device this process lacks raises when it starts.  ``capturable``: the
+    caller declares that ``matvec`` is torch ops and kernels with no host
+    read or sync (see :class:`Operator`)."""
     def apply(v, bv):
         w = matvec(v)
         return w, w
 
     return Operator(n=n, dtype=np.dtype(dtype), apply=apply, bmat="I",
                     mode=1, a_apply=matvec, n_pad=n_pad or n,
-                    hermitian=hermitian, device=device)
+                    hermitian=hermitian, device=device,
+                    capturable=capturable)
 
 
 def from_diagonal(d, *, n_pad: int = 0, device=DEFAULT) -> Operator:
@@ -149,4 +162,5 @@ def from_diagonal(d, *, n_pad: int = 0, device=DEFAULT) -> Operator:
 
     return Operator(n=n, dtype=d.dtype, apply=apply, bmat="I", mode=1,
                     a_apply=lambda v: d_dev * v, n_pad=n_pad,
-                    hermitian=not np.iscomplexobj(d), device=device)
+                    hermitian=not np.iscomplexobj(d), device=device,
+                    capturable=True)

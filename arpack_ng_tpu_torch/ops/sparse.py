@@ -260,4 +260,4 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
 
     return Operator(n=n, dtype=a.dtype, apply=apply, bmat="I", mode=1,
                     a_apply=matvec, n_pad=n_pad, hermitian=hermitian,
-                    perm=perm, format=format, device=device)
+                    perm=perm, format=format, device=device, capturable=True)

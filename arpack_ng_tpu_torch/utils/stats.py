@@ -100,6 +100,14 @@ class SolverStats:
     nrotr: int = 0
     nrorthr: int = 0
     timers: Timers = dataclasses.field(default_factory=Timers)
+    # the device restart loop's dispatch (FusedSymSolver, selective):
+    # packets read (one per cycle, one more after a breakdown), CUDA graphs
+    # captured and replayed, and each graph's kernel launches per replay
+    # (start k -> {kernel: launches})
+    packets: int = 0
+    graphs_captured: int = 0
+    graph_replays: int = 0
+    replay_launches: dict = dataclasses.field(default_factory=dict)
 
     def absorb_counts(self, counts: OpCounts) -> None:
         for f in OpCounts._fields:

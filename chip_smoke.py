@@ -24,16 +24,32 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    card could take and the host microseconds per call of the wrapper and
    of the library call (events at K = 8/16/24/32, with the fixed cost of a
    call at n = 4096 beside ``torch.mv``); the rotation at rows 8/16/24/32,
-   also with fewer columns per thread than the plan's;
+   also with fewer columns per thread than the plan's.  Then the event
+   kernels as the main path launches them, over all 32 rows with K read
+   from device memory: K = 0 leaves r bit for bit, every K 1..32 equals a
+   call over the K rows alone bit for bit, timed at K = 0/8/16/24/32; and
+   the
+   reduced-space kernel (``csrc/sym_cycle.cu``) against its numpy twin on
+   Lanczos tridiagonals (float32, float64; ncv = 32 with its workspace in
+   shared memory, and the first ncv past it, in global memory), timed
+   device-only at ncv = 32 beside the
+   twin's host wall and the library form (``torch.linalg.eigh`` and the QR
+   loop on the card, with their syncs);
 4. flagship solve through ``eigsh``: the 2-D Dirichlet Laplacian at
    nx = 1024 (n = 1,048,576), float32, k = 8, ncv = 32, which = 'LA',
    tol = 1e-5, first with the default selective reorthogonalization (the
-   main path, whose kernel launches are counted), then again with the
-   plain twins in place of the event kernels (a witness of how far their
-   summation order alone moves the counters; not counted), and then with
-   ``reorth='dgks'``.  Each returned value must lie within 1e-4*|lambda|
-   of an analytic eigenvalue and each residual ||Av - lambda v|| / |lambda|
-   (scipy CSR, float64, on the host) must be <= 1e-3;
+   main path: the device restart loop, its extensions replayed as CUDA
+   graphs, one packet read per cycle, whose kernel launches are counted
+   per replay; its cycles must fall in 194-322, the span of both reduced
+   spaces' counts over seeds 0-4, ``tools/flagship_seeds.py``), then
+   the same loop with the reduced space on the host as before (a witness
+   that must repeat the host loop's 299 / 6446 / 2270 exactly), then with
+   the plain twins in place of the event kernels (a witness of how far
+   their summation order alone moves the counters; not counted), and then
+   with ``reorth='dgks'`` (the host loop).  Each returned value must lie
+   within 1e-4*|lambda| of an analytic eigenvalue and each residual
+   ||Av - lambda v|| / |lambda| (scipy CSR, float64, on the host) must be
+   <= 1e-3;
 5. basis defect: 30 selective cycles at the floor tolerance must keep
    ``||V V^T - I||_max`` below ``64 sqrt(eps_f32)``;
 6. the CGS, DIA and PSELL kernels against their twins at full size, timed
@@ -82,11 +98,11 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 
     python3 chip_smoke.py --profile
 
-runs phases 1-2 and then, in place of phases 3-7, the restart-cycle
+runs phases 1-2 and then, in place of phases 3-9, the restart-cycle
 profile of the flagship behind ``PERF.md`` section 5: for each reorth
-variant the wall per Lanczos step over steady cycles, the card's busy
-share and largest device items under ``torch.profiler``, and the host's
-``cProfile``.
+variant (selective: the device loop; dgks: the host loop) the wall per
+Lanczos step over steady cycles, the card's busy share and largest device
+items under ``torch.profiler``, and the host's ``cProfile``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script needs no
@@ -129,6 +145,34 @@ RECORDED_COUNTERS = {
     "(b)": "cycles 381, nopx 7832",
     "(c)": "cycles 1, nopx 33",
 }
+#: the selective flagship's (cycles, nopx, nrorth) on the host loop
+#: (PERF.md); the device loop with the reduced space on the host repeats them
+HOST_LOOP_COUNTERS = (299, 6446, 2270)
+#: the gate on the main path's cycles: the span of the selective
+#: flagship's cycles over start-vector seeds 0-4 on the card, with the
+#: reduced-space kernel (194-297) and with the host loop's reduced space
+#: (210-322) (``tools/flagship_seeds.py``, chip run 6 of PR 7; PERF.md
+#: section 6): the kernel's rounding moves the count within it
+SELECTIVE_BAND = (194, 322)
+#: the reduced-space kernel against its twin (phase 3 and
+#: tests/test_torch_gpu.py): the largest gap each check allows, in the
+#: units of ``_sym_gaps``, about twice the largest the kernel showed (chip
+#: runs 7-8 of PR 7, here and in the card tests).  The float32 values catch
+#: an eigensolve in float32 in every case (``tools/reduced_rounding_cpu.py``:
+#: 3.3e-7 or more; the kernel's are equal); T and Q catch its QR in some.
+#: Past the shared-memory limit (ncv = 136 on the flagship's spectrum) Q's
+#: kept columns and the residual's new part meet close Ritz values, which
+#: leave them undetermined past 5.7e-4 there: ``SYM_LIMITS_GLOBAL``
+#: overrides.
+SYM_LIMITS = {
+    "torch.float32": dict(values=1e-7, T=5e-5, Q=2e-5, sigmak=5e-6,
+                          resid=1e-5),
+    "torch.float64": dict(values=1e-9, T=1e-7, Q=1e-7, sigmak=1e-7,
+                          resid=1e-7)}
+SYM_LIMITS_GLOBAL = {"torch.float32": dict(Q=1e-3, resid=1e-3),
+                     "torch.float64": {}}
+#: the kernels the selective flagship must launch
+SELECTIVE_PATH = ("sel_proj", "sel_update", "rotate_rows", "sym_cycle")
 #: wall limit of the FEM phase (7c), seconds
 FEM_MAX_S = 120.0
 #: phase 9: grid of the convection-diffusion operator (bench_nonsym.py:34-38)
@@ -143,9 +187,11 @@ EIGS_SOLVE_NX = 512
 EIGS_MAX_RESTARTS = 300
 EIGS_MAX_S = 150.0
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
-#: the tensor cores by accumulation dtype
+#: the tensor cores by accumulation dtype; its SMs (one block of the
+#: reduced-space kernel runs on one)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.float64": 34e12}
+SMS = 132
 
 
 def _gpu_line() -> str:
@@ -352,6 +398,271 @@ def check_kernels(torch, dev, n=N, timed=True):
                 rows_out[-1]["word"] = pv.vec * sb
         del V, V1, V2
     return rec, rows_out
+
+
+def check_word_events(torch, dev, n=N):
+    """Phase 3, the event kernels as the selective loop launches them on
+    every step: over all NCV rows, K read from device memory.  K = 0 leaves
+    r bit for bit and s zero; every K 1..32 equals a call over the K rows
+    alone bit for bit (s, r and the norm); then timed at K = 0 (a step
+    without an event) and K = 8, 16, 24, 32 beside the twin and the
+    library call."""
+    from arpack_ng_tpu_torch.ops import cuda_sel
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    V = torch.randn(NCV, n, generator=g, device=dev)
+    br = torch.randn(n, generator=g, device=dev)
+    r0 = torch.randn(n, generator=g, device=dev)
+    idx = torch.randperm(NCV, generator=g, device=dev).to(torch.int32)
+    coef = torch.randn(NCV, generator=g, device=dev)
+    words = {K: torch.full((), K, dtype=torch.int32, device=dev)
+             for K in range(NCV + 1)}
+    if cuda_sel.sel_proj(idx, V, br, word=words[0]).any():
+        raise AssertionError("sel_proj word 0 wrote a value")
+    r = r0.clone()
+    cuda_sel.sel_update(idx, coef, r, V, True, word=words[0])
+    if not torch.equal(r, r0):
+        raise AssertionError("sel_update word 0 changed r")
+    err = {"sel_proj": 0.0, "sel_update": 0.0}
+    for K in range(1, NCV + 1):
+        sw = cuda_sel.sel_proj(idx, V, br, word=words[K])
+        if not (torch.equal(sw[:K], cuda_sel.sel_proj(idx[:K], V, br))
+                and not sw[K:].any()):
+            raise AssertionError(f"sel_proj word {K} differs from K rows")
+        err["sel_proj"] = max(err["sel_proj"], _compare(
+            torch, sw, cuda_sel.sel_proj_plain(idx, V, br, words[K]), False,
+            f"sel_proj word {K}"))
+        rw, nw = cuda_sel.sel_update(idx, coef, r0.clone(), V, True,
+                                     word=words[K])
+        rh, nh = cuda_sel.sel_update(idx[:K], coef[:K].clone(), r0.clone(),
+                                     V, True)
+        if not (torch.equal(rw, rh) and torch.equal(nw, nh)):
+            raise AssertionError(f"sel_update word {K} differs from K rows")
+        err["sel_update"] = max(err["sel_update"], _compare(
+            torch, rw, cuda_sel.sel_update_plain(idx, coef, r0.clone(), V,
+                                                 False, words[K]), False,
+            f"sel_update word {K}"))
+    flush = timing.flush_buffer(dev)
+    rows_out = []
+    for K in (0,) + KS:
+        w = words[K]
+        idx_l = idx[:max(K, 1)].long()
+        rows_out.append(_timed_row(
+            torch, flush, "sel_proj_word", "torch.float32", K,
+            K * n * 4 + n * 4 + K * 4, 2 * K * n, "torch.float32",
+            lambda: cuda_sel.sel_proj(idx, V, br, word=w),
+            lambda: cuda_sel.sel_proj_plain(idx, V, br, w),
+            lambda: V.index_select(0, idx_l) @ br))
+        rows_out.append(_timed_row(
+            torch, flush, "sel_update_word", "torch.float32", K,
+            K * n * 4 + 2 * n * 4 + K * 4, 2 * K * n + 2 * n,
+            "torch.float32",
+            lambda: cuda_sel.sel_update(idx, coef, r0, V, True, word=w),
+            lambda: cuda_sel.sel_update_plain(idx, coef, r0, V, True, w),
+            lambda: torch.addmv(r0, V.index_select(0, idx_l).T,
+                                coef[:max(K, 1)], alpha=-1)))
+    return err, rows_out
+
+
+def _lanczos_tridiag(ncv=NCV, n=4096, seed=0):
+    """T (diagonal, subdiagonal with rnorm last) of ncv Lanczos steps with
+    full reorthogonalization on the flagship's spectrum (host, float64):
+    the 2-D Laplacian's eigenvalues at nx = 64, from a random start."""
+    rng = np.random.default_rng(seed)
+    lam = _analytic_spectrum(64)[-n:]
+    Vl = np.zeros((ncv + 1, n))
+    v = rng.uniform(-1, 1, n)
+    Vl[0] = v / np.linalg.norm(v)
+    d, e = np.zeros(ncv), np.zeros(ncv)
+    for j in range(ncv):
+        w = lam * Vl[j]
+        for _ in range(2):
+            w -= Vl[:j + 1].T @ (Vl[:j + 1] @ w)
+        d[j] = Vl[j] @ (lam * Vl[j])
+        e[j] = np.linalg.norm(w)
+        Vl[j + 1] = w / e[j]
+    return d, e
+
+
+def _sym_library(torch, T, rnorm, nev, np_eff):
+    """The library form of one cycle's reduced space on the card (the
+    yardstick, used nowhere in the port): ``torch.linalg.eigh`` (which
+    checks its info on the host), the bounds, then ``np_eff``
+    ``torch.linalg.qr`` steps with Q accumulated, as the host loop's
+    numpy code runs them."""
+    evals, S = torch.linalg.eigh(T)
+    bounds = torch.abs(rnorm * S[-1])
+    order = torch.argsort(evals, stable=True)
+    shifts = evals[order][:np_eff]
+    eye = torch.eye(T.shape[0], dtype=T.dtype, device=T.device)
+    Tc, Q = T, eye
+    for i in range(np_eff):
+        q, _ = torch.linalg.qr(Tc - shifts[i] * eye)
+        Tc = q.T @ Tc @ q
+        Q = Q @ q
+    torch.cuda.synchronize()
+    return bounds, Q
+
+
+def _sym_gaps(twin, other, d, ncv):
+    """How far one reduced-space result lies from the twin's, in the units
+    of ``SYM_LIMITS``: Ritz values and bounds, the new T and the residual's
+    new part over T's scale; Q's kept columns and sigmak.  Also whether the
+    packet's counts (done, nconv, nev_eff, np_eff) are equal."""
+    from arpack_ng_tpu_torch.ops import cuda_sym_cycle as csc
+
+    (ta, tb, tQ, tsk, tpk), (ka, kb, kQ, ksk, kpk) = twin, other
+    scale = float(np.abs(d).max())
+    k = int(tpk[csc.P_NEV])
+    out = {"values": float(np.abs(kpk[csc.P_HEAD + 2 * ncv:]
+                                  - tpk[csc.P_HEAD + 2 * ncv:]).max() / scale),
+           "counts_equal": all(kpk[i] == tpk[i] for i in (
+               csc.P_DONE, csc.P_NCONV, csc.P_NEV, csc.P_NP, csc.P_INFO))}
+    if not tpk[csc.P_DONE]:
+        out.update(
+            T=float(max(np.abs(ka[:k] - ta[:k]).max(),
+                        np.abs(kb[:k - 1] - tb[:k - 1]).max()) / scale),
+            Q=float(np.abs(kQ[:, :k] - tQ[:, :k]).max()),
+            sigmak=float(abs(ksk[0] - tsk[0])),
+            resid=float(np.abs(ksk[1] * kQ[:, k] - tsk[1] * tQ[:, k]).max()
+                        / scale))
+    return out
+
+
+def _sym_run(torch, csc, d, e, dt, where, p):
+    ncv = d.shape[0]
+    t = dict(dtype=dt, device=where)
+    bufs = [torch.tensor(d, **t), torch.tensor(e, **t),
+            torch.tensor(e[-1], **t),
+            torch.tensor(-1, dtype=torch.int32, device=where),
+            torch.tensor(0, dtype=torch.int32, device=where),
+            torch.zeros(4, dtype=torch.int64, device=where),
+            torch.zeros(ncv, ncv, **t), torch.zeros(2, **t),
+            torch.zeros(csc.packet_size(ncv), dtype=torch.float64,
+                        device=where)]
+    csc.sym_cycle(*bufs, p, False)
+    return [x.double().cpu().numpy() for x in
+            (bufs[0], bufs[1], bufs[6], bufs[7], bufs[8])]
+
+
+def check_sym_cycle(torch, dev, gpu):
+    """Phase 3, the reduced-space kernel (``csrc/sym_cycle.cu``) against
+    its numpy twin, for each ``which``, on Lanczos tridiagonals of the
+    flagship's spectrum (four at ncv = 32, nev = 8, the workspace in shared
+    memory, and one at the first ncv past it, in global memory, with the
+    same 24 shifts), float32
+    (the flagship's) and float64: the counts equal and every gap within
+    ``SYM_LIMITS``; then timed at ncv = 32, 'LA': the kernel device-only
+    (each call after two copies restoring its inputs), the twin's host wall
+    per call, and the library form's wall per call (``torch.linalg.eigh``
+    + the QR loop on the card, with their syncs)."""
+    from arpack_ng_tpu_torch.ops import cuda_sym_cycle as csc
+
+    ncv = NCV
+    err = {}
+    row = None
+    for dt in (torch.float32, torch.float64):
+        f = np.finfo(np.float32 if dt == torch.float32 else np.float64)
+        top = next(m for m in range(ncv, 1000)
+                   if not csc.fits_shared(m + 1, dt.itemsize))
+        over = []
+        for m in (ncv, top + 1):
+            lim = dict(SYM_LIMITS[str(dt)])
+            if m > ncv:
+                lim.update(SYM_LIMITS_GLOBAL[str(dt)])
+            # past the shared-memory limit: nev = m - 24, the flagship's 24
+            # exact shifts (a longer sweep of close shifts amplifies any two
+            # QRs' rounding, the twin's included)
+            worst = {}
+            for which in csc.WHICH:
+                p = csc.Params(which=which, nev=8 if m == ncv else m - 24,
+                               tol=1e-5 if dt == torch.float32 else 1e-10,
+                               eps23=float(f.eps ** (2 / 3)),
+                               eps_m=float(f.eps))
+                for seed in range(4 if m == ncv else 1):
+                    d, e = _lanczos_tridiag(ncv=m, seed=seed)
+                    kern = _sym_run(torch, csc, d, e, dt, dev, p)
+                    twin = _sym_run(torch, csc, d, e, dt, torch.device("cpu"),
+                                    p)
+                    g = _sym_gaps(twin, kern, d, m)
+                    if not g.pop("counts_equal"):
+                        raise AssertionError(f"sym_cycle {dt} {which} seed "
+                                             f"{seed} ncv {m}: counts differ")
+                    for key, v in g.items():
+                        worst[key] = max(worst.get(key, 0.0), v)
+            print(f"  sym_cycle vs twin {dt} ncv={m}, largest gaps over every "
+                  "which: " + ", ".join(f"{k} {v:.3e} (limit {lim[k]:.0e})"
+                                         for k, v in worst.items()),
+                  flush=True)
+            over += [(m, k) for k, v in worst.items() if v > lim[k]]
+            if m == ncv:
+                err[str(dt)] = worst["Q"]
+        if over:
+            raise AssertionError(f"sym_cycle {dt}: kernel and twin differ "
+                                 f"past the limits at {over}")
+        p = csc.Params(which="LA", nev=8, tol=1e-5 if dt == torch.float32
+                       else 1e-10, eps23=float(f.eps ** (2 / 3)),
+                       eps_m=float(f.eps))
+        if dt != torch.float32:
+            continue
+        d, e = _lanczos_tridiag(seed=0)
+        t = dict(dtype=dt, device=dev)
+        a0, b0 = torch.tensor(d, **t), torch.tensor(e, **t)
+        bufs = [a0.clone(), b0.clone(), torch.tensor(e[-1], **t),
+                torch.tensor(-1, dtype=torch.int32, device=dev),
+                torch.tensor(0, dtype=torch.int32, device=dev),
+                torch.zeros(4, dtype=torch.int64, device=dev),
+                torch.zeros(ncv, ncv, **t), torch.zeros(2, **t),
+                torch.zeros(csc.packet_size(ncv), dtype=torch.float64,
+                            device=dev)]
+
+        def kernel():
+            bufs[0].copy_(a0)
+            bufs[1].copy_(b0)
+            csc.sym_cycle(*bufs, p, False)
+
+        kernel()
+        np_eff = int(bufs[8][csc.P_NP])
+        cpu = [x.cpu() for x in bufs]
+        host = [x.clone() for x in cpu]
+
+        def twin():
+            host[0].copy_(cpu[0])
+            host[1].copy_(cpu[1])
+            csc.sym_cycle_plain(*host, p, False)
+
+        Td = torch.diag(a0) + torch.diag(b0[:-1], 1) + torch.diag(b0[:-1], -1)
+        rn = b0[-1]
+        walls = {}
+        for name, fn in (("plain_ms", twin),
+                         ("library_ms", lambda: _sym_library(
+                             torch, Td, rn, 8, np_eff))):
+            fn()
+            ts = []
+            for _ in range(timing.REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            walls[name] = float(np.median(ts))
+        ms = timing.alternating_ms([kernel], timing.flush_buffer(dev))[0]
+        # operations this input needs: the QL sweeps (~60 ncv^2) and, per
+        # shift, Q <- Q q (~ncv^3 for the Hessenberg q), forming q and the
+        # three diagonals of q^T T q (~18 ncv^2)
+        flops = 60 * ncv ** 2 + np_eff * (ncv ** 3 + 18 * ncv ** 2)
+        bound = flops / (PEAK_FLOPS["torch.float32"] / SMS) * 1e3
+        row = {"name": "sym_cycle", "dtype": "torch.float32", "shape": ncv,
+               "ms": ms, "plain_ms": walls["plain_ms"],
+               "library_ms": walls["library_ms"], "bound_ms": bound,
+               "bound_by": "operations", "bytes": 0, "flops": flops,
+               "np_eff": np_eff}
+        print(f"  sym_cycle ncv={ncv} float32 ({np_eff} shifts): kernel "
+              f"{ms:.4f} ms device-only, twin {walls['plain_ms']:.4f} ms "
+              f"host, library (eigh + {np_eff} QR on the card, with syncs) "
+              f"{walls['library_ms']:.4f} ms; bound {bound:.6f} ms "
+              f"({flops} flops over one SM's float32 rate, "
+              f"{100 * bound / ms:.2f}% of it); card {gpu}", flush=True)
+    return err, row
 
 
 def _cgs_cases(torch, cuda_cgs, V, w, bf16, what, err):
@@ -627,51 +938,119 @@ def check_values(vals, vecs, a_sp, spectrum, what):
     return float(dist.max()), float(res.max())
 
 
+def _loop_line(st) -> str:
+    """The device loop's dispatch counters of a selective solve."""
+    return (f"packets {st.packets} (cycles {st.n_iter}), graphs captured "
+            f"{st.graphs_captured}, replayed {st.graph_replays}; launches "
+            f"per replay by start k {st.replay_launches}")
+
+
+def _in_band(st, what):
+    lo, hi = SELECTIVE_BAND
+    if not lo <= st.n_iter <= hi:
+        raise AssertionError(f"{what}: {st.n_iter} cycles, outside the "
+                             f"recorded band {lo}-{hi}")
+
+
 def flagship(torch, dev, gpu, nx=NX):
+    """Phase 4: the selective flagship through ``eigsh`` (the main path:
+    the device restart loop, extensions replayed as CUDA graphs, the
+    reduced space as one kernel, one packet per cycle), its two witnesses,
+    then ``reorth='dgks'`` (the host loop)."""
     import arpack_ng_tpu_torch as pt
     from arpack_ng_tpu_torch.models import laplacian_2d
-    from arpack_ng_tpu_torch.ops import cuda_rot, cuda_sel
 
-    kernels = (cuda_sel.sel_proj, cuda_sel.sel_update, cuda_rot.rotate_rows)
     small, _ = laplacian_2d(64, np.float32, device=dev)  # warm-up
     pt.eigsh(small, k=8, ncv=NCV, which="LA", tol=1e-5)
     op, a_sp = laplacian_2d(nx, np.float32, device=dev)
     spectrum = _analytic_spectrum(nx)
-    launches = {}
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    for reorth in ("selective", "dgks"):
-        for fn in kernels:
-            fn.launches = 0
-        sync()
-        t0 = time.perf_counter()
-        vals, vecs, out = pt.eigsh(op, k=8, ncv=NCV, which="LA", tol=1e-5,
-                                   reorth=reorth, return_stats=True)
-        sync()
-        wall = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in kernels}
-        if reorth == "selective":
-            launches = counts
-            idle = [k for k, c in counts.items() if c == 0]
-        else:
-            idle = [] if counts["rotate_rows"] else ["rotate_rows"]
-        if idle:
-            raise AssertionError(f"{reorth}: kernels never launched: {idle}")
-        dmax, rmax = check_values(vals, vecs, a_sp, spectrum,
-                                  f"flagship {reorth}")
-        st = out.stats
-        print(f"flagship reorth={reorth}: wall {wall:.4f} s "
-              f"(solve {st.timers.taupd:.4f} s), cycles {st.n_iter}, "
-              f"nopx {st.nopx}, nrorth {st.nrorth}, nrorthr {st.nrorthr}, "
-              f"nitref {st.nitref}, nrotr {st.nrotr}, "
-              f"{5 * nx * nx * st.nopx / wall / 1e9:.4f} Gnnz/s; "
-              f"max value dist {dmax:.2e}, max residual {rmax:.2e}; "
-              f"launches {counts}; card {gpu}", flush=True)
-        if reorth == "selective":
-            _sel_witness(torch, dev, gpu, op, a_sp, spectrum)
-        print(f"  recorded: {RECORDED_COUNTERS['flagship ' + reorth]}",
-              flush=True)
-        print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+    kw = dict(k=8, ncv=NCV, which="LA", tol=1e-5, return_stats=True)
+    (vals, vecs, out), wall, counts = _counted(
+        torch, dev, SELECTIVE_PATH, lambda: pt.eigsh(op, **kw))
+    dmax, rmax = check_values(vals, vecs, a_sp, spectrum,
+                              "flagship selective")
+    st = out.stats
+    if st.packets != st.n_iter or st.graph_replays != st.n_iter - 1:
+        raise AssertionError(f"flagship selective: {st.packets} packets, "
+                             f"{st.graph_replays} replays for {st.n_iter} "
+                             "cycles (want one packet per cycle, every "
+                             "cycle after the first replayed)")
+    steps = st.nopx - 1
+    print(f"flagship reorth=selective: wall {wall:.4f} s "
+          f"({wall * 1e3 / steps:.4f} ms per step), {_stats_line(st)}, "
+          f"{5 * nx * nx * st.nopx / wall / 1e9:.4f} Gnnz/s; max value dist "
+          f"{dmax:.2e}, max residual {rmax:.2e}; launches {counts}; card "
+          f"{gpu}", flush=True)
+    print(f"  device loop: {_loop_line(st)}", flush=True)
+    print(f"  recorded (host loop): "
+          f"{RECORDED_COUNTERS['flagship selective']}; the gate's band (the "
+          f"seed sweep's span) {SELECTIVE_BAND[0]}-{SELECTIVE_BAND[1]} cycles",
+          flush=True)
+    print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+    launches = {k: counts[k] for k in SELECTIVE_PATH}
+    # the gates of the selective loop are held after every run has printed
+    gates = [lambda: _in_band(st, "flagship selective"),
+             _reduced_witness(torch, dev, gpu, op, a_sp, spectrum, kw)]
+    _sel_witness(torch, dev, gpu, op, a_sp, spectrum)
+
+    (vals, vecs, out), wall, counts = _counted(
+        torch, dev, ("rotate_rows",),
+        lambda: pt.eigsh(op, reorth="dgks", **kw))
+    dmax, rmax = check_values(vals, vecs, a_sp, spectrum, "flagship dgks")
+    print(f"flagship reorth=dgks: wall {wall:.4f} s, "
+          f"{_stats_line(out.stats)}, "
+          f"{5 * nx * nx * out.stats.nopx / wall / 1e9:.4f} Gnnz/s; max value "
+          f"dist {dmax:.2e}, max residual {rmax:.2e}; launches {counts}; "
+          f"card {gpu}", flush=True)
+    print(f"  recorded: {RECORDED_COUNTERS['flagship dgks']}", flush=True)
+    print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+    for gate in gates:
+        gate()
     return launches
+
+
+def _host_sym_cycle(*args):
+    """The reduced space as the host loop computed it: the kernel's
+    buffers copied to the host, its numpy twin, the results copied back."""
+    from arpack_ng_tpu_torch.ops import cuda_sym_cycle as csc
+
+    bufs, (p, is_last) = args[:9], args[9:]
+    cpu = [t.cpu() for t in bufs]
+    csc.sym_cycle_plain(*cpu, p, is_last)
+    for i in (0, 1, 6, 7, 8):  # a, b, Q, sk, packet
+        bufs[i].copy_(cpu[i])
+
+
+def _reduced_witness(torch, dev, gpu, op, a_sp, spectrum, kw):
+    """The selective solve again with the reduced space on the host as
+    before (the loop's reduced-space call patched to the numpy twin on
+    host copies): every other piece of the loop is the main path's, so it
+    must repeat the host loop's counters exactly.  Its launches are not
+    the main path's.  Returns its gate."""
+    from unittest import mock
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core import device_sym
+
+    with mock.patch.object(device_sym, "sym_cycle", _host_sym_cycle):
+        (vals, vecs, out), wall, counts = _counted(
+            torch, dev, (), lambda: pt.eigsh(op, **kw))
+    dmax, rmax = check_values(vals, vecs, a_sp, spectrum,
+                              "flagship selective witness, host reduced")
+    st = out.stats
+    got = (st.n_iter, st.nopx, st.nrorth)
+    print(f"  witness, reduced space on the host: wall {wall:.4f} s, "
+          f"{_stats_line(st)}; {_loop_line(st)}; max value dist {dmax:.2e}, "
+          f"max residual {rmax:.2e}; sym_cycle launches "
+          f"{counts['sym_cycle']}; card {gpu}", flush=True)
+
+    def gate():
+        if got != HOST_LOOP_COUNTERS:
+            raise AssertionError(f"host-reduced witness: cycles/nopx/nrorth "
+                                 f"{got}, want the host loop's "
+                                 f"{HOST_LOOP_COUNTERS}")
+
+    return gate
 
 
 def _sel_witness(torch, dev, gpu, op, a_sp, spectrum):
@@ -727,12 +1106,13 @@ def _counted(torch, dev, need, fn):
     read just after; fail if a kernel of ``need`` was never launched.
     Returns ``(fn(), wall seconds, counts)``."""
     from arpack_ng_tpu_torch.ops import (cuda_cgs, cuda_dia, cuda_gather,
-                                         cuda_psell, cuda_rot, cuda_sel)
+                                         cuda_psell, cuda_rot, cuda_sel,
+                                         cuda_sym_cycle)
 
     every = (cuda_sel.sel_proj, cuda_sel.sel_update, cuda_rot.rotate_rows,
              cuda_cgs.cgs_proj, cuda_cgs.cgs_update, cuda_dia.dia_matvec,
              cuda_psell.psell_matvec, cuda_gather.take_flat,
-             cuda_gather.take_lanes)
+             cuda_gather.take_lanes, cuda_sym_cycle.sym_cycle)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     for k in every:
         k.launches = 0
@@ -804,7 +1184,7 @@ def sparse_solves(torch, dev, gpu, fem, nx=NX, device=None):
                              f"{op.device}, want dia on {dev.type}")
     launches = {}
     for tag, need, fn in (
-            ("(a) eigsh(A_csr)", ("dia_matvec",),
+            ("(a) eigsh(A_csr)", ("dia_matvec", "sym_cycle"),
              lambda: pt.eigsh(a_sp, dtype=np.float32, **kw, **dkw)),
             ("(b) eigsh(A_csr) dgks, cgs_kernel='pallas'",
              ("cgs_proj", "cgs_update", "dia_matvec", "rotate_rows"),
@@ -816,6 +1196,8 @@ def sparse_solves(torch, dev, gpu, fem, nx=NX, device=None):
               f"{_stats_line(out.stats)}; max value dist {dmax:.2e}, max "
               f"residual {rmax:.2e}; launches {counts}; card {gpu}",
               flush=True)
+        if out.stats.packets:
+            print(f"  device loop: {_loop_line(out.stats)}", flush=True)
         print(f"  recorded: {RECORDED_COUNTERS[tag[:3]]}", flush=True)
         for k in need:
             launches.setdefault(k, counts[k])
@@ -1028,19 +1410,52 @@ def _device_ms(evt) -> float:
     return us / 1e3
 
 
+def _profile_table(torch, prof, wall, what, gpu, sort, dev):
+    """The card's busy share over ``wall`` and the largest device items;
+    returns the busy device milliseconds."""
+    from torch.autograd import DeviceType
+
+    avgs = prof.key_averages()
+    busy = sum(_device_ms(e) for e in avgs
+               if e.device_type == DeviceType.CUDA)
+    print(f"profile {what}: wall {wall * 1e3:.4f} ms, device busy "
+          f"{busy:.4f} ms ({100 * busy / (wall * 1e3):.2f}% of the wall); "
+          f"card {gpu}", flush=True)
+    print(avgs.table(sort_by=sort, row_limit=20, max_name_column_width=60),
+          flush=True)
+    if dev.type == "cuda" and not busy > 0:
+        raise AssertionError(f"profile {what}: no device time traced")
+    return busy
+
+
+def _host_profile(fn, what):
+    prof_host = cProfile.Profile()
+    prof_host.enable()
+    fn()
+    prof_host.disable()
+    buf = io.StringIO()
+    pstats.Stats(prof_host, stream=buf).sort_stats("tottime").print_stats(25)
+    print(f"profile {what}: cProfile", flush=True)
+    print(buf.getvalue(), flush=True)
+
+
 def profile_cycles(torch, dev, gpu, nx=NX, warm=3, steady=20, profiled=5):
     """Where the time goes: the flagship's restart cycles at the floor
-    tolerance (no cycle exits) for each reorth variant.  Prints the wall per Lanczos
-    step over ``steady`` cycles after ``warm`` cycles, then the profiled
-    wall of ``profiled`` cycles with the card's busy share (the summed
-    device time of every kernel and copy over that wall) and the largest
-    device items, then ``cProfile`` of ``profiled`` more cycles."""
-    from torch.autograd import DeviceType
+    tolerance (no cycle exits).  Selective (the device loop, the main
+    path): a solve of ``warm`` cycles and one of ``warm + steady``; their
+    difference is the wall of ``steady`` steady cycles (each solve captures
+    its graphs in its first cycles), per Lanczos step; then both solves
+    under ``torch.profiler`` (the card's busy share over each solve, the
+    largest device items, and the steady share: the difference of their
+    device times over the difference of the unprofiled walls) and the
+    longer under ``cProfile``.  dgks (the host loop): the wall per step over ``steady``
+    cycles after ``warm``, then ``profiled`` cycles under each profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from arpack_ng_tpu_torch.config import IRAMConfig
     from arpack_ng_tpu_torch.core.arnoldi import make_init
-    from arpack_ng_tpu_torch.core.device_sym import (make_sym_head,
+    from arpack_ng_tpu_torch.core.device_sym import (FusedSymSolver,
+                                                     make_sym_head,
                                                      make_sym_tail)
     from arpack_ng_tpu_torch.models import laplacian_2d
 
@@ -1051,63 +1466,77 @@ def profile_cycles(torch, dev, gpu, nx=NX, warm=3, steady=20, profiled=5):
         activities.append(ProfilerActivity.CUDA)
     sort = ("self_device_time_total" if dev.type == "cuda"
             else "self_cpu_time_total")
-    for reorth in ("selective", "dgks"):
-        cfg = IRAMConfig(n=op.n, nev=8, ncv=NCV, which="LA", symmetric=True,
-                         dtype=np.dtype(np.float32), n_pad=op.n_pad,
-                         tol=1e-30, max_iter=10**6, reorth=reorth)
-        head, tail = make_sym_head(op, cfg), make_sym_tail(op, cfg)
-        state = make_init(op, cfg)()
 
-        def cycles(state, m):
-            for _ in range(m):
-                h = head(state)
-                if h.done:
-                    raise AssertionError(f"profile {reorth}: a cycle "
-                                         "converged")
-                state = tail(h, False).state
-            return state
+    def cfg_of(reorth, cycles):
+        return IRAMConfig(n=op.n, nev=8, ncv=NCV, which="LA", symmetric=True,
+                          dtype=np.dtype(np.float32), n_pad=op.n_pad,
+                          tol=1e-30, max_iter=cycles, reorth=reorth)
 
-        state = cycles(state, warm)
+    def solve(cycles):
         sync()
-        c0, t0 = state.counts, time.perf_counter()
-        state = cycles(state, steady)
+        t0 = time.perf_counter()
+        res = FusedSymSolver(op, cfg_of("selective", cycles)).solve()
         sync()
-        wall = time.perf_counter() - t0
-        steps = state.counts.nopx - c0.nopx
-        print(f"profile reorth={reorth}: {steady} cycles after {warm}, "
-              f"{wall * 1e3:.4f} ms, {steps} steps, "
-              f"{wall * 1e3 / steps:.4f} ms/step, events "
-              f"{state.counts.nrorth - c0.nrorth}, event rows "
-              f"{state.counts.nrorthr - c0.nrorthr}; card {gpu}", flush=True)
+        return res, time.perf_counter() - t0
 
+    solve(warm)
+    (r1, w1), (r2, w2) = solve(warm), solve(warm + steady)
+    steps = r2.stats.nopx - r1.stats.nopx
+    wall = w2 - w1
+    print(f"profile reorth=selective (device loop): {steady} cycles after "
+          f"{warm}, {wall * 1e3:.4f} ms, {steps} steps, "
+          f"{wall * 1e3 / steps:.4f} ms/step, events "
+          f"{r2.stats.nrorth - r1.stats.nrorth}, event rows "
+          f"{r2.stats.nrorthr - r1.stats.nrorthr}; solve of {warm + steady}"
+          f" cycles {w2 * 1e3:.4f} ms, graphs captured "
+          f"{r2.stats.graphs_captured}, replays {r2.stats.graph_replays}, "
+          f"packets {r2.stats.packets}; card {gpu}", flush=True)
+    busy = []
+    for cycles in (warm, warm + steady):
         with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            state = cycles(state, profiled)
-            sync()
-            wall = time.perf_counter() - t0
-        avgs = prof.key_averages()
-        busy = sum(_device_ms(e) for e in avgs
-                   if e.device_type == DeviceType.CUDA)
-        print(f"profile reorth={reorth}: {profiled} profiled cycles, wall "
-              f"{wall * 1e3:.4f} ms, device busy {busy:.4f} ms "
-              f"({100 * busy / (wall * 1e3):.2f}% of the wall); card {gpu}",
-              flush=True)
-        print(avgs.table(sort_by=sort, row_limit=20,
-                         max_name_column_width=60), flush=True)
-        if dev.type == "cuda" and not busy > 0:
-            raise AssertionError(f"profile {reorth}: no device time traced")
+            _, wall = solve(cycles)
+        busy.append(_profile_table(torch, prof, wall, f"reorth=selective, "
+                                   f"a solve of {cycles} cycles", gpu, sort,
+                                   dev))
+    print(f"profile reorth=selective, steady: device busy "
+          f"{busy[1] - busy[0]:.4f} ms over the {steady} cycles' wall "
+          f"{(w2 - w1) * 1e3:.4f} ms (unprofiled): "
+          f"{100 * (busy[1] - busy[0]) / ((w2 - w1) * 1e3):.2f}%; card {gpu}",
+          flush=True)
+    _host_profile(lambda: solve(warm + steady),
+                  f"reorth=selective, a solve of {warm + steady} cycles")
 
-        prof_host = cProfile.Profile()
-        prof_host.enable()
+    cfg = cfg_of("dgks", 10**6)
+    head, tail = make_sym_head(op, cfg), make_sym_tail(op, cfg)
+    state = make_init(op, cfg)()
+
+    def cycles(state, m):
+        for _ in range(m):
+            h = head(state)
+            if h.done:
+                raise AssertionError("profile dgks: a cycle converged")
+            state = tail(h, False).state
+        return state
+
+    state = cycles(state, warm)
+    sync()
+    c0, t0 = state.counts, time.perf_counter()
+    state = cycles(state, steady)
+    sync()
+    wall = time.perf_counter() - t0
+    steps = state.counts.nopx - c0.nopx
+    print(f"profile reorth=dgks: {steady} cycles after {warm}, "
+          f"{wall * 1e3:.4f} ms, {steps} steps, {wall * 1e3 / steps:.4f} "
+          f"ms/step; card {gpu}", flush=True)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
         state = cycles(state, profiled)
         sync()
-        prof_host.disable()
-        buf = io.StringIO()
-        pstats.Stats(prof_host, stream=buf).sort_stats("tottime") \
-            .print_stats(25)
-        print(f"profile reorth={reorth}: cProfile of {profiled} cycles",
-              flush=True)
-        print(buf.getvalue(), flush=True)
+        wall = time.perf_counter() - t0
+    _profile_table(torch, prof, wall, f"reorth=dgks, {profiled} cycles", gpu,
+                   sort, dev)
+    _host_profile(lambda: (cycles(state, profiled), sync()),
+                  f"reorth=dgks, {profiled} cycles")
 
 
 def kernel_entries(rows, launches, errs):
@@ -1116,18 +1545,32 @@ def kernel_entries(rows, launches, errs):
     with the launches of the path that exercises it."""
     ops = "arpack_ng_tpu/ops/"
     probe = "benchmarks/bench_gather_primitives.py"
-    src = {"sel_proj": ("sel.cu", ops + "pallas_sel.py:90", JSON_K),
-           "sel_update": ("sel.cu", ops + "pallas_sel.py:141", JSON_K),
-           "rotate_rows": ("rot.cu", ops + "pallas_rot.py:91", JSON_ROWS),
-           "cgs_proj": ("cgs.cu", ops + "pallas_cgs.py:58", JSON_ROWS),
-           "cgs_update": ("cgs.cu", ops + "pallas_cgs.py:116", JSON_ROWS),
-           "dia_matvec": ("dia.cu", ops + "pallas_dia.py:47", None),
-           "psell_matvec": ("psell.cu", ops + "pallas_psell.py:262", None),
-           "take_flat": ("gather.cu", probe + ":118", None),
-           "take_lanes": ("gather.cu", probe + ":139", None)}
+    # name -> (source, the TPU kernel (or the reference's device ops) it
+    # replaces, the timed row, its shape, the wrapper whose launches count)
+    src = {"sel_proj": ("sel.cu", ops + "pallas_sel.py:90", "sel_proj_word",
+                        JSON_K, "sel_proj"),
+           "sel_update": ("sel.cu", ops + "pallas_sel.py:141",
+                          "sel_update_word", JSON_K, "sel_update"),
+           "rotate_rows": ("rot.cu", ops + "pallas_rot.py:91", "rotate_rows",
+                           JSON_ROWS, "rotate_rows"),
+           "rotate": ("rot.cu", ops + "pallas_rot.py:44", "rotate_rows", NCV,
+                      "rotate_rows"),
+           "cgs_proj": ("cgs.cu", ops + "pallas_cgs.py:58", "cgs_proj",
+                        JSON_ROWS, "cgs_proj"),
+           "cgs_update": ("cgs.cu", ops + "pallas_cgs.py:116",
+                          "cgs_update+norm", JSON_ROWS, "cgs_update"),
+           "dia_matvec": ("dia.cu", ops + "pallas_dia.py:47", "dia_matvec",
+                          None, "dia_matvec"),
+           "psell_matvec": ("psell.cu", ops + "pallas_psell.py:262",
+                            "psell_matvec", None, "psell_matvec"),
+           "take_flat": ("gather.cu", probe + ":118", "take_flat", None,
+                         "take_flat"),
+           "take_lanes": ("gather.cu", probe + ":139", "take_lanes", None,
+                          "take_lanes"),
+           "sym_cycle": ("sym_cycle.cu", "arpack_ng_tpu/core/device_sym.py"
+                         ":141", "sym_cycle", None, "sym_cycle")}
     entries = []
-    for kname, (source, replaces, shape) in src.items():
-        timed = "cgs_update+norm" if kname == "cgs_update" else kname
+    for kname, (source, replaces, timed, shape, counter) in src.items():
         r = next(r for r in rows if r["name"] == timed
                  and r["dtype"] == "torch.float32"
                  and (shape is None or r["shape"] == shape))
@@ -1135,11 +1578,12 @@ def kernel_entries(rows, launches, errs):
             "name": kname, "route": "cuda",
             "source": f"arpack_ng_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": errs[kname],
+            "launches": launches[counter], "max_abs_err": errs[counter],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "lib_ms": r["library_ms"],
-            "host_us": r["host_us"], "library_host_us": r["library_host_us"],
+            "host_us": r.get("host_us"),
+            "library_host_us": r.get("library_host_us"),
             "shape": f"{timed} shape={r['shape']} float32"})
     return entries
 
@@ -1203,6 +1647,15 @@ def main() -> int:
                       f"{v['err_f64']:.3e}" for k, v in rec.items()),
           flush=True)
 
+    err_word, rows_word = check_word_events(torch, dev)
+    print(f"event kernels over {NCV} rows, K read from the device (word), vs "
+          f"twin and library (device-only median of {timing.REPS} in "
+          f"alternation, L2 flushed by a read; K = 0 is a step without an "
+          f"event; card {gpu}):", flush=True)
+    _print_rows(rows_word)
+    err_sym, row_sym = check_sym_cycle(torch, dev, gpu)
+    rows += rows_word + [row_sym]
+
     launches = flagship(torch, dev, gpu)
     basis_defect(torch, dev, gpu)
 
@@ -1223,7 +1676,8 @@ def main() -> int:
     # each kernel's launches come from the first solve that runs it
     for k, v in sparse_solves(torch, dev, gpu, fem).items():
         launches.setdefault(k, v)
-    errs.update({k: rec[k]["err"] for k in rec})
+    errs.update({k: max(rec[k]["err"], err_word.get(k, 0.0)) for k in rec})
+    errs["sym_cycle"] = err_sym["torch.float32"]
     del fem
 
     err_g, rows_g, launches_g = check_gather(torch, dev, gpu)

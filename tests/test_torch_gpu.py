@@ -374,3 +374,194 @@ def test_eigs_on_card_counts_equal_twins(dev):
                                rtol=1e-9)
     res = np.linalg.norm(a @ vecs - vecs * vals[None, :], axis=0)
     assert res.max() < 1e-8 * np.abs(vals).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt", ["float32", "bfloat16", "float64"])
+def test_sel_word_kernels_on_card(dev, sdt):
+    # the event kernels with K read from device memory: 0 leaves r bit for
+    # bit (and s zero), and every K 1..32 over all 32 rows sums exactly as
+    # a call over the K rows alone
+    g, V, buf, tol = _sel_case(dev, sdt, (1 << 16) + 3)
+    for vec in (buf[:-1], buf[1:]):
+        idx = torch.randperm(32, device=dev, generator=g).int()
+        s = torch.randn(32, generator=g, device=dev, dtype=vec.dtype)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        assert not cuda_sel.sel_proj(idx, V, vec, word=zero).any()
+        r = vec.clone()
+        nrm = cuda_sel.sel_update(idx, s, r, V, True, word=zero)[1]
+        assert torch.equal(r, vec)
+        assert cuda_sel.sel_update(idx, s, r, V, word=zero) is r
+        for K in range(1, 33):
+            word = torch.full((), K, dtype=torch.int32, device=dev)
+            sw = cuda_sel.sel_proj(idx, V, vec, word=word)
+            assert torch.equal(sw[:K], cuda_sel.sel_proj(idx[:K], V, vec))
+            assert not sw[K:].any()
+            torch.testing.assert_close(
+                sw, cuda_sel.sel_proj_plain(idx, V, vec, word), **tol)
+            rw, nw = cuda_sel.sel_update(idx, s, vec.clone(), V, True,
+                                         word=word)
+            rh, nh = cuda_sel.sel_update(idx[:K], s[:K].clone(), vec.clone(),
+                                         V, True)
+            assert torch.equal(rw, rh) and torch.equal(nw, nh)
+            rp, np_ = cuda_sel.sel_update_plain(idx, s, vec.clone(), V, True,
+                                                word)
+            torch.testing.assert_close(rw, rp, **tol)
+            torch.testing.assert_close(nw, np_, **tol)
+        del nrm
+    torch.cuda.synchronize()
+
+
+def _lanczos_T(seed, ncv=32, n=400):
+    """T and rnorm of ncv Lanczos steps with full reorthogonalization on a
+    random diagonal (the tridiagonals a restart meets), or, for n = None,
+    on the flagship's spectrum (the 2-D Laplacian's at nx = 64)."""
+    rng = np.random.default_rng(seed)
+    if n is None:
+        g = 2.0 - 2.0 * np.cos(np.pi / 65 * np.arange(1, 65))
+        lam = (g[:, None] + g[None, :]).ravel()
+        n = lam.shape[0]
+    else:
+        lam = rng.uniform(0.0, 1.0, n)
+    V = np.zeros((ncv + 1, n))
+    v = rng.uniform(-1, 1, n)
+    V[0] = v / np.linalg.norm(v)
+    d, e = np.zeros(ncv), np.zeros(ncv)
+    for j in range(ncv):
+        w = lam * V[j]
+        for _ in range(2):
+            w -= V[:j + 1].T @ (V[:j + 1] @ w)
+        d[j] = V[j] @ (lam * V[j])
+        e[j] = np.linalg.norm(w)
+        V[j + 1] = w / e[j]
+    return d, e
+
+
+def _sym_cycle_run(d, e, dt, p, is_last, device):
+    from arpack_ng_tpu_torch.ops import cuda_sym_cycle as csc
+    ncv = d.shape[0]
+    t = dict(dtype=dt, device=device)
+    a = torch.tensor(d, **t)
+    b = torch.tensor(e, **t)
+    Q = torch.zeros(ncv, ncv, **t)
+    sk = torch.zeros(2, **t)
+    pk = torch.zeros(csc.packet_size(ncv), dtype=torch.float64, device=device)
+    csc.sym_cycle(a, b, torch.tensor(e[-1], **t),
+                  torch.tensor(-1, dtype=torch.int32, device=device),
+                  torch.tensor(0, dtype=torch.int32, device=device),
+                  torch.zeros(4, dtype=torch.int64, device=device), Q, sk, pk,
+                  p, is_last)
+    return [x.cpu().numpy().astype(np.float64) for x in (a, b, Q, sk, pk)]
+
+
+#: the reduced-space kernel against its twin: the largest gap allowed, in
+#: the units of chip_smoke.py's SYM_LIMITS, and as there (Ritz values and
+#: bounds, the new T and the residual's new part over T's scale; Q's kept
+#: columns, sigmak), with the same override past the shared-memory limit
+SYM_LIMITS = {
+    "float32": dict(values=1e-7, T=5e-5, Q=2e-5, sigmak=5e-6, resid=1e-5),
+    "float64": dict(values=1e-9, T=1e-7, Q=1e-7, sigmak=1e-7, resid=1e-7)}
+SYM_LIMITS_GLOBAL = {"float32": dict(Q=1e-3, resid=1e-3), "float64": {}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("which", ["LA", "SA", "LM", "SM", "BE"])
+def test_sym_cycle_kernel_matches_twin_on_card(dev, dtype, which):
+    # one cycle's reduced space, the kernel against its numpy twin on
+    # Lanczos tridiagonals (ncv = 32, nev = 8, the workspace in shared
+    # memory; and the first ncv past it, in global memory, on the
+    # flagship's spectrum with the same 24 shifts): the counts equal, every
+    # gap within SYM_LIMITS (the columns of Q past kev belong to the
+    # deflated block and are free); a cycle that ends the solve leaves T
+    # as it was
+    from arpack_ng_tpu_torch.ops import cuda_sym_cycle as csc
+    from arpack_ng_tpu_torch.ops.cuda_sym_cycle import (
+        P_DONE, P_HEAD, P_INFO, P_NCONV, P_NEV, P_NP)
+    dt = getattr(torch, dtype)
+    f = np.finfo(np.dtype(dtype))
+    top = next(n for n in range(32, 400)
+               if not csc.fits_shared(n + 1, dt.itemsize))
+    for seed, ncv, n in ((0, 32, 400), (1, 32, 400), (2, 32, 400),
+                         (0, top + 1, None)):
+        lim = dict(SYM_LIMITS[dtype])
+        if ncv > 32:
+            lim.update(SYM_LIMITS_GLOBAL[dtype])
+        p = csc.Params(which=which, nev=8 if ncv == 32 else ncv - 24,
+                       tol=1e-14 if dtype == "float64" else 1e-5,
+                       eps23=float(f.eps ** (2 / 3)), eps_m=float(f.eps))
+        d, e = _lanczos_T(seed, ncv, n)
+        d, e = d.astype(dtype), e.astype(dtype)
+        for is_last in (False, True):
+            ka, kb, kQ, ksk, kpk = _sym_cycle_run(d, e, dt, p, is_last, dev)
+            ta, tb, tQ, tsk, tpk = _sym_cycle_run(d, e, dt, p, is_last, "cpu")
+            for i in (P_DONE, P_NCONV, P_NEV, P_NP, P_INFO):
+                assert kpk[i] == tpk[i], (seed, ncv, i)
+            k = int(kpk[P_NEV])
+            scale = np.abs(d).max()
+            np.testing.assert_allclose(kpk[P_HEAD + 2 * ncv:],
+                                       tpk[P_HEAD + 2 * ncv:], rtol=0,
+                                       atol=lim["values"] * scale)
+            if is_last or kpk[P_DONE]:
+                assert np.array_equal(ka, d) and np.array_equal(kb, e)
+                continue
+            np.testing.assert_allclose(ka[:k], ta[:k], rtol=0,
+                                       atol=lim["T"] * scale)
+            np.testing.assert_allclose(kb[:k - 1], tb[:k - 1], rtol=0,
+                                       atol=lim["T"] * scale)
+            np.testing.assert_allclose(kQ[:, :k], tQ[:, :k], rtol=0,
+                                       atol=lim["Q"])
+            np.testing.assert_allclose(ksk[0], tsk[0], rtol=0,
+                                       atol=lim["sigmak"])
+            np.testing.assert_allclose(ksk[1] * kQ[:, k], tsk[1] * tQ[:, k],
+                                       rtol=0, atol=lim["resid"] * scale)
+    torch.cuda.synchronize()
+
+
+def _flagship_small(dev, capturable=True):
+    import dataclasses
+
+    from arpack_ng_tpu_torch.models import laplacian_2d
+    op, _ = laplacian_2d(64, np.float32, device=dev)
+    return dataclasses.replace(op, capturable=capturable)
+
+
+@pytest.mark.gpu
+def test_graph_replay_equals_eager_on_card(dev):
+    # the selective loop with its extensions replayed as CUDA graphs gives
+    # the eager card run bit for bit, and counts one packet per cycle
+    import arpack_ng_tpu_torch as pt
+    runs = []
+    for capturable in (True, False):
+        op = _flagship_small(dev, capturable)
+        vals, vecs, out = pt.eigsh(op, k=8, ncv=32, which="LA", tol=1e-5,
+                                   return_stats=True)
+        runs.append((vals, vecs, out.stats))
+    (v1, x1, s1), (v2, x2, s2) = runs
+    assert s1.graphs_captured > 0 and s1.graph_replays > 0
+    assert s2.graphs_captured == 0
+    assert s1.packets == s2.packets == s1.n_iter
+    for f in ("n_iter", "nopx", "nrorth", "nrorthr", "nitref", "nrotr"):
+        assert getattr(s1, f) == getattr(s2, f), f
+    np.testing.assert_array_equal(v1, v2)
+    np.testing.assert_array_equal(x1, x2)
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_on_card(dev):
+    # an operator that declares itself capturable but reads back raises
+    # when its graph is captured: no eager fallback
+    import dataclasses
+
+    import arpack_ng_tpu_torch as pt
+    op = _flagship_small(dev)
+    inner = op.apply
+
+    def apply(v, bv):
+        w, bw = inner(v, bv)
+        _ = float(w[0])
+        return w, bw
+
+    bad = dataclasses.replace(op, apply=apply)
+    with pytest.raises(RuntimeError):
+        pt.eigsh(bad, k=8, ncv=32, which="LA", tol=1e-5)
