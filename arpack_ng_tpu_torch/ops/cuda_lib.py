@@ -136,7 +136,7 @@ def load() -> ctypes.CDLL:
     f64 = ctypes.c_double
     lib.atpt_sym_cycle.argtypes = [i32, i32, i32, i32, i32, i32, f64, f64,
                                    f64, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                   vp, vp]
+                                   vp, vp, vp]
     lib.atpt_sym_cycle.restype = i32
     lib.atpt_rotate_rows.argtypes = [i32, i32, i32, i32, vp, i32, i32, i32,
                                      vp, i64, i64, vp]

@@ -23,11 +23,16 @@ first and calls again) leave ``a``, ``b``, ``Q`` and ``sk`` untouched.
 
 The plain twin, :func:`sym_cycle_plain`, is the numpy code the host loop
 ran (``eigh``, a stable ``argsort``, ``np.linalg.qr`` per shift), on CPU
-tensors; the kernel's QR follows LAPACK's conventions, so the two agree to
-rounding.  The wrapper launches the kernel for CUDA tensors of every
-``ncv`` (its workspace in shared memory where :func:`fits_shared` says so,
-else in a global-memory buffer the wrapper allocates) and runs the twin
-for CPU tensors; ``launches`` counts the kernel launches.
+tensors; the kernel's QR follows LAPACK's conventions, so the two agree
+to rounding. The wrapper launches the kernel for CUDA tensors of every
+``ncv`` (the parts of its workspace that fit in shared memory there,
+:func:`smem_parts`, the rest in a global-memory buffer the wrapper
+allocates) and runs the twin for CPU tensors; ``launches`` counts the
+kernel launches. A caller may pass ``clocks``, a CUDA int64 tensor of
+:func:`clock_size` values, for the kernel's stamps (``clock64()``): the
+:data:`CLOCKS` phase stamps, then per shift its sweep warp's start, last
+reflector and last published entry, then per shift the end of its
+``Q <- Q q``; the solver passes none.
 """
 from __future__ import annotations
 
@@ -46,12 +51,21 @@ from . import cuda_lib
     range(9)
 P_HEAD = 12
 WHICH = {"LA": 0, "SA": 1, "LM": 2, "SM": 3, "BE": 4}
-#: shared memory of one block on Hopper, and the ncv-length vectors the
-#: kernel keeps beside its three ncv x ncv matrices: in the compute dtype,
-#: and in double (csrc/sym_cycle.cu)
-MAX_SMEM = 232448
-VECTORS = 14
-DVECTORS = 5
+#: shared memory of one block on Hopper, less room for the kernel's static
+#: progress words; the kernel's workspace (csrc/sym_cycle.cu) in two parts,
+#: which claim it in order: the ncv-length vectors (in double the QL's 3
+#: and a ring of R_SLOTS shifts' reflectors, tau and v1; in the compute
+#: dtype 9 of the head and tail and a ring of T_SLOTS tridiagonals, d and
+#: e), and the matrices (the packed q of each of the SWEEP_PAIRS column
+#: warps, :func:`q_size`, then Q and its product, ncv x ncv each)
+MAX_SMEM = 232448 - 256
+SWEEP_PAIRS = 4
+T_SLOTS = SWEEP_PAIRS + 1
+R_SLOTS = 8
+VECTORS = 9 + 2 * T_SLOTS
+DVECTORS = 3 + 2 * R_SLOTS
+#: the kernel's phase stamps: entry, QL, head (dsgets/dsconv), sweep, exit
+CLOCKS = ("entry", "ql", "head", "sweep", "exit")
 
 
 class Params(NamedTuple):
@@ -67,16 +81,51 @@ def packet_size(ncv: int) -> int:
     return P_HEAD + 4 * ncv
 
 
+def clock_size(ncv: int) -> int:
+    """Length of the kernel's optional stamp buffer."""
+    return len(CLOCKS) + 4 * ncv
+
+
+def q_size(ncv: int) -> int:
+    """Values of one packed q: column c holds rows 0..min(c + 3, ncv - 1)
+    (q is upper Hessenberg; the entry sums read two zeros past it)."""
+    k0 = max(ncv - 4, 0)
+    return k0 * (k0 + 7) // 2 + (ncv - k0) * ncv
+
+
+def part_bytes(ncv: int, itemsize: int) -> tuple:
+    """Bytes of the workspace's two parts, in the order they claim shared
+    memory: the vectors, the matrices."""
+    return (DVECTORS * ncv * 8 + VECTORS * ncv * itemsize,
+            (SWEEP_PAIRS * q_size(ncv) + 2 * ncv * ncv) * itemsize)
+
+
+def smem_parts(ncv: int, itemsize: int) -> int:
+    """How many of the parts, claimed in order, fit in one block's shared
+    memory (2: ncv <= 111 in float32, <= 78 in float64; 1: <= 1018, <=
+    763)."""
+    used, k = 0, 0
+    for b in part_bytes(ncv, itemsize):
+        if used + b > MAX_SMEM:
+            break
+        used, k = used + b, k + 1
+    return k
+
+
 def work_bytes(ncv: int, itemsize: int) -> int:
-    """The kernel's workspace: ``3 ncv^2 + 14 ncv`` values of ``itemsize``
-    bytes and ``5 ncv`` doubles."""
-    return (3 * ncv * ncv + VECTORS * ncv) * itemsize + DVECTORS * ncv * 8
+    """The kernel's whole workspace, in bytes."""
+    return sum(part_bytes(ncv, itemsize))
+
+
+def global_bytes(ncv: int, itemsize: int) -> int:
+    """The bytes of the parts that do not fit in shared memory: the global
+    buffer the wrapper passes (0: none)."""
+    return sum(part_bytes(ncv, itemsize)[smem_parts(ncv, itemsize):])
 
 
 def fits_shared(ncv: int, itemsize: int) -> bool:
-    """Where the kernel keeps its workspace: in one block's shared memory
-    (ncv <= 135 in float32, <= 95 in float64), else in global memory."""
-    return work_bytes(ncv, itemsize) <= MAX_SMEM
+    """Whether the whole workspace fits in one block's shared memory."""
+    return smem_parts(ncv, itemsize) == 2
 
 
 def _which_key(which: str, vals):
@@ -261,20 +310,25 @@ def sym_cycle_plain(a, b, rnorm, brk, force, cnt, Q, sk, packet,
 
 
 def sym_cycle(a, b, rnorm, brk, force, cnt, Q, sk, packet, p: Params,
-              is_last: bool) -> None:
+              is_last: bool, clocks=None) -> None:
     """One cycle's reduced space (see the module note); on a CUDA device
     one kernel launch on the current stream, nothing read back."""
     _check(a, b, rnorm, brk, force, cnt, Q, sk, packet)
+    ncv = a.shape[0]
+    if clocks is not None and (clocks.shape != (clock_size(ncv),)
+                               or clocks.dtype != torch.int64
+                               or clocks.device != a.device):
+        raise ValueError(f"clocks must be an int64 ({clock_size(ncv)},) "
+                         "tensor on a's device")
     if a.device.type == "cpu":
         return sym_cycle_plain(a, b, rnorm, brk, force, cnt, Q, sk, packet,
                                p, is_last)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
-    ncv = a.shape[0]
     work = None
-    if not fits_shared(ncv, a.element_size()):
-        work = torch.empty(work_bytes(ncv, a.element_size()),
-                           dtype=torch.uint8, device=a.device)
+    nbytes = global_bytes(ncv, a.element_size())
+    if nbytes:
+        work = torch.empty(nbytes, dtype=torch.uint8, device=a.device)
     lib = cuda_lib.load()
     err = lib.atpt_sym_cycle(
         cuda_lib.dtype_code(a.dtype, a.dtype), ncv, p.nev, WHICH[p.which],
@@ -282,6 +336,7 @@ def sym_cycle(a, b, rnorm, brk, force, cnt, Q, sk, packet, p: Params,
         b.data_ptr(), rnorm.data_ptr(), brk.data_ptr(), force.data_ptr(),
         cnt.data_ptr(), Q.data_ptr(), sk.data_ptr(), packet.data_ptr(),
         None if work is None else work.data_ptr(),
+        None if clocks is None else clocks.data_ptr(),
         cuda_lib.stream_handle(a.device))
     cuda_lib.check(lib, err, "sym_cycle")
     sym_cycle.launches += 1

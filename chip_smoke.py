@@ -28,20 +28,22 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    kernels as the main path launches them, over all 32 rows with K read
    from device memory: K = 0 leaves r bit for bit, every K 1..32 equals a
    call over the K rows alone bit for bit, timed at K = 0/8/16/24/32; and
-   the
-   reduced-space kernel (``csrc/sym_cycle.cu``) against its numpy twin on
-   Lanczos tridiagonals (float32, float64; ncv = 32 with its workspace in
-   shared memory, and the first ncv past it, in global memory), timed
-   device-only at ncv = 32 beside the
-   twin's host wall and the library form (``torch.linalg.eigh`` and the QR
-   loop on the card, with their syncs);
+   the reduced-space kernel (``csrc/sym_cycle.cu``) against its numpy twin
+   on Lanczos tridiagonals (float32, float64; ncv = 32 with its workspace
+   in shared memory, and the first ncv past it, the matrices in global
+   memory), timed device-only at ncv = 32 beside the twin's host wall and
+   the library form (``torch.linalg.eigh`` and the QR loop on the card,
+   with their syncs), with the kernel's phase clocks (QL, head, shift
+   sweep, tail) and the sweep's per-shift clocks;
 4. flagship solve through ``eigsh``: the 2-D Dirichlet Laplacian at
    nx = 1024 (n = 1,048,576), float32, k = 8, ncv = 32, which = 'LA',
    tol = 1e-5, first with the default selective reorthogonalization (the
    main path: the device restart loop, its extensions replayed as CUDA
    graphs, one packet read per cycle, whose kernel launches are counted
    per replay; its cycles must fall in 194-322, the span of both reduced
-   spaces' counts over seeds 0-4, ``tools/flagship_seeds.py``), then
+   spaces' counts over seeds 0-4, ``tools/flagship_seeds.py``, and its
+   cycles / nopx / nrorth must be the reduced-space kernel's recorded
+   237 / 5335 / 1868, ``KERNEL_COUNTERS``), then
    the same loop with the reduced space on the host as before (a witness
    that must repeat the host loop's 299 / 6446 / 2270 exactly), then with
    the plain twins in place of the event kernels (a witness of how far
@@ -154,6 +156,14 @@ HOST_LOOP_COUNTERS = (299, 6446, 2270)
 #: (210-322) (``tools/flagship_seeds.py``, chip run 6 of PR 7; PERF.md
 #: section 6): the kernel's rounding moves the count within it
 SELECTIVE_BAND = (194, 322)
+#: the counters of the device-loop solves with the reduced-space kernel at
+#: the default seed, (cycles, nopx, nrorth) and (cycles, nopx): the kernel
+#: fixes the order of every sum, so they repeat exactly, and they witness
+#: that its bits are those recorded in PERF.md (a change that keeps each
+#: value's operations and order must repeat them).  A change meant to move
+#: the kernel's bits updates them, inside SELECTIVE_BAND.
+KERNEL_COUNTERS = {"flagship selective": (237, 5335, 1868),
+                   "(a)": (236, 5321)}
 #: the reduced-space kernel against its twin (phase 3 and
 #: tests/test_torch_gpu.py): the largest gap each check allows, in the
 #: units of ``_sym_gaps``, about twice the largest the kernel showed (chip
@@ -549,10 +559,10 @@ def check_sym_cycle(torch, dev, gpu):
     """Phase 3, the reduced-space kernel (``csrc/sym_cycle.cu``) against
     its numpy twin, for each ``which``, on Lanczos tridiagonals of the
     flagship's spectrum (four at ncv = 32, nev = 8, the workspace in shared
-    memory, and one at the first ncv past it, in global memory, with the
-    same 24 shifts), float32
-    (the flagship's) and float64: the counts equal and every gap within
-    ``SYM_LIMITS``; then timed at ncv = 32, 'LA': the kernel device-only
+    memory, and one at the first ncv past it, the matrices in global
+    memory, with the same 24 shifts), float32 (the flagship's) and
+    float64: the counts equal and every gap within ``SYM_LIMITS``; then
+    timed at ncv = 32, 'LA': the kernel device-only
     (each call after two copies restoring its inputs), the twin's host wall
     per call, and the library form's wall per call (``torch.linalg.eigh``
     + the QR loop on the card, with their syncs)."""
@@ -616,10 +626,10 @@ def check_sym_cycle(torch, dev, gpu):
                 torch.zeros(csc.packet_size(ncv), dtype=torch.float64,
                             device=dev)]
 
-        def kernel():
+        def kernel(clocks=None):
             bufs[0].copy_(a0)
             bufs[1].copy_(b0)
-            csc.sym_cycle(*bufs, p, False)
+            csc.sym_cycle(*bufs, p, False, clocks=clocks)
 
         kernel()
         np_eff = int(bufs[8][csc.P_NP])
@@ -646,6 +656,7 @@ def check_sym_cycle(torch, dev, gpu):
                 ts.append((time.perf_counter() - t0) * 1e3)
             walls[name] = float(np.median(ts))
         ms = timing.alternating_ms([kernel], timing.flush_buffer(dev))[0]
+        clocks = _sym_clocks(torch, csc, kernel, dev, np_eff)
         # operations this input needs: the QL sweeps (~60 ncv^2) and, per
         # shift, Q <- Q q (~ncv^3 for the Hessenberg q), forming q and the
         # three diagonals of q^T T q (~18 ncv^2)
@@ -655,14 +666,63 @@ def check_sym_cycle(torch, dev, gpu):
                "ms": ms, "plain_ms": walls["plain_ms"],
                "library_ms": walls["library_ms"], "bound_ms": bound,
                "bound_by": "operations", "bytes": 0, "flops": flops,
-               "np_eff": np_eff}
+               "bound_note": "operations over one SM's float32 rate (the "
+                             "kernel is one block), not the card's roofline; "
+                             "its limit is its dependent chains",
+               "np_eff": np_eff, "clocks": clocks}
         print(f"  sym_cycle ncv={ncv} float32 ({np_eff} shifts): kernel "
               f"{ms:.4f} ms device-only, twin {walls['plain_ms']:.4f} ms "
               f"host, library (eigh + {np_eff} QR on the card, with syncs) "
               f"{walls['library_ms']:.4f} ms; bound {bound:.6f} ms "
               f"({flops} flops over one SM's float32 rate, "
               f"{100 * bound / ms:.2f}% of it); card {gpu}", flush=True)
+        phases = ("ql", "head", "sweep", "tail")
+        total = sum(clocks[k] for k in phases)
+        print(f"  sym_cycle phase clocks (median of {timing.REPS} launches, "
+              f"SM cycles of thread 0; ms = share of the device-only time): "
+              + ", ".join(f"{k} {clocks[k]} ({100 * clocks[k] / total:.1f}%, "
+                          f"{ms * clocks[k] / total:.4f} ms)"
+                          for k in phases)
+              + f"; total {total}; per shift (SM cycles, mean over the "
+              f"{np_eff} shifts): start to start "
+              f"{clocks['shift_start_gap']:.0f}, last entry to last entry "
+              f"{clocks['shift_end_gap']:.0f}, start to last entry "
+              f"{clocks['shift_span']:.0f} (the first shift, which waits on "
+              f"no other, {clocks['first_span']:.0f}); Q warps after the "
+              f"last entry "
+              f"{clocks['q_after_last']:.0f}; card {gpu}", flush=True)
     return err, row
+
+
+def _sym_clocks(torch, csc, kernel, dev, np_eff):
+    """The reduced-space kernel's phase split: ``timing.REPS`` launches with
+    a stamp buffer, the median SM cycles of each phase (QL, head, sweep,
+    tail: the differences of consecutive stamps); and, from the sweep's
+    per-shift stamps, the median over launches of: the mean gap between
+    consecutive shifts' starts and between their last published entries,
+    the mean span of one shift, and how long the Q warps ran on after the
+    last shift's last entry."""
+    ncv = NCV
+    nc = len(csc.CLOCKS)
+    clk = torch.zeros(csc.clock_size(ncv), dtype=torch.int64, device=dev)
+    runs, sweep = [], []
+    for _ in range(timing.REPS):
+        kernel(clk)
+        c = clk.cpu().numpy()
+        runs.append(np.diff(c[:nc]))
+        sh = c[nc:nc + 3 * ncv].reshape(ncv, 3)[:np_eff]
+        qd = c[nc + 3 * ncv:nc + 4 * ncv][:np_eff]
+        sweep.append([np.diff(sh[:, 0]).mean(), np.diff(sh[:, 2]).mean(),
+                      (sh[:, 2] - sh[:, 0]).mean(), sh[0, 2] - sh[0, 0],
+                      qd[-1] - sh[-1, 2]])
+    med = np.median(np.array(runs), axis=0)
+    out = {k: int(v) for k, v in zip(("ql", "head", "sweep", "tail"), med)}
+    sw = np.median(np.array(sweep), axis=0)
+    out.update({k: float(v) for k, v in zip(
+        ("shift_start_gap", "shift_end_gap", "shift_span", "first_span",
+         "q_after_last"),
+        sw)})
+    return out
 
 
 def _cgs_cases(torch, cuda_cgs, V, w, bf16, what, err):
@@ -952,6 +1012,15 @@ def _in_band(st, what):
                              f"recorded band {lo}-{hi}")
 
 
+def _kernel_counters(st, tag):
+    """The gate of ``KERNEL_COUNTERS``: the solve's counters exactly."""
+    want = KERNEL_COUNTERS[tag]
+    got = (st.n_iter, st.nopx, st.nrorth)[:len(want)]
+    if got != want:
+        raise AssertionError(f"{tag}: counters {got}, want the reduced-space "
+                             f"kernel's recorded {want}")
+
+
 def flagship(torch, dev, gpu, nx=NX):
     """Phase 4: the selective flagship through ``eigsh`` (the main path:
     the device restart loop, extensions replayed as CUDA graphs, the
@@ -984,12 +1053,14 @@ def flagship(torch, dev, gpu, nx=NX):
     print(f"  device loop: {_loop_line(st)}", flush=True)
     print(f"  recorded (host loop): "
           f"{RECORDED_COUNTERS['flagship selective']}; the gate's band (the "
-          f"seed sweep's span) {SELECTIVE_BAND[0]}-{SELECTIVE_BAND[1]} cycles",
+          f"seed sweep's span) {SELECTIVE_BAND[0]}-{SELECTIVE_BAND[1]} "
+          f"cycles; the kernel's: {KERNEL_COUNTERS['flagship selective']}",
           flush=True)
     print(f"  values {np.array2string(vals, precision=7)}", flush=True)
     launches = {k: counts[k] for k in SELECTIVE_PATH}
     # the gates of the selective loop are held after every run has printed
     gates = [lambda: _in_band(st, "flagship selective"),
+             lambda: _kernel_counters(st, "flagship selective"),
              _reduced_witness(torch, dev, gpu, op, a_sp, spectrum, kw)]
     _sel_witness(torch, dev, gpu, op, a_sp, spectrum)
 
@@ -1199,6 +1270,9 @@ def sparse_solves(torch, dev, gpu, fem, nx=NX, device=None):
         if out.stats.packets:
             print(f"  device loop: {_loop_line(out.stats)}", flush=True)
         print(f"  recorded: {RECORDED_COUNTERS[tag[:3]]}", flush=True)
+        if tag[:3] in KERNEL_COUNTERS:
+            print(f"  the kernel's: {KERNEL_COUNTERS[tag[:3]]}", flush=True)
+            _kernel_counters(out.stats, tag[:3])
         for k in need:
             launches.setdefault(k, counts[k])
     _dgks_witnesses(torch, dev, gpu, op, a_sp, spectrum, kw)
@@ -1584,7 +1658,9 @@ def kernel_entries(rows, launches, errs):
             "library_ms": r["library_ms"], "lib_ms": r["library_ms"],
             "host_us": r.get("host_us"),
             "library_host_us": r.get("library_host_us"),
-            "shape": f"{timed} shape={r['shape']} float32"})
+            "shape": f"{timed} shape={r['shape']} float32",
+            **({"bound_note": r["bound_note"]} if "bound_note" in r
+               else {})})
     return entries
 
 

@@ -271,21 +271,38 @@ def test_device_loop_maxiter_and_breakdown():
     assert (res.stats.nopx, res.n_iter) == (host.stats.nopx, host.n_iter)
 
 
-@pytest.mark.parametrize("itemsize,top", [(4, 135), (8, 95)])
+@pytest.mark.parametrize("itemsize,top", [(4, 111), (8, 78)])
 def test_kernel_shape_rule(itemsize, top):
-    # the kernel's workspace, three ncv x ncv matrices, 14 vectors and 5
-    # double vectors, lives in one block's shared memory up to top; one
-    # more row and it moves to global memory (same layout, every ncv runs
-    # on the card)
+    # the kernel's workspace has two parts, which claim one block's shared
+    # memory in order: 19 double and 19 compute-dtype vectors (the QL's, a
+    # ring of 8 shifts' reflectors; the head's, a ring of 5 tridiagonals),
+    # and the matrices (a packed upper-Hessenberg q for each of 4 column
+    # warps, Q and its product); both fit up to top, the vectors up to
+    # top1, and the parts that do not fit go to one global buffer (every
+    # ncv runs on the card)
+    assert (csc.VECTORS, csc.DVECTORS, csc.SWEEP_PAIRS) == (19, 19, 4)
+    top1 = {4: 1018, 8: 763}[itemsize]
     assert csc.fits_shared(top, itemsize)
     assert not csc.fits_shared(top + 1, itemsize)
+    assert csc.smem_parts(top + 1, itemsize) == 1
+    assert csc.smem_parts(top1, itemsize) == 1
+    assert csc.smem_parts(top1 + 1, itemsize) == 0
 
-    def smem(n):
-        return (3 * n * n + csc.VECTORS * n) * itemsize + csc.DVECTORS * n * 8
+    def parts(n):
+        # column c of a packed q holds rows 0..min(c + 3, n - 1)
+        q = sum(min(c + 4, n) for c in range(n))
+        return ((19 * 8 + 19 * itemsize) * n,
+                (4 * q + 2 * n * n) * itemsize)
 
-    assert csc.work_bytes(top, itemsize) == smem(top) <= csc.MAX_SMEM
-    assert csc.work_bytes(top + 1, itemsize) == smem(top + 1) > csc.MAX_SMEM
-    assert csc.work_bytes(256, 8) == 1_611_776
+    for n in (2, 3, 4, 5, 32, top, top + 1, top1 + 1, 1200):
+        assert csc.part_bytes(n, itemsize) == parts(n)
+        k = csc.smem_parts(n, itemsize)
+        assert sum(parts(n)[:k]) <= csc.MAX_SMEM
+        assert k == 2 or sum(parts(n)[:k + 1]) > csc.MAX_SMEM
+        assert csc.global_bytes(n, itemsize) == sum(parts(n)[k:])
+        assert csc.work_bytes(n, itemsize) == sum(parts(n))
+    assert csc.global_bytes(top, itemsize) == 0
+    assert csc.work_bytes(256, 8) == 2_203_456
 
 
 def test_reduced_wrapper_refuses_bad_buffers():

@@ -470,8 +470,8 @@ SYM_LIMITS_GLOBAL = {"float32": dict(Q=1e-3, resid=1e-3), "float64": {}}
 def test_sym_cycle_kernel_matches_twin_on_card(dev, dtype, which):
     # one cycle's reduced space, the kernel against its numpy twin on
     # Lanczos tridiagonals (ncv = 32, nev = 8, the workspace in shared
-    # memory; and the first ncv past it, in global memory, on the
-    # flagship's spectrum with the same 24 shifts): the counts equal, every
+    # memory; and the first ncv past it, the matrices in global memory, on
+    # the flagship's spectrum with the same 24 shifts): the counts equal, every
     # gap within SYM_LIMITS (the columns of Q past kev belong to the
     # deflated block and are free); a cycle that ends the solve leaves T
     # as it was
@@ -565,3 +565,132 @@ def test_failed_capture_raises_on_card(dev):
     bad = dataclasses.replace(op, apply=apply)
     with pytest.raises(RuntimeError):
         pt.eigsh(bad, k=8, ncv=32, which="LA", tol=1e-5)
+
+
+def _sym_pipeline_case(case, dtype):
+    """(d, e, nev, limits) of a reduced-space case for the pipelined sweep:
+    an ncv that is not a multiple of 32, shifts outnumbering the shifts in
+    flight, zero Ritz bounds among the unwanted (T split after row 12, its
+    top block moved below the rest: the top block's eigenvectors end in
+    exact zeros, np_eff < np0 and nev inflated), and the workspace's parts
+    in global memory: the matrices (global, past the shared-memory limit,
+    on the flagship's spectrum with its 24 shifts) and both parts
+    (all_global, from the first ncv that takes it, with 'LM' on a spectrum
+    symmetric about 0 and 8 shifts: interior Ritz values far from
+    converged, so no bound is near the exact zeros the zero-bound count
+    tests)."""
+    from arpack_ng_tpu_torch.ops import cuda_sym_cycle as csc
+    lim = dict(SYM_LIMITS[dtype])
+    if case == "ncv20":
+        d, e = _lanczos_T(0, 20)
+        nev = 6
+    elif case == "ncv48":
+        d, e = _lanczos_T(1, 48)
+        nev = 8
+    elif case == "ncv64_60shifts":
+        d, e = _lanczos_T(2, 64)
+        nev = 4
+    elif case == "zero_bounds":
+        d, e = _lanczos_T(0, 32)
+        e[11] = 0.0
+        d[:12] -= 2.0
+        nev = 8
+    else:  # past the shared-memory limit, the flagship's spectrum
+        itemsize = np.dtype(dtype).itemsize
+        parts = {"global": 1, "all_global": 0}[case]
+        ncv = next(n for n in range(32, 2000)
+                   if csc.smem_parts(n, itemsize) == parts)
+        if case == "global":
+            d, e = _lanczos_T(3, ncv + 8, None)
+            nev = ncv + 8 - 24
+        else:  # T - I/2 of a spectrum uniform in (0, 1)
+            d, e = _lanczos_T(3, ncv, 4096)
+            d -= 0.5
+            nev = ncv - 8
+        lim.update(SYM_LIMITS_GLOBAL[dtype])
+    return d.astype(dtype), e.astype(dtype), nev, lim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", ["ncv20", "ncv48", "ncv64_60shifts",
+                                  "zero_bounds", "global", "all_global"])
+def test_sym_cycle_pipeline_cases_on_card(dev, dtype, case):
+    # the pipelined exact-shift sweep against the twin, LA and BE (all_global:
+    # LM), within
+    # the unchanged SYM_LIMITS (SYM_LIMITS_GLOBAL past the shared-memory
+    # limit): the counts equal, the Ritz data, the new T, Q's kept columns,
+    # sigmak and the residual's new part.  zero_bounds runs LA, whose 12
+    # shifts are the split-off block's own eigenvalues: they annihilate that
+    # block, whose rows any two QR codes then leave apart (LAPACK's and a
+    # dgeqr2 sequence in numpy differ by 1.2 there in float64, with
+    # tools/reduced_rounding_cpu.py's model), so T, Q, sigmak and the
+    # residual are held to the twin on the coupled block (rows 12 on), where
+    # the model agrees with LAPACK to 1e-15
+    from arpack_ng_tpu_torch.ops import cuda_sym_cycle as csc
+    from arpack_ng_tpu_torch.ops.cuda_sym_cycle import (
+        P_DONE, P_HEAD, P_INFO, P_NCONV, P_NEV, P_NP)
+    dt = getattr(torch, dtype)
+    f = np.finfo(np.dtype(dtype))
+    d, e, nev, lim = _sym_pipeline_case(case, dtype)
+    ncv = d.shape[0]
+    b0 = 12 if case == "zero_bounds" else 0  # the rows the shifts determine
+    whiches = {"zero_bounds": ("LA",), "all_global": ("LM",)}
+    for which in whiches.get(case, ("LA", "BE")):
+        p = csc.Params(which=which, nev=nev,
+                       tol=1e-14 if dtype == "float64" else 1e-5,
+                       eps23=float(f.eps ** (2 / 3)), eps_m=float(f.eps))
+        ka, kb, kQ, ksk, kpk = _sym_cycle_run(d, e, dt, p, False, dev)
+        ta, tb, tQ, tsk, tpk = _sym_cycle_run(d, e, dt, p, False, "cpu")
+        for i in (P_DONE, P_NCONV, P_NEV, P_NP, P_INFO):
+            assert kpk[i] == tpk[i], (case, which, i)
+        assert not kpk[P_DONE], (case, which)
+        if case == "zero_bounds":
+            assert kpk[P_NP] < ncv - nev, which  # zero bounds removed
+        k = int(kpk[P_NEV])
+        scale = np.abs(d).max()
+        np.testing.assert_allclose(kpk[P_HEAD + 2 * ncv:],
+                                   tpk[P_HEAD + 2 * ncv:], rtol=0,
+                                   atol=lim["values"] * scale)
+        np.testing.assert_allclose(ka[b0:k], ta[b0:k], rtol=0,
+                                   atol=lim["T"] * scale)
+        np.testing.assert_allclose(kb[b0:k - 1], tb[b0:k - 1], rtol=0,
+                                   atol=lim["T"] * scale)
+        np.testing.assert_allclose(kQ[b0:, b0:k], tQ[b0:, b0:k], rtol=0,
+                                   atol=lim["Q"])
+        np.testing.assert_allclose(ksk[0], tsk[0], rtol=0,
+                                   atol=lim["sigmak"])
+        np.testing.assert_allclose(ksk[1] * kQ[b0:, k], tsk[1] * tQ[b0:, k],
+                                   rtol=0, atol=lim["resid"] * scale)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_sym_cycle_breakdown_leaves_state_on_card(dev, dtype):
+    # an extension that stopped short (brk != -1) leaves a, b, Q and sk as
+    # they were and writes the packet's head as the twin does
+    from arpack_ng_tpu_torch.ops import cuda_sym_cycle as csc
+    dt = getattr(torch, dtype)
+    f = np.finfo(np.dtype(dtype))
+    d, e = _lanczos_T(0)
+    p = csc.Params(which="LA", nev=8, tol=1e-5, eps23=float(f.eps ** (2 / 3)),
+                   eps_m=float(f.eps))
+    out = []
+    for device in (dev, "cpu"):
+        t = dict(dtype=dt, device=device)
+        bufs = [torch.tensor(d, **t), torch.tensor(e, **t),
+                torch.tensor(e[-1], **t),
+                torch.tensor(5, dtype=torch.int32, device=device),
+                torch.tensor(1, dtype=torch.int32, device=device),
+                torch.arange(4, dtype=torch.int64, device=device) + 7,
+                torch.full((32, 32), 3.0, **t), torch.full((2,), -2.0, **t),
+                torch.zeros(csc.packet_size(32), dtype=torch.float64,
+                            device=device)]
+        csc.sym_cycle(*bufs, p, False)
+        out.append([x.cpu() for x in bufs])
+    (ka, kb, _, _, _, _, kQ, ksk, kpk), (_, _, _, _, _, _, _, _, tpk) = out
+    assert torch.equal(ka, torch.tensor(d, dtype=dt))
+    assert torch.equal(kb, torch.tensor(e, dtype=dt))
+    assert torch.all(kQ == 3.0) and torch.all(ksk == -2.0)
+    assert torch.equal(kpk, tpk)
