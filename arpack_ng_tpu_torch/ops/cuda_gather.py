@@ -11,9 +11,12 @@
 Each wrapper runs its plain twin (:func:`take_flat_plain`,
 :func:`take_lanes_plain`) for tensors on the CPU and launches its CUDA
 kernel for tensors on a CUDA device; ``launches`` counts the kernel
-launches.  The kernels read no index they are not given in range: with
-``check_range`` (the default) the wrapper verifies the indices first, at
-the cost of one reduction and one device-to-host read.
+launches.  The kernels check no index: with ``check_range`` (the default)
+the wrapper verifies the indices first, at the cost of one reduction and
+one device-to-host read; without it an index out of range reads whatever
+it points at (for :func:`take_lanes`, another value of the same row).
+:func:`noop` launches the empty kernel whose time is a timing harness's
+launch floor.
 """
 from __future__ import annotations
 
@@ -101,6 +104,14 @@ def take_lanes(X: torch.Tensor, lidx: torch.Tensor, check_range: bool = True
     cuda_lib.check(lib, err, "take_lanes")
     take_lanes.launches += 1
     return out
+
+
+def noop(device: torch.device) -> None:
+    """Launch the empty kernel (one block) on ``device``'s current stream:
+    the launch floor of a timing harness."""
+    lib = cuda_lib.load()
+    cuda_lib.check(lib, lib.atpt_noop(cuda_lib.stream_handle(device)),
+                   "noop")
 
 
 take_flat.launches = 0

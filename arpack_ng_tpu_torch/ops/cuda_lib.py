@@ -157,6 +157,8 @@ def load() -> ctypes.CDLL:
     lib.atpt_take_flat.restype = i32
     lib.atpt_take_lanes.argtypes = [vp, vp, i64, vp, vp]
     lib.atpt_take_lanes.restype = i32
+    lib.atpt_noop.argtypes = [vp]
+    lib.atpt_noop.restype = i32
     _lib = lib
     return lib
 

@@ -63,7 +63,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    and bfloat16); DIA on the flagship Laplacian's table;
    PSELL (and the ELL gather) on the RCM-ordered
    ``fem_triangulation(1_048_576)``, two calls bit-equal, beside the bound
-   of every packed slot and that of the nonzero slots alone;
+   of every packed slot and that of the nonzero slots alone; beside them
+   the ELL gather's bare ``xp[cols]`` and ``take_flat`` on the same columns
+   (float32), equal bit for bit;
 7. sparse-entry solves through ``eigsh`` on the default device, k = 8,
    ncv = 32, which = 'LA', tol = 1e-5: (a) the flagship's scipy CSR matrix
    (imported as DIA), (b) the same with ``reorth='dgks',
@@ -78,10 +80,12 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    counters beside those recorded in ``PERF.md``;
 8. the gather kernels (``take_flat``, ``take_lanes``) against their twins
    at the gather probe's shapes, equal bit for bit (a gather does no
-   arithmetic), with indices 0 and n - 1, a tail past the last 16-byte
-   vector and a misaligned index buffer; each timed as in phase 3 beside
-   its twin and library call (``index_select``; ``torch.gather``); then the
-   gather probe's six forms once (``arpack_ng_tpu_torch.bench.
+   arithmetic), with indices 0 and n - 1, tails past the last 16-byte
+   word, a misaligned index buffer and a misaligned x, and ``take_lanes``
+   also at 5 and 16384 rows; each timed as in phase 3 beside its twin, its
+   library call (``index_select``; ``torch.gather``) and the empty kernel
+   (the harness's launch floor), ``take_lanes`` at 2048 and 16384 rows;
+   then the gather probe's six forms once (``arpack_ng_tpu_torch.bench.
    gather_primitives``: the main path of these kernels, whose launches are
    counted);
 9. ``eigs`` at full width: the convection-diffusion operator of
@@ -909,7 +913,7 @@ def check_psell(torch, dev, fem, gpu, timed=True):
     every packed slot's value and metadata (``slot_bound_ms``, PRs 2-3),
     and what the inputs need (``bound_ms``): the nonzero slots, the tile
     lengths and panels, x and y."""
-    from arpack_ng_tpu_torch.ops import cuda_psell, psell
+    from arpack_ng_tpu_torch.ops import cuda_gather, cuda_psell, psell
     from arpack_ng_tpu_torch.ops.sparse import _to_ell, ell_matvec
 
     n = fem.shape[0]
@@ -947,6 +951,17 @@ def check_psell(torch, dev, fem, gpu, timed=True):
         live = int((tiles.tile_len > 0).sum())
         slot_bytes = ntiles * 1024 * (ab + 4) + 4 * ntiles + ptr_bytes \
             + (n + pk.n_pad) * ab
+        extra = {"ell_ms": lambda: ell_matvec(cols, vals, xp)}
+        if x.dtype == torch.float32:
+            # the bare gather of ell_matvec beside take_flat on the same
+            # columns (int32)
+            cols32 = torch.from_numpy(cols_np).to(dev)
+            if not torch.equal(cuda_gather.take_flat(xp, cols32), xp[cols]):
+                raise AssertionError("take_flat differs from xp[cols] on the "
+                                     "FEM's ELL columns")
+            extra["gather_ms"] = lambda: xp[cols]
+            extra["take_flat_ms"] = lambda: cuda_gather.take_flat(
+                xp, cols32, check_range=False)
         row = _timed_row(
             torch, flush, "psell_matvec", str(x.dtype), pk.W,
             pk.nnz * (ab + 4) + 4 * ntiles + 4 * live + ptr_bytes
@@ -954,8 +969,7 @@ def check_psell(torch, dev, fem, gpu, timed=True):
             2 * pk.nnz, str(x.dtype),
             lambda: cuda_psell.psell_matvec(tiles, x),
             lambda: cuda_psell.psell_matvec_plain(tiles, x),
-            lambda: torch.mv(csr, x),
-            extra={"ell_ms": lambda: ell_matvec(cols, vals, xp)})
+            lambda: torch.mv(csr, x), extra=extra)
         row["slot_bytes"] = slot_bytes
         row["slot_bound_ms"] = _bound(slot_bytes, 2 * pk.nnz,
                                       str(x.dtype))[0]
@@ -971,6 +985,16 @@ def check_psell(torch, dev, fem, gpu, timed=True):
               f"{100 * row['bound_ms'] / row['ms']:.1f}%); live tiles "
               f"{live} of {ntiles}; CSR stores "
               f"{row['csr_bytes'] / 1e6:.1f} MB; card {gpu}", flush=True)
+        if "take_flat_ms" in row:
+            nel = cols_np.size
+            tb = row["take_flat_bound_ms"] = _bound(
+                4 * (2 * nel + pk.n_pad), 0, str(x.dtype))[0]
+            print(f"  ELL columns ({cols_np.shape[0]} x {cols_np.shape[1]}, "
+                  f"x of {pk.n_pad} values): bare gather xp[cols] (int64) "
+                  f"{row['gather_ms']:.4f} ms, take_flat (int32) "
+                  f"{row['take_flat_ms']:.4f} ms, bit-equal; take_flat's "
+                  f"bound {tb:.4f} ms ({100 * tb / row['take_flat_ms']:.1f}% "
+                  f"of it); card {gpu}", flush=True)
         del csr, cols, vals
     return err, rows_out
 
@@ -1317,10 +1341,12 @@ def sparse_solves(torch, dev, gpu, fem, nx=NX, device=None):
     return launches
 
 
-def _gather_cases(torch, cuda_gather, inp):
-    """Both gather kernels against their twins, bit for bit: the probe's
-    indices with 0 and n - 1 written in at both ends, a tail past the last
-    16-byte vector, and an index buffer one value in (the scalar path)."""
+def _gather_cases(torch, cuda_gather, inp, x_off):
+    """Both gather kernels against their twins, bit for bit: ``take_flat``
+    with the probe's indices and 0 and n - 1 written in at both ends, tails
+    of 1-3 past the last 16-byte word, an index buffer one value in (single
+    values) and x 4 bytes past a 16-byte boundary; ``take_lanes`` at the
+    probe's rows and at 5 rows."""
     from arpack_ng_tpu_torch.bench.gather_primitives import N, W
 
     X2 = inp["X2"]
@@ -1330,46 +1356,70 @@ def _gather_cases(torch, cuda_gather, inp):
     lidx = inp["lidx"].clone()
     lidx[0, :2], lidx[-1, -2:] = torch.tensor([0, W - 1]), \
         torch.tensor([W - 1, 0])
-    for what, c in (("boundary indices", cols), ("tail", flat[:1001]),
-                    ("misaligned", flat[1:4098])):
-        if not torch.equal(cuda_gather.take_flat(X2, c),
-                           cuda_gather.take_flat_plain(X2, c)):
-            raise AssertionError(f"take_flat ({what}) differs from its twin")
-    if not torch.equal(cuda_gather.take_lanes(X2, lidx),
-                       cuda_gather.take_lanes_plain(X2, lidx)):
-        raise AssertionError("take_lanes differs from its twin")
+    for where, x in (("aligned x", X2), ("x one value in", x_off)):
+        for what, c in (("boundary indices", cols), ("tail 1", flat[:1]),
+                        ("tail 3", flat[:1003]),
+                        ("misaligned", flat[1:4098])):
+            if not torch.equal(cuda_gather.take_flat(x, c),
+                               cuda_gather.take_flat_plain(x, c)):
+                raise AssertionError(f"take_flat ({where}, {what}) differs "
+                                     "from its twin")
+    for r in (lidx.shape[0], 5):
+        if not torch.equal(cuda_gather.take_lanes(X2[:r], lidx[:r]),
+                           cuda_gather.take_lanes_plain(X2[:r], lidx[:r])):
+            raise AssertionError(f"take_lanes ({r} rows) differs from its "
+                                 "twin")
     return {"take_flat": 0.0, "take_lanes": 0.0}
 
 
 def check_gather(torch, dev, gpu):
-    """Phase 8: the gather kernels bit-equal to their twins, each timed
-    beside its twin and library call, then the gather probe's six forms
-    once, with every kernel launch counted.  Returns ``(errs, rows,
-    launches)``."""
+    """Phase 8: the gather kernels bit-equal to their twins; ``take_flat``
+    at the probe's shape and ``take_lanes`` at the probe's 2048 rows and at
+    16384 (8 MiB per operand, where bytes and not the launch set the time),
+    each timed beside its twin, its library call and the empty kernel (the
+    harness's launch floor, ``floor_ms``), all in one alternation; then the
+    gather probe's six forms once, with every kernel launch counted.
+    Returns ``(errs, rows, launches)``."""
     from arpack_ng_tpu_torch.bench import gather_primitives as gp
     from arpack_ng_tpu_torch.ops import cuda_gather
 
     inp = gp.make_inputs(dev)
-    errs = _gather_cases(torch, cuda_gather, inp)
+    x_off = torch.empty(gp.N + 1, device=dev)[1:]
+    x_off.copy_(inp["x"])
+    errs = _gather_cases(torch, cuda_gather, inp, x_off)
     flush = timing.flush_buffer(dev)
     X2, x, cols, cols2, lidx = (inp[k] for k in ("X2", "x", "cols", "cols2",
                                                  "lidx"))
+    rng = np.random.default_rng(1)
+    rows16 = 16 * 1024
+    X16 = torch.from_numpy(rng.standard_normal(
+        (rows16, gp.W)).astype(np.float32)).to(dev)
+    lidx16 = torch.from_numpy(rng.integers(
+        0, gp.W, (rows16, gp.W)).astype(np.int32)).to(dev)
+    if not torch.equal(cuda_gather.take_lanes(X16, lidx16),
+                       cuda_gather.take_lanes_plain(X16, lidx16)):
+        raise AssertionError(f"take_lanes ({rows16} rows) differs from its "
+                             "twin")
+    floor = {"floor_ms": lambda: cuda_gather.noop(dev)}
     rows = [
         _timed_row(torch, flush, "take_flat", "torch.float32", cols2.shape[0],
                    4 * (2 * gp.NEL + gp.N), 0, "torch.float32",
                    lambda: cuda_gather.take_flat(X2, cols2,
                                                  check_range=False),
                    lambda: cuda_gather.take_flat_plain(X2, cols2),
-                   lambda: x.index_select(0, cols)),
-        _timed_row(torch, flush, "take_lanes", "torch.float32", lidx.shape[0],
-                   4 * 3 * gp.N, 0, "torch.float32",
-                   lambda: cuda_gather.take_lanes(X2, lidx,
-                                                  check_range=False),
-                   lambda: cuda_gather.take_lanes_plain(X2, lidx),
-                   lambda: torch.gather(X2, 1, lidx))]
-    print(f"gather kernels vs twins at n={gp.N}, {gp.NEL} elements "
-          f"(device-only median of {timing.REPS} in alternation, L2 flushed by a "
-          f"read; card {gpu}):", flush=True)
+                   lambda: x.index_select(0, cols), extra=floor)]
+    for Xr, lr in ((X2, lidx), (X16, lidx16)):
+        rows.append(_timed_row(
+            torch, flush, "take_lanes", "torch.float32", lr.shape[0],
+            4 * 3 * lr.numel(), 0, "torch.float32",
+            lambda Xr=Xr, lr=lr: cuda_gather.take_lanes(Xr, lr,
+                                                        check_range=False),
+            lambda Xr=Xr, lr=lr: cuda_gather.take_lanes_plain(Xr, lr),
+            lambda Xr=Xr, lr=lr: torch.gather(Xr, 1, lr), extra=floor))
+    print(f"gather kernels vs twins at n={gp.N}, {gp.NEL} elements; "
+          f"take_lanes also at {rows16} rows (device-only median of "
+          f"{timing.REPS} in alternation with the empty kernel, L2 flushed "
+          f"by a read; card {gpu}):", flush=True)
     _print_rows(rows)
     print(f"gather probe, six forms (card {gpu}):", flush=True)
     _, wall, counts = _counted(torch, dev, ("take_flat", "take_lanes"),
@@ -1617,6 +1667,8 @@ def kernel_entries(rows, launches, errs):
     """The ``kernels`` JSON entries: each kernel at the float32 shape its
     solve runs most (the update of the dgks path carries the fused norm),
     with the launches of the path that exercises it."""
+    from arpack_ng_tpu_torch.bench import gather_primitives as gp
+
     ops = "arpack_ng_tpu/ops/"
     probe = "benchmarks/bench_gather_primitives.py"
     # name -> (source, the TPU kernel (or the reference's device ops) it
@@ -1639,8 +1691,8 @@ def kernel_entries(rows, launches, errs):
                             "psell_matvec", None, "psell_matvec"),
            "take_flat": ("gather.cu", probe + ":118", "take_flat", None,
                          "take_flat"),
-           "take_lanes": ("gather.cu", probe + ":139", "take_lanes", None,
-                          "take_lanes"),
+           "take_lanes": ("gather.cu", probe + ":139", "take_lanes",
+                          gp.N // gp.W, "take_lanes"),
            "sym_cycle": ("sym_cycle.cu", "arpack_ng_tpu/core/device_sym.py"
                          ":141", "sym_cycle", None, "sym_cycle")}
     entries = []
@@ -1659,8 +1711,7 @@ def kernel_entries(rows, launches, errs):
             "host_us": r.get("host_us"),
             "library_host_us": r.get("library_host_us"),
             "shape": f"{timed} shape={r['shape']} float32",
-            **({"bound_note": r["bound_note"]} if "bound_note" in r
-               else {})})
+            **{k: r[k] for k in ("bound_note", "floor_ms") if k in r}})
     return entries
 
 
@@ -1674,6 +1725,8 @@ def _print_rows(rows) -> None:
             host += f"; {r['word']}-byte words (the plan's), " + ", ".join(
                 f"{k[4:-3]}-byte {v:.4f} ms" for k, v in r.items()
                 if k.startswith("word") and k.endswith("_ms"))
+        if "floor_ms" in r:
+            host += f"; floor {r['floor_ms']:.4f} ms"
         print(f"  {r['name']:15s} {r['dtype']:15s} shape={r['shape']:2d}: "
               f"kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms "

@@ -328,6 +328,49 @@ def test_gather_kernels_match_twins_on_card(dev):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n, offset", [
+    (1 << 18, 0),             # the probe's x
+    ((1 << 18) + 3, 0),       # n not a multiple of 4
+    (1000, 0),                # x in a few L2 lines
+    (1 << 20, 0),             # the FEM's x, 4 MiB
+    (1 << 18, 1)])            # x 4 bytes past a 16-byte boundary
+def test_take_flat_sizes_match_twin_on_card(dev, n, offset):
+    # bit for bit: 0 and n - 1 at both ends, nel tails of 1-3 past the last
+    # int4 word, misaligned cols views (single values), every launch counted
+    g = torch.Generator(device=dev).manual_seed(n + offset)
+    x = torch.randn(n + offset, generator=g, device=dev)[offset:]
+    cols = torch.randint(0, n, ((1 << 18) + 7,), generator=g, device=dev,
+                         dtype=torch.int32)
+    cols[:2] = torch.tensor([0, n - 1])
+    cols[-2:] = torch.tensor([n - 1, 0])
+    before = cuda_gather.take_flat.launches
+    views = [cols, cols[:1], cols[:2], cols[:3], cols[:4097], cols[:4098],
+             cols[:4099], cols[1:], cols[3:5002], cols.view(-1, 1)[:1000]]
+    for c in views:
+        assert torch.equal(cuda_gather.take_flat(x, c),
+                           cuda_gather.take_flat_plain(x, c)), c.numel()
+    assert cuda_gather.take_flat.launches - before == len(views)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [5, 2048, 4099, 16384, 16385])
+def test_take_lanes_rows_match_twin_on_card(dev, rows):
+    # 4099 and 16385 rows: not a multiple of a block's 8 rows; the empty
+    # kernel of the launch floor launches beside it
+    g = torch.Generator(device=dev).manual_seed(rows)
+    X = torch.randn(rows, 128, generator=g, device=dev)
+    lidx = torch.randint(0, 128, (rows, 128), generator=g, device=dev,
+                         dtype=torch.int32)
+    lidx[0, :2] = torch.tensor([0, 127])
+    lidx[-1, -2:] = torch.tensor([127, 0])
+    assert torch.equal(cuda_gather.take_lanes(X, lidx),
+                       cuda_gather.take_lanes_plain(X, lidx))
+    cuda_gather.noop(X.device)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["device", "contiguity", "dtype", "range",
                                   "lanes_shape"])
 def test_gather_wrappers_refuse_on_card(dev, case):

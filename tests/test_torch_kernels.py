@@ -534,40 +534,73 @@ def _gather_data(seed=8):
     return X, cols, lidx
 
 
-def test_take_flat_matches_pallas_take():
+def _pallas_take(x, cols):
     # pl_take (bench_gather_primitives.py:118): jnp.take of the flattened
-    # VMEM-resident x; a gather does no arithmetic, so exactly equal
+    # VMEM-resident x
     from jax.experimental import pallas as pl
     import jax
-
-    X, cols, _ = _gather_data()
 
     def kernel(x_ref, i_ref, o_ref):
         o_ref[...] = jnp.take(x_ref[...].reshape(-1), i_ref[...], axis=0)
 
-    ref = np.asarray(pl.pallas_call(
+    return np.asarray(pl.pallas_call(
         kernel, out_shape=jax.ShapeDtypeStruct(cols.shape, jnp.float32),
-        interpret=True)(X, cols))
-    out = cuda_gather.take_flat(_t(X), _t(cols))
-    assert out.shape == cols.shape
-    np.testing.assert_array_equal(out.numpy(), ref)
+        interpret=True)(x, cols))
 
 
-def test_take_lanes_matches_pallas_tal():
+def _pallas_tal(X, lidx):
     # pl_tal (bench_gather_primitives.py:139): take_along_axis over lanes
     from jax.experimental import pallas as pl
     import jax
 
-    X, _, lidx = _gather_data()
-
     def kernel(x_ref, i_ref, o_ref):
         o_ref[...] = jnp.take_along_axis(x_ref[...], i_ref[...], axis=1)
 
-    ref = np.asarray(pl.pallas_call(
+    return np.asarray(pl.pallas_call(
         kernel, out_shape=jax.ShapeDtypeStruct(X.shape, jnp.float32),
         interpret=True)(X, lidx))
+
+
+def test_take_flat_matches_pallas_take():
+    # a gather does no arithmetic, so exactly equal
+    X, cols, _ = _gather_data()
+    out = cuda_gather.take_flat(_t(X), _t(cols))
+    assert out.shape == cols.shape
+    np.testing.assert_array_equal(out.numpy(), _pallas_take(X, cols))
+
+
+@pytest.mark.parametrize("n, lo, hi", [
+    (8192, 0, 1), (8192, 0, 2), (8192, 0, 3),   # nel tails of 1-3
+    (8195, 0, 4099),                            # n and nel not multiples of 4
+    (8192, 1, 4099),                            # cols 4 bytes past 16 bytes
+    (8192, 3, 5002)])
+def test_take_flat_sizes_match_pallas_take(n, lo, hi):
+    # the card tests' tails and misaligned views, with 0 and n - 1 at both
+    # ends of the view
+    rng = np.random.default_rng(n + lo + hi)
+    x = rng.standard_normal(n).astype(np.float32)
+    cols = rng.integers(0, n, hi).astype(np.int32)
+    cols[lo], cols[-1] = 0, n - 1
+    view = _t(cols)[lo:]
+    out = cuda_gather.take_flat(_t(x), view)
+    np.testing.assert_array_equal(out.numpy(), _pallas_take(x, cols[lo:]))
+
+
+def test_take_lanes_matches_pallas_tal():
+    X, _, lidx = _gather_data()
     np.testing.assert_array_equal(
-        cuda_gather.take_lanes(_t(X), _t(lidx)).numpy(), ref)
+        cuda_gather.take_lanes(_t(X), _t(lidx)).numpy(), _pallas_tal(X, lidx))
+
+
+@pytest.mark.parametrize("rows", [1, 5, 67])
+def test_take_lanes_rows_match_pallas_tal(rows):
+    # row counts that are not a multiple of a block's 8 rows
+    rng = np.random.default_rng(rows)
+    X = rng.standard_normal((rows, 128)).astype(np.float32)
+    lidx = rng.integers(0, 128, (rows, 128)).astype(np.int32)
+    lidx[0, 0], lidx[-1, -1] = 127, 0
+    np.testing.assert_array_equal(
+        cuda_gather.take_lanes(_t(X), _t(lidx)).numpy(), _pallas_tal(X, lidx))
 
 
 @pytest.mark.parametrize("case", ["values_dtype", "index_dtype",
