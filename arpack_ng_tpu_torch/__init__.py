@@ -4,10 +4,12 @@ for NVIDIA Hopper (H100) on their main paths.
 
 This package imports neither JAX nor ``arpack_ng_tpu``; its module names
 mirror ``arpack_ng_tpu`` so each counterpart is easy to find.  It covers
-the symmetric real path of ``eigsh`` (modes 1 and 2, float32/float64,
-``reorth`` selective or dgks, the implicit exact-shift restart) and the
-real non-symmetric path of ``eigs`` (mode 1, the fused real driver) for
-operators, dense matrices and scipy sparse matrices (``from_scipy``).
+``eigsh`` for symmetric and Hermitian problems (modes 1 and 2,
+float32/float64/complex64/complex128, ``reorth`` selective or dgks, the
+implicit exact-shift restart; the fused driver or the hybrid one) and
+``eigs`` for real and complex non-symmetric ones (mode 1, the fused real
+driver or the hybrid one), with ``validate=``, for operators, dense
+matrices and scipy sparse matrices (``from_scipy``).
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``.  On the card the reorthogonalization passes, the restart
 rotation and the DIA and PSELL sparse products run the kernels of
@@ -15,11 +17,12 @@ rotation and the DIA and PSELL sparse products run the kernels of
 run their plain PyTorch twins.
 """
 
-from .api import ArpackError, ArpackNoConvergence, eigs, eigsh
+from .api import (ArpackError, ArpackNoConvergence, F64Validation,
+                  PseudospectrumWarning, eigs, eigsh)
 from .config import IRAMConfig, default_ncv, pad_dim
 from .core.arnoldi import FactorizationState
 from .core.extract import EigenResult, extract
-from .core.iram import IRAMResult
+from .core.iram import IRAMResult, IRAMSolver
 from .ops.operator import Operator, from_dense, from_diagonal, from_matvec
 from .ops.sparse import from_scipy
 from .state import state_from_numpy, state_to_numpy
@@ -30,10 +33,13 @@ __all__ = [
     "ArpackError",
     "ArpackNoConvergence",
     "EigenResult",
+    "F64Validation",
     "FactorizationState",
     "IRAMConfig",
     "IRAMResult",
+    "IRAMSolver",
     "Operator",
+    "PseudospectrumWarning",
     "default_ncv",
     "eigs",
     "eigsh",

@@ -1,16 +1,24 @@
 """User-facing solver API (port of ``arpack_ng_tpu/api.py``): ``eigsh``,
-the dsaupd/dseupd driver pair, and ``eigs``, the dnaupd/dneupd pair for
-real non-symmetric problems.
+the dsaupd/dseupd driver pair (symmetric and Hermitian), and ``eigs``,
+the dnaupd/dneupd and znaupd/zneupd pairs (real and complex
+non-symmetric), with ``validate=`` (the float64 re-check of the converged
+pairs, :class:`F64Validation`).
 
 Both take the reference package's arguments plus ``device`` (the CUDA
 card unless the caller asks for ``device="cpu"``).  The options outside
 this package's current slice raise ``NotImplementedError`` rather than
 run a different algorithm: spectral transforms (``M``, ``sigma``,
-``mode``), ``mesh``, ``shift_fn``, ``restart='thick'``, ``validate``,
-``select``, the hybrid and complex fused strategies and complex dtypes.
+``mode``), ``mesh``, ``shift_fn``, ``restart='thick'``, ``select`` and
+``eigs(strategy='fused')``.  Where the reference package silently does
+something else, the port raises ``ValueError``: ``restart='thick'`` with
+``strategy='hybrid'`` (the reference runs the implicit restart) and
+``eigs(validate=..., return_schur=True)`` (the reference skips the
+validation).
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -18,8 +26,10 @@ import torch
 
 from .config import IRAMConfig, default_ncv, pad_dim
 from .core.extract import EigenResult, extract
+from .core.iram import IRAMSolver
 from .ops import operator as op_mod
 from .ops.operator import Operator
+from .utils import dtypes as _dt
 from .utils.device import DEFAULT
 from .utils.device import same as same_device
 
@@ -64,6 +74,145 @@ def _resolve_sym_reorth(reorth: str) -> str:
     if reorth == "auto":
         return "selective"
     return reorth
+
+
+def _make_solver(op, cfg, strategy):
+    """``eigsh``'s driver: 'fused' (and 'auto') the symmetric cycle of
+    ``core/device_sym`` (the selective loop on the device), 'hybrid' the
+    host float64 reduced space of ``core/iram``."""
+    if strategy in ("auto", "fused"):
+        from .core.device_sym import FusedSymSolver
+        return FusedSymSolver(op, cfg)
+    return IRAMSolver(op, cfg)
+
+
+def _check_validate(validate, raw_A) -> None:
+    """The reference's checks of ``validate`` (``api._solve``), made before
+    the solve: 'f64' needs a concrete matrix ``raw_A``."""
+    if validate is None or callable(validate):
+        return
+    if not (isinstance(validate, str) and validate == "f64"):
+        raise ValueError("validate must be None, 'f64', or a float64 matvec "
+                         "callable")
+    if raw_A is None:
+        raise ValueError(
+            "validate='f64' needs a concrete matrix input; for a "
+            "matrix-free Operator pass validate=<f64 matvec callable> "
+            "instead")
+
+
+class PseudospectrumWarning(UserWarning):
+    """Single-precision non-normal eigenproblem caveat: residual-converged
+    Ritz values of a non-normal operator solved in float32 may lie in the
+    operator's eps_f32-pseudospectrum, up to ~``eta*||A||`` outside the
+    true spectrum, while meeting their residual bound (the reference's
+    snaupd shares the property)."""
+
+
+@dataclasses.dataclass
+class F64Validation:
+    """Report of ``validate='f64'``: the converged pairs re-applied through
+    a float64 (complex128) operator."""
+
+    residuals: np.ndarray      # ||A v - lambda v||_2 / ||v||_2 per pair
+    rel_residuals: np.ndarray  # scaled by max(eps23, |lambda|) (dsconv)
+    tol_bar: float             # the solve's effective tolerance
+    passed: bool               # all rel_residuals <= tol_bar
+    nonnormality: float        # probe estimate of ||(A*A'-A'*A)z||/||A'Az||
+
+
+def _f64_validate(A_raw, out, cfg, matvec64=None):
+    """Re-apply the converged pairs of ``out`` through a float64
+    (complex128) operator and estimate the non-normality (reference
+    ``arpack_ng_tpu/api.py:_f64_validate``, modes 1-2 without ``M``).
+    ``matvec64``: a caller's float64 matvec for matrix-free problems (the
+    non-normality is then nan: no transpose).  Warns with
+    :class:`PseudospectrumWarning` where the pairs miss the tolerance, or
+    where a single-precision solve met a detectably non-normal operator."""
+    vals = np.asarray(out.values)
+    vecs = out.vectors
+    if vecs is None or out.nconv == 0:
+        return None
+    cplx = np.iscomplexobj(vals) or np.iscomplexobj(vecs)
+    wdt = np.complex128 if cplx else np.float64
+    V = np.asarray(vecs, dtype=wdt)
+    if matvec64 is not None:
+        AV = np.stack([np.asarray(matvec64(V[:, j]), dtype=wdt)
+                       for j in range(V.shape[1])], axis=1)
+        nonnorm = float("nan")
+    else:
+        if hasattr(A_raw, "tocsr"):
+            A64 = A_raw.tocsr().astype(wdt)
+        else:
+            A64 = np.asarray(A_raw, dtype=wdt)
+        AV = A64 @ V
+        # stochastic non-normality probe: z -> ||(A A^H - A^H A) z|| /
+        # ||A^H A z|| over a few unit probes (exactly 0 for normal A)
+        rng = np.random.default_rng(0)
+        nonnorm = 0.0
+        AH = A64.conj().T
+        for _ in range(3):
+            z = rng.standard_normal(V.shape[0])
+            if cplx:
+                z = z + 1j * rng.standard_normal(V.shape[0])
+            z = z.astype(wdt) / np.linalg.norm(z)
+            aaz = AH @ (A64 @ z)
+            num = np.linalg.norm(A64 @ (AH @ z) - aaz)
+            den = max(np.linalg.norm(aaz), 1e-300)
+            nonnorm = max(nonnorm, float(num / den))
+    R = AV - V * vals[None, :].astype(wdt)
+    res = np.linalg.norm(R, axis=0) / np.maximum(
+        np.linalg.norm(V, axis=0), 1e-300)
+    rel = res / np.maximum(np.abs(vals), cfg.eps23)
+    tol_bar = cfg.tol_effective
+    passed = bool(np.all(rel <= tol_bar))
+    rep = F64Validation(residuals=res, rel_residuals=rel,
+                        tol_bar=float(tol_bar), passed=passed,
+                        nonnormality=nonnorm)
+    # the solve's real width (the reference tests the values' kind
+    # instead, so a float64 solve with complex values counts as single)
+    single = np.dtype(_dt.real_dtype(cfg.dtype)).itemsize <= 4
+    if not passed:
+        warnings.warn(
+            "f64 validation: converged pairs do not meet the requested "
+            f"tolerance under a float64 operator (max relative residual "
+            f"{float(np.max(rel)):.3e} > tol {tol_bar:.1e}); the f32 "
+            "matvec's backward error placed them in the operator's "
+            "eps_f32-pseudospectrum: re-solve with an f64 operator",
+            PseudospectrumWarning, stacklevel=4)
+    elif single and not (nonnorm != nonnorm) and nonnorm > 1e-6:
+        warnings.warn(
+            "operator is non-normal (probe "
+            f"{nonnorm:.2e}) and was solved in single precision: "
+            "residual-converged Ritz values may lie up to ~eta*||A|| "
+            "OUTSIDE the spectrum (eps_f32-pseudospectrum; max f64 "
+            f"relative residual {float(np.max(rel)):.3e}).  Interpret "
+            "f32 results as pseudospectral or re-solve with an f64 "
+            "operator", PseudospectrumWarning, stacklevel=4)
+    return rep
+
+
+def _finish(op, cfg, res, return_eigenvectors, return_stats, validate,
+            raw_A, howmny="A"):
+    """Extraction, validation, the no-convergence error and the return
+    tuple (reference ``api._solve``)."""
+    if res.info < 0:
+        raise ArpackError(res.info)
+    rvec = return_eigenvectors or howmny == "P"
+    out = extract(op, cfg, res, rvec=rvec or validate is not None,
+                  howmny=howmny)
+    if validate is not None:
+        out.validation = (_f64_validate(None, out, cfg, matvec64=validate)
+                          if callable(validate)
+                          else _f64_validate(raw_A, out, cfg))
+        if not rvec:
+            out.vectors = None
+    if res.info in (1, 2) and out.nconv < cfg.nev:
+        raise ArpackNoConvergence(out, cfg)
+    ret = (out.values, out.vectors) if rvec else out.values
+    if return_stats:
+        return ret + (out,) if rvec else (ret, out)
+    return ret
 
 
 def _refuse(**options) -> None:
@@ -138,13 +287,19 @@ def eigsh(
     validate=None,
     device=None,
 ):
-    """Symmetric eigensolver (dsaupd/dseupd equivalent), mode 1 (and
-    mode 2 through a ``from_dense(a, m)`` operator).
+    """Symmetric / Hermitian eigensolver (dsaupd/dseupd equivalent), mode 1
+    (and mode 2 through a ``from_dense(a, m)`` operator).
 
     ``A``: an :class:`Operator` (its device is the solve's device), a
-    dense symmetric matrix or a scipy sparse matrix (imported by
-    :func:`~arpack_ng_tpu_torch.ops.sparse.from_scipy`), moved to
+    dense symmetric (Hermitian) matrix or a scipy sparse matrix (imported
+    by :func:`~arpack_ng_tpu_torch.ops.sparse.from_scipy`), moved to
     ``device`` (default: the CUDA card; ``device="cpu"`` for the CPU).
+    ``strategy='auto'`` or ``'fused'`` runs the symmetric cycle of
+    :mod:`~arpack_ng_tpu_torch.core.device_sym`; ``'hybrid'`` the host
+    float64 reduced space of :mod:`~arpack_ng_tpu_torch.core.iram`.
+    Values are real, also for a complex Hermitian problem.
+    ``validate='f64'`` (a concrete matrix ``A``) or a float64 matvec
+    callable attaches an :class:`F64Validation` report (``return_stats``).
     Returns ``values`` or ``(values, vectors)`` (and the
     :class:`EigenResult` with ``return_stats``), as the reference package
     does.
@@ -152,16 +307,18 @@ def eigsh(
     if sigma is not None or mode != "normal" or M is not None:
         raise NotImplementedError("spectral transforms (M, sigma, mode) "
                                   "are not ported yet")
-    _refuse(mesh=mesh, shift_fn=shift_fn, validate=validate, select=select)
-    if strategy not in ("auto", "fused"):
+    _refuse(mesh=mesh, shift_fn=shift_fn, select=select)
+    if strategy not in ("auto", "fused", "hybrid"):
         raise NotImplementedError(f"strategy={strategy!r} is not ported "
                                   "yet")
     if restart != "implicit":
+        if strategy == "hybrid":
+            raise ValueError("strategy='hybrid' runs the implicit restart "
+                             "only; restart='thick' needs the fused driver")
         raise NotImplementedError(f"restart={restart!r} is not ported yet")
+    raw_A = None if isinstance(A, Operator) else A
+    _check_validate(validate, raw_A)
     op = _as_operator(A, dtype=dtype, hermitian=True, device=device)
-    if np.issubdtype(op.dtype, np.complexfloating):
-        raise NotImplementedError("complex (Hermitian) problems are not "
-                                  "ported yet")
     n = op.n
     ncv = ncv if ncv is not None else default_ncv(n, k, symmetric=True)
     reorth = _resolve_sym_reorth(reorth)
@@ -175,17 +332,9 @@ def eigsh(
         symmetric=True, dtype=np.dtype(op.dtype), n_pad=op.n_pad, seed=seed,
         exact_shifts=True, storage_dtype=storage_dtype,
         cgs_kernel=cgs_kernel, restart=restart, reorth=reorth)
-    from .core.device_sym import FusedSymSolver
-    res = FusedSymSolver(op, cfg).solve(v0=v0)
-    if res.info < 0:
-        raise ArpackError(res.info)
-    out = extract(op, cfg, res, rvec=return_eigenvectors)
-    if res.info in (1, 2) and out.nconv < cfg.nev:
-        raise ArpackNoConvergence(out, cfg)
-    ret = (out.values, out.vectors) if return_eigenvectors else out.values
-    if return_stats:
-        return ret + (out,) if return_eigenvectors else (ret, out)
-    return ret
+    res = _make_solver(op, cfg, strategy).solve(v0=v0)
+    return _finish(op, cfg, res, return_eigenvectors, return_stats,
+                   validate, raw_A)
 
 
 def eigs(
@@ -212,35 +361,56 @@ def eigs(
     validate=None,
     device=None,
 ):
-    """Real non-symmetric eigensolver (dnaupd/dneupd equivalent), mode 1.
+    """Non-symmetric eigensolver (dnaupd/dneupd and znaupd/zneupd
+    equivalents), mode 1.
 
     ``A``: an :class:`Operator`, a dense matrix or a scipy sparse matrix
     (imported by :func:`~arpack_ng_tpu_torch.ops.sparse.from_scipy` with
     ``hermitian=False``), moved to ``device`` (default: the CUDA card).
-    ``strategy='auto'`` is the reference's default for real dtypes,
-    ``'fused_real'``: the restart cycle of
+    ``strategy='auto'`` is the reference's default: ``'fused_real'`` for
+    real dtypes (the restart cycle of
     :mod:`~arpack_ng_tpu_torch.core.device_realnonsym` with its reduced
-    space in the problem dtype.  ``reorth='auto'`` is ``'dgks'``: the
-    semi-orthogonality argument behind ``'selective'`` is a Lanczos result.
-    Values come wanted first; a conjugate pair is never split, so k + 1
-    values may come back.  ``return_schur`` returns the Schur vectors of
-    the wanted invariant subspace in place of the eigenvectors.
+    space in the problem dtype) and ``'hybrid'`` for complex ones (the host
+    float64 / complex128 reduced space of
+    :mod:`~arpack_ng_tpu_torch.core.iram`, which real dtypes may ask for
+    too).  ``'fused_real'`` on a complex dtype raises ``ValueError``.
+    ``reorth='auto'`` is ``'dgks'``: the semi-orthogonality argument behind
+    ``'selective'`` is a Lanczos result.  Values come wanted first; for a
+    real problem a conjugate pair is never split, so k + 1 values may come
+    back.  ``return_schur`` returns the Schur vectors of the wanted
+    invariant subspace in place of the eigenvectors.  ``validate='f64'``
+    or a float64 matvec callable attaches an :class:`F64Validation` report
+    and warns (:class:`PseudospectrumWarning`) where a single-precision
+    solve met a non-normal operator.
 
     Not ported yet (``NotImplementedError``): ``sigma``, ``M``, ``select``,
-    ``validate``, ``mesh``, ``strategy='fused'`` and ``'hybrid'``, complex
-    dtypes.  ``validate`` raises even under ``return_schur``, where the
-    reference skips it without a word.
+    ``mesh`` and ``strategy='fused'``.  ``validate`` under
+    ``return_schur`` raises ``ValueError``, where the reference skips it
+    without a word.
     """
     if sigma is not None or M is not None:
         raise NotImplementedError("spectral transforms (M, sigma) are not "
                                   "ported yet")
-    _refuse(mesh=mesh, select=select, validate=validate)
-    if strategy not in ("auto", "fused_real"):
+    _refuse(mesh=mesh, select=select)
+    if strategy not in ("auto", "fused_real", "hybrid", "fused"):
         raise NotImplementedError(f"strategy={strategy!r} is not ported "
                                   "yet")
+    if validate is not None and return_schur:
+        raise ValueError("validate= checks eigenpairs; return_schur=True "
+                         "returns Schur vectors, which it cannot check")
+    raw_A = None if isinstance(A, Operator) else A
+    _check_validate(validate, raw_A)
     op = _as_operator(A, dtype=dtype, hermitian=False, device=device)
-    if np.issubdtype(op.dtype, np.complexfloating):
-        raise NotImplementedError("complex problems are not ported yet")
+    cplx = np.issubdtype(op.dtype, np.complexfloating)
+    if strategy == "auto":
+        # complex dtypes keep the reference-faithful hybrid by default
+        strategy = "hybrid" if cplx else "fused_real"
+    if strategy == "fused":
+        raise NotImplementedError("strategy='fused' (core/device_nonsym) "
+                                  "is not ported yet")
+    if strategy == "fused_real" and cplx:
+        raise ValueError("strategy='fused_real' is for real problems; use "
+                         "strategy='fused' for complex dtypes")
     n = op.n
     ncv = ncv if ncv is not None else default_ncv(n, k, symmetric=False)
     cfg = IRAMConfig(
@@ -249,16 +419,11 @@ def eigs(
         max_iter=maxiter if maxiter is not None else 10 * n,
         symmetric=False, dtype=np.dtype(op.dtype), n_pad=op.n_pad, seed=seed,
         cgs_kernel=cgs_kernel, reorth="dgks" if reorth == "auto" else reorth)
-    from .core.device_realnonsym import FusedRealNonsymSolver
-    res = FusedRealNonsymSolver(op, cfg).solve(v0=v0)
-    if res.info < 0:
-        raise ArpackError(res.info)
-    rvec = return_eigenvectors or return_schur
-    out = extract(op, cfg, res, rvec=rvec,
-                  howmny="P" if return_schur else "A")
-    if res.info in (1, 2) and out.nconv < cfg.nev:
-        raise ArpackNoConvergence(out, cfg)
-    ret = (out.values, out.vectors) if rvec else out.values
-    if return_stats:
-        return ret + (out,) if rvec else (ret, out)
-    return ret
+    if strategy == "hybrid":
+        solver = IRAMSolver(op, cfg)
+    else:
+        from .core.device_realnonsym import FusedRealNonsymSolver
+        solver = FusedRealNonsymSolver(op, cfg)
+    res = solver.solve(v0=v0)
+    return _finish(op, cfg, res, return_eigenvectors, return_stats,
+                   validate, raw_A, howmny="P" if return_schur else "A")

@@ -1,6 +1,13 @@
-"""Lanczos/Arnoldi factorization engine: ``dsaitr``/``dnaitr`` +
-``dgetv0`` (port of ``arpack_ng_tpu/core/arnoldi.py``) for real problems,
-symmetric and non-symmetric.  ``H`` is a full ``(ncv, ncv)`` matrix: the
+"""Lanczos/Arnoldi factorization engine: ``dsaitr``/``dnaitr``/``znaitr``
++ ``dgetv0`` (port of ``arpack_ng_tpu/core/arnoldi.py``) for real and
+complex problems, symmetric (Hermitian) and non-symmetric.  Complex
+projections are conjugated (``V^H w``) and the norms take ``|<r, B r>|``;
+the Hermitian Lanczos recurrence keeps a real tridiagonal.  The event,
+CGS and rotation kernels are real-only, as the reference package's Pallas
+paths are: a complex event is a pair of masked GEMVs over all ncv rows, a
+complex basis with a real rotation (the Hermitian restart) runs the
+rotation kernel on its real view, and a complex rotation is a torch GEMM.
+``H`` is a full ``(ncv, ncv)`` matrix: the
 CGS + DGKS step (``_step``) writes whole Hessenberg columns, which the
 non-symmetric driver reads; the selective step (``_step_pro``) is the
 Lanczos recurrence and runs for symmetric problems only, as in the
@@ -155,14 +162,44 @@ def rotate_basis_kev(Q: torch.Tensor, V: torch.Tensor, kev: int,
     """Restart rotation computing only the surviving rows (dsapps parity,
     SRC/dsapps.f:445-481): rows ``0..kev`` (with ``need_next``) of
     ``Q^T V``, bucketed up to a multiple of 8, written into V in place by
-    the rotation kernel.  Rows past the bucket keep stale values, which
-    are never read.
+    the rotation kernel (a complex V with a real Q: on V's real view).  A
+    complex Q (the complex Arnoldi restart) is a torch GEMM with ``Q^T``,
+    transposed and not conjugated: V holds basis rows.  Rows past the
+    bucket keep stale values, which are never read.
 
     Returns ``(V, v_next_row, rows_written)``; ``v_next_row`` is row
     ``kev`` of the rotated basis (a view, storage dtype)."""
     R = kev_rows(Q.shape[0], kev, need_next)
-    rotate_rows(Q, V, R)
+    if Q.is_complex():
+        V[:R] = Q[:, :R].T @ V
+    else:
+        rotate_rows(Q, V, R)
     return V, V[min(kev, R - 1)], R
+
+
+def restart_tail(op: Operator, cfg: IRAMConfig, bnorm, state, Q, H_new,
+                 sigmak, betak, kev: int):
+    """The device side of an implicit restart (dsapps / dnapps / znapps,
+    SRC/dsapps.f:445-501, SRC/dsaup2.f:764-808): the kev-row rotation of
+    the basis by the host ``Q`` (real, also for a Hermitian basis; complex
+    for the complex Arnoldi restart), ``r <- sigma_k r + beta_k v_next``,
+    its B-product and B-norm (one read).  Returns the restarted state with
+    ``H_new`` as its H."""
+    tdt = _dt.torch_dtype(cfg.dtype)
+    rdt = _dt.real_dtype(cfg.dtype)
+    cplx_q = np.iscomplexobj(Q)
+    Q_dev = torch.from_numpy(np.ascontiguousarray(Q)).to(
+        device=op.device, dtype=tdt if cplx_q else _dt.torch_dtype(rdt))
+    V, v_next, rots = rotate_basis_kev(Q_dev, state.V, kev)
+    scalar = complex if cplx_q else (lambda x: float(np.real(x)))
+    resid = scalar(sigmak) * state.resid + scalar(betak) * v_next.to(tdt)
+    is_g = op.bmat == "G"
+    b_resid = op.b_apply(resid) if is_g else resid
+    counts = state.counts.add(nbx=1 if is_g else 0, nrotr=rots)
+    rnorm = _host(bnorm(resid, b_resid), rdt)
+    return state.replace(V=V, H=np.asarray(H_new).astype(cfg.dtype),
+                         resid=resid, b_resid=b_resid, rnorm=rnorm, k=kev,
+                         nev_cur=kev, iter=state.iter + 1, counts=counts)
 
 
 def kev_rows(ncv: int, kev: int, need_next: bool = True) -> int:
@@ -176,6 +213,19 @@ def kev_rows(ncv: int, kev: int, need_next: bool = True) -> int:
     return rows_list[min((max(nrows, 1) - 1) // _BUCKET, len(rows_list) - 1)]
 
 
+def complex_event(idx: torch.Tensor, V: torch.Tensor, br: torch.Tensor,
+                  take: torch.Tensor) -> torch.Tensor:
+    """The projection of a complex event as one masked GEMV over all ncv
+    rows (the event kernels are real-only, as the reference's Pallas events
+    are): ``<V[idx[k]], br>`` where ``take[k]``, else 0, put back in row
+    order; the event's update is then ``r - c @ V``.  Torch ops with no
+    host read, so a CUDA graph can hold them."""
+    s = torch.index_select(V.conj() @ br, 0, idx)
+    s = torch.where(take, s, torch.zeros((), dtype=s.dtype, device=s.device))
+    return torch.zeros(V.shape[0], dtype=s.dtype,
+                       device=s.device).index_add_(0, idx, s)
+
+
 def _host(t: torch.Tensor, rdt) -> np.floating:
     """One scalar read back from the device, in the real compute dtype."""
     return np.dtype(rdt).type(t.item())
@@ -183,17 +233,19 @@ def _host(t: torch.Tensor, rdt) -> np.floating:
 
 def make_bnorm(op: Operator, cfg: IRAMConfig):
     """Norm closure ``bnorm(r, br) -> 0-d tensor``: ``sqrt(|<r, B r>|)``
-    (SRC/dsaitr.f:634-639), or with ``cfg.safe_norms`` on a standard
+    (SRC/dsaitr.f:634-639; conjugated for complex dtypes, SRC/znaitr.f),
+    a real tensor, or with ``cfg.safe_norms`` on a standard
     problem the overflow-safe two-phase norm of PARPACK's pdnorm2."""
+    dot = torch.vdot if _dt.is_complex(cfg.dtype) else torch.dot
     if not (cfg.safe_norms and op.bmat == "I"):
-        return lambda r, br: torch.sqrt(torch.abs(torch.dot(r, br)))
+        return lambda r, br: torch.sqrt(torch.abs(dot(r, br)))
     tiny = _dt.safmin(cfg.dtype)
 
     def bnorm(r, br):
         m = torch.max(torch.abs(r))
         msafe = torch.clamp_min(m, tiny)
         scaled = r / msafe
-        nrm = msafe * torch.sqrt(torch.abs(torch.dot(scaled, scaled)))
+        nrm = msafe * torch.sqrt(torch.abs(dot(scaled, scaled)))
         return torch.where(m > 0, nrm, torch.zeros_like(nrm))
 
     return bnorm
@@ -202,17 +254,20 @@ def make_bnorm(op: Operator, cfg: IRAMConfig):
 def _random_vector(gen: torch.Generator, n_pad: int, n: int, dtype,
                    device) -> torch.Tensor:
     """Uniform(-1, 1) start vector (dlarnv idist=2, SRC/dgetv0.f:224-229),
-    zero on the pad.  Drawn on the host generator, so a seed gives the same
-    vector on every device."""
+    real and imaginary parts drawn apart for complex dtypes, zero on the
+    pad.  Drawn on the host generator, so a seed gives the same vector on
+    every device."""
     rdt = _dt.torch_dtype(_dt.real_dtype(dtype))
-    v = torch.rand(n_pad, generator=gen, dtype=rdt) * 2 - 1
+    if _dt.is_complex(dtype):
+        re = torch.rand((2, n_pad), generator=gen, dtype=rdt) * 2 - 1
+        v = torch.complex(re[0], re[1])
+    else:
+        v = torch.rand(n_pad, generator=gen, dtype=rdt) * 2 - 1
     v[n:] = 0
     return v.to(device=device, dtype=_dt.torch_dtype(dtype))
 
 
 def _check_slice(op: Operator, cfg: IRAMConfig) -> None:
-    if _dt.is_complex(cfg.dtype):
-        raise NotImplementedError("complex dtypes are not ported yet")
     if op.n != cfg.n or op.n_pad != cfg.n_pad:
         raise ValueError("operator/config dimension mismatch")
     require(op.device)
@@ -276,6 +331,9 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
     tdt = _dt.torch_dtype(dtype)
     sdt = _dt.torch_dtype(cfg.storage_dtype or dtype)
     mixed = sdt != tdt
+    cplx = _dt.is_complex(dtype)
+    if mixed and cplx:
+        raise ValueError("storage_dtype is supported for real dtypes only")
     rdt = _dt.real_dtype(dtype)
     R = rdt.type
     device = op.device
@@ -300,8 +358,10 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         return rows_list[min(j // _BUCKET, nbuckets - 1)]
 
     def _proj(Vr, w):
-        """Projection coefficients ``Vr w`` accumulated in the compute
+        """Projection coefficients ``Vr^H w`` accumulated in the compute
         dtype (narrow storage is widened first)."""
+        if cplx:
+            return Vr.conj() @ w
         return (Vr.to(tdt) if mixed else Vr) @ w
 
     def _comb(h, Vr):
@@ -428,7 +488,7 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         back = torch.cat([h_t, torch.stack([wnorm_t, rnorm_t]).to(tdt)])
         back = back.cpu().numpy()
         h = back[:ncv].astype(dtype)
-        wnorm, rnorm = R(back[ncv]), R(back[ncv + 1])
+        wnorm, rnorm = R(back[ncv].real), R(back[ncv + 1].real)
         H = st.H
         H[:, j] = h
         if j > 0:
@@ -445,7 +505,7 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
                 back = torch.cat([s_t, rn_t.reshape(1).to(tdt)])
                 back = back.cpu().numpy()
                 s_tot = s_tot + back[:ncv].astype(dtype)
-                rn = R(back[ncv])
+                rn = R(back[ncv].real)
                 accept = rn > eta * rn_prev
                 passes += 1
                 nfail += 0 if accept else 1
@@ -500,8 +560,9 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
                           float(np.sqrt(eps_eff) / _dt.SELECTIVE_SAFETY)
                           / 2.0)))
     eta_f, tiny_f = float(eta), float(tiny)
-    # fused ||r'||^2 from the event update: standard problems, plain norms
-    fuse_sel_norm = not is_g and not cfg.safe_norms
+    # fused ||r'||^2 from the event update: real standard problems, plain
+    # norms
+    fuse_sel_norm = not is_g and not cfg.safe_norms and not cplx
     # device constants, made here: a captured extension copies no host data
     rtd = _dt.torch_dtype(rdt)
     # (each torch op of a step is one node of the captured graph, and on
@@ -573,7 +634,12 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
     def _pass(idx, word, V, r, br, s):
         """The in-place update ``r -= sum_{k < word} s[k] V[idx[k]]`` of an
         event pass and the new residual's B-norm (garbage where word = 0:
-        the caller selects).  Returns ``(r, br, norm)``."""
+        the caller selects); for complex dtypes ``s`` is the coefficient
+        vector by row.  Returns ``(r, br, norm)``."""
+        if cplx:
+            r = r - s @ V
+            br = b_apply(r)
+            return r, br, bnorm(r, br)
         if fuse_sel_norm:
             r, rn2 = sel_update(idx, s, r, V, with_norm=True, word=word)
             return r, r, torch.sqrt(rn2)
@@ -626,7 +692,7 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         w, bw = op.apply(v_j, bv_j)
         wnorm = bnorm(w, bw)
         # three-term recurrence: reads one stored row, v_{j-1}
-        alpha = torch.dot(v_j, bw)
+        alpha = torch.vdot(v_j, bw).real if cplx else torch.dot(v_j, bw)
         beta = zero_r if (restarted or j == 0) else rn_prev
         v_jm1 = V[max(j - 1, 0)].to(tdt)
         r = w - alpha * v_j - beta * v_jm1
@@ -647,7 +713,10 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         word = torch.where(need, torch.gather(ktab, 0, cnt).reshape(()),
                            zero_i)
         take = (col < word) & upto[j]
-        s = torch.where(take, sel_proj(idx, V, br, word=word), zero_r)
+        if cplx:
+            s = complex_event(idx, V, br, take)
+        else:
+            s = torch.where(take, sel_proj(idx, V, br, word=word), zero_r)
         reset = torch.gather(take, 0, rank)
         r, br_ev, rn_ev = _pass(idx, word, V, r, br, s)
         br = torch.where(need, br_ev, br) if is_g else r

@@ -39,15 +39,14 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
-import torch
 
 from ..config import IRAMConfig
 from ..ops.operator import Operator
 from ..utils import dtypes as _dt
 from ..utils.debug import debug, trace
 from . import reduced
-from .arnoldi import (FactorizationState, _host, make_bnorm, make_extend,
-                      rotate_basis_kev)
+from .arnoldi import (FactorizationState, make_bnorm, make_extend,
+                      restart_tail)
 from .iram import HostLoopSolver
 
 #: QR sweeps of the real Schur form per Ritz value (a double shift
@@ -389,12 +388,9 @@ def make_realnonsym_tail(op: Operator, cfg: IRAMConfig):
     rdt = _dt.real_dtype(cfg.dtype)
     R = rdt.type
     eps_m = R(_dt.eps(rdt))
-    is_g = op.bmat == "G"
     iota = np.arange(ncv)
     eyek = np.eye(ncv, dtype=rdt)
     bnorm = make_bnorm(op, cfg)
-    device = op.device
-    tdt = _dt.torch_dtype(cfg.dtype)
 
     # the chase's loss in the columns the restart keeps, relative to
     # max|H|, above which the explicit chase is redone implicitly: rounding
@@ -476,18 +472,8 @@ def make_realnonsym_tail(op: Operator, cfg: IRAMConfig):
         betak = Hc[nev_eff, nev_eff - 1]
         # dnapps-parity kev-row update of the basis (rows 0..nev_eff of
         # Q^T V survive the restart)
-        Q_dev = torch.from_numpy(np.ascontiguousarray(Q)).to(
-            device=device, dtype=tdt)
-        V, v_next, rots = rotate_basis_kev(Q_dev, state.V, nev_eff)
-        resid = (float(sigmak) * state.resid
-                 + float(betak) * v_next.to(tdt))
-        b_resid = op.b_apply(resid) if is_g else resid
-        counts = state.counts.add(nbx=1 if is_g else 0, nrotr=rots)
-        rnorm = _host(bnorm(resid, b_resid), rdt)
-        return state.replace(V=V, H=Hc.astype(cfg.dtype), resid=resid,
-                             b_resid=b_resid, rnorm=rnorm, k=nev_eff,
-                             nev_cur=nev_eff, iter=state.iter + 1,
-                             counts=counts)
+        return restart_tail(op, cfg, bnorm, state, Q, Hc, sigmak, betak,
+                            nev_eff)
 
     def tail(h: RealHeadOut, is_last: bool) -> RealCycleOut:
         if h.done or is_last:

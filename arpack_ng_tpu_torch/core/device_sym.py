@@ -1,4 +1,9 @@
-"""Symmetric restart cycle (port of ``arpack_ng_tpu/core/device_sym.py``).
+"""Symmetric and Hermitian restart cycle (port of
+``arpack_ng_tpu/core/device_sym.py``).  A Hermitian problem keeps a real
+tridiagonal T and a real Q over its complex basis: the reduced space and
+its kernel are those of the real case, the basis rotation runs the
+rotation kernel on the complex basis' real view, and a complex event is a
+pair of masked GEMVs (``core/arnoldi.py``).
 
 One major iteration of dsaup2: factorization extension (dsaitr), the
 tridiagonal eigensolve (dseigt), shift selection (dsgets), the convergence
@@ -38,8 +43,8 @@ from ..utils import dtypes as _dt
 from ..utils.debug import debug, trace
 from ..utils.stats import Timers
 from . import reduced
-from .arnoldi import (FactorizationState, _host, kev_rows, make_bnorm,
-                      make_extend, rotate_basis_kev)
+from .arnoldi import (FactorizationState, kev_rows, make_bnorm, make_extend,
+                      restart_tail)
 from .iram import HostLoopSolver, IRAMResult
 
 #: the kernel wrappers whose launches a captured graph holds: on each
@@ -117,13 +122,8 @@ def make_sym_head(op: Operator, cfg: IRAMConfig, inflate: bool = True):
 def make_sym_tail(op: Operator, cfg: IRAMConfig):
     """Build the exact-shift restart tail ``tail(h, is_last) -> CycleOut``
     (dsapps with the shifts from dsgets)."""
-    ncv = cfg.ncv
-    rdt = _dt.real_dtype(cfg.dtype)
     p = _params(cfg)
-    is_g = op.bmat == "G"
     bnorm = make_bnorm(op, cfg)
-    device = op.device
-    tdt = _dt.torch_dtype(cfg.dtype)
 
     def apply_shifts(h: HeadOut) -> FactorizationState:
         state = h.state
@@ -131,18 +131,10 @@ def make_sym_tail(op: Operator, cfg: IRAMConfig):
                                                 h.nev_eff, h.np_eff, p)
         H_new = (np.diag(dn) + np.diag(en, 1)
                  + np.diag(en, -1)).astype(cfg.dtype)
-        # dsapps-parity kev-row update of the basis (SRC/dsapps.f:445-481)
-        Q_dev = torch.from_numpy(np.ascontiguousarray(Q)).to(
-            device=device, dtype=tdt)
-        V, v_next, rots = rotate_basis_kev(Q_dev, state.V, h.nev_eff)
-        resid = (float(sigmak) * state.resid
-                 + float(betak) * v_next.to(tdt))
-        b_resid = op.b_apply(resid) if is_g else resid
-        counts = state.counts.add(nbx=1 if is_g else 0, nrotr=rots)
-        rnorm = _host(bnorm(resid, b_resid), rdt)
-        return state.replace(V=V, H=H_new, resid=resid, b_resid=b_resid,
-                             rnorm=rnorm, k=h.nev_eff, nev_cur=h.nev_eff,
-                             iter=state.iter + 1, counts=counts)
+        # dsapps-parity kev-row update of the basis (SRC/dsapps.f:445-481);
+        # Q is real, also for a complex (Hermitian) basis
+        return restart_tail(op, cfg, bnorm, state, Q, H_new, sigmak, betak,
+                            h.nev_eff)
 
     def tail(h: HeadOut, is_last: bool) -> CycleOut:
         if h.done or is_last:

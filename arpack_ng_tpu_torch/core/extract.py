@@ -1,18 +1,22 @@
-"""Eigenpair extraction: the dseupd / dneupd equivalent (port of the real
-paths of ``arpack_ng_tpu/core/extract.py``).
+"""Eigenpair extraction: the dseupd / dneupd / zneupd equivalent (port of
+``arpack_ng_tpu/core/extract.py`` for modes 1-2).
 
-* re-derive the reduced eigensystem from the final H (the tridiagonal
-  solve, or LAPACK geev of the Hessenberg) and re-apply the eps^(2/3)
+* re-derive the reduced eigensystem from the final H on the host in
+  float64, complex128 for complex dtypes (the tridiagonal solve, real for
+  a Hermitian problem, or LAPACK geev of the Hessenberg) and re-apply the
+  eps^(2/3)
   convergence test (dseupd re-solves at :536; a count mismatch with the
   iteration phase is reference info = -14);
 * select the converged wanted subset per ``which``; for real
   non-symmetric problems a conjugate pair is never split at the boundary,
   so nev+1 values may come back (dneupd);
-* form Ritz vectors on the basis' device with one GEMM: ``S^T V``, or for
-  complex Ritz vectors of a real basis the stacked ``[Re; Im]`` GEMM; or,
-  with ``howmny='P'``, the Schur vectors of the wanted invariant subspace
-  (a sorted real Schur form from ``scipy.linalg.schur`` on the host);
-* output order: ascending (symmetric), wanted first (non-symmetric);
+* form Ritz vectors on the basis' device with one GEMM: ``S^T V`` (complex
+  for a complex basis), or for complex Ritz vectors of a real basis the
+  stacked ``[Re; Im]`` GEMM; or, with ``howmny='P'``, the Schur vectors of
+  the wanted invariant subspace (a sorted real or complex Schur form from
+  ``scipy.linalg.schur`` on the host);
+* output order: ascending (symmetric; Hermitian values are real, their
+  vectors complex), wanted first (non-symmetric);
 * untransform mode 1 and 2 (the identity).  The spectral-transform modes
   3-5, purification and ``howmny='S'`` are not ported yet.
 """
@@ -43,6 +47,8 @@ class EigenResult:
     bounds: np.ndarray             # Ritz estimates
     n_iter: int
     stats: object
+    validation: object = None      # the F64Validation report of
+    #   ``validate=``, attached by the API
 
 
 def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
@@ -53,15 +59,17 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
     if howmny not in ("A", "P"):
         raise NotImplementedError(f"howmny={howmny!r} is not ported yet")
     sym = cfg.symmetric
+    is_cplx = _dt.is_complex(cfg.dtype)
+    host_dtype = _dt.host_dtype(cfg.dtype)
     state = result.state
     tol, eps23 = cfg.tol_effective, cfg.eps23
     rnorm = float(state.rnorm)
     info = result.info if result.info in (1, 2) else 0
 
-    H = np.asarray(state.H, np.float64)
+    H = np.asarray(state.H).astype(host_dtype)
     if sym:
-        alpha = np.diag(H).copy()
-        beta = np.diag(H, -1).copy()
+        alpha = np.diag(H).real.copy()
+        beta = np.diag(H, -1).real.copy()
         theta_all, bounds_all, S = reduced.sym_eigt(alpha, beta, rnorm)
     else:
         theta_all, bounds_all, S = reduced.nonsym_eigt(H, rnorm)
@@ -74,11 +82,12 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
         info = -14
         nconv = len(idx_conv)
     if nconv == 0:
-        return EigenResult(values=np.zeros(0), vectors=None, nconv=0,
+        return EigenResult(values=np.zeros(0, host_dtype), vectors=None,
+                           nconv=0,
                            info=info, bounds=np.zeros(0),
                            n_iter=result.n_iter, stats=result.stats)
 
-    real_pairs = not sym
+    real_pairs = (not sym) and (not is_cplx)
     if sym and cfg.which == "BE":
         # nconv//2 from the low end, the rest from the high end
         # (dsgets.f:166-171)
@@ -132,7 +141,8 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
                 return bool(np.min(np.abs(wanted_vals - w))
                             < 1e-8 * max(1.0, abs(w)))
 
-            _, QQ, _ = sla.schur(H, output="real", sort=_sort)
+            _, QQ, _ = sla.schur(H, output="complex" if is_cplx else "real",
+                                 sort=_sort)
             Scols = QQ[:, :nconv]
         else:
             Scols = S[:, sel]
@@ -155,11 +165,16 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
 
 def _basis_product(Scols: np.ndarray, V: torch.Tensor, dtype) -> np.ndarray:
     """``Scols^T V`` on the basis' device, one GEMM in the compute dtype,
-    returned on the host as ``(m, n_pad)`` (float64, or complex128 for
-    complex ``Scols``: the real GEMM of the stacked ``[Re; Im]``
-    coefficients, dneupd's packed pair storage)."""
+    returned on the host as ``(m, n_pad)``: float64; complex128 for a
+    complex basis (a complex GEMM) or for complex ``Scols`` of a real basis
+    (the real GEMM of the stacked ``[Re; Im]`` coefficients, dneupd's packed
+    pair storage)."""
     tdt = _dt.torch_dtype(dtype)
     m = Scols.shape[1]
+    if _dt.is_complex(dtype):
+        s_dev = torch.from_numpy(np.ascontiguousarray(
+            Scols.T.astype(dtype))).to(V.device)
+        return (s_dev @ V).cpu().numpy().astype(np.complex128)
     cplx = np.iscomplexobj(Scols)
     coef = np.concatenate([Scols.real.T, Scols.imag.T]) if cplx else Scols.T
     s_dev = torch.from_numpy(np.ascontiguousarray(coef.astype(dtype))).to(

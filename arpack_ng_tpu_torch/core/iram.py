@@ -1,16 +1,34 @@
-"""Output of the iteration phase (port of ``IRAMResult`` of
-``arpack_ng_tpu/core/iram.py``) and the host restart loop the cycle
-drivers share.  The hybrid driver ``IRAMSolver`` is not ported yet."""
+"""Implicitly-restarted Arnoldi/Lanczos driver (port of
+``arpack_ng_tpu/core/iram.py``): the output of the iteration phase
+(``IRAMResult``), the host restart loop the cycle drivers share
+(``HostLoopSolver``) and the hybrid driver ``IRAMSolver``, the
+dsaupd+dsaup2 / dnaupd+dnaup2 / znaupd+znaup2 equivalent.
+
+The hybrid driver splits each cycle as the reference package's
+``IRAMSolver.iterate`` does: the extension to ncv steps on the operator's
+device, then one read of the projected matrix and the residual norm, the
+reduced space on the host in float64 (complex128 for complex dtypes) with
+``core/reduced`` (Ritz values and bounds, shift selection, the
+convergence count, the zero-bound rule, the exit test, nev inflation, the
+shifted QR), then the device tail: the kev-row basis rotation, the
+residual update ``r <- sigma_k r + beta_k v_next`` and its B-norm.
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..config import IRAMConfig
+from ..ops.operator import Operator
+from ..utils import dtypes as _dt
+from ..utils.debug import debug, trace
 from ..utils.stats import SolverStats, Timers
-from .arnoldi import FactorizationState, make_init
+from . import reduced
+from .arnoldi import (FactorizationState, make_bnorm, make_extend,
+                      make_init, restart_tail)
 
 
 @dataclasses.dataclass
@@ -97,3 +115,166 @@ class HostLoopSolver:
         stats.absorb_counts(state.counts)
         return IRAMResult(ritz=ritz, bounds=bounds, nconv=nconv, info=info,
                           n_iter=n_iter, state=state, stats=stats)
+
+
+class IRAMCycleOut(NamedTuple):
+    """One hybrid cycle: the state after it and, when the exit test fired,
+    the exit-ordered Ritz values and bounds with the info code."""
+
+    state: FactorizationState
+    done: bool
+    nconv: int
+    ritz: np.ndarray
+    bounds: np.ndarray
+    info: int
+
+
+def make_iram_head(op: Operator, cfg: IRAMConfig):
+    """``head(state)``: the extension to ncv steps (dsaitr / dnaitr) with
+    the event kernels allowed, as the reference's unsharded hybrid builds
+    it (``pallas_sel_ok=True``)."""
+    extend = make_extend(op, cfg)
+    return lambda state: extend(state, cfg.ncv)
+
+
+def make_iram_tail(op: Operator, cfg: IRAMConfig):
+    """``tail(state, is_last) -> IRAMCycleOut``: the reduced space of one
+    cycle on the host and the device tail (reference
+    ``IRAMSolver.iterate``, ``arpack_ng_tpu/core/iram.py:167-306``, from
+    the read-back on)."""
+    kplusp, nev0 = cfg.ncv, cfg.nev
+    np0 = kplusp - nev0
+    sym = cfg.symmetric
+    cplx = _dt.is_complex(cfg.dtype)
+    host = _dt.host_dtype(cfg.dtype)
+    tol, eps23 = cfg.tol_effective, cfg.eps23
+    eps_m = _dt.eps(np.float64)      # the host reduced space is float64
+    smlnum = _dt.safmin(np.float64) * (kplusp / eps_m)
+    real_pairs = (not sym) and (not cplx)
+    bnorm = make_bnorm(op, cfg)
+    zero = np.zeros(kplusp)
+
+    def tail(state: FactorizationState, is_last: bool) -> IRAMCycleOut:
+        cur_iter = state.iter + 1
+        if state.info != 0:
+            # no kplusp-step factorization even after random restarts: the
+            # reference maps this to -9999 (SRC/dsaup2.f:434-443)
+            return IRAMCycleOut(state.replace(iter=cur_iter), True, 0, zero,
+                                zero, -9999 if state.info > 0
+                                else state.info)
+        H = np.asarray(state.H).astype(host)
+        rnorm = float(state.rnorm)
+
+        # ---- Ritz values + bounds (dseigt / dneigh) ----
+        if sym:
+            alpha = np.diag(H).real.copy()
+            beta = np.zeros(kplusp)
+            if kplusp > 1:
+                beta[: kplusp - 1] = np.diag(H, -1).real
+            ritz, bounds, _ = reduced.sym_eigt(
+                alpha, beta[: kplusp - 1], rnorm, need_vectors=False)
+        else:
+            ritz, bounds, _ = reduced.nonsym_eigt(H, rnorm)
+        trace(debug.maup2, 1, "_aup2: eigenvalues of H {r}", r=ritz)
+
+        # ---- shift selection (dsgets / dngets) ----
+        nev, np_ = nev0, np0
+        if sym:
+            r_s, b_s, shifts = reduced.sym_gets(cfg.which, nev, np_, ritz,
+                                                bounds)
+        else:
+            nev, np_, r_s, b_s, shifts = reduced.nonsym_gets(
+                cfg.which, nev, np_, ritz, bounds, real_pairs)
+
+        # ---- convergence count on the nev0 wanted values ----
+        nconv = reduced.conv_count(r_s[kplusp - nev0:], b_s[kplusp - nev0:],
+                                   tol, eps23)
+        trace(debug.maup2, 0, "_aup2: iter {i}: nconv={nc}, rnorm={rn:.3e}",
+              i=cur_iter, nc=nconv, rn=rnorm)
+
+        # ---- unremovable (zero-bound) unwanted values (dsaup2.f:500-516)
+        nz = int(np.count_nonzero(b_s[:np_] == 0.0))
+        np_ -= nz
+        nev += nz
+
+        # ---- exit test (dsaup2.f:519-667) ----
+        if nconv >= nev0 or cur_iter >= cfg.max_iter or np_ == 0:
+            r_x, b_x = reduced.exit_sort(cfg.which, nev0, nconv, r_s.copy(),
+                                         b_s.copy(), eps23, sym, real_pairs)
+            info = 0
+            if cur_iter >= cfg.max_iter and nconv < nev0:
+                info = 1
+            if np_ == 0 and nconv < nev0:
+                info = 2
+            return IRAMCycleOut(state.replace(iter=cur_iter), True, nconv,
+                                r_x, b_x, info)
+
+        # ---- stagnation guard: inflate nev (dsaup2.f:673-693) ----
+        if nconv < nev0:
+            nevbef = nev
+            nev = nev + min(nconv, np_ // 2)
+            if nev == 1 and kplusp >= 6:
+                nev = kplusp // 2
+            elif nev == 1 and kplusp > 3:
+                nev = 2
+            np_ = kplusp - nev
+            if nevbef < nev:
+                if sym:
+                    r_s, b_s, shifts = reduced.sym_gets(
+                        cfg.which, nev, np_, ritz, bounds)
+                else:
+                    nev, np_, r_s, b_s, shifts = reduced.nonsym_gets(
+                        cfg.which, nev, np_, ritz, bounds, real_pairs)
+        trace(debug.maup2, 2, "_aup2: shifts selected {s}", s=shifts[:np_])
+
+        # ---- the shifted QR on the host (dsapps / dnapps / znapps) ----
+        if sym:
+            alpha2, beta2, Q = reduced.sym_shift_q(
+                alpha, beta[: kplusp - 1], shifts[:np_], eps_m)
+            betak = float(beta2[nev - 1]) if nev < kplusp else 0.0
+            H_new = (np.diag(alpha2) + np.diag(beta2[: kplusp - 1], -1)
+                     + np.diag(beta2[: kplusp - 1], 1))
+        else:
+            H_new, Q = reduced.nonsym_shift_q(H, shifts[:np_], eps_m,
+                                              smlnum, real_pairs)
+            betak = H_new[nev, nev - 1] if nev < kplusp else 0.0
+        sigmak = Q[kplusp - 1, nev - 1]
+        state = restart_tail(op, cfg, bnorm, state, Q, H_new, sigmak,
+                             betak, nev)
+        return IRAMCycleOut(state, False, nconv, zero, zero, 0)
+
+    return tail
+
+
+class IRAMSolver(HostLoopSolver):
+    """The hybrid driver (reference ``arpack_ng_tpu.core.iram.IRAMSolver``):
+    the host loop over :func:`make_iram_head` and :func:`make_iram_tail`,
+    for symmetric (Hermitian) and non-symmetric, real and complex problems.
+    :meth:`iterate` runs one cycle."""
+
+    def __init__(self, op: Operator, cfg: IRAMConfig):
+        if op.n != cfg.n:
+            raise ValueError("operator/config dimension mismatch")
+        if op.bmat != cfg.bmat:
+            raise ValueError("operator/config bmat mismatch")
+        if not cfg.exact_shifts:
+            raise NotImplementedError("caller-supplied shifts (shift_fn) "
+                                      "are not ported yet")
+        if cfg.restart != "implicit":
+            # the reference's hybrid driver never reads cfg.restart and
+            # runs the implicit restart instead (arpack_ng_tpu/api.py:132)
+            raise ValueError("the hybrid driver runs the implicit restart "
+                             "only; restart='thick' needs strategy='fused'")
+        super().__init__(op, cfg, make_iram_head, make_iram_tail)
+
+    def _start(self, state: FactorizationState) -> IRAMCycleOut:
+        z = np.zeros(self.cfg.ncv)
+        return IRAMCycleOut(state, False, 0, z, z, 0)
+
+    def _exit(self, out: IRAMCycleOut):
+        return out.ritz, out.bounds, out.info
+
+    def iterate(self, state: FactorizationState) -> IRAMCycleOut:
+        """One major iteration (the dsaup2 1000-loop body)."""
+        return self._tail(self._head(state),
+                          state.iter + 1 >= self.cfg.max_iter)

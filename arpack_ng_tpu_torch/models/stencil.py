@@ -4,7 +4,8 @@
   problem (EXAMPLES/SIMPLE/dssimp.f:47, ``av`` at :470-506).
 * :func:`laplacian_1d` — tridiag(-1, 2, -1), the dsdrv2-class model.
 * :func:`convection_diffusion_1d` / :func:`convection_diffusion_2d` — the
-  non-symmetric dndrv1 and dnsimp models (real dtypes).
+  non-symmetric dndrv1 and dnsimp models; a complex ``dtype`` gives the
+  zndrv1-class complex operator.
 
 The matvec is plain torch arithmetic on the operator's device (the card
 unless ``device="cpu"`` is given): no matrix is stored.  Each stencil is
@@ -113,7 +114,8 @@ def convection_diffusion_2d(nx: int, rho: float = 100.0, dtype=np.float32,
                             ) -> Tuple[Operator, sp.spmatrix]:
     """2-D convection-diffusion (the dnsimp model): ``I (x) T + T0 (x) I``
     with the convection in the x-sweep, T = tridiag(-1-c, 4, -1+c),
-    c = rho*h/2, T0 = tridiag(-1, 0, -1)."""
+    c = rho*h/2, T0 = tridiag(-1, 0, -1).  A complex ``dtype`` gives the
+    zndrv1-class complex operator."""
     n = nx * nx
     h = 1.0 / (nx + 1)
     c = rho * h / 2.0

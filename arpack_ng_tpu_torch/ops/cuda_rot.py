@@ -11,6 +11,9 @@ Each call is one kernel launch, laid out by :func:`plan` (ncv bucket,
 columns per thread, grid, shared memory), which stays here in Python so
 that it is tested without a card.
 
+A complex basis rotated by a real Q (the Hermitian restart) runs the same
+kernel on its real view.
+
 The wrapper runs the plain twin for tensors on the CPU and launches the
 CUDA kernel for tensors on a CUDA device; ``launches`` counts kernel
 launches.  The product is never written through a GEMM's ``out=`` into a
@@ -110,9 +113,17 @@ def rotate_rows_plain(Q, V, rows):
 
 def rotate_rows(Q: torch.Tensor, V: torch.Tensor, rows: int
                 ) -> torch.Tensor:
-    """Overwrite ``V[:rows]`` with ``Q[:, :rows]^T V``; returns ``V``."""
+    """Overwrite ``V[:rows]`` with ``Q[:, :rows]^T V``; returns ``V``.  A
+    complex V with a real Q of its real dtype is rotated as its real view,
+    ``(ncv, 2 n)`` with each value's real and imaginary parts side by side:
+    the same function."""
     if V.dim() != 2 or not V.is_contiguous():
         raise ValueError("V must be a contiguous (ncv, n) basis")
+    if V.is_complex():
+        if Q.dtype != V.real.dtype:
+            raise ValueError("a complex V takes a real Q of its real dtype")
+        rotate_rows(Q, torch.view_as_real(V).view(V.shape[0], -1), rows)
+        return V
     ncv = V.shape[0]
     if Q.dim() != 2 or Q.shape[0] != ncv or Q.shape[1] < rows \
             or not Q.is_contiguous():

@@ -17,7 +17,12 @@ permutation and build the same host arrays.
 
 ``format=`` may also name ``'dia'``, ``'ell'``, ``'hyb'``, ``'psell'`` (the
 PSELL kernel of ``csrc/psell.cu`` over the uniform-W packing) or ``'coo'``.
-Complex matrices are not ported yet.
+
+A complex matrix takes the same decision tree; its DIA product is the DIA
+kernel's plain twin (torch ops), and its ELL, HYB and COO products are
+the same torch ops as a real matrix's.  The DIA and PSELL kernels are
+real-only, as the reference package's Pallas paths are; ``format='psell'``
+refuses a complex matrix.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ from ..config import pad_dim
 from ..utils import dtypes as _dt
 from ..utils.device import DEFAULT, require
 from . import psell as ps
-from .cuda_dia import dia_matvec
+from .cuda_dia import dia_matvec, dia_matvec_plain
 from .cuda_psell import psell_matvec, psell_tiles
 from .operator import Operator, from_dense
 
@@ -200,9 +205,7 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
     a.sum_duplicates()     # never mutate the caller's matrix
     if dtype is not None:
         a = a.astype(dtype)
-    if _dt.is_complex(a.dtype):
-        raise NotImplementedError("complex sparse matrices are not ported "
-                                  "yet")
+    cplx = _dt.is_complex(a.dtype)
     n = a.shape[0]
     n_pad = n_pad or pad_dim(n, ps.CHUNK)
     perm = None
@@ -215,11 +218,19 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
 
     if format == "dia":
         offsets, dtab = dia_table(a, n_pad)
-        offs_d = torch.from_numpy(offsets).to(device)
         dtab_d = torch.from_numpy(dtab).to(device)
+        if cplx:
+            # the twin reads its offsets on the host: no device read, so a
+            # CUDA graph can hold the product
+            offs_h = torch.from_numpy(offsets)
 
-        def matvec(x):
-            return dia_matvec(offs_d, dtab_d, x, n)
+            def matvec(x):
+                return dia_matvec_plain(offs_h, dtab_d, x, n)
+        else:
+            offs_d = torch.from_numpy(offsets).to(device)
+
+            def matvec(x):
+                return dia_matvec(offs_d, dtab_d, x, n)
     elif format in ("ell", "hyb"):
         width = _hyb_width(a) if format == "hyb" else 0
         cols_np, vals_np, tail = _to_ell(a, n_pad, width=width)
@@ -237,6 +248,9 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
                 y = ell_matvec(cols, vals, x)
                 return y.index_add_(0, trows, tvals * x[tcols])
     elif format == "psell":
+        if cplx:
+            raise ValueError("format='psell' takes real matrices (the PSELL "
+                             "kernel is real-only)")
         psell_pad = -(-n_pad // ps.CHUNK) * ps.CHUNK
         tiles = psell_tiles(ps.pack_psell_uniform(a, n_pad=psell_pad),
                             device)

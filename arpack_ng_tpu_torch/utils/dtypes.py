@@ -3,8 +3,9 @@
 Machine constants are re-derived per dtype, as the reference obtains them
 from LAPACK ``dlamch`` (``SRC/dsaupd.f:550``, ``SRC/dsconv.f:123``).  Dtypes
 may be numpy or torch dtypes (``torch.bfloat16`` for basis storage); the
-compute dtype of a solve is a numpy float32/float64, so the host reduced
-space keeps numpy semantics.
+compute dtype of a solve is a numpy float32/float64/complex64/complex128,
+so the host reduced space keeps numpy semantics; a complex dtype has the
+constants of its real part.
 """
 from __future__ import annotations
 
@@ -67,6 +68,12 @@ def real_dtype(dtype) -> np.dtype:
 
 def is_complex(dtype) -> bool:
     return torch_dtype(dtype).is_complex
+
+
+def host_dtype(dtype) -> np.dtype:
+    """Dtype of the host reduced space: complex128 for complex compute
+    dtypes, float64 for real ones (reference ``core/iram.py:74-76``)."""
+    return np.dtype(np.complex128 if is_complex(dtype) else np.float64)
 
 
 def eps(dtype) -> float:

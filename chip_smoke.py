@@ -100,7 +100,29 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    complex vectors, on the host), the rotation kernel launched, and the
    phase within EIGS_MAX_S.  No value is held to the analytic spectrum: the
    operator is strongly non-normal, and float32 pairs converged by
-   residual may lie in its pseudospectrum.
+   residual may lie in its pseudospectrum;
+10. the hybrid driver and complex dtypes at full width, float32 /
+   complex64, k = 8, ncv = 32, tol = 1e-5: (a) the flagship through
+   ``eigsh(strategy='hybrid')`` (the reduced space on the host in float64,
+   the event and rotation kernels) under the phase-4 gates; (b)
+   ``eigs(strategy='hybrid', cgs_kernel='pallas')`` on the conv-diff
+   operator at nx = 1024, the cell phase 9b-c cuts to 512: every returned
+   value's residual ``<= 1e-3`` and closed under conjugation, the value
+   count and info code reported (does the float64 reduced space return
+   the 8 the fused real driver loses?); (c) a complex Hermitian operator
+   ``T_c (x) I + I (x) T_0`` at nx = 1024 (``T_c = tridiag(-1 - ic, 2,
+   -1 + ic)``, c = 0.5, ``T_0 = tridiag(-1, 2, -1)``), imported by the
+   complex ``from_scipy`` (DIA), through ``eigsh(which='LA')`` under
+   'auto' (the device loop: ``sym_cycle`` and the rotation kernel on the
+   basis' real view) and 'hybrid': real values within 1e-4*|lambda| of the
+   analytic spectrum, residuals ``<= 1e-3`` (complex128, host); (d)
+   ``eigs`` on ``convection_diffusion_2d(512, complex64)`` under 'auto'
+   (the hybrid driver), cut to nx = 512 to compare with 9b: 8 values,
+   residuals ``<= 1e-3``; how far its values lie from 9b's as sets is
+   reported beside 9c's distance from 9b (both drivers' float32 values lie
+   in the operator's pseudospectrum, above its real spectrum); 10c's
+   'auto' solve again with the reduced space on the host (a witness, not
+   counted); the phase within P10_MAX_S.
 
     python3 chip_smoke.py --profile
 
@@ -200,6 +222,13 @@ EIGS_NX = 1024
 EIGS_SOLVE_NX = 512
 EIGS_MAX_RESTARTS = 300
 EIGS_MAX_S = 150.0
+#: phase 10c: the imaginary part of the Hermitian tridiagonal's
+#: off-diagonal; phase 10's restart cap (10b, 10d) and wall limit, seconds
+#: (about three times the 42 s it takes on an H100 at 700 W, PERF.md
+#: section 6)
+HERM_C = 0.5
+P10_MAX_RESTARTS = 1000
+P10_MAX_S = 120.0
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
 #: the tensor cores by accumulation dtype; its SMs (one block of the
 #: reduced-space kernel runs on one)
@@ -411,7 +440,48 @@ def check_kernels(torch, dev, n=N, timed=True):
                            for k, p in words.items()}))
                 rows_out[-1]["word"] = pv.vec * sb
         del V, V1, V2
+    rec["rotate_rows"]["err_c64"] = _rotate_complex(torch, cuda_rot, dev, g,
+                                                    n, flush, rows_out)
     return rec, rows_out
+
+
+def _rotate_complex(torch, cuda_rot, dev, g, n, flush, rows_out):
+    """The rotation of a complex64 basis by a real Q (the Hermitian
+    restart), which runs the kernel on the basis' real view, against the
+    twin ``Q[:, :rows]^T V`` as a complex GEMM: every bucket, rows past it
+    untouched, two calls bit-equal; timed at 16 rows.  Returns the largest
+    error."""
+    Vc = torch.complex(torch.randn(NCV, n, generator=g, device=dev),
+                       torch.randn(NCV, n, generator=g, device=dev))
+    Qm, _ = torch.linalg.qr(torch.randn(
+        NCV, NCV, generator=torch.Generator().manual_seed(2),
+        dtype=torch.float64))
+    Q = Qm.to(device=dev, dtype=torch.float32).contiguous()
+    err = 0.0
+    for rows in ROWS:
+        V1 = cuda_rot.rotate_rows(Q, Vc.clone(), rows)
+        ref = Q[:, :rows].T.to(Vc.dtype) @ Vc
+        err = max(err, _compare(torch, torch.view_as_real(V1[:rows]),
+                                torch.view_as_real(ref), False,
+                                f"rotate_rows complex64 rows={rows}"))
+        if not torch.equal(V1[rows:], Vc[rows:]):
+            raise AssertionError(f"rotate_rows complex64 rows={rows}: rows "
+                                 "past the bucket changed")
+        if not torch.equal(V1, cuda_rot.rotate_rows(Q, Vc.clone(), rows)):
+            raise AssertionError(f"rotate_rows complex64 rows={rows}: two "
+                                 "calls differ")
+    if flush is not None:
+        rows, Qc = JSON_ROWS, Q.to(Vc.dtype)
+        row = _timed_row(
+            torch, flush, "rotate_rows", "torch.complex64", rows,
+            (NCV + rows) * n * 8 + NCV * rows * 4, 2 * NCV * rows * 2 * n,
+            "torch.float32", lambda: cuda_rot.rotate_rows(Q, V1, rows),
+            lambda: cuda_rot.rotate_rows_plain(
+                Q, torch.view_as_real(V1).view(NCV, -1), rows),
+            lambda: Qc[:, :rows].T @ Vc)
+        row["name"] = "rotate_rows_c64"
+        rows_out.append(row)
+    return err
 
 
 def check_word_events(torch, dev, n=N):
@@ -1014,7 +1084,10 @@ def check_values(vals, vecs, a_sp, spectrum, what):
     if np.any(dist > 1e-4 * np.abs(vals)):
         raise AssertionError(f"{what}: values off the analytic spectrum "
                              f"(max dist {dist.max():.3e})")
-    v64 = np.asarray(vecs, np.float64)
+    if not np.isrealobj(vals):
+        raise AssertionError(f"{what}: complex values returned")
+    v64 = np.asarray(vecs, np.complex128 if np.iscomplexobj(vecs)
+                     else np.float64)
     res = np.linalg.norm(a_sp @ v64 - v64 * vals[None, :], axis=0) \
         / np.abs(vals)
     if not np.all(np.isfinite(res)) or res.max() > 1e-3:
@@ -1429,11 +1502,11 @@ def check_gather(torch, dev, gpu):
     return errs, rows, launches
 
 
-def check_nonsym(vals, vecs, a_sp, what):
-    """8 or 9 values (a conjugate pair is never split), closed under
-    conjugation, every residual ||Av - lambda v|| / |lambda| <= 1e-3 (scipy
-    CSR, float64, complex vectors)."""
-    if len(vals) not in (8, 9):
+def check_nonsym(vals, vecs, a_sp, what, counted=True):
+    """8 or 9 values (a conjugate pair is never split; ``counted=False``:
+    any number), closed under conjugation, every residual ||Av - lambda v||
+    / |lambda| <= 1e-3 (scipy CSR, float64, complex vectors)."""
+    if counted and len(vals) not in (8, 9):
         raise AssertionError(f"{what}: {len(vals)} values returned, want 8 "
                              "or 9")
     for v in vals[vals.imag != 0]:
@@ -1499,14 +1572,15 @@ def eigs_solves(torch, dev, gpu, nx=EIGS_SOLVE_NX, device=None):
     """Phase 9b-c: solves to tol = 1e-5 through ``eigs``, on the stencil
     operator and on its scipy CSR matrix (DIA, CGS kernels; imported on the
     default device, ``device=None``), under the gates of
-    :func:`check_nonsym`.  Returns the launches of (b)."""
+    :func:`check_nonsym`.  Returns the launches of (b) and the values of
+    (b) and (c) by tag."""
     import arpack_ng_tpu_torch as pt
     from arpack_ng_tpu_torch.models import convection_diffusion_2d
 
     op, a_sp = convection_diffusion_2d(nx, dtype=np.float32, device=dev)
     kw = dict(k=8, ncv=NCV, which="LM", tol=1e-5,
               maxiter=EIGS_MAX_RESTARTS, return_stats=True)
-    launches = {}
+    launches, found = {}, {}
     for tag, need, fn in (
             ("(b) eigs(op)", ("rotate_rows",), lambda: pt.eigs(op, **kw)),
             ("(c) eigs(A_csr), cgs_kernel='pallas'",
@@ -1522,7 +1596,181 @@ def eigs_solves(torch, dev, gpu, nx=EIGS_SOLVE_NX, device=None):
         print(f"  max residual {rmax:.2e}", flush=True)
         if not launches:
             launches = {k: counts[k] for k in need}
-    return launches
+        found[tag[:3]] = vals
+    return launches, found
+
+
+def _hermitian_operator(nx, c=HERM_C):
+    """Phase 10c's test input: ``A = T_c (x) I + I (x) T_0`` (scipy CSR,
+    complex128), ``T_c = tridiag(-1 - ic, 2, -1 + ic)``, ``T_0 =
+    tridiag(-1, 2, -1)``, and its analytic spectrum, ascending:
+    ``4 - 2 sqrt(1 + c^2) cos(j pi h) - 2 cos(k pi h)``, h = 1/(nx + 1)."""
+    import scipy.sparse as sp
+
+    one = np.ones(nx - 1)
+    tc = sp.diags([(-1 - 1j * c) * one, 2 * np.ones(nx), (-1 + 1j * c) * one],
+                  [-1, 0, 1])
+    t0 = sp.diags([-one, 2 * np.ones(nx), -one], [-1, 0, 1])
+    eye = sp.identity(nx)
+    a = (sp.kron(tc, eye) + sp.kron(eye, t0)).tocsr().astype(np.complex128)
+    cs = np.cos(np.pi * np.arange(1, nx + 1) / (nx + 1))
+    lam = (2.0 - 2.0 * np.sqrt(1.0 + c * c) * cs)[:, None] \
+        + (2.0 - 2.0 * cs)[None, :]
+    return a, np.sort(lam.ravel())
+
+
+def _set_gap(got, ref) -> float:
+    """The largest relative distance from a value of ``got`` to its own
+    (distinct) value of ``ref``: how far ``got`` is from lying among
+    ``ref`` as sets (``ref`` may hold one more, a conjugate partner that
+    the real driver keeps at the boundary)."""
+    free = list(range(len(ref)))
+    worst = 0.0
+    for v in got:
+        i = min(free, key=lambda j: abs(ref[j] - v))
+        free.remove(i)
+        worst = max(worst, abs(ref[i] - v) / abs(v))
+    return worst
+
+
+def _convdiff_top(nx, rho=100.0) -> float:
+    """The largest eigenvalue of ``convection_diffusion_2d(nx, rho)``,
+    which is real: ``4 + 2 sqrt(1 - c^2) cos(pi h) + 2 cos(pi h)``,
+    c = rho h / 2 < 1."""
+    h = 1.0 / (nx + 1)
+    c = rho * h / 2.0
+    return 4.0 + (2.0 * np.sqrt(1.0 - c * c) + 2.0) * np.cos(np.pi * h)
+
+
+def new_paths(torch, dev, gpu, vals_9, nx=NX, eigs_nx=EIGS_NX,
+              cd_nx=EIGS_SOLVE_NX):
+    """Phase 10: the hybrid driver and complex dtypes at full width (see
+    the module docstring).  Returns each path's kernel launches."""
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.models import (convection_diffusion_2d,
+                                            laplacian_2d)
+
+    t0 = time.perf_counter()
+    paths = {}
+    kw = dict(k=8, ncv=NCV, tol=1e-5, return_stats=True)
+
+    # (a) the flagship through the hybrid driver
+    op, a_sp = laplacian_2d(nx, np.float32, device=dev)
+    tag = "10a eigsh(flagship, strategy='hybrid')"
+    (vals, vecs, out), wall, counts = _counted(
+        torch, dev, ("sel_proj", "sel_update", "rotate_rows"),
+        lambda: pt.eigsh(op, which="LA", strategy="hybrid", **kw))
+    dmax, rmax = check_values(vals, vecs, a_sp, _analytic_spectrum(nx), tag)
+    st = out.stats
+    print(f"{tag}: wall {wall:.4f} s ({wall * 1e3 / st.n_iter:.4f} ms per "
+          f"cycle), {_stats_line(st)}; max value dist {dmax:.2e}, max "
+          f"residual {rmax:.2e}; launches {counts}; card {gpu}", flush=True)
+    print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+    paths["10a"] = counts
+    del op, vecs
+
+    # (b) eigs on the conv-diff cell at nx = 1024, the hybrid driver
+    op, a_sp = convection_diffusion_2d(eigs_nx, dtype=np.float32, device=dev)
+    tag = (f"10b eigs(conv-diff nx={eigs_nx}, strategy='hybrid', "
+           "cgs_kernel='pallas')")
+    (vals, vecs, out), wall, counts = _counted(
+        torch, dev, ("rotate_rows", "cgs_proj", "cgs_update"),
+        lambda: pt.eigs(op, which="LM", strategy="hybrid",
+                        cgs_kernel="pallas", maxiter=P10_MAX_RESTARTS, **kw))
+    st = out.stats
+    print(f"{tag}: wall {wall:.4f} s ({wall * 1e3 / st.n_iter:.4f} ms per "
+          f"cycle), {_stats_line(st)}; {len(vals)} values, extraction info "
+          f"{out.info}; launches {counts}; card {gpu}", flush=True)
+    print(f"  values {np.array2string(vals, precision=8)}", flush=True)
+    rmax = check_nonsym(vals, vecs, a_sp, tag, counted=False)
+    print(f"  max residual {rmax:.2e}; the fused real driver's float32 "
+          f"reduced space returned 6 here (info -14); the hybrid's float64 "
+          f"one returns {len(vals)} (info {out.info})", flush=True)
+    paths["10b"] = counts
+    del op, vecs
+
+    # (c) a complex Hermitian operator through both drivers
+    a_h, spectrum = _hermitian_operator(nx)
+    op = pt.from_scipy(a_h, dtype=np.complex64, hermitian=True, device=dev)
+    if op.format != "dia" or op.dtype != np.complex64:
+        raise AssertionError(f"10c: imported as {op.format} {op.dtype}, "
+                             "want dia complex64")
+    found = {}
+    for strategy, need in (("auto", ("rotate_rows", "sym_cycle")),
+                           ("hybrid", ("rotate_rows",))):
+        tag = f"10c eigsh(Hermitian nx={nx} complex64, strategy={strategy!r})"
+        (vals, vecs, out), wall, counts = _counted(
+            torch, dev, need,
+            lambda: pt.eigsh(op, which="LA", strategy=strategy, **kw))
+        dmax, rmax = check_values(vals, vecs, a_h, spectrum, tag)
+        st = out.stats
+        print(f"{tag}: wall {wall:.4f} s, {_stats_line(st)}; max value dist "
+              f"{dmax:.2e}, max residual {rmax:.2e}; launches {counts}; card "
+              f"{gpu}", flush=True)
+        if st.packets:
+            print(f"  device loop: {_loop_line(st)}", flush=True)
+        print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+        paths[f"10c {strategy}"] = counts
+        found[strategy] = vals
+        del vecs
+    _hermitian_witness(torch, dev, gpu, op, a_h, spectrum, kw)
+    del op, a_h
+
+    # (d) complex eigs by default (the hybrid driver), cut to nx = 512
+    op, a_sp = convection_diffusion_2d(cd_nx, dtype=np.complex64,
+                                       device=dev)
+    tag = f"10d eigs(conv-diff nx={cd_nx} complex64, strategy='auto')"
+    (vals, vecs, out), wall, counts = _counted(
+        torch, dev, (), lambda: pt.eigs(op, which="LM",
+                                        maxiter=P10_MAX_RESTARTS, **kw))
+    st = out.stats
+    print(f"{tag}: wall {wall:.4f} s ({wall * 1e3 / st.n_iter:.4f} ms per "
+          f"cycle), {_stats_line(st)}; {len(vals)} values, extraction info "
+          f"{out.info}; launches {counts}; card {gpu}", flush=True)
+    print(f"  values {np.array2string(vals, precision=8)}", flush=True)
+    v = np.asarray(vecs, np.complex128)
+    res = np.linalg.norm(a_sp @ v - v * vals[None, :], axis=0) / np.abs(vals)
+    if len(vals) != 8 or not np.all(np.isfinite(res)) or res.max() > 1e-3:
+        raise AssertionError(f"{tag}: {len(vals)} values, max residual "
+                             f"{res.max():.3e}")
+    # the operator's spectrum is real; float32 pairs converged by residual
+    # lie in its pseudospectrum, so the two drivers' value sets (and 9b's
+    # and 9c's) are reported, not held, against each other
+    top = _convdiff_top(cd_nx)
+    print(f"  max residual {res.max():.2e}; as a set among 9b's values "
+          f"within {_set_gap(vals, vals_9['(b)']):.3e} relative (9c among "
+          f"9b's: {_set_gap(vals_9['(c)'], vals_9['(b)']):.3e}); above the "
+          f"real spectrum's top {top:.8f} by {vals.real.max() - top:.3e} "
+          f"(9b {vals_9['(b)'].real.max() - top:.3e})", flush=True)
+    paths["10d"] = counts
+
+    elapsed = time.perf_counter() - t0
+    print(f"phase 10: {elapsed:.2f} s (limit {P10_MAX_S:.0f} s); 10c "
+          f"'auto' and 'hybrid' values within "
+          f"{np.abs(found['auto'] - found['hybrid']).max():.3e}", flush=True)
+    if elapsed > P10_MAX_S:
+        raise AssertionError(f"phase 10 took {elapsed:.1f} s")
+    return paths
+
+
+def _hermitian_witness(torch, dev, gpu, op, a_h, spectrum, kw):
+    """Phase 10c's 'auto' solve again with the reduced space on the host
+    (the numpy twin of the kernel, as phase 4's witness): how far the
+    kernel's rounding alone moves its cycles on this spectrum.  Same value
+    gates; the launches are not the path's."""
+    from unittest import mock
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core import device_sym
+
+    with mock.patch.object(device_sym, "sym_cycle", _host_sym_cycle):
+        (vals, vecs, out), wall, _ = _counted(
+            torch, dev, (), lambda: pt.eigsh(op, which="LA", **kw))
+    dmax, rmax = check_values(vals, vecs, a_h, spectrum,
+                              "10c witness, reduced space on the host")
+    print(f"  witness, reduced space on the host: wall {wall:.4f} s, "
+          f"{_stats_line(out.stats)}; max value dist {dmax:.2e}, max "
+          f"residual {rmax:.2e}; card {gpu}", flush=True)
 
 
 def _device_ms(evt) -> float:
@@ -1663,10 +1911,11 @@ def profile_cycles(torch, dev, gpu, nx=NX, warm=3, steady=20, profiled=5):
                   f"reorth=dgks, {profiled} cycles")
 
 
-def kernel_entries(rows, launches, errs):
+def kernel_entries(rows, launches, errs, paths):
     """The ``kernels`` JSON entries: each kernel at the float32 shape its
     solve runs most (the update of the dgks path carries the fused norm),
-    with the launches of the path that exercises it."""
+    with the launches of the path that exercises it and, in
+    ``launches_phase10``, those of each phase-10 path."""
     from arpack_ng_tpu_torch.bench import gather_primitives as gp
 
     ops = "arpack_ng_tpu/ops/"
@@ -1711,6 +1960,7 @@ def kernel_entries(rows, launches, errs):
             "host_us": r.get("host_us"),
             "library_host_us": r.get("library_host_us"),
             "shape": f"{timed} shape={r['shape']} float32",
+            "launches_phase10": {p: c[counter] for p, c in paths.items()},
             **{k: r[k] for k in ("bound_note", "floor_ms") if k in r}})
     return entries
 
@@ -1773,8 +2023,9 @@ def main() -> int:
     _print_rows(rows)
     print("  max abs err (f32, bf16, f64): "
           + ", ".join(f"{k} {v['err']:.3e} / {v['err_bf16']:.3e} / "
-                      f"{v['err_f64']:.3e}" for k, v in rec.items()),
-          flush=True)
+                      f"{v['err_f64']:.3e}" for k, v in rec.items())
+          + f"; rotate_rows on a complex64 basis' real view "
+          f"{rec['rotate_rows']['err_c64']:.3e}", flush=True)
 
     err_word, rows_word = check_word_events(torch, dev)
     print(f"event kernels over {NCV} rows, K read from the device (word), vs "
@@ -1815,15 +2066,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     eigs_cycles(torch, dev, gpu)
-    eigs_solves(torch, dev, gpu)
+    _, vals_9 = eigs_solves(torch, dev, gpu)
     elapsed = time.perf_counter() - t0
     print(f"eigs phase: {elapsed:.2f} s (limit {EIGS_MAX_S:.0f} s)",
           flush=True)
     if elapsed > EIGS_MAX_S:
         raise AssertionError(f"eigs phase took {elapsed:.1f} s")
 
+    paths = new_paths(torch, dev, gpu, vals_9)
     entries = kernel_entries(rows + rows_cgs + rows_dia + rows_ps + rows_g,
-                             launches, errs)
+                             launches, errs, paths)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -241,11 +241,15 @@ class TestFusedRealNonsym:
         _assert_same(oj.values, oj, out.values, out)
 
     def test_rejects_complex(self, rng):
+        # the reference's ValueError (arpack_ng_tpu/api.py:447-451), in
+        # both packages
         a = (rng.standard_normal((50, 50))
              + 1j * rng.standard_normal((50, 50)))
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="fused_real"):
             pt.eigs(a.astype(np.complex128), k=3, strategy="fused_real",
                     device="cpu")
+        with pytest.raises(ValueError, match="fused_real"):
+            at.eigs(a.astype(np.complex128), k=3, strategy="fused_real")
 
 
 class TestConvectionDiffusion:
@@ -435,22 +439,31 @@ def test_values_only_and_stats():
     dict(sigma=1.0), dict(M=np.eye(64)), dict(mesh=object()),
     dict(select=np.ones(20, bool)), dict(validate="f64"),
     dict(validate="f64", return_schur=True), dict(strategy="fused"),
-    dict(strategy="hybrid")])
+    dict(strategy="hybrid", cgs_kernel="pallas")])
 def test_outside_the_slice_raises(kwargs):
-    # validate= raises under return_schur too, where the reference skips it
-    # without a word (arpack_ng_tpu/api.py:463)
+    # ported options raise ValueError: validate='f64' on a matrix-free
+    # operator (the reference's own error), validate= under return_schur
+    # (which the reference skips without a word, arpack_ng_tpu/api.py:463)
+    # and the hybrid driver's CGS kernels on float64 (the reference's)
     op, _ = pmodels.convection_diffusion_1d(64, dtype=np.float64,
                                             device="cpu")
-    with pytest.raises(NotImplementedError):
+    exc = ValueError if ("validate" in kwargs or "cgs_kernel" in kwargs) \
+        else NotImplementedError
+    with pytest.raises(exc):
         pt.eigs(op, k=2, **kwargs)
 
 
 def test_complex_inputs_raise():
-    with pytest.raises(NotImplementedError):
-        pt.eigs(np.eye(50, dtype=np.complex128), k=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pt.eigs(sp.identity(50, format="csr", dtype=np.complex128), k=2,
-                device="cpu")
+    # complex inputs are ported: under 'auto' the hybrid driver solves
+    # them (tests/test_torch_complex.py); strategy='fused' (the complex
+    # device_nonsym driver) is not ported yet
+    for a in (np.diag(np.arange(1.0, 51.0)).astype(np.complex128),
+              sp.diags(np.arange(1.0, 51.0)).tocsr().astype(np.complex128)):
+        vals = pt.eigs(a, k=2, tol=1e-10, return_eigenvectors=False,
+                       device="cpu")
+        np.testing.assert_allclose(vals, [50, 49], rtol=1e-10)
+        with pytest.raises(NotImplementedError):
+            pt.eigs(a, k=2, strategy="fused", device="cpu")
 
 
 @pytest.mark.parametrize("solver", ["eigsh", "eigs"])

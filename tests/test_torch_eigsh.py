@@ -164,30 +164,42 @@ def test_solve_pins_full_precision_matmuls(solver):
 
 @pytest.mark.parametrize("kwargs", [
     dict(sigma=1.0), dict(mesh=object()), dict(shift_fn=lambda r, b: r),
-    dict(restart="thick"), dict(validate="f64"), dict(strategy="hybrid"),
-    dict(cgs_kernel="pallas")])
+    dict(restart="thick"), dict(validate="f64"),
+    dict(strategy="hybrid", restart="thick"), dict(cgs_kernel="pallas")])
 def test_outside_the_slice_raises(kwargs):
-    # cgs_kernel='pallas' is ported; on float64 it raises the reference's
-    # ValueError (real float32 compute only)
+    # ported options raise ValueError where the reference does: cgs_kernel=
+    # 'pallas' on float64 (real float32 compute only) and validate='f64' on
+    # a matrix-free operator (tests/test_torch_validate.py); the hybrid
+    # driver refuses restart='thick', which the reference's silently runs
+    # as the implicit restart (arpack_ng_tpu/api.py:132)
     op, _ = pmodels.laplacian_1d(64, dtype=np.float64, device="cpu")
-    exc = ValueError if "cgs_kernel" in kwargs else NotImplementedError
+    ported = "cgs_kernel" in kwargs or "validate" in kwargs
+    exc = ValueError if ported or "strategy" in kwargs \
+        else NotImplementedError
     with pytest.raises(exc):
         pt.eigsh(op, k=2, which="LA", **kwargs)
-    if "cgs_kernel" in kwargs:
+    if ported:
         opj, _ = jmodels.laplacian_1d(64, dtype=np.float64)
         with pytest.raises(ValueError):
             at.eigsh(opj, k=2, which="LA", **kwargs)
 
 
 def test_complex_and_sparse_inputs_raise():
-    # scipy sparse inputs are ported (tests/test_torch_sparse.py); complex
-    # ones, sparse or dense, are not yet
+    # complex inputs, sparse or dense, are ported (tests/test_torch_complex
+    # .py): a Hermitian identity solves to real values; with the CGS
+    # kernels (real float32 only) or narrow storage (real only) they raise
+    # the reference's ValueError
     import scipy.sparse as sp
-    with pytest.raises(NotImplementedError):
-        pt.eigsh(sp.identity(50, format="csr", dtype=np.complex128), k=2,
-                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        pt.eigsh(np.eye(50, dtype=np.complex128), k=2, device="cpu")
+    for a in (sp.identity(50, format="csr", dtype=np.complex128),
+              np.eye(50, dtype=np.complex128)):
+        vals = pt.eigsh(a, k=2, which="LA", tol=1e-10,
+                        return_eigenvectors=False, device="cpu")
+        assert np.isrealobj(vals)
+        np.testing.assert_allclose(vals, 1.0, rtol=1e-12)
+        for kw in (dict(cgs_kernel="pallas", reorth="dgks"),
+                   dict(storage_dtype=torch.bfloat16)):
+            with pytest.raises(ValueError):
+                pt.eigsh(a, k=2, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("storage,tol", [(None, 1e-5), ("bfloat16", 1e-2)])

@@ -737,3 +737,103 @@ def test_sym_cycle_breakdown_leaves_state_on_card(dev, dtype):
     assert torch.equal(kb, torch.tensor(e, dtype=dt))
     assert torch.all(kQ == 3.0) and torch.all(ksk == -2.0)
     assert torch.equal(kpk, tpk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 3])
+@pytest.mark.parametrize("cdt", ["complex64", "complex128"])
+def test_rotate_rows_complex_view_on_card(dev, cdt, n):
+    # a complex basis rotated by a real Q (the Hermitian restart) runs the
+    # kernel on its real view: the twin is the complex GEMM Q^T V; every
+    # bucket, rows past it untouched, two calls bit-equal
+    ct = getattr(torch, cdt)
+    rt = torch.float32 if ct == torch.complex64 else torch.float64
+    g = torch.Generator(device=dev).manual_seed(5)
+    V = torch.complex(torch.randn(32, n, generator=g, device=dev, dtype=rt),
+                      torch.randn(32, n, generator=g, device=dev, dtype=rt))
+    Q = torch.linalg.qr(torch.randn(32, 32, dtype=torch.float64))[0]
+    Q = Q.to(device=dev, dtype=rt).contiguous()
+    tol = dict(rtol=1e-5, atol=1e-3) if rt == torch.float32 else \
+        dict(rtol=1e-12, atol=1e-10)
+    for rows in (8, 16, 24, 32):
+        out = cuda_rot.rotate_rows(Q, V.clone(), rows)
+        torch.testing.assert_close(out[:rows], Q[:, :rows].T.to(ct) @ V,
+                                   **tol)
+        assert torch.equal(out[rows:], V[rows:])
+        assert torch.equal(out, cuda_rot.rotate_rows(Q, V.clone(), rows))
+    with pytest.raises(ValueError, match="real Q"):
+        cuda_rot.rotate_rows(Q.to(ct), V.clone(), 8)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cdt", ["complex64", "complex128"])
+def test_complex_event_matches_twin_on_card(dev, cdt):
+    # the complex event of the Hermitian selective step (masked GEMVs over
+    # all ncv rows, core/arnoldi.complex_event) against the gathered form
+    # of the twins, conjugated: <V[idx[k]], br> for the taken positions,
+    # and the update r - sum_k s_k V[idx[k]]
+    from arpack_ng_tpu_torch.core.arnoldi import complex_event
+    ct = getattr(torch, cdt)
+    rt = torch.float32 if ct == torch.complex64 else torch.float64
+    g = torch.Generator(device=dev).manual_seed(6)
+    n = 1 << 16
+
+    def crandn(*shape):
+        return torch.complex(
+            torch.randn(*shape, generator=g, device=dev, dtype=rt),
+            torch.randn(*shape, generator=g, device=dev, dtype=rt))
+
+    V, br, r = crandn(32, n), crandn(n), crandn(n)
+    tol = dict(rtol=1e-4, atol=1e-2) if rt == torch.float32 else \
+        dict(rtol=1e-10, atol=1e-8)
+    for K in (0, 1, 8, 13, 32):
+        idx = torch.randperm(32, generator=g, device=dev).to(torch.int32)
+        take = torch.arange(32, device=dev) < K
+        c = complex_event(idx, V, br, take)
+        rows = V.index_select(0, idx[:K].long())
+        s_ref = rows.conj() @ br
+        c_ref = torch.zeros(32, dtype=ct, device=dev)
+        c_ref[idx[:K].long()] = s_ref
+        torch.testing.assert_close(c, c_ref, **tol)
+        torch.testing.assert_close(r - c @ V, r - s_ref @ rows, **tol)
+        if K == 0:
+            assert torch.equal(r - c @ V, r)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_hermitian_device_loop_on_card(dev):
+    # a complex Hermitian DIA operator through eigsh on the card: the
+    # device loop (captured graphs, the reduced-space kernel, the rotation
+    # kernel on the real view) and the hybrid driver, complex64: real
+    # values within 1e-4 relative of each other, residuals <= 1e-3
+    import scipy.sparse as sp
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.ops import cuda_sym_cycle
+    nx = 64
+    one = np.ones(nx - 1)
+    tc = sp.diags([(-1 - 0.5j) * one, 2 * np.ones(nx), (-1 + 0.5j) * one],
+                  [-1, 0, 1])
+    t0 = sp.diags([-one, 2 * np.ones(nx), -one], [-1, 0, 1])
+    eye = sp.identity(nx)
+    a = (sp.kron(tc, eye) + sp.kron(eye, t0)).tocsr()
+    op = pt.from_scipy(a, dtype=np.complex64, hermitian=True, device=dev)
+    assert op.format == "dia"
+    found = {}
+    for strategy in ("auto", "hybrid"):
+        cuda_rot.rotate_rows.launches = 0
+        cuda_sym_cycle.sym_cycle.launches = 0
+        vals, vecs, out = pt.eigsh(op, k=8, ncv=32, which="LA", tol=1e-5,
+                                   strategy=strategy, return_stats=True)
+        assert np.isrealobj(vals) and len(vals) == 8
+        v = np.asarray(vecs, np.complex128)
+        res = np.linalg.norm(a @ v - v * vals, axis=0) / np.abs(vals)
+        assert res.max() <= 1e-3
+        assert cuda_rot.rotate_rows.launches > 0
+        if strategy == "auto":
+            assert out.stats.graphs_captured > 0
+            assert cuda_sym_cycle.sym_cycle.launches > 0
+        found[strategy] = vals
+    np.testing.assert_allclose(found["auto"], found["hybrid"], rtol=1e-4)

@@ -182,11 +182,19 @@ def test_float32_dia_solve_matches_reference():
 
 
 def test_complex_matrix_raises():
+    # complex matrices are ported (tests/test_torch_complex.py): they take
+    # the reference's decision tree (DIA here, the kernel's torch twin);
+    # only format='psell' raises, the PSELL kernel being real-only
     a = sp.identity(3000, format="csr", dtype=np.complex128)
-    with pytest.raises(NotImplementedError):
-        pt.from_scipy(a, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pt.from_scipy(_lap2d(60), dtype=np.complex64, device="cpu")
+    op = pt.from_scipy(a, device="cpu")
+    assert op.format == jsparse.from_scipy(a).format == "dia"
+    x = np.arange(3000) * (1 + 1j)
+    np.testing.assert_array_equal(op.matvec(x), x)
+    op = pt.from_scipy(_lap2d(60), dtype=np.complex64, device="cpu")
+    assert op.dtype == np.complex64 and op.format == "dia"
+    with pytest.raises(ValueError, match="real"):
+        pt.from_scipy(_lap2d(60), dtype=np.complex64, format="psell",
+                      device="cpu")
 
 
 def test_unknown_format_raises():
