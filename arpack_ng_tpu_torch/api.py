@@ -8,8 +8,7 @@ Both take the reference package's arguments plus ``device`` (the CUDA
 card unless the caller asks for ``device="cpu"``).  The options outside
 this package's current slice raise ``NotImplementedError`` rather than
 run a different algorithm: spectral transforms (``M``, ``sigma``,
-``mode``), ``mesh``, ``shift_fn``, ``restart='thick'``, ``select`` and
-``eigs(strategy='fused')``.  Where the reference package silently does
+``mode``) and ``mesh``.  Where the reference package silently does
 something else, the port raises ``ValueError``: ``restart='thick'`` with
 ``strategy='hybrid'`` (the reference runs the implicit restart) and
 ``eigs(validate=..., return_schur=True)`` (the reference skips the
@@ -76,14 +75,15 @@ def _resolve_sym_reorth(reorth: str) -> str:
     return reorth
 
 
-def _make_solver(op, cfg, strategy):
+def _make_solver(op, cfg, strategy, shift_fn=None):
     """``eigsh``'s driver: 'fused' (and 'auto') the symmetric cycle of
     ``core/device_sym`` (the selective loop on the device), 'hybrid' the
-    host float64 reduced space of ``core/iram``."""
+    host float64 reduced space of ``core/iram``; either with the caller's
+    shifts."""
     if strategy in ("auto", "fused"):
         from .core.device_sym import FusedSymSolver
-        return FusedSymSolver(op, cfg)
-    return IRAMSolver(op, cfg)
+        return FusedSymSolver(op, cfg, shift_fn=shift_fn)
+    return IRAMSolver(op, cfg, shift_fn=shift_fn)
 
 
 def _check_validate(validate, raw_A) -> None:
@@ -193,21 +193,21 @@ def _f64_validate(A_raw, out, cfg, matvec64=None):
 
 
 def _finish(op, cfg, res, return_eigenvectors, return_stats, validate,
-            raw_A, howmny="A"):
-    """Extraction, validation, the no-convergence error and the return
-    tuple (reference ``api._solve``)."""
+            raw_A, howmny="A", select=None):
+    """Extraction, validation, the no-convergence error (none with a
+    ``select`` mask) and the return tuple (reference ``api._solve``)."""
     if res.info < 0:
         raise ArpackError(res.info)
     rvec = return_eigenvectors or howmny == "P"
     out = extract(op, cfg, res, rvec=rvec or validate is not None,
-                  howmny=howmny)
+                  howmny=howmny, select=select)
     if validate is not None:
         out.validation = (_f64_validate(None, out, cfg, matvec64=validate)
                           if callable(validate)
                           else _f64_validate(raw_A, out, cfg))
         if not rvec:
             out.vectors = None
-    if res.info in (1, 2) and out.nconv < cfg.nev:
+    if res.info in (1, 2) and select is None and out.nconv < cfg.nev:
         raise ArpackNoConvergence(out, cfg)
     ret = (out.values, out.vectors) if rvec else out.values
     if return_stats:
@@ -215,11 +215,10 @@ def _finish(op, cfg, res, return_eigenvectors, return_stats, validate,
     return ret
 
 
-def _refuse(**options) -> None:
-    """Raise ``NotImplementedError`` for an option outside the slice."""
-    for name, val in options.items():
-        if val is not None:
-            raise NotImplementedError(f"{name}= is not ported yet")
+def _refuse_mesh(mesh) -> None:
+    """``mesh=`` (the row-partitioned solve) is outside the slice."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported yet")
 
 
 class ArpackError(RuntimeError):
@@ -300,6 +299,20 @@ def eigsh(
     Values are real, also for a complex Hermitian problem.
     ``validate='f64'`` (a concrete matrix ``A``) or a float64 matvec
     callable attaches an :class:`F64Validation` report (``return_stats``).
+
+    ``restart='thick'`` (the fused driver only, not with ``which='BE'``):
+    the re-tridiagonalizing thick restart of
+    :func:`~arpack_ng_tpu_torch.core.device_sym.thick_restart` in place of
+    the implicit shifts.  ``shift_fn(ritz_unwanted, bounds_unwanted) ->
+    shifts``: the caller's shifts (the reference's ishift=0 / ido=3
+    protocol, SRC/dsaup2.f:700-724), with no nev inflation, through either
+    driver; not with ``restart='thick'``.  ``select``: a length-ncv
+    boolean mask over the Ritz values of the final factorization in their
+    exit order (the documented ``howmny='S'`` of SRC/dseupd.f:62-66): only
+    flagged values that converged come back, with their vectors, and no
+    :class:`ArpackNoConvergence` is raised.  The fused driver runs thick
+    and ``shift_fn`` solves on its host restart loop.
+
     Returns ``values`` or ``(values, vectors)`` (and the
     :class:`EigenResult` with ``return_stats``), as the reference package
     does.
@@ -307,15 +320,16 @@ def eigsh(
     if sigma is not None or mode != "normal" or M is not None:
         raise NotImplementedError("spectral transforms (M, sigma, mode) "
                                   "are not ported yet")
-    _refuse(mesh=mesh, shift_fn=shift_fn, select=select)
+    _refuse_mesh(mesh)
     if strategy not in ("auto", "fused", "hybrid"):
-        raise NotImplementedError(f"strategy={strategy!r} is not ported "
-                                  "yet")
-    if restart != "implicit":
-        if strategy == "hybrid":
-            raise ValueError("strategy='hybrid' runs the implicit restart "
-                             "only; restart='thick' needs the fused driver")
-        raise NotImplementedError(f"restart={restart!r} is not ported yet")
+        raise ValueError(f"strategy must be 'auto', 'fused' or 'hybrid', "
+                         f"not {strategy!r}")
+    if shift_fn is not None and restart == "thick":
+        raise ValueError("shift_fn requires restart='implicit' "
+                         "(a thick restart applies no shifts)")
+    if restart != "implicit" and strategy == "hybrid":
+        raise ValueError("strategy='hybrid' runs the implicit restart "
+                         "only; restart='thick' needs the fused driver")
     raw_A = None if isinstance(A, Operator) else A
     _check_validate(validate, raw_A)
     op = _as_operator(A, dtype=dtype, hermitian=True, device=device)
@@ -330,11 +344,12 @@ def eigsh(
         mode=op.mode, tol=tol,
         max_iter=maxiter if maxiter is not None else 10 * n,
         symmetric=True, dtype=np.dtype(op.dtype), n_pad=op.n_pad, seed=seed,
-        exact_shifts=True, storage_dtype=storage_dtype,
+        exact_shifts=shift_fn is None, storage_dtype=storage_dtype,
         cgs_kernel=cgs_kernel, restart=restart, reorth=reorth)
-    res = _make_solver(op, cfg, strategy).solve(v0=v0)
+    res = _make_solver(op, cfg, strategy, shift_fn).solve(v0=v0)
     return _finish(op, cfg, res, return_eigenvectors, return_stats,
-                   validate, raw_A)
+                   validate, raw_A, howmny="S" if select is not None
+                   else "A", select=select)
 
 
 def eigs(
@@ -373,7 +388,12 @@ def eigs(
     space in the problem dtype) and ``'hybrid'`` for complex ones (the host
     float64 / complex128 reduced space of
     :mod:`~arpack_ng_tpu_torch.core.iram`, which real dtypes may ask for
-    too).  ``'fused_real'`` on a complex dtype raises ``ValueError``.
+    too).  ``'fused'`` runs the complex cycle of
+    :mod:`~arpack_ng_tpu_torch.core.device_nonsym` (its reduced space in
+    the problem's complex dtype); a real operator is complexified (two real
+    matvecs per complex one) and its values and vectors come back complex,
+    as the reference returns them.  ``'fused_real'`` on a complex dtype
+    raises ``ValueError``.
     ``reorth='auto'`` is ``'dgks'``: the semi-orthogonality argument behind
     ``'selective'`` is a Lanczos result.  Values come wanted first; for a
     real problem a conjugate pair is never split, so k + 1 values may come
@@ -381,20 +401,21 @@ def eigs(
     invariant subspace in place of the eigenvectors.  ``validate='f64'``
     or a float64 matvec callable attaches an :class:`F64Validation` report
     and warns (:class:`PseudospectrumWarning`) where a single-precision
-    solve met a non-normal operator.
+    solve met a non-normal operator.  ``select``: as in :func:`eigsh`
+    (SRC/dneupd.f:60-66); in real arithmetic a selected member of a
+    conjugate pair brings its partner.  ``return_schur`` takes precedence.
 
-    Not ported yet (``NotImplementedError``): ``sigma``, ``M``, ``select``,
-    ``mesh`` and ``strategy='fused'``.  ``validate`` under
-    ``return_schur`` raises ``ValueError``, where the reference skips it
-    without a word.
+    Not ported yet (``NotImplementedError``): ``sigma``, ``M`` and
+    ``mesh``.  ``validate`` under ``return_schur`` raises ``ValueError``,
+    where the reference skips it without a word.
     """
     if sigma is not None or M is not None:
         raise NotImplementedError("spectral transforms (M, sigma) are not "
                                   "ported yet")
-    _refuse(mesh=mesh, select=select)
+    _refuse_mesh(mesh)
     if strategy not in ("auto", "fused_real", "hybrid", "fused"):
-        raise NotImplementedError(f"strategy={strategy!r} is not ported "
-                                  "yet")
+        raise ValueError(f"strategy must be 'auto', 'fused', 'fused_real' "
+                         f"or 'hybrid', not {strategy!r}")
     if validate is not None and return_schur:
         raise ValueError("validate= checks eigenpairs; return_schur=True "
                          "returns Schur vectors, which it cannot check")
@@ -405,9 +426,6 @@ def eigs(
     if strategy == "auto":
         # complex dtypes keep the reference-faithful hybrid by default
         strategy = "hybrid" if cplx else "fused_real"
-    if strategy == "fused":
-        raise NotImplementedError("strategy='fused' (core/device_nonsym) "
-                                  "is not ported yet")
     if strategy == "fused_real" and cplx:
         raise ValueError("strategy='fused_real' is for real problems; use "
                          "strategy='fused' for complex dtypes")
@@ -419,11 +437,20 @@ def eigs(
         max_iter=maxiter if maxiter is not None else 10 * n,
         symmetric=False, dtype=np.dtype(op.dtype), n_pad=op.n_pad, seed=seed,
         cgs_kernel=cgs_kernel, reorth="dgks" if reorth == "auto" else reorth)
-    if strategy == "hybrid":
+    if strategy == "fused":
+        from .core.device_nonsym import (FusedNonsymSolver,
+                                         complexify_operator)
+        op = complexify_operator(op)
+        # every config field kept (cgs_kernel too, which the extension then
+        # vets for the complex dtype)
+        cfg = dataclasses.replace(cfg, dtype=np.dtype(op.dtype))
+        solver = FusedNonsymSolver(op, cfg)
+    elif strategy == "hybrid":
         solver = IRAMSolver(op, cfg)
     else:
         from .core.device_realnonsym import FusedRealNonsymSolver
         solver = FusedRealNonsymSolver(op, cfg)
     res = solver.solve(v0=v0)
+    howmny = "P" if return_schur else ("S" if select is not None else "A")
     return _finish(op, cfg, res, return_eigenvectors, return_stats,
-                   validate, raw_A, howmny="P" if return_schur else "A")
+                   validate, raw_A, howmny=howmny, select=select)

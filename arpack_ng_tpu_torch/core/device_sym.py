@@ -19,10 +19,9 @@ device-to-host read (on a CUDA card, one CUDA graph per start ``k``), then
 the reduced space as one kernel (``ops/cuda_sym_cycle.py``), then one read
 of a small packet.  ``make_sym_head`` / ``make_sym_tail`` keep the host
 loop, its reduced space in numpy, which ``reorth='dgks'`` runs and the
-mid-solve hand-over drives cycle by cycle.
-
-Not ported yet: ``restart='thick'`` and caller-supplied shifts
-(``shift_fn``); both raise ``NotImplementedError``.
+mid-solve hand-over drives cycle by cycle, and so do the re-tridiagonalizing
+thick restart (``restart='thick'``, :func:`thick_restart`) and caller-
+supplied shifts (``shift_fn``, the ido=3 protocol).
 """
 from __future__ import annotations
 
@@ -36,15 +35,15 @@ from ..config import IRAMConfig
 from ..ops import cuda_dia, cuda_psell, cuda_rot, cuda_sel, cuda_sym_cycle
 from ..ops.cuda_sym_cycle import (P_BRK, P_CNT, P_DONE, P_FORCE, P_HEAD,
                                   P_INFO, P_NCONV, P_NEV, P_RNORM, Params,
-                                  head_plain, packet_size, shifts_plain,
-                                  sym_cycle)
+                                  head_of, head_plain, packet_size,
+                                  shifts_plain, sym_cycle, which_key)
 from ..ops.operator import Operator
 from ..utils import dtypes as _dt
 from ..utils.debug import debug, trace
 from ..utils.stats import Timers
 from . import reduced
 from .arnoldi import (FactorizationState, kev_rows, make_bnorm, make_extend,
-                      restart_tail)
+                      restart_tail, rotate_basis_kev)
 from .iram import HostLoopSolver, IRAMResult
 
 #: the kernel wrappers whose launches a captured graph holds: on each
@@ -67,7 +66,9 @@ class HeadOut(NamedTuple):
     (extend + dseigt + dsgets + dsconv + nev inflation)."""
 
     state: FactorizationState
-    T: np.ndarray        # (ncv, ncv) tridiagonal projected matrix
+    T: np.ndarray        # (ncv, ncv) projected matrix
+    evals: np.ndarray    # ascending eigenvalues of T
+    S: np.ndarray        # eigenvectors of T (columns, matching evals)
     r_s: np.ndarray      # which-sorted Ritz values, nev0 arrangement
     b_s: np.ndarray      # matching bounds
     r_si: np.ndarray     # which-sorted with the INFLATED nev (differs
@@ -92,11 +93,18 @@ def make_sym_head(op: Operator, cfg: IRAMConfig, inflate: bool = True):
     """Build ``head(state) -> HeadOut``: dsaup2 from the extension through
     shift-count fixing (dsaitr, dseigt, dsgets, dsconv, the zero-bound
     shift removal and the stagnation nev inflation, dsaup2.f:368-693),
-    the reduced space on the host."""
+    the reduced space on the host.  ``inflate=False`` skips the inflation,
+    as the reference does for caller-supplied shifts (the guard ``nconv <
+    nev .and. ishift == 1`` at dsaup2.f:673).  A thick restart's T is the
+    full upper triangle of H (the extension's projections; the
+    subdiagonal holds the recurrence's beta writes), and its reduced space
+    runs in float64 (see :func:`thick_restart`)."""
     if not cfg.symmetric:
         raise ValueError("the symmetric cycle is for symmetric problems")
-    if cfg.restart == "thick":
-        raise NotImplementedError("restart='thick' is not ported yet")
+    thick = cfg.restart == "thick"
+    if thick and cfg.which == "BE":
+        raise ValueError("restart='thick' does not support which='BE'; "
+                         "use the implicit restart")
     ncv = cfg.ncv
     rdt = _dt.real_dtype(cfg.dtype)
     p = _params(cfg, inflate)
@@ -104,31 +112,125 @@ def make_sym_head(op: Operator, cfg: IRAMConfig, inflate: bool = True):
 
     def head(state: FactorizationState) -> HeadOut:
         state = extend(state, ncv)
-        d = np.diag(state.H).real.astype(rdt)
-        e = np.diag(state.H, -1).real.astype(rdt)
-        h = head_plain(d, e, state.rnorm, p)
+        if thick:
+            Hf = state.H.real.astype(np.float64)
+            h = head_of(np.triu(Hf) + np.triu(Hf, 1).T, state.rnorm, p)
+        else:
+            d = np.diag(state.H).real.astype(rdt)
+            e = np.diag(state.H, -1).real.astype(rdt)
+            h = head_plain(d, e, state.rnorm, p)
         trace(debug.maup2, 0, "_sym_cycle: iter {i}: nconv={nc} rnorm={rn}",
               i=state.iter, nc=h.nconv, rn=state.rnorm)
         trace(debug.maup2, 1, "_sym_cycle: ritz (wanted last) {r}\n"
               " _sym_cycle: bounds {b}", r=h.r_s, b=h.b_s)
         trace(debug.meigt, 0, "_sym_cycle: eigenvalues of T {e}", e=h.evals)
-        return HeadOut(state=state, T=h.T, r_s=h.r_s, b_s=h.b_s,
-                       r_si=h.r_si, b_si=h.b_si, nconv=h.nconv, done=h.done,
-                       nev_eff=h.nev_eff, np_eff=h.np_eff)
+        return HeadOut(state=state, T=h.T, evals=h.evals, S=h.S, r_s=h.r_s,
+                       b_s=h.b_s, r_si=h.r_si, b_si=h.b_si, nconv=h.nconv,
+                       done=h.done, nev_eff=h.nev_eff, np_eff=h.np_eff)
 
     return head
 
 
-def make_sym_tail(op: Operator, cfg: IRAMConfig):
-    """Build the exact-shift restart tail ``tail(h, is_last) -> CycleOut``
-    (dsapps with the shifts from dsgets)."""
+def _retridiagonalize(theta, c, kk: int):
+    """Orthogonal ``P`` with ``P^T diag(theta) P`` tridiagonal and ``c^T P
+    = ||c|| e_{kk-1}^T``: the Krylov-Schur-to-Lanczos conversion that
+    removes the thick restart's arrowhead, so the three-term recurrence
+    (and the selective omega model) resumes (reference
+    ``arpack_ng_tpu/core/device_sym.py:323-398``).
+
+    ``kk`` steps of Lanczos on the diagonal matrix theta from ``c/||c||``
+    with two full reorthogonalization passes per step.  An exact breakdown
+    (c orthogonal to an invariant subspace) splices in the least
+    represented coordinate with a true zero coupling, which splits the
+    tridiagonal.  Reversing the active window puts the coupling on the
+    LAST kept vector, where the resumed recurrence expects it.  Returns
+    ``(P, a_rev, b_rev, cnorm)``; only the leading ``kk`` columns / entries
+    are meaningful.  In float64 (see :func:`thick_restart`)."""
+    rdt = np.dtype(np.float64)
+    R = rdt.type
+    theta, c = theta.astype(rdt), c.astype(rdt)
+    ncv = theta.shape[0]
+    iota = np.arange(ncv)
+    m = iota < kk
+    zero = R(0)
+    thet = np.where(m, theta, zero)
+    cnorm = np.sqrt(np.sum(np.where(m, c * c, zero)))
+    tiny = R(_dt.safmin(rdt))
+    q1 = np.where(m, c, zero) / np.maximum(cnorm, tiny)
+    scale = np.max(np.abs(thet))
+    brk = R(8 * ncv * _dt.eps(rdt)) * np.maximum(scale, tiny)
+
+    Q = np.zeros((ncv, ncv), rdt)
+    a = np.zeros(ncv, rdt)
+    b = np.zeros(ncv, rdt)
+    q_cur, q_prev, beta_prev = q1, np.zeros(ncv, rdt), zero
+    for i in range(kk):
+        Q[:, i] = q_cur
+
+        def reorth(w):
+            s = np.where(iota <= i, Q.T @ w, zero)
+            return w - Q @ s
+
+        w = thet * q_cur
+        alpha = np.sum(q_cur * w)
+        w = w - alpha * q_cur - beta_prev * q_prev
+        w = reorth(reorth(w))
+        beta = np.sqrt(np.sum(w * w))
+        if beta <= brk:
+            # the least represented active coordinate, orthogonalized
+            rowsq = np.sum(np.where(iota[None, :] <= i, Q * Q, zero), axis=1)
+            t = int(np.argmax(np.where(m, R(1) - rowsq, R(-np.inf))))
+            e = np.zeros(ncv, rdt)
+            e[t] = 1
+            w2 = reorth(reorth(e))
+            nw = np.sqrt(np.sum(w2 * w2))
+            q_next, beta_out = w2 / np.maximum(nw, tiny), zero
+        else:
+            q_next, beta_out = w / np.maximum(beta, tiny), beta
+        a[i], b[i] = alpha, beta_out
+        q_prev, q_cur, beta_prev = q_cur, q_next, beta_out
+    # reverse the active window: j <- kk - 1 - j
+    rev = np.where(m, np.maximum(kk - 1 - iota, 0), iota)
+    P = np.where(m[None, :], Q[:, rev], zero)
+    a_rev = np.where(m, a[rev], zero)
+    b_rev = np.where(iota < kk - 1, b[np.maximum(kk - 2 - iota, 0)], zero)
+    return P, a_rev, b_rev, cnorm
+
+
+def make_sym_tail(op: Operator, cfg: IRAMConfig, shift_fn=None):
+    """Build the restart tail ``tail(h, is_last) -> CycleOut``: dsapps with
+    the exact shifts from dsgets, or with ``shift_fn`` the ido=3 protocol
+    (SRC/dsaup2.f:700-724): ``shift_fn(ritz, bounds)`` gets the np_eff
+    unwanted Ritz values and bounds and returns at least np_eff shifts, of
+    which the leading np_eff are applied in the given order; or, for
+    ``restart='thick'``, :func:`thick_restart`, which applies no shifts."""
+    thick = cfg.restart == "thick"
+    if thick and shift_fn is not None:
+        raise ValueError("user shifts require restart='implicit' "
+                         "(a thick restart applies no shifts)")
     p = _params(cfg)
+    np0 = cfg.ncv - cfg.nev
+    rdt = _dt.real_dtype(cfg.dtype)
     bnorm = make_bnorm(op, cfg)
+
+    def user_shifts(h: HeadOut):
+        np_eff = h.np_eff
+        shifts = np.asarray(shift_fn(
+            np.asarray(h.r_si[:np_eff], np.float64).copy(),
+            np.asarray(h.b_si[:np_eff], np.float64).copy()))
+        if shifts.shape[0] < np_eff:
+            raise ValueError(
+                f"shift_fn returned {shifts.shape[0]} shifts; {np_eff} "
+                "required (reference ido=3 contract)")
+        sh = np.zeros((np0,), np.float64)
+        sh[:np_eff] = shifts[:np_eff].real
+        return sh.astype(rdt)
 
     def apply_shifts(h: HeadOut) -> FactorizationState:
         state = h.state
-        Q, dn, en, sigmak, betak = shifts_plain(h.T, h.r_si, h.b_si,
-                                                h.nev_eff, h.np_eff, p)
+        shifts = None if shift_fn is None else user_shifts(h)
+        Q, dn, en, sigmak, betak = shifts_plain(
+            h.T, h.r_si, h.b_si, h.nev_eff, h.np_eff, p, shifts=shifts)
         H_new = (np.diag(dn) + np.diag(en, 1)
                  + np.diag(en, -1)).astype(cfg.dtype)
         # dsapps-parity kev-row update of the basis (SRC/dsapps.f:445-481);
@@ -136,16 +238,66 @@ def make_sym_tail(op: Operator, cfg: IRAMConfig):
         return restart_tail(op, cfg, bnorm, state, Q, H_new, sigmak, betak,
                             h.nev_eff)
 
+    restart = (lambda h: thick_restart(op, cfg, h)) if thick \
+        else apply_shifts
+
     def tail(h: HeadOut, is_last: bool) -> CycleOut:
         if h.done or is_last:
             # exit before dsapps: keep the full factorization
             state = h.state.replace(iter=h.state.iter + 1)
         else:
-            state = apply_shifts(h)
+            state = restart(h)
         return CycleOut(state=state, done=h.done, nconv=h.nconv,
                         ritz_s=h.r_s, bounds_s=h.b_s)
 
     return tail
+
+
+def thick_restart(op: Operator, cfg: IRAMConfig, h: HeadOut
+                  ) -> FactorizationState:
+    """The re-tridiagonalizing thick restart (reference
+    ``arpack_ng_tpu/core/device_sym.py:400-441``): keep the nev_eff wanted
+    Ritz vectors, rotated by :func:`_retridiagonalize`'s P so that H is
+    tridiagonal again with the residual's coupling on the last kept vector:
+    ``A V' = V' T' + (||c|| r) e_kev^T`` is a Lanczos factorization.  The
+    rotation ``R = S_kept P`` of the basis is one kev-row pass (the
+    rotation kernel on the card); the residual keeps its direction and its
+    length scales by ``||c||``.
+
+    The reduced space (T's eigenvectors, P and R) is formed in float64
+    and R rounded to the problem's dtype, for float32 problems too, where
+    the reference forms it in float32: on a clustered spectrum the float32
+    Lanczos on diag(theta) declares breakdowns whenever a coupling falls
+    below ``8 ncv eps |theta|`` (2.4e-4 on the flagship, whose top values
+    lie 2.8e-5 apart), and its zero couplings give kept vectors zero
+    bounds: the solve then stalls and converges to a set without the top
+    values (``PERF.md`` section 6).  For float64 problems the
+    arithmetic is the reference's."""
+    ncv = cfg.ncv
+    rdt = _dt.real_dtype(cfg.dtype)
+    iota = np.arange(ncv)
+    state, nev_eff = h.state, h.nev_eff
+    # the kept (wanted) eigen-indices first: positions >= np_eff of the
+    # which-order, in ascending order
+    order = np.argsort(which_key(cfg.which, h.evals), kind="stable")
+    src = order[np.argsort(iota < h.np_eff, kind="stable")]
+    # the coupling row: c_i = S[ncv-1, kept_i] (A W = W Theta + r c^T for
+    # W = V S_kept, r the current residual)
+    P, a_rev, b_rev, cnorm = _retridiagonalize(h.evals[src],
+                                               h.S[ncv - 1, src], nev_eff)
+    Sk = np.where((iota < nev_eff)[None, :], h.S[:, src], 0.0)
+    R = torch.from_numpy(np.ascontiguousarray((Sk @ P).astype(rdt))).to(
+        op.device)
+    V, _, rots = rotate_basis_kev(R, state.V, nev_eff, need_next=False)
+    H_new = (np.diag(a_rev) + np.diag(b_rev[:-1], 1)
+             + np.diag(b_rev[:-1], -1)).astype(cfg.dtype)
+    scale = float(cnorm)
+    resid = state.resid * scale
+    b_resid = state.b_resid * scale if op.bmat == "G" else resid
+    return state.replace(V=V, H=H_new, resid=resid, b_resid=b_resid,
+                         rnorm=rdt.type(state.rnorm * cnorm), k=nev_eff,
+                         nev_cur=nev_eff, iter=state.iter + 1,
+                         counts=state.counts.add(nrotr=rots))
 
 
 class FusedSymSolver(HostLoopSolver):
@@ -169,15 +321,24 @@ class FusedSymSolver(HostLoopSolver):
     next extension's start ``k = nev_eff`` picks the graph to replay and is
     known only from the cycle's packet.
 
-    ``reorth='dgks'`` keeps the host loop (:class:`HostLoopSolver` over
-    ``make_sym_head``/``make_sym_tail``)."""
+    ``reorth='dgks'``, ``restart='thick'`` and caller-supplied shifts
+    (``shift_fn``, with ``cfg.exact_shifts`` False) keep the host loop
+    (:class:`HostLoopSolver` over ``make_sym_head``/``make_sym_tail``); the
+    selective extension stays read-free there, one read at its end."""
 
-    def __init__(self, op: Operator, cfg: IRAMConfig):
-        if not cfg.exact_shifts:
-            raise NotImplementedError("caller-supplied shifts (shift_fn) "
-                                      "are not ported yet")
-        super().__init__(op, cfg, make_sym_head, make_sym_tail)
+    def __init__(self, op: Operator, cfg: IRAMConfig, shift_fn=None):
+        if cfg.exact_shifts and shift_fn is not None:
+            raise ValueError("shift_fn requires exact_shifts=False "
+                             "(reference iparam(1)=0, ishift=0)")
+        if not cfg.exact_shifts and shift_fn is None:
+            raise ValueError("exact_shifts=False requires a shift_fn")
+        user = shift_fn is not None
+        super().__init__(
+            op, cfg, lambda o, c: make_sym_head(o, c, inflate=not user),
+            lambda o, c: make_sym_tail(o, c, shift_fn=shift_fn))
         self._ext = make_extend(op, cfg)
+        self._host_loop = (not self._ext.read_free or user
+                           or cfg.restart == "thick")
 
     def _start(self, state: FactorizationState) -> CycleOut:
         z = np.zeros(self.cfg.ncv, _dt.real_dtype(self.cfg.dtype))
@@ -200,7 +361,7 @@ class FusedSymSolver(HostLoopSolver):
         return r_x, b_x, info
 
     def solve(self, gen=None, v0=None, state=None) -> IRAMResult:
-        if not self._ext.read_free:
+        if self._host_loop:
             return super().solve(gen=gen, v0=v0, state=state)
         timers = Timers()
         t0 = time.perf_counter()

@@ -17,8 +17,10 @@
   ``scipy.linalg.schur`` on the host);
 * output order: ascending (symmetric; Hermitian values are real, their
   vectors complex), wanted first (non-symmetric);
+* ``howmny='S'``: values and vectors only for the flagged Ritz values of
+  a ``select`` mask that converged (see :func:`_select`);
 * untransform mode 1 and 2 (the identity).  The spectral-transform modes
-  3-5, purification and ``howmny='S'`` are not ported yet.
+  3-5 and purification are not ported yet.
 """
 from __future__ import annotations
 
@@ -52,12 +54,13 @@ class EigenResult:
 
 
 def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
-            rvec: bool = True, howmny: str = "A") -> EigenResult:
+            rvec: bool = True, howmny: str = "A",
+            select: Optional[np.ndarray] = None) -> EigenResult:
     if op.mode not in (1, 2):
         raise NotImplementedError(f"mode {op.mode} (spectral transforms) is "
                                   "not ported yet")
-    if howmny not in ("A", "P"):
-        raise NotImplementedError(f"howmny={howmny!r} is not ported yet")
+    if howmny not in ("A", "P", "S"):
+        raise ValueError(f"howmny must be 'A', 'P' or 'S', not {howmny!r}")
     sym = cfg.symmetric
     is_cplx = _dt.is_complex(cfg.dtype)
     host_dtype = _dt.host_dtype(cfg.dtype)
@@ -67,7 +70,14 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
     info = result.info if result.info in (1, 2) else 0
 
     H = np.asarray(state.H).astype(host_dtype)
-    if sym:
+    if sym and cfg.restart == "thick":
+        # the projected matrix from the upper triangle: the dgks extension
+        # writes whole projection columns there after a thick restart (the
+        # subdiagonal holds the recurrence's beta writes)
+        T = np.triu(H.real) + np.triu(H.real, 1).T
+        theta_all, S = np.linalg.eigh(T)
+        bounds_all = np.abs(rnorm * S[-1, :])
+    elif sym:
         alpha = np.diag(H).real.copy()
         beta = np.diag(H, -1).real.copy()
         theta_all, bounds_all, S = reduced.sym_eigt(alpha, beta, rnorm)
@@ -88,7 +98,15 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
                            n_iter=result.n_iter, stats=result.stats)
 
     real_pairs = (not sym) and (not is_cplx)
-    if sym and cfg.which == "BE":
+    if howmny == "S":
+        sel = _select(select, result.ritz, theta_all, idx_conv, eps23,
+                      real_pairs)
+        nconv = len(sel)
+        if nconv == 0:
+            return EigenResult(values=np.zeros(0, host_dtype), vectors=None,
+                               nconv=0, info=info, bounds=np.zeros(0),
+                               n_iter=result.n_iter, stats=result.stats)
+    elif sym and cfg.which == "BE":
         # nconv//2 from the low end, the rest from the high end
         # (dsgets.f:166-171)
         order = np.argsort(theta_all[idx_conv], kind="stable")
@@ -99,21 +117,22 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
     else:
         key = reduced.sort_key(cfg.which, theta_all[idx_conv], real_pairs)
         pick = np.argsort(key, kind="stable")[len(idx_conv) - nconv:]
-    sel = idx_conv[np.sort(pick)]
-    if real_pairs:
-        # dneupd may return nev+1 values rather than split a conjugate pair
-        # at the selection boundary (scipy allocates k+1 slots for this)
-        selset = set(sel.tolist())
-        for i in sel:
-            ti = theta_all[i]
-            if ti.imag == 0:
-                continue
-            partner = np.where(
-                np.isclose(theta_all[idx_conv], np.conj(ti)))[0]
-            if len(partner) and idx_conv[partner[0]] not in selset:
-                sel = np.sort(np.append(sel, idx_conv[partner[0]]))
-                nconv += 1
-                break
+    if howmny != "S":
+        sel = idx_conv[np.sort(pick)]
+        if real_pairs:
+            # dneupd may return nev+1 values rather than split a conjugate
+            # pair at the selection boundary (scipy allocates k+1 slots)
+            selset = set(sel.tolist())
+            for i in sel:
+                ti = theta_all[i]
+                if ti.imag == 0:
+                    continue
+                partner = np.where(
+                    np.isclose(theta_all[idx_conv], np.conj(ti)))[0]
+                if len(partner) and idx_conv[partner[0]] not in selset:
+                    sel = np.sort(np.append(sel, idx_conv[partner[0]]))
+                    nconv += 1
+                    break
 
     lam = theta_all[sel].copy()
     lam_bounds = bounds_all[sel].copy()
@@ -161,6 +180,51 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
     return EigenResult(values=lam, vectors=vectors, nconv=nconv, info=info,
                        bounds=lam_bounds, n_iter=result.n_iter,
                        stats=result.stats)
+
+
+def _select(select, ritz_iter, theta_all, idx_conv, eps23, real_pairs
+            ) -> np.ndarray:
+    """The re-solved spectrum's indices for ``howmny='S'`` (the documented
+    SELECT semantics of SRC/dseupd.f:62-66 and dneupd.f:60-66, which the
+    Fortran library leaves unimplemented): ``select[j]`` flags the j-th
+    Ritz value of the final factorization in the exit order
+    (``ritz_iter``).  Each flagged value maps to the nearest converged
+    value of ``theta_all`` within ``max(sqrt(eps23), 1e-8)`` relative, each
+    taken once; flags on unconverged values are dropped.  In real
+    arithmetic a selected member of a conjugate pair brings its partner
+    (real storage holds both halves).  Returns the sorted indices."""
+    if select is None:
+        raise ValueError("howmny='S' requires a select mask")
+    select_m = np.asarray(select, bool).ravel()
+    ritz_iter = np.asarray(ritz_iter)
+    if select_m.shape[0] != len(ritz_iter):
+        raise ValueError(
+            f"select must have length ncv={len(ritz_iter)} "
+            "(one flag per Ritz value of the final factorization)")
+    gate = max(np.sqrt(eps23), 1e-8)
+    avail = list(idx_conv)
+    sel_list = []
+    for w in ritz_iter[select_m]:
+        if not avail:
+            break
+        j = min(avail, key=lambda t: abs(theta_all[t] - w))
+        if abs(theta_all[j] - w) <= gate * max(1.0, abs(w)):
+            sel_list.append(j)
+            avail.remove(j)
+    if real_pairs:
+        for j in list(sel_list):
+            tj = theta_all[j]
+            if tj.imag == 0:
+                continue
+            have = any(np.isclose(theta_all[p], np.conj(tj))
+                       for p in sel_list if p != j)
+            if not have:
+                cand = [p for p in avail
+                        if np.isclose(theta_all[p], np.conj(tj))]
+                if cand:
+                    sel_list.append(cand[0])
+                    avail.remove(cand[0])
+    return np.sort(np.array(sel_list, dtype=int))
 
 
 def _basis_product(Scols: np.ndarray, V: torch.Tensor, dtype) -> np.ndarray:

@@ -137,11 +137,15 @@ def make_iram_head(op: Operator, cfg: IRAMConfig):
     return lambda state: extend(state, cfg.ncv)
 
 
-def make_iram_tail(op: Operator, cfg: IRAMConfig):
+def make_iram_tail(op: Operator, cfg: IRAMConfig, shift_fn=None):
     """``tail(state, is_last) -> IRAMCycleOut``: the reduced space of one
     cycle on the host and the device tail (reference
     ``IRAMSolver.iterate``, ``arpack_ng_tpu/core/iram.py:167-306``, from
-    the read-back on)."""
+    the read-back on).  With ``cfg.exact_shifts`` False the caller's
+    ``shift_fn(ritz, bounds)`` gives the shifts (the ido=3 protocol,
+    SRC/dsaup2.f:700-724): it gets the np unwanted Ritz values and bounds,
+    its leading np shifts are applied in the given order, and nev is not
+    inflated (dsaup2.f:673)."""
     kplusp, nev0 = cfg.ncv, cfg.nev
     np0 = kplusp - nev0
     sym = cfg.symmetric
@@ -210,7 +214,7 @@ def make_iram_tail(op: Operator, cfg: IRAMConfig):
                                 r_x, b_x, info)
 
         # ---- stagnation guard: inflate nev (dsaup2.f:673-693) ----
-        if nconv < nev0:
+        if nconv < nev0 and cfg.exact_shifts:
             nevbef = nev
             nev = nev + min(nconv, np_ // 2)
             if nev == 1 and kplusp >= 6:
@@ -225,6 +229,9 @@ def make_iram_tail(op: Operator, cfg: IRAMConfig):
                 else:
                     nev, np_, r_s, b_s, shifts = reduced.nonsym_gets(
                         cfg.which, nev, np_, ritz, bounds, real_pairs)
+        if not cfg.exact_shifts:
+            shifts = np.asarray(shift_fn(r_s[:np_].copy(),
+                                         b_s[:np_].copy()))[:np_]
         trace(debug.maup2, 2, "_aup2: shifts selected {s}", s=shifts[:np_])
 
         # ---- the shifted QR on the host (dsapps / dnapps / znapps) ----
@@ -250,22 +257,24 @@ class IRAMSolver(HostLoopSolver):
     """The hybrid driver (reference ``arpack_ng_tpu.core.iram.IRAMSolver``):
     the host loop over :func:`make_iram_head` and :func:`make_iram_tail`,
     for symmetric (Hermitian) and non-symmetric, real and complex problems.
-    :meth:`iterate` runs one cycle."""
+    :meth:`iterate` runs one cycle.  ``shift_fn``: the caller's shifts
+    (see :func:`make_iram_tail`), for a config with ``exact_shifts``
+    False."""
 
-    def __init__(self, op: Operator, cfg: IRAMConfig):
+    def __init__(self, op: Operator, cfg: IRAMConfig, shift_fn=None):
         if op.n != cfg.n:
             raise ValueError("operator/config dimension mismatch")
         if op.bmat != cfg.bmat:
             raise ValueError("operator/config bmat mismatch")
-        if not cfg.exact_shifts:
-            raise NotImplementedError("caller-supplied shifts (shift_fn) "
-                                      "are not ported yet")
+        if not cfg.exact_shifts and shift_fn is None:
+            raise ValueError("exact_shifts=False requires a shift_fn")
         if cfg.restart != "implicit":
             # the reference's hybrid driver never reads cfg.restart and
             # runs the implicit restart instead (arpack_ng_tpu/api.py:132)
             raise ValueError("the hybrid driver runs the implicit restart "
                              "only; restart='thick' needs strategy='fused'")
-        super().__init__(op, cfg, make_iram_head, make_iram_tail)
+        super().__init__(op, cfg, make_iram_head,
+                         lambda o, c: make_iram_tail(o, c, shift_fn))
 
     def _start(self, state: FactorizationState) -> IRAMCycleOut:
         z = np.zeros(self.cfg.ncv)

@@ -128,7 +128,7 @@ def fits_shared(ncv: int, itemsize: int) -> bool:
     return smem_parts(ncv, itemsize) == 2
 
 
-def _which_key(which: str, vals):
+def which_key(which: str, vals):
     """Sort key: ascending order puts the WANTED nev last (dsortr)."""
     if which == "LA":
         return vals
@@ -158,8 +158,9 @@ def be_arrange(vals_a, nev: int):
 class Head(NamedTuple):
     """dseigt + dsgets + dsconv + inflation of one tridiagonal."""
 
-    T: np.ndarray        # (ncv, ncv) tridiagonal projected matrix
+    T: np.ndarray        # (ncv, ncv) projected matrix
     evals: np.ndarray    # ascending eigenvalues of T
+    S: np.ndarray        # eigenvectors of T (columns, matching evals)
     r_s: np.ndarray      # which-sorted Ritz values, nev0 arrangement
     b_s: np.ndarray      # matching bounds
     r_si: np.ndarray     # which-sorted with the INFLATED nev (differs
@@ -174,11 +175,16 @@ def head_plain(d, e, rnorm, p: Params) -> Head:
     """dsaup2's reduced work on ``T = tridiag(d, e)`` (dseigt, dsgets,
     dsconv, the zero-bound shift removal and the stagnation nev inflation,
     dsaup2.f:368-693), in numpy, in the dtype of ``d``."""
-    rdt = d.dtype
-    ncv, nev0 = d.shape[0], p.nev
+    return head_of(np.diag(d) + np.diag(e, 1) + np.diag(e, -1), rnorm, p)
+
+
+def head_of(T, rnorm, p: Params) -> Head:
+    """:func:`head_plain` on a symmetric ``T`` given whole (the thick
+    restart's projected matrix), in the dtype of ``T``."""
+    rdt = T.dtype
+    ncv, nev0 = T.shape[0], p.nev
     np0 = ncv - nev0
     tol, eps23 = rdt.type(p.tol), rdt.type(p.eps23)
-    T = np.diag(d) + np.diag(e, 1) + np.diag(e, -1)
     evals, S = np.linalg.eigh(T)
     bounds = np.abs(rnorm * S[ncv - 1, :]).astype(rdt)
     if p.which == "BE":
@@ -186,7 +192,7 @@ def head_plain(d, e, rnorm, p: Params) -> Head:
         r_a, b_a = evals[order_a], bounds[order_a]
         r_s, b_s = be_arrange(r_a, nev0), be_arrange(b_a, nev0)
     else:
-        order = np.argsort(_which_key(p.which, evals), kind="stable")
+        order = np.argsort(which_key(p.which, evals), kind="stable")
         r_s, b_s = evals[order], bounds[order]
     wanted, wb = r_s[np0:], b_s[np0:]
     nconv = int(np.sum(wb <= tol * np.maximum(eps23, np.abs(wanted))))
@@ -209,23 +215,28 @@ def head_plain(d, e, rnorm, p: Params) -> Head:
         r_si, b_si = be_arrange(r_a, nev_eff), be_arrange(b_a, nev_eff)
     else:
         r_si, b_si = r_s, b_s
-    return Head(T=T, evals=evals, r_s=r_s, b_s=b_s, r_si=r_si, b_si=b_si,
-                nconv=nconv, done=done, nev_eff=nev_eff, np_eff=np_eff)
+    return Head(T=T, evals=evals, S=S, r_s=r_s, b_s=b_s, r_si=r_si,
+                b_si=b_si, nconv=nconv, done=done, nev_eff=nev_eff,
+                np_eff=np_eff)
 
 
-def shifts_plain(T, r_si, b_si, nev_eff: int, np_eff: int, p: Params):
-    """The exact-shift sweep (dsapps with the shifts from dsgets) on the
-    tridiagonal T: the np_eff least-wanted values of the which-sorted
-    ``r_si`` (bounds ``b_si``), largest Ritz estimate first, each one QR
+def shifts_plain(T, r_si, b_si, nev_eff: int, np_eff: int, p: Params,
+                 shifts=None):
+    """The shift sweep of dsapps on the tridiagonal T: each shift one QR
     step on T with Q accumulated; then the deflation sweep and the
-    subdiagonal sign normalization.  Returns ``(Q, d, e, sigmak, betak)``."""
+    subdiagonal sign normalization.  The exact shifts (``shifts=None``):
+    the np_eff least-wanted values of the which-sorted ``r_si`` (bounds
+    ``b_si``), largest Ritz estimate first; or the leading np_eff of the
+    caller's ``shifts`` (the ido=3 protocol), in the given order.  Returns
+    ``(Q, d, e, sigmak, betak)``."""
     rdt = T.dtype
     ncv = T.shape[0]
     np0 = ncv - p.nev
     eps_m = rdt.type(p.eps_m)
     active = (np.arange(ncv) < np_eff)[:np0]
-    skey = np.where(active, -np.abs(b_si[:np0]), rdt.type(np.inf))
-    shifts = r_si[:np0][np.argsort(skey, kind="stable")]
+    if shifts is None:
+        skey = np.where(active, -np.abs(b_si[:np0]), rdt.type(np.inf))
+        shifts = r_si[:np0][np.argsort(skey, kind="stable")]
     eyek = np.eye(ncv, dtype=rdt)
     Tc, Q = T, eyek
     for mu, act in zip(shifts, active):

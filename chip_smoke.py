@@ -122,7 +122,28 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    reported beside 9c's distance from 9b (both drivers' float32 values lie
    in the operator's pseudospectrum, above its real spectrum); 10c's
    'auto' solve again with the reduced space on the host (a witness, not
-   counted); the phase within P10_MAX_S.
+   counted); the phase within P10_MAX_S;
+11. the rest of mode 1 at full width, float32 / complex64, k = 8,
+   ncv = 32, tol = 1e-5: (a) ``eigs(A_csr, strategy='fused')`` on the
+   conv-diff operator at nx = 1024 imported as DIA (complexified: two DIA
+   launches per complex matvec; the copy that gives the kernel contiguous
+   real and imaginary parts timed beside the two launches) and (b)
+   ``eigs(strategy='fused')`` on ``convection_diffusion_2d(1024,
+   complex64)``: every residual ``<= 1e-3``, (a)'s values closed under
+   conjugation within 1e-3 relative but for the last (a complex driver
+   may cut a pair at k), count, info, cycles and ms per cycle reported; a
+   count below 8 there (the float32 reduced space's shortfall against the
+   float64 re-test, as the fused real driver shows at 1024) is reported
+   and the count gated (8) at nx = P11_CUT_NX; (c) the flagship through
+   ``eigsh(restart='thick')`` under the phase-4 gates, then with
+   ``select=`` (Ritz values 0, 2 and 5 of the exit order: those three of
+   (c)'s values exactly, their vectors under the gates); (d) the flagship
+   through ``eigsh(shift_fn=f)``, f returning the unwanted Ritz values
+   largest bound first, under the phase-4 gates, f called once per
+   restart; (e) ``eigs_realified`` on ``convection_diffusion_2d(512,
+   complex64)``'s matrix (2n = 524,288 rows through the real DIA kernel
+   and the fused real driver): 8 recovered values, residuals ``<= 1e-3``
+   (complex128, host); the phase within P11_MAX_S.
 
     python3 chip_smoke.py --profile
 
@@ -229,6 +250,13 @@ EIGS_MAX_S = 150.0
 HERM_C = 0.5
 P10_MAX_RESTARTS = 1000
 P10_MAX_S = 120.0
+#: phase 11: the restart cap of its solves (11d, caller's shifts without
+#: nev inflation, took 861 cycles on an H100, PERF.md section 6), its wall
+#: limit (seconds; 63 s there) and the grid of 11e and of 11a-b's count
+#: gate where the float32 reduced space falls short at nx = 1024
+P11_MAX_RESTARTS = 2000
+P11_MAX_S = 240.0
+P11_CUT_NX = 512
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
 #: the tensor cores by accumulation dtype; its SMs (one block of the
 #: reduced-space kernel runs on one)
@@ -1075,9 +1103,10 @@ def _analytic_spectrum(nx: int) -> np.ndarray:
     return np.sort((g[:, None] + g[None, :]).ravel())
 
 
-def check_values(vals, vecs, a_sp, spectrum, what):
-    if len(vals) != 8:
-        raise AssertionError(f"{what}: {len(vals)} values returned, want 8")
+def check_values(vals, vecs, a_sp, spectrum, what, count=8):
+    if len(vals) != count:
+        raise AssertionError(f"{what}: {len(vals)} values returned, want "
+                             f"{count}")
     pos = np.clip(np.searchsorted(spectrum, vals), 1, len(spectrum) - 1)
     dist = np.minimum(np.abs(spectrum[pos] - vals),
                       np.abs(spectrum[pos - 1] - vals))
@@ -1773,6 +1802,197 @@ def _hermitian_witness(torch, dev, gpu, op, a_h, spectrum, kw):
           f"residual {rmax:.2e}; card {gpu}", flush=True)
 
 
+def _complex_residuals(vals, vecs, a_sp, what, closed=False) -> float:
+    """Every residual ``||Av - lambda v|| / |lambda| <= 1e-3`` (complex128,
+    host); ``closed``: each value but the last (a complex driver may cut a
+    pair at k) has its conjugate among the values within 1e-3 relative."""
+    v = np.asarray(vecs, np.complex128)
+    res = np.linalg.norm(a_sp @ v - v * vals[None, :], axis=0) / np.abs(vals)
+    if not len(vals) or not np.all(np.isfinite(res)) or res.max() > 1e-3:
+        raise AssertionError(f"{what}: {len(vals)} values, residuals {res}")
+    for x in vals[:-1] if closed else ():
+        if np.min(np.abs(vals - np.conj(x))) > 1e-3 * abs(x):
+            raise AssertionError(f"{what}: the conjugate of {x} is missing")
+    return float(res.max())
+
+
+def _fused_eigs(torch, dev, gpu, tag, make, need, closed, nx, cut_nx):
+    """11a-b: one ``eigs(strategy='fused')`` solve at ``nx`` under
+    :func:`_complex_residuals`; with fewer than 8 values there, the same at
+    ``cut_nx`` gated on 8.  ``make(nx) -> (A, a_sp)``.  Returns the
+    launches at ``nx``."""
+    import arpack_ng_tpu_torch as pt
+
+    kw = dict(k=8, ncv=NCV, tol=1e-5, which="LM", strategy="fused",
+              maxiter=P11_MAX_RESTARTS, return_stats=True, device=dev)
+    launches = None
+    for grid in (nx, cut_nx):
+        A, a_sp = make(grid)
+        what = f"{tag} nx={grid}"
+        (vals, vecs, out), wall, counts = _counted(
+            torch, dev, need, lambda: pt.eigs(A, **kw))
+        st = out.stats
+        print(f"{what}: wall {wall:.4f} s ({wall * 1e3 / st.n_iter:.4f} ms "
+              f"per cycle), {_stats_line(st)}; {len(vals)} values, "
+              f"extraction info {out.info}; launches {counts}; card {gpu}",
+              flush=True)
+        print(f"  values {np.array2string(vals, precision=8)}", flush=True)
+        rmax = _complex_residuals(vals, vecs, a_sp, what, closed)
+        print(f"  max residual {rmax:.2e}", flush=True)
+        launches = launches or counts
+        del A, vecs
+        if len(vals) == 8:
+            return launches
+        if grid == cut_nx:
+            raise AssertionError(f"{what}: {len(vals)} values, want 8")
+        print(f"  {len(vals)} of 8 at nx={grid}: the complex64 reduced "
+              f"space counts converged values the float64 re-test of the "
+              f"extraction does not (info {out.info}), as the reference's "
+              f"does; the count is gated at nx={cut_nx}", flush=True)
+    return launches
+
+
+def _complexify_cost(torch, dev, gpu, A, a_sp):
+    """11a's complexified matvec beside the DIA kernel's two launches on
+    contiguous real and imaginary parts and the split alone (device-only,
+    in alternation); equal to two twin products bit for bit."""
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core.device_nonsym import (complexify_operator,
+                                                        split_complex)
+    from arpack_ng_tpu_torch.ops import cuda_dia, sparse
+
+    op = pt.from_scipy(A, dtype=np.float32, device=dev)
+    opc = complexify_operator(op)
+    n = op.n
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.zeros(op.n_pad, dtype=torch.complex64, device=dev)
+    x[:n] = torch.randn(n, generator=g, device=dev, dtype=torch.complex64)
+    xy = split_complex(x)
+    y, _ = opc.apply(x, x)
+    offs, dtab = sparse.dia_table(A.astype(np.float32), op.n_pad)
+    offs, dtab = torch.from_numpy(offs), torch.from_numpy(dtab).to(dev)
+    for part, half in ((y.real, xy[0]), (y.imag, xy[1])):
+        if not torch.equal(part, cuda_dia.dia_matvec_plain(offs, dtab, half,
+                                                           n)):
+            raise AssertionError("11a: complexified DIA product differs from "
+                                 "the twin's")
+    flush = timing.flush_buffer(dev)
+    ms = timing.alternating_ms(
+        [lambda: opc.apply(x, x),
+         lambda: (op.apply(xy[0], xy[0]), op.apply(xy[1], xy[1])),
+         lambda: split_complex(x)], flush)
+    print(f"  complexified DIA matvec ({op.format}, {dtab.shape[0]} "
+          f"diagonals, n={n}): {ms[0]:.4f} ms, of which two kernel launches "
+          f"on contiguous parts {ms[1]:.4f} ms and the (2, n) split "
+          f"{ms[2]:.4f} ms (device-only median of {timing.REPS}, "
+          f"alternating; bit-equal to two twin products); card {gpu}",
+          flush=True)
+
+
+def mode1_paths(torch, dev, gpu, nx=NX, eigs_nx=EIGS_NX,
+                cut_nx=P11_CUT_NX):
+    """Phase 11: ``eigs(strategy='fused')``, ``restart='thick'``,
+    ``select=``, ``shift_fn`` and ``eigs_realified`` at full width (see the
+    module docstring).  Returns each path's kernel launches."""
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.models import (convection_diffusion_2d,
+                                            laplacian_2d)
+    from arpack_ng_tpu_torch.ops.realify import eigs_realified
+
+    t0 = time.perf_counter()
+    paths = {}
+
+    # (a) real conv-diff as DIA through the complexified fused driver
+    def csr(grid):
+        a_sp = convection_diffusion_2d(grid, dtype=np.float32, device=dev)[1]
+        return a_sp.astype(np.float32), a_sp
+
+    paths["11a"] = _fused_eigs(
+        torch, dev, gpu, "11a eigs(conv-diff A_csr, strategy='fused')",
+        csr, ("dia_matvec",), True, eigs_nx, cut_nx)
+    _complexify_cost(torch, dev, gpu, *csr(eigs_nx))
+
+    # (b) the complex conv-diff stencil through the fused complex driver
+    def stencil(grid):
+        return convection_diffusion_2d(grid, dtype=np.complex64, device=dev)
+
+    paths["11b"] = _fused_eigs(
+        torch, dev, gpu, "11b eigs(conv-diff complex64, strategy='fused')",
+        stencil, (), False, eigs_nx, cut_nx)
+
+    # (c)-(d) the flagship: thick restart (and select=), caller's shifts
+    op, a_sp = laplacian_2d(nx, np.float32, device=dev)
+    spectrum = _analytic_spectrum(nx)
+    kw = dict(k=8, ncv=NCV, tol=1e-5, which="LA", maxiter=P11_MAX_RESTARTS,
+              return_stats=True)
+    need = ("sel_proj", "sel_update", "rotate_rows")
+    calls = []
+
+    def shift_fn(ritz, bounds):
+        calls.append(len(ritz))
+        return ritz[np.argsort(-np.abs(bounds), kind="stable")]
+
+    for path, tag, extra in (
+            ("11c", "11c eigsh(flagship, restart='thick')",
+             dict(restart="thick")),
+            ("11d", "11d eigsh(flagship, shift_fn=f)",
+             dict(shift_fn=shift_fn))):
+        (vals, vecs, out), wall, counts = _counted(
+            torch, dev, need, lambda: pt.eigsh(op, **extra, **kw))
+        dmax, rmax = check_values(vals, vecs, a_sp, spectrum, tag)
+        st = out.stats
+        print(f"{tag}: wall {wall:.4f} s ({wall * 1e3 / st.n_iter:.4f} ms "
+              f"per cycle), {_stats_line(st)}; max value dist {dmax:.2e}, "
+              f"max residual {rmax:.2e}; launches {counts}; card {gpu}",
+              flush=True)
+        print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+        paths[path] = counts
+        del vecs
+        if path == "11c":
+            found = vals
+        elif len(calls) != st.n_iter - 1:
+            raise AssertionError(f"{tag}: f called {len(calls)} times over "
+                                 f"{st.n_iter - 1} restarts")
+    mask = np.zeros(NCV, bool)
+    mask[[0, 2, 5]] = True
+    tag = "11c eigsh(flagship, restart='thick', select=[0, 2, 5])"
+    (vals, vecs, out), wall, _ = _counted(
+        torch, dev, need,
+        lambda: pt.eigsh(op, restart="thick", select=mask, **kw))
+    dmax, rmax = check_values(vals, vecs, a_sp, spectrum, tag, count=3)
+    gap = max(np.min(np.abs(found - v)) / abs(v) for v in vals)
+    if gap > 1e-6:
+        raise AssertionError(f"{tag}: {vals} not among 11c's values")
+    print(f"{tag}: wall {wall:.4f} s, {_stats_line(out.stats)}; values "
+          f"{np.array2string(vals, precision=7)} (among 11c's within "
+          f"{gap:.1e}), max value dist {dmax:.2e}, max residual "
+          f"{rmax:.2e}; card {gpu}", flush=True)
+    del op, vecs
+
+    # (e) the complex conv-diff matrix realified: 2n rows, real DIA kernel
+    a_sp = convection_diffusion_2d(cut_nx, dtype=np.complex64,
+                                   device=dev)[1]
+    tag = f"11e eigs_realified(conv-diff nx={cut_nx} complex64)"
+    (vals, vecs), wall, counts = _counted(
+        torch, dev, ("dia_matvec", "rotate_rows"),
+        lambda: eigs_realified(a_sp.astype(np.complex64), k=8, which="LM",
+                               tol=1e-5, ncv=NCV, maxiter=P11_MAX_RESTARTS,
+                               device=dev))
+    if len(vals) != 8:
+        raise AssertionError(f"{tag}: {len(vals)} values recovered, want 8")
+    rmax = _complex_residuals(vals, vecs, a_sp, tag)
+    print(f"{tag}: wall {wall:.4f} s; {len(vals)} values, max residual "
+          f"{rmax:.2e}; launches {counts}; card {gpu}", flush=True)
+    print(f"  values {np.array2string(vals, precision=8)}", flush=True)
+    paths["11e"] = counts
+
+    elapsed = time.perf_counter() - t0
+    print(f"phase 11: {elapsed:.2f} s (limit {P11_MAX_S:.0f} s)", flush=True)
+    if elapsed > P11_MAX_S:
+        raise AssertionError(f"phase 11 took {elapsed:.1f} s")
+    return paths
+
+
 def _device_ms(evt) -> float:
     """Self device time of a profiler average, in ms (the attribute was
     renamed from ``self_cuda_time_total`` in newer torch)."""
@@ -1911,11 +2131,12 @@ def profile_cycles(torch, dev, gpu, nx=NX, warm=3, steady=20, profiled=5):
                   f"reorth=dgks, {profiled} cycles")
 
 
-def kernel_entries(rows, launches, errs, paths):
+def kernel_entries(rows, launches, errs, phases):
     """The ``kernels`` JSON entries: each kernel at the float32 shape its
     solve runs most (the update of the dgks path carries the fused norm),
     with the launches of the path that exercises it and, in
-    ``launches_phase10``, those of each phase-10 path."""
+    ``launches_phase10`` and ``launches_phase11``, those of each path of
+    phases 10 and 11 (``phases``: phase -> path -> counts)."""
     from arpack_ng_tpu_torch.bench import gather_primitives as gp
 
     ops = "arpack_ng_tpu/ops/"
@@ -1960,7 +2181,9 @@ def kernel_entries(rows, launches, errs, paths):
             "host_us": r.get("host_us"),
             "library_host_us": r.get("library_host_us"),
             "shape": f"{timed} shape={r['shape']} float32",
-            "launches_phase10": {p: c[counter] for p, c in paths.items()},
+            **{f"launches_phase{ph}": {p: c[counter]
+                                       for p, c in paths.items()}
+               for ph, paths in phases.items()},
             **{k: r[k] for k in ("bound_note", "floor_ms") if k in r}})
     return entries
 
@@ -2073,9 +2296,10 @@ def main() -> int:
     if elapsed > EIGS_MAX_S:
         raise AssertionError(f"eigs phase took {elapsed:.1f} s")
 
-    paths = new_paths(torch, dev, gpu, vals_9)
+    phases = {10: new_paths(torch, dev, gpu, vals_9),
+              11: mode1_paths(torch, dev, gpu)}
     entries = kernel_entries(rows + rows_cgs + rows_dia + rows_ps + rows_g,
-                             launches, errs, paths)
+                             launches, errs, phases)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

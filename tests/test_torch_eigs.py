@@ -441,12 +441,24 @@ def test_values_only_and_stats():
     dict(validate="f64", return_schur=True), dict(strategy="fused"),
     dict(strategy="hybrid", cgs_kernel="pallas")])
 def test_outside_the_slice_raises(kwargs):
-    # ported options raise ValueError: validate='f64' on a matrix-free
-    # operator (the reference's own error), validate= under return_schur
-    # (which the reference skips without a word, arpack_ng_tpu/api.py:463)
-    # and the hybrid driver's CGS kernels on float64 (the reference's)
+    # sigma, M and mesh are outside the slice (NotImplementedError);
+    # select= and strategy='fused' are ported and solve to the reference's
+    # values from the same start vector (within 1e-8: the complexified
+    # solve's values carry imaginary parts of 1e-9 from rounding, the
+    # solve's tol 1e-10); ported options raise ValueError:
+    # validate='f64' on a matrix-free operator (the reference's own error),
+    # validate= under return_schur (which the reference skips without a
+    # word, arpack_ng_tpu/api.py:463) and the hybrid driver's CGS kernels on
+    # float64 (the reference's)
     op, _ = pmodels.convection_diffusion_1d(64, dtype=np.float64,
                                             device="cpu")
+    if "select" in kwargs or kwargs.get("strategy") == "fused":
+        opj, _ = jmodels.convection_diffusion_1d(64, dtype=np.float64)
+        kw = dict(k=2, tol=1e-10, return_eigenvectors=False, v0=_v0(64),
+                  **kwargs)
+        np.testing.assert_allclose(pt.eigs(op, **kw), at.eigs(opj, **kw),
+                                   rtol=1e-8)
+        return
     exc = ValueError if ("validate" in kwargs or "cgs_kernel" in kwargs) \
         else NotImplementedError
     with pytest.raises(exc):
@@ -455,15 +467,17 @@ def test_outside_the_slice_raises(kwargs):
 
 def test_complex_inputs_raise():
     # complex inputs are ported: under 'auto' the hybrid driver solves
-    # them (tests/test_torch_complex.py); strategy='fused' (the complex
-    # device_nonsym driver) is not ported yet
+    # them (tests/test_torch_complex.py), and strategy='fused' the complex
+    # cycle of core/device_nonsym; 'fused_real' refuses them, as the
+    # reference does
     for a in (np.diag(np.arange(1.0, 51.0)).astype(np.complex128),
               sp.diags(np.arange(1.0, 51.0)).tocsr().astype(np.complex128)):
-        vals = pt.eigs(a, k=2, tol=1e-10, return_eigenvectors=False,
-                       device="cpu")
-        np.testing.assert_allclose(vals, [50, 49], rtol=1e-10)
-        with pytest.raises(NotImplementedError):
-            pt.eigs(a, k=2, strategy="fused", device="cpu")
+        for strategy in ("auto", "fused"):
+            vals = pt.eigs(a, k=2, tol=1e-10, return_eigenvectors=False,
+                           strategy=strategy, device="cpu")
+            np.testing.assert_allclose(vals, [50, 49], rtol=1e-10)
+        with pytest.raises(ValueError, match="fused_real"):
+            pt.eigs(a, k=2, strategy="fused_real", device="cpu")
 
 
 @pytest.mark.parametrize("solver", ["eigsh", "eigs"])

@@ -167,12 +167,22 @@ def test_solve_pins_full_precision_matmuls(solver):
     dict(restart="thick"), dict(validate="f64"),
     dict(strategy="hybrid", restart="thick"), dict(cgs_kernel="pallas")])
 def test_outside_the_slice_raises(kwargs):
-    # ported options raise ValueError where the reference does: cgs_kernel=
-    # 'pallas' on float64 (real float32 compute only) and validate='f64' on
-    # a matrix-free operator (tests/test_torch_validate.py); the hybrid
-    # driver refuses restart='thick', which the reference's silently runs
-    # as the implicit restart (arpack_ng_tpu/api.py:132)
+    # sigma and mesh are outside the slice (NotImplementedError); shift_fn
+    # and restart='thick' are ported and solve to the reference's values
+    # from the same start vector; ported options raise ValueError where the
+    # reference does: cgs_kernel='pallas' on float64 (real float32 compute
+    # only) and validate='f64' on a matrix-free operator
+    # (tests/test_torch_validate.py); the hybrid driver refuses
+    # restart='thick', which the reference's silently runs as the implicit
+    # restart (arpack_ng_tpu/api.py:132)
     op, _ = pmodels.laplacian_1d(64, dtype=np.float64, device="cpu")
+    if "shift_fn" in kwargs or kwargs == dict(restart="thick"):
+        opj, _ = jmodels.laplacian_1d(64, dtype=np.float64)
+        kw = dict(k=2, which="LA", tol=1e-10, return_eigenvectors=False,
+                  v0=np.random.default_rng(0).uniform(-1, 1, 64), **kwargs)
+        np.testing.assert_allclose(pt.eigsh(op, **kw), at.eigsh(opj, **kw),
+                                   rtol=1e-10)
+        return
     ported = "cgs_kernel" in kwargs or "validate" in kwargs
     exc = ValueError if ported or "strategy" in kwargs \
         else NotImplementedError

@@ -837,3 +837,40 @@ def test_hermitian_device_loop_on_card(dev):
             assert cuda_sym_cycle.sym_cycle.launches > 0
         found[strategy] = vals
     np.testing.assert_allclose(found["auto"], found["hybrid"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_complexified_dia_matches_twin_on_card(dev, dtype):
+    # eigs(strategy='fused') on a real DIA matrix: the complexified
+    # operator gives the DIA kernel the contiguous real and imaginary parts
+    # (two launches per complex product), equal bit for bit to two twin
+    # products, at a misaligned n
+    import scipy.sparse as sp
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core.device_nonsym import complexify_operator
+    from arpack_ng_tpu_torch.ops import sparse
+    n = 60_003
+    rng = np.random.default_rng(5)
+    a = sp.diags([rng.standard_normal(n - 245), rng.standard_normal(n - 1),
+                  2 + rng.standard_normal(n), rng.standard_normal(n - 1),
+                  rng.standard_normal(n - 245)],
+                 [-245, -1, 0, 1, 245]).tocsr().astype(dtype)
+    op = pt.from_scipy(a, format="dia", device=dev)
+    opc = complexify_operator(op)
+    offsets, dtab = sparse.dia_table(a, op.n_pad)
+    offs, tab = torch.from_numpy(offsets), torch.from_numpy(dtab).to(dev)
+    cdt = torch.complex64 if dtype == np.float32 else torch.complex128
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(op.n_pad, generator=g, device=dev, dtype=cdt)
+    x[n:] = 0
+    before = cuda_dia.dia_matvec.launches
+    y, by = opc.apply(x, x)
+    assert cuda_dia.dia_matvec.launches - before == 2
+    assert torch.equal(y, by)
+    assert torch.equal(y.real, cuda_dia.dia_matvec_plain(
+        offs, tab, x.real.contiguous(), n))
+    assert torch.equal(y.imag, cuda_dia.dia_matvec_plain(
+        offs, tab, x.imag.contiguous(), n))
+    torch.cuda.synchronize()
