@@ -4,12 +4,15 @@ for NVIDIA Hopper (H100) on their main paths.
 
 This package imports neither JAX nor ``arpack_ng_tpu``; its module names
 mirror ``arpack_ng_tpu`` so each counterpart is easy to find.  It covers
-``eigsh`` for symmetric and Hermitian problems (modes 1 and 2,
+``eigsh`` for symmetric and Hermitian problems (modes 1-5: regular,
+generalized, shift-invert, buckling and Cayley;
 float32/float64/complex64/complex128, ``reorth`` selective or dgks, the
-implicit exact-shift restart; the fused driver or the hybrid one) and
-``eigs`` for real and complex non-symmetric ones (mode 1, the fused real
-driver or the hybrid one), with ``validate=``, for operators, dense
-matrices and scipy sparse matrices (``from_scipy``).
+implicit exact-shift or thick restart; the fused driver or the hybrid
+one), ``eigs`` for real and complex non-symmetric ones (modes 1-4, the
+fused real, fused complex or hybrid driver) and ``svds``, with
+``validate=``, for operators, dense matrices and scipy sparse matrices
+(``from_scipy``); matrix-free shift-invert through the CG/BiCGSTAB solves
+of ``ops/solvers``.
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``.  On the card the reorthogonalization passes, the restart
 rotation and the DIA and PSELL sparse products run the kernels of
@@ -23,6 +26,7 @@ from .config import IRAMConfig, default_ncv, pad_dim
 from .core.arnoldi import FactorizationState
 from .core.extract import EigenResult, extract
 from .core.iram import IRAMResult, IRAMSolver
+from .core.svd import svds
 from .ops.operator import Operator, from_dense, from_diagonal, from_matvec
 from .ops.sparse import from_scipy
 from .state import state_from_numpy, state_to_numpy
@@ -51,4 +55,5 @@ __all__ = [
     "pad_dim",
     "state_from_numpy",
     "state_to_numpy",
+    "svds",
 ]

@@ -5,14 +5,17 @@ non-symmetric), with ``validate=`` (the float64 re-check of the converged
 pairs, :class:`F64Validation`).
 
 Both take the reference package's arguments plus ``device`` (the CUDA
-card unless the caller asks for ``device="cpu"``).  The options outside
-this package's current slice raise ``NotImplementedError`` rather than
-run a different algorithm: spectral transforms (``M``, ``sigma``,
-``mode``) and ``mesh``.  Where the reference package silently does
-something else, the port raises ``ValueError``: ``restart='thick'`` with
-``strategy='hybrid'`` (the reference runs the implicit restart) and
-``eigs(validate=..., return_schur=True)`` (the reference skips the
-validation).
+card unless the caller asks for ``device="cpu"``), spectral transforms
+(``M``, ``sigma``, ``mode``: modes 2-5 through
+:mod:`~arpack_ng_tpu_torch.ops.transforms`) included.  ``mesh`` (the
+row-partitioned solve) is not ported yet and raises
+``NotImplementedError`` rather than run a different algorithm.  Where the
+reference package silently does something else, the port raises
+``ValueError``: ``restart='thick'`` with ``strategy='hybrid'`` (the
+reference runs the implicit restart), ``eigs(validate=...,
+return_schur=True)`` (the reference skips the validation) and
+``validate='f64'`` with a matrix-free ``M`` (the reference makes an object
+array of it).
 """
 from __future__ import annotations
 
@@ -86,9 +89,10 @@ def _make_solver(op, cfg, strategy, shift_fn=None):
     return IRAMSolver(op, cfg, shift_fn=shift_fn)
 
 
-def _check_validate(validate, raw_A) -> None:
+def _check_validate(validate, raw_A, raw_M=None) -> None:
     """The reference's checks of ``validate`` (``api._solve``), made before
-    the solve: 'f64' needs a concrete matrix ``raw_A``."""
+    the solve: 'f64' needs a concrete matrix ``raw_A``, and a concrete
+    ``raw_M`` where one is given."""
     if validate is None or callable(validate):
         return
     if not (isinstance(validate, str) and validate == "f64"):
@@ -99,6 +103,11 @@ def _check_validate(validate, raw_A) -> None:
             "validate='f64' needs a concrete matrix input; for a "
             "matrix-free Operator pass validate=<f64 matvec callable> "
             "instead")
+    if raw_M is not None and (isinstance(raw_M, Operator)
+                              or callable(raw_M)):
+        raise ValueError(
+            "validate='f64' needs a concrete matrix M (dense or scipy "
+            "sparse), not a matrix-free one")
 
 
 class PseudospectrumWarning(UserWarning):
@@ -121,10 +130,11 @@ class F64Validation:
     nonnormality: float        # probe estimate of ||(A*A'-A'*A)z||/||A'Az||
 
 
-def _f64_validate(A_raw, out, cfg, matvec64=None):
+def _f64_validate(A_raw, M_raw, out, cfg, matvec64=None):
     """Re-apply the converged pairs of ``out`` through a float64
-    (complex128) operator and estimate the non-normality (reference
-    ``arpack_ng_tpu/api.py:_f64_validate``, modes 1-2 without ``M``).
+    (complex128) operator, ``A V - M V Lambda`` (``M = I`` where
+    ``M_raw`` is None), and estimate the non-normality (reference
+    ``arpack_ng_tpu/api.py:_f64_validate``).
     ``matvec64``: a caller's float64 matvec for matrix-free problems (the
     non-normality is then nan: no transpose).  Warns with
     :class:`PseudospectrumWarning` where the pairs miss the tolerance, or
@@ -160,7 +170,12 @@ def _f64_validate(A_raw, out, cfg, matvec64=None):
             num = np.linalg.norm(A64 @ (AH @ z) - aaz)
             den = max(np.linalg.norm(aaz), 1e-300)
             nonnorm = max(nonnorm, float(num / den))
-    R = AV - V * vals[None, :].astype(wdt)
+    if M_raw is not None:
+        M64 = M_raw.tocsr().astype(wdt) if hasattr(M_raw, "tocsr") \
+            else np.asarray(M_raw, dtype=wdt)
+        R = AV - (M64 @ V) * vals[None, :].astype(wdt)
+    else:
+        R = AV - V * vals[None, :].astype(wdt)
     res = np.linalg.norm(R, axis=0) / np.maximum(
         np.linalg.norm(V, axis=0), 1e-300)
     rel = res / np.maximum(np.abs(vals), cfg.eps23)
@@ -193,7 +208,7 @@ def _f64_validate(A_raw, out, cfg, matvec64=None):
 
 
 def _finish(op, cfg, res, return_eigenvectors, return_stats, validate,
-            raw_A, howmny="A", select=None):
+            raw_A, raw_M=None, howmny="A", select=None):
     """Extraction, validation, the no-convergence error (none with a
     ``select`` mask) and the return tuple (reference ``api._solve``)."""
     if res.info < 0:
@@ -202,9 +217,9 @@ def _finish(op, cfg, res, return_eigenvectors, return_stats, validate,
     out = extract(op, cfg, res, rvec=rvec or validate is not None,
                   howmny=howmny, select=select)
     if validate is not None:
-        out.validation = (_f64_validate(None, out, cfg, matvec64=validate)
-                          if callable(validate)
-                          else _f64_validate(raw_A, out, cfg))
+        out.validation = (
+            _f64_validate(None, None, out, cfg, matvec64=validate)
+            if callable(validate) else _f64_validate(raw_A, raw_M, out, cfg))
         if not rvec:
             out.vectors = None
     if res.info in (1, 2) and select is None and out.nconv < cfg.nev:
@@ -286,8 +301,22 @@ def eigsh(
     validate=None,
     device=None,
 ):
-    """Symmetric / Hermitian eigensolver (dsaupd/dseupd equivalent), mode 1
-    (and mode 2 through a ``from_dense(a, m)`` operator).
+    """Symmetric / Hermitian eigensolver (dsaupd/dseupd equivalent).
+
+    Modes (reference iparam(7), SRC/dsaupd.f:30-48), built from dense or
+    scipy sparse ``A`` and ``M`` by
+    :func:`~arpack_ng_tpu_torch.ops.transforms.build_sym_operator` (the
+    shifted matrix factored on the host, its inverse applied on the
+    device as one product):
+
+    * ``sigma is None, M is None``   -> mode 1 (regular)
+    * ``sigma is None, M given``     -> mode 2 (regular inverse: inv(M)*A)
+    * ``sigma, mode='normal'``       -> mode 3 (shift-invert)
+    * ``sigma, mode='buckling'``     -> mode 4
+    * ``sigma, mode='cayley'``       -> mode 5
+
+    A matrix-free transform is an operator of
+    :func:`~arpack_ng_tpu_torch.ops.transforms.shift_invert_operator`.
 
     ``A``: an :class:`Operator` (its device is the solve's device), a
     dense symmetric (Hermitian) matrix or a scipy sparse matrix (imported
@@ -298,7 +327,8 @@ def eigsh(
     float64 reduced space of :mod:`~arpack_ng_tpu_torch.core.iram`.
     Values are real, also for a complex Hermitian problem.
     ``validate='f64'`` (a concrete matrix ``A``) or a float64 matvec
-    callable attaches an :class:`F64Validation` report (``return_stats``).
+    callable attaches an :class:`F64Validation` report (``return_stats``);
+    with ``M`` it checks ``A v - lambda M v``.
 
     ``restart='thick'`` (the fused driver only, not with ``which='BE'``):
     the re-tridiagonalizing thick restart of
@@ -317,9 +347,6 @@ def eigsh(
     :class:`EigenResult` with ``return_stats``), as the reference package
     does.
     """
-    if sigma is not None or mode != "normal" or M is not None:
-        raise NotImplementedError("spectral transforms (M, sigma, mode) "
-                                  "are not ported yet")
     _refuse_mesh(mesh)
     if strategy not in ("auto", "fused", "hybrid"):
         raise ValueError(f"strategy must be 'auto', 'fused' or 'hybrid', "
@@ -331,7 +358,12 @@ def eigsh(
         raise ValueError("strategy='hybrid' runs the implicit restart "
                          "only; restart='thick' needs the fused driver")
     raw_A = None if isinstance(A, Operator) else A
-    _check_validate(validate, raw_A)
+    _check_validate(validate, raw_A, M)
+    if sigma is not None or mode != "normal" or M is not None:
+        from .ops import transforms
+        A = transforms.build_sym_operator(
+            A, M=M, sigma=sigma, mode=mode, dtype=dtype,
+            device=DEFAULT if device is None else device)
     op = _as_operator(A, dtype=dtype, hermitian=True, device=device)
     n = op.n
     ncv = ncv if ncv is not None else default_ncv(n, k, symmetric=True)
@@ -348,7 +380,7 @@ def eigsh(
         cgs_kernel=cgs_kernel, restart=restart, reorth=reorth)
     res = _make_solver(op, cfg, strategy, shift_fn).solve(v0=v0)
     return _finish(op, cfg, res, return_eigenvectors, return_stats,
-                   validate, raw_A, howmny="S" if select is not None
+                   validate, raw_A, M, howmny="S" if select is not None
                    else "A", select=select)
 
 
@@ -377,7 +409,11 @@ def eigs(
     device=None,
 ):
     """Non-symmetric eigensolver (dnaupd/dneupd and znaupd/zneupd
-    equivalents), mode 1.
+    equivalents).  ``M`` (mode 2) and ``sigma`` (mode 3: shift-invert;
+    for a real problem with a complex shift the real part of the complex
+    inverse, its values recovered as Rayleigh quotients, dndrv5) build the
+    transformed operator from dense or scipy sparse input by
+    :func:`~arpack_ng_tpu_torch.ops.transforms.build_nonsym_operator`.
 
     ``A``: an :class:`Operator`, a dense matrix or a scipy sparse matrix
     (imported by :func:`~arpack_ng_tpu_torch.ops.sparse.from_scipy` with
@@ -405,13 +441,10 @@ def eigs(
     (SRC/dneupd.f:60-66); in real arithmetic a selected member of a
     conjugate pair brings its partner.  ``return_schur`` takes precedence.
 
-    Not ported yet (``NotImplementedError``): ``sigma``, ``M`` and
-    ``mesh``.  ``validate`` under ``return_schur`` raises ``ValueError``,
-    where the reference skips it without a word.
+    Not ported yet (``NotImplementedError``): ``mesh``.  ``validate`` under
+    ``return_schur`` raises ``ValueError``, where the reference skips it
+    without a word.
     """
-    if sigma is not None or M is not None:
-        raise NotImplementedError("spectral transforms (M, sigma) are not "
-                                  "ported yet")
     _refuse_mesh(mesh)
     if strategy not in ("auto", "fused_real", "hybrid", "fused"):
         raise ValueError(f"strategy must be 'auto', 'fused', 'fused_real' "
@@ -420,7 +453,12 @@ def eigs(
         raise ValueError("validate= checks eigenpairs; return_schur=True "
                          "returns Schur vectors, which it cannot check")
     raw_A = None if isinstance(A, Operator) else A
-    _check_validate(validate, raw_A)
+    _check_validate(validate, raw_A, M)
+    if sigma is not None or M is not None:
+        from .ops import transforms
+        A = transforms.build_nonsym_operator(
+            A, M=M, sigma=sigma, dtype=dtype,
+            device=DEFAULT if device is None else device)
     op = _as_operator(A, dtype=dtype, hermitian=False, device=device)
     cplx = np.issubdtype(op.dtype, np.complexfloating)
     if strategy == "auto":
@@ -453,4 +491,4 @@ def eigs(
     res = solver.solve(v0=v0)
     howmny = "P" if return_schur else ("S" if select is not None else "A")
     return _finish(op, cfg, res, return_eigenvectors, return_stats,
-                   validate, raw_A, howmny=howmny, select=select)
+                   validate, raw_A, M, howmny=howmny, select=select)

@@ -72,8 +72,8 @@ def complexify_operator(op: Operator) -> Operator:
     """Lift a real-dtype operator to complex arithmetic: the operator is
     applied to the real and imaginary parts apart (two real matvecs per
     complex matvec), each a contiguous real vector.  Carries the
-    permutation, padding, device, capturability and the lifted B, A and M
-    products over."""
+    permutation, padding, shift, device, capturability and the lifted B,
+    A and M products over."""
     if _dt.is_complex(op.dtype):
         return op
     cdt = np.dtype(np.complex64 if op.dtype == np.float32
@@ -93,7 +93,7 @@ def complexify_operator(op: Operator) -> Operator:
                     mode=op.mode,
                     b_apply=_lift(op.b_apply) if op.bmat == "G" else None,
                     a_apply=_lift(op.a_apply), m_apply=_lift(op.m_apply),
-                    n_pad=op.n_pad, hermitian=False,
+                    n_pad=op.n_pad, sigma=op.sigma, hermitian=False,
                     perm=op.perm, format=op.format, device=op.device,
                     capturable=op.capturable)
 

@@ -19,8 +19,15 @@
   vectors complex), wanted first (non-symmetric);
 * ``howmny='S'``: values and vectors only for the flagged Ritz values of
   a ``select`` mask that converged (see :func:`_select`);
-* untransform mode 1 and 2 (the identity).  The spectral-transform modes
-  3-5 and purification are not ported yet.
+* untransform the values and Ritz estimates of the spectral-transform
+  modes: SHIFTI ``lambda = sigma + 1/theta``, BUCKLE ``lambda =
+  sigma*theta/(theta-1)``, CAYLEY ``lambda = sigma*(theta+1)/(theta-1)``
+  (SRC/dseupd.f:656-683, :762-790); non-symmetric shift-invert ``lambda =
+  sigma + 1/theta`` (SRC/dneupd.f), replaced by Rayleigh quotients of the
+  raw operator for a complex shift in real arithmetic (dndrv5/6);
+* purify the Ritz vectors of generalized modes 3/4/5 by one formal step of
+  inverse subspace iteration, ``z += resid * (last_comp/theta)`` (SHIFTI,
+  CAYLEY) or ``/(theta-1)`` (BUCKLE) (SRC/dseupd.f:817-843).
 """
 from __future__ import annotations
 
@@ -53,12 +60,43 @@ class EigenResult:
     #   ``validate=``, attached by the API
 
 
+def _untransform(theta: np.ndarray, mode: int, sigma: complex,
+                 symmetric: bool) -> np.ndarray:
+    if mode in (1, 2):
+        return theta.copy()
+    if mode == 3:
+        return sigma + 1.0 / theta
+    if mode == 4 and symmetric:    # buckling
+        return sigma * theta / (theta - 1.0)
+    if mode == 5 and symmetric:    # Cayley
+        return sigma * (theta + 1.0) / (theta - 1.0)
+    # non-symmetric mode 4 (a complex shift in real arithmetic): the
+    # shift-invert relation, replaced by Rayleigh quotients in extract()
+    return sigma + 1.0 / theta
+
+
+def _untransform_bounds(bounds: np.ndarray, theta: np.ndarray, mode: int,
+                        sigma: complex, symmetric: bool) -> np.ndarray:
+    """Ritz estimates in the original system (SRC/dseupd.f:762-790)."""
+    if mode in (1, 2):
+        return bounds.copy()
+    if mode == 3:
+        return np.abs(bounds) / np.abs(theta) ** 2
+    if mode == 4 and symmetric:
+        return np.abs(sigma) * np.abs(bounds) / np.abs(theta - 1.0) ** 2
+    if mode == 5 and symmetric:
+        return np.abs(bounds / theta * (theta - 1.0))
+    return np.abs(bounds) / np.abs(theta) ** 2
+
+
 def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
             rvec: bool = True, howmny: str = "A",
-            select: Optional[np.ndarray] = None) -> EigenResult:
-    if op.mode not in (1, 2):
-        raise NotImplementedError(f"mode {op.mode} (spectral transforms) is "
-                                  "not ported yet")
+            select: Optional[np.ndarray] = None,
+            use_rayleigh: Optional[bool] = None) -> EigenResult:
+    """dseupd/dneupd: values (and vectors with ``rvec``) of the solve in
+    ``result``.  ``use_rayleigh``: replace the values by Rayleigh quotients
+    of the raw operator (default: for a complex shift in real arithmetic,
+    non-symmetric modes 3/4)."""
     if howmny not in ("A", "P", "S"):
         raise ValueError(f"howmny must be 'A', 'P' or 'S', not {howmny!r}")
     sym = cfg.symmetric
@@ -134,8 +172,13 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
                     nconv += 1
                     break
 
-    lam = theta_all[sel].copy()
-    lam_bounds = bounds_all[sel].copy()
+    theta = theta_all[sel]
+    sigma = op.sigma
+    lam = _untransform(theta, op.mode, sigma, sym)
+    lam_bounds = _untransform_bounds(bounds_all[sel], theta, op.mode, sigma,
+                                     sym)
+    if sym:
+        lam = lam.real
     # output order: ascending for symmetric problems (dseupd's final dsortr
     # 'LA', :697-707), wanted first for non-symmetric ones (dneupd)
     if sym:
@@ -143,8 +186,8 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
     else:
         order_out = np.argsort(
             -reduced.sort_key(cfg.which, lam, real_pairs), kind="stable")
-    lam, lam_bounds, sel = lam[order_out], lam_bounds[order_out], \
-        sel[order_out]
+    theta, lam, lam_bounds, sel = (theta[order_out], lam[order_out],
+                                   lam_bounds[order_out], sel[order_out])
 
     vectors = None
     if rvec:
@@ -170,6 +213,20 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
                 # is orthonormal, so Z inherits it; dneupd via dtrevc)
                 Scols = Scols / np.linalg.norm(Scols, axis=0, keepdims=True)
         Z = _basis_product(Scols, state.V, cfg.dtype)
+        if op.mode in (3, 4, 5) and op.bmat == "G" and howmny != "P":
+            # purification (SRC/dseupd.f:817-843)
+            last = Scols[-1, :]
+            coef = last / theta if op.mode in (3, 5) else \
+                last / (theta - 1.0)
+            Z = Z + coef[:, None] * state.resid.cpu().numpy().astype(
+                host_dtype)[None, :]
+        if use_rayleigh is None:
+            s_arr = np.array(sigma)
+            use_rayleigh = (not sym) and op.mode in (3, 4) \
+                and op.a_apply is not None and np.iscomplexobj(s_arr) \
+                and s_arr.imag != 0
+        if use_rayleigh and op.a_apply is not None:
+            lam = _rayleigh(op, cfg, Z)
         vectors = Z[:, : cfg.n].T  # (n, nconv)
         if op.perm is not None:
             # internal row i holds logical coordinate perm[i]
@@ -180,6 +237,34 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
     return EigenResult(values=lam, vectors=vectors, nconv=nconv, info=info,
                        bounds=lam_bounds, n_iter=result.n_iter,
                        stats=result.stats)
+
+
+def _rayleigh(op: Operator, cfg: IRAMConfig, Z: np.ndarray) -> np.ndarray:
+    """Rayleigh quotients ``z^H A z / z^H M z`` (``M = I`` for
+    ``bmat='I'``) of the rows of ``Z`` through the raw device products: the
+    reference's value recovery for a complex shift in real arithmetic
+    (dndrv5/6)."""
+    tdt = _dt.torch_dtype(cfg.dtype)
+
+    def to_dev(x):
+        # contiguous: the DIA kernel refuses strided vectors
+        return torch.from_numpy(np.ascontiguousarray(x.astype(cfg.dtype))
+                                ).to(dtype=tdt, device=op.device)
+
+    def apply_c(fn, z):
+        """A (possibly real-dtype) device product on a host vector."""
+        if np.iscomplexobj(z) and not _dt.is_complex(cfg.dtype):
+            return fn(to_dev(z.real)).cpu().numpy() \
+                + 1j * fn(to_dev(z.imag)).cpu().numpy()
+        return fn(to_dev(z)).cpu().numpy()
+
+    lam = np.zeros(Z.shape[0], np.complex128)
+    for i, z in enumerate(Z):
+        az = apply_c(op.a_apply, z)
+        mz = apply_c(op.m_apply, z) if (op.m_apply is not None
+                                         and op.bmat == "G") else z
+        lam[i] = np.vdot(z, az) / np.vdot(z, mz)
+    return lam
 
 
 def _select(select, ritz_iter, theta_all, idx_conv, eps23, real_pairs

@@ -42,6 +42,7 @@ class Operator:
     a_apply: Optional[Callable] = None   # raw A matvec (verification)
     m_apply: Optional[Callable] = None   # raw M matvec (verification)
     n_pad: int = 0                  # padded dimension (0 => n)
+    sigma: complex = 0.0            # spectral shift (modes 3-5)
     hermitian: bool = False         # A (and M) hermitian/symmetric
     perm: object = None             # optional row permutation (np.ndarray)
     format: Optional[str] = None    # structure chosen by the sparse importer

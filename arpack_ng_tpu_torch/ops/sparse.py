@@ -110,15 +110,54 @@ def _to_dia(a: sp.spmatrix):
     return [int(o) for o in offsets], diags
 
 
+def _dia_tab(diags, n: int, n_pad: int, dtype) -> np.ndarray:
+    """The ``(nd, n_pad)`` table of row-aligned diagonals, zero past ``n``."""
+    dtab = np.zeros((len(diags), n_pad), dtype)
+    for k, diag in enumerate(diags):
+        dtab[k, :n] = diag[:n]
+    return dtab
+
+
 def dia_table(a: sp.spmatrix, n_pad: int):
     """``(offsets, dtab)``: the int64 offsets of :func:`_to_dia` and its
     diagonals as one ``(nd, n_pad)`` table, zero past ``n``, the operands
     of :func:`~arpack_ng_tpu_torch.ops.cuda_dia.dia_matvec`."""
     offsets, diags = _to_dia(a)
-    dtab = np.zeros((len(offsets), n_pad), a.dtype)
-    for k, diag in enumerate(diags):
-        dtab[k, : a.shape[0]] = diag
-    return np.asarray(offsets, np.int64), dtab
+    return (np.asarray(offsets, np.int64),
+            _dia_tab(diags, a.shape[0], n_pad, a.dtype))
+
+
+def dia_matvec_fn(offsets, diags, n: int, n_pad: int, device=DEFAULT):
+    """The DIA matvec ``x -> A x`` of ``diags[k][i] = A[i, i + offsets[k]]``
+    on ``device`` (port of ``arpack_ng_tpu/ops/sparse.py:92-115``): ``x``
+    and the result have length ``n_pad``, the result is zero past ``n``.
+    The offsets and the ``(nd, n_pad)`` table live on the device and the
+    diagonals are summed in the order of ``offsets``; an offset with
+    ``|d| >= n`` adds nothing.  A real table runs
+    :func:`~arpack_ng_tpu_torch.ops.cuda_dia.dia_matvec` (the kernel on the
+    card, its twin on the CPU); a complex one the twin with host offsets,
+    as ``from_scipy`` does; no diagonal at all gives zero."""
+    device = require(device)
+    dtype = np.result_type(*diags) if len(diags) else np.float64
+    if not len(offsets):
+        def matvec(x):
+            return torch.zeros_like(x)
+
+        return matvec
+    dtab_d = torch.from_numpy(_dia_tab(diags, n, n_pad, dtype)).to(device)
+    offs = torch.from_numpy(np.asarray(offsets, np.int64))
+    if _dt.is_complex(dtype):
+        # the twin reads its offsets on the host: no device read, so a
+        # CUDA graph can hold the product
+        def matvec(x):
+            return dia_matvec_plain(offs, dtab_d, x, n)
+    else:
+        offs_d = offs.to(device)
+
+        def matvec(x):
+            return dia_matvec(offs_d, dtab_d, x, n)
+
+    return matvec
 
 
 def structural_diagonals(a: sp.spmatrix) -> int:
@@ -217,20 +256,7 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
         format, a, perm = choose_format(a, hermitian)
 
     if format == "dia":
-        offsets, dtab = dia_table(a, n_pad)
-        dtab_d = torch.from_numpy(dtab).to(device)
-        if cplx:
-            # the twin reads its offsets on the host: no device read, so a
-            # CUDA graph can hold the product
-            offs_h = torch.from_numpy(offsets)
-
-            def matvec(x):
-                return dia_matvec_plain(offs_h, dtab_d, x, n)
-        else:
-            offs_d = torch.from_numpy(offsets).to(device)
-
-            def matvec(x):
-                return dia_matvec(offs_d, dtab_d, x, n)
+        matvec = dia_matvec_fn(*_to_dia(a), n, n_pad, device=device)
     elif format in ("ell", "hyb"):
         width = _hyb_width(a) if format == "hyb" else 0
         cols_np, vals_np, tail = _to_ell(a, n_pad, width=width)

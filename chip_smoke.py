@@ -143,7 +143,43 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    restart; (e) ``eigs_realified`` on ``convection_diffusion_2d(512,
    complex64)``'s matrix (2n = 524,288 rows through the real DIA kernel
    and the fused real driver): 8 recovered values, residuals ``<= 1e-3``
-   (complex128, host); the phase within P11_MAX_S.
+   (complex128, host); the phase within P11_MAX_S;
+12. the spectral transforms, their linear solvers and ``svds`` at full
+   width, float64 unless stated (each path's launches counted from zero):
+   (a) the main path, dsdrv2's use at the flagship's size: ``eigsh`` (k =
+   8, 'LM', ncv = 32, tol = 1e-8) on ``shift_invert_operator(mode=3,
+   sigma=0)`` of the 2-D Laplacian at nx = P12_NX (n = 1,048,576), each
+   inner solve ``make_iterative_solve`` (CG, tol = 1e-10) with
+   ``ilu0_preconditioner(symmetric=True, sweeps=3)``: the shifted product
+   (``from_scipy(format='dia')``) and both IC(0) triangles run the DIA
+   kernel (first checked bit-equal to its twin on the triangles' tables);
+   gates: every value within 1e-6*|lambda| of the analytic spectrum, every
+   residual ``||Av - lambda v|| / max(1, |lambda|) <= 1e-6``, the DIA kernel
+   launched; reported: cycles, nopx, CG iterations per solve, ms per CG
+   iteration and the share of its loop test's device read (the same
+   iterations with and without it, in turns), host set-up apart; (b)
+   dsdrv3-6's pencil ``K = tridiag(-1, 2, -1)/h``, ``M = tridiag(1, 4,
+   1)h/6`` through ``eigsh(K, M=M, sigma=P12_SIGMA, mode=...)`` (the host
+   factorization's explicit inverse, capturable: the device loop's graphs)
+   at n = P12_DENSE_N, modes 'normal', 'buckling' and 'cayley', k = 4,
+   and mode 2 (no sigma, 'LM') at n = P12_MODE2_N: values within
+   1e-8*|lambda| of the closed form, ``||Kv - lambda Mv|| / max(1,
+   |lambda|) <= 1e-8``, the host factorization's seconds beside the wall
+   (Cayley: ARPACK's own residual, scipy's dsaupd/dseupd on the same
+   pencil and start vector, printed beside it); (c) ``eigs`` shift-invert on
+   ``convection_diffusion_2d(P12_EIGS_NX, rho=P12_RHO)`` through the dense
+   routes: a real shift, a complex shift on the real problem (the real
+   part, Rayleigh-quotient values, dndrv5), mode 4 (``part='imag'``, M =
+   I, dndrv6) and complex128 with a complex shift (zndrv2); then
+   matrix-free BiCGSTAB with ``ilu0_preconditioner`` (sigma = 0, nx =
+   P12_BICG_NX, the DIA kernel for the product and both triangles): at
+   least 6 values, each within 1e-8*|lambda| of scipy's shift-invert
+   values, residuals ``/ max(1, |lambda|) <= 1e-8`` (BiCGSTAB: 1e-6); (d)
+   ``svds`` of a float32 ``A`` (P12_SVD_SHAPE, 1 GiB) made on the card
+   from seeded orthonormal factors with singular values 10..3 on top,
+   k = 8, methods 'normal' and 'augmented': ``s`` within 1e-4 relative,
+   ``||Av - su||/s`` and ``||A^T u - sv||/s <= 1e-3``; the phase within
+   P12_MAX_S.
 
     python3 chip_smoke.py --profile
 
@@ -257,6 +293,31 @@ P10_MAX_S = 120.0
 P11_MAX_RESTARTS = 2000
 P11_MAX_S = 240.0
 P11_CUT_NX = 512
+#: phase 12: the main path's grid (12a: shift-invert of the flagship's
+#: Laplacian through CG with the IC(0) preconditioner) and the CG cap of
+#: its inner solves; the read share's CG iterations; the dense routes'
+#: dimension (12b, modes 3-5) and mode 2's (its top values lie ~(pi/n)^2
+#: apart); the shift between the pencil's two lowest values; the eigs grid
+#: (12c, dense routes), its convection (rho = 10: at the bench's 100, T's
+#: eigenvector condition ((1+c)/(1-c))^((nx-1)/2) with c = 0.77 is ~1e28,
+#: so no float64 eigenvalue, scipy's included, is accurate enough for a
+#: value gate) and shifts; the BiCGSTAB grid and cap; the svds shape
+#: (12d); the phase's wall limit, seconds (1.9 times the 158 s it took on
+#: an H100 at 700 W, PERF.md section 5)
+P12_NX = 1024
+P12_CG_MAXITER = 20_000
+P12_READ_ITS = 500
+P12_DENSE_N = 4096
+P12_MODE2_N = 512
+P12_SIGMA = 25.0
+P12_EIGS_NX = 64
+P12_RHO = 10.0
+P12_SHIFTS = (1.0, 1.0 + 0.05j)
+P12_ZSHIFT = 0.3 + 0.2j
+P12_BICG_NX = 256
+P12_BICG_MAXITER = 5_000
+P12_SVD_SHAPE = (65_536, 4_096)
+P12_MAX_S = 300.0
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
 #: the tensor cores by accumulation dtype; its SMs (one block of the
 #: reduced-space kernel runs on one)
@@ -1993,6 +2054,370 @@ def mode1_paths(torch, dev, gpu, nx=NX, eigs_nx=EIGS_NX,
     return paths
 
 
+def _gate_pairs(vals, vecs, a_sp, ref, rel, res_max, what, m_sp=None,
+                count=None):
+    """Every value within ``rel*|lambda|`` of a value of ``ref`` and every
+    residual ``||A v - lambda M v|| / max(1, |lambda|) <= res_max``
+    (float64 or complex128, on the host; ``M = I`` without ``m_sp``); at
+    least ``count`` values.  Returns (max distance, max residual)."""
+    vals, ref = np.asarray(vals), np.asarray(ref)
+    if not len(vals) or (count is not None and len(vals) < count):
+        raise AssertionError(f"{what}: {len(vals)} values returned")
+    dist = np.array([np.min(np.abs(ref - x)) / abs(x) for x in vals])
+    cplx = np.iscomplexobj(vals) or np.iscomplexobj(vecs)
+    v = np.asarray(vecs, np.complex128 if cplx else np.float64)
+    mv = m_sp @ v if m_sp is not None else v
+    res = np.linalg.norm(a_sp @ v - mv * vals[None, :], axis=0) \
+        / np.maximum(1.0, np.abs(vals))
+    if not np.all(np.isfinite(res)) or dist.max() > rel \
+            or res.max() > res_max:
+        raise AssertionError(f"{what}: value distances {dist}, residuals "
+                             f"{res} (gates {rel:.0e}, {res_max:.1e})")
+    return float(dist.max()), float(res.max())
+
+
+def _host_seconds(mod, name, sink):
+    """Patch ``mod.name`` to append each call's host seconds to ``sink``."""
+    from unittest import mock
+
+    fn = getattr(mod, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            sink.append(time.perf_counter() - t0)
+
+    return mock.patch.object(mod, name, timed)
+
+
+def _iters(its) -> str:
+    its = np.asarray(its)
+    return (f"{len(its)} solves, iterations min / median / max {its.min()} "
+            f"/ {np.median(its):g} / {its.max()} (total {its.sum()})")
+
+
+def _cg_read_share(torch, dev, matvec, pc, b, its=P12_READ_ITS):
+    """ms per CG iteration with the loop test's read (``solvers._cg`` at
+    tol 0) and without it (``cg_start`` and ``its`` times ``cg_step``, one
+    sync at the end), in turns (read, free, free, read, read, free), on
+    the same right-hand side: the read's share is ``1 - free / read``."""
+    from arpack_ng_tpu_torch.ops import solvers
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def with_reads():
+        if solvers._cg(matvec, b, None, 0.0, its, pc)[1] != its:
+            raise AssertionError("CG stopped before its iteration count")
+
+    def read_free():
+        c, _ = solvers.cg_start(matvec, b, None, 0.0, pc)
+        for _ in range(its):
+            c = solvers.cg_step(matvec, c, pc)
+
+    times = ([], [])
+    for i in (0, 1, 1, 0, 0, 1):
+        sync()
+        t0 = time.perf_counter()
+        (with_reads, read_free)[i]()
+        sync()
+        times[i].append(time.perf_counter() - t0)
+    return [float(np.median(t)) * 1e3 / its for t in times]
+
+
+def _shift_invert_main(torch, dev, gpu, nx, need):
+    """12a, the main path: ``eigsh`` on ``shift_invert_operator`` (mode 3,
+    sigma = 0) of the 2-D Laplacian, each inner solve CG with the IC(0)
+    preconditioner, the shifted product and both triangles DIA products.
+    Returns the kernel launches."""
+    import warnings
+
+    import scipy.sparse as sp
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.models import laplacian_2d
+    from arpack_ng_tpu_torch.ops import cuda_dia, solvers, transforms
+    from arpack_ng_tpu_torch.ops.sparse import dia_table
+
+    sigma, n = 0.0, nx * nx
+    a_sp = laplacian_2d(nx, np.float64, device="cpu")[1]
+    shifted = (a_sp - sigma * sp.identity(n)).tocsr()
+    t0 = time.perf_counter()
+    op_s = pt.from_scipy(shifted, format="dia", device=dev)
+    t_dia = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        # a Jacobi fallback would leave the triangles out
+        warnings.simplefilter("error")
+        pc = solvers.ilu0_preconditioner(shifted, symmetric=True, sweeps=3,
+                                         n_pad=op_s.n_pad, device=dev)
+    t_ilu = time.perf_counter() - t0
+    # the kernel on the preconditioner's table shapes (one sign of offset
+    # each), bit-equal to its twin; not counted
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    for tri in (sp.tril(shifted, -1), sp.triu(shifted, 1)):
+        offs, tab = dia_table(tri.tocsr(), n)
+        offs, tab = torch.from_numpy(offs).to(dev), torch.from_numpy(tab).to(
+            dev)
+        if not torch.equal(cuda_dia.dia_matvec(offs, tab, x, n),
+                           cuda_dia.dia_matvec_plain(offs, tab, x, n)):
+            raise AssertionError("12a: the DIA kernel differs from its twin "
+                                 f"on a strict triangle {offs.tolist()}")
+    solve = solvers.make_iterative_solve(
+        op_s.a_apply, symmetric=True, tol=1e-10, maxiter=P12_CG_MAXITER,
+        precond=pc)
+    op = transforms.shift_invert_operator(
+        n, np.float64, solve, sigma=sigma, mode=3, n_pad=op_s.n_pad,
+        hermitian=True, a_apply=op_s.a_apply, device=dev)
+    tag = f"12a eigsh(shift-invert sigma=0, CG + IC(0), nx={nx})"
+    (vals, vecs, out), wall, counts = _counted(
+        torch, dev, need("dia_matvec", "sym_cycle"),
+        lambda: pt.eigsh(op, k=8, which="LM", ncv=NCV, tol=1e-8,
+                         return_stats=True))
+    its = np.asarray(solve.iterations)
+    if its.max() >= P12_CG_MAXITER:
+        raise AssertionError(f"{tag}: a CG solve ran to its cap")
+    dmax, rmax = _gate_pairs(vals, vecs, a_sp, _analytic_spectrum(nx)[:256],
+                             1e-6, 1e-6, tag, count=8)
+    del vecs
+    st = out.stats
+    print(f"{tag}: wall {wall:.4f} s (host, not in it: from_scipy "
+          f"{t_dia:.2f} s, ilu0_preconditioner {t_ilu:.2f} s); "
+          f"{_stats_line(st)}; CG: {_iters(its)}, "
+          f"{wall * 1e3 / its.sum():.4f} ms per CG iteration (the solve's "
+          f"wall over its CG iterations); max value dist {dmax:.2e}, max "
+          f"residual {rmax:.2e}; launches {counts} "
+          f"({counts['dia_matvec'] / its.sum():.2f} DIA per CG iteration); "
+          f"card {gpu}", flush=True)
+    print(f"  values {np.array2string(vals, precision=10)}", flush=True)
+    b = torch.zeros(op_s.n_pad, dtype=torch.float64, device=dev)
+    b[:n] = x
+    ms_read, ms_free = _cg_read_share(torch, dev, op_s.a_apply, pc, b)
+    print(f"  CG iteration: {ms_read:.4f} ms with the loop test's read, "
+          f"{ms_free:.4f} ms without (median of 3 runs of {P12_READ_ITS} "
+          f"iterations in turns): the read's share "
+          f"{100 * (1 - ms_free / ms_read):.1f}%; card {gpu}", flush=True)
+    return counts
+
+
+def _dsdrv_pencil(n):
+    """dsdrv3-6's pencil ``K = tridiag(-1, 2, -1)/h``, ``M = tridiag(1, 4,
+    1)h/6`` (h = 1/(n+1)) and its values ``(6/h^2)(1 - cos j pi h)/(2 + cos
+    j pi h)``, ascending."""
+    import scipy.sparse as sp
+
+    h = 1.0 / (n + 1)
+    k = (sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(n, n)) / h).tocsr()
+    m = (sp.diags([1.0, 4.0, 1.0], [-1, 0, 1], shape=(n, n))
+         * (h / 6)).tocsr()
+    th = np.arange(1, n + 1) * np.pi * h
+    return k, m, np.sort(6 / h ** 2 * (1 - np.cos(th)) / (2 + np.cos(th)))
+
+
+def _dense_modes(torch, dev, gpu, n, n2, need):
+    """12b: ``eigsh(K, M=M, ...)`` through the built-in dense routes
+    (the host factorization's explicit inverse, capturable: the device
+    loop with graphs), modes 3-5 at ``n`` and mode 2 at ``n2``.  Returns
+    each path's launches."""
+    import scipy.sparse.linalg as spla
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.ops import transforms
+
+    paths = {}
+    cases = [(mode, n, dict(sigma=P12_SIGMA, mode=mode, tol=1e-10))
+             for mode in ("normal", "buckling", "cayley")]
+    cases.append(("mode 2", n2, dict(ncv=NCV, tol=1e-10, maxiter=2000)))
+    for mode, dim, kw in cases:
+        k, m, lam = _dsdrv_pencil(dim)
+        v0 = np.random.default_rng(12).uniform(-1, 1, dim)
+        tag = f"12b eigsh(K, M=M, {mode}, n={dim})"
+        fact = []
+        with _host_seconds(transforms, "_dense_inv", fact), \
+                _host_seconds(transforms, "from_dense", fact):
+            (vals, vecs, out), wall, counts = _counted(
+                torch, dev, need("sym_cycle"),
+                lambda: pt.eigsh(k, M=m, k=4, which="LM", v0=v0,
+                                 return_stats=True, device=dev, **kw))
+        note = ""
+        if mode == "cayley":
+            # a witness, not gated: ARPACK's own Cayley mode (scipy's
+            # dsaupd/dseupd, the same pencil and start vector), whose
+            # operator takes K v into the solve
+            w, z = spla.eigsh(k.tocsc(), k=4, M=m.tocsc(), sigma=P12_SIGMA,
+                              mode="cayley", which="LM", tol=1e-10, v0=v0)
+            r_arpack = float(np.max(np.linalg.norm(
+                k @ z - (m @ z) * w[None, :], axis=0) / np.maximum(1, w)))
+            note = f" (ARPACK's on the host: {r_arpack:.2e})"
+        dmax, rmax = _gate_pairs(vals, vecs, k, lam, 1e-8, 1e-8, tag,
+                                 m_sp=m, count=4)
+        del vecs
+        print(f"{tag}: wall {wall:.4f} s, of which the host factorization "
+              f"and inverse {sum(fact):.4f} s; {_stats_line(out.stats)}; "
+              f"max value dist {dmax:.2e}, max residual {rmax:.2e}{note}; "
+              f"launches {counts}; card {gpu}", flush=True)
+        print(f"  values {np.array2string(vals, precision=10)}", flush=True)
+        paths[f"12b {mode}"] = counts
+    return paths
+
+
+def _eigs_transforms(torch, dev, gpu, nx, bicg_nx, need):
+    """12c: ``eigs`` shift-invert through the dense routes (a real shift,
+    a complex shift on the real problem: the real part and Rayleigh
+    quotients; the imaginary part, mode 4; complex128 with a complex
+    shift) and matrix-free through BiCGSTAB with the ILU(0) preconditioner.
+    Returns each path's launches."""
+    import warnings
+
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.models import convection_diffusion_2d
+    from arpack_ng_tpu_torch.ops import solvers, transforms
+
+    paths = {}
+    a = convection_diffusion_2d(nx, rho=P12_RHO, dtype=np.float64,
+                                device="cpu")[1]
+    n = nx * nx
+    kw = dict(k=6, ncv=NCV, tol=1e-10, return_stats=True)
+    s_re, s_cx = P12_SHIFTS
+    near = spla.eigs(a.tocsc(), k=60, sigma=s_re, return_eigenvectors=False)
+    zshift = P12_ZSHIFT
+    az = a.astype(np.complex128)
+    cases = [
+        ("real", f"eigs(sigma={s_re})", a, near,
+         lambda: pt.eigs(a, sigma=s_re, device=dev, **kw)),
+        ("complex shift", f"eigs(sigma={s_cx}), real part + Rayleigh",
+         a, near,
+         lambda: pt.eigs(a, sigma=s_cx, device=dev, **kw)),
+        ("imag", f"eigs(build_nonsym_operator(M=I, sigma={s_cx}, "
+         "part='imag'))", a, near,
+         lambda: pt.eigs(transforms.build_nonsym_operator(
+             a, M=sp.identity(n), sigma=s_cx, part="imag", device=dev),
+             **kw)),
+        ("complex128", f"eigs(complex128, sigma={zshift})", az,
+         spla.eigs(az.tocsc(), k=60, sigma=zshift,
+                   return_eigenvectors=False),
+         lambda: pt.eigs(az, sigma=zshift, device=dev, **kw)),
+    ]
+    for key, what, mat, ref, run in cases:
+        tag = f"12c {what}, nx={nx}"
+        (vals, vecs, out), wall, counts = _counted(torch, dev, (), run)
+        dmax, rmax = _gate_pairs(vals, vecs, mat, ref, 1e-8, 1e-8, tag,
+                                 count=6)
+        print(f"{tag}: wall {wall:.4f} s; {len(vals)} values, info "
+              f"{out.info}; {_stats_line(out.stats)}; max value dist "
+              f"{dmax:.2e} (scipy's 60 nearest), max residual {rmax:.2e}; "
+              f"launches {counts}; card {gpu}", flush=True)
+        print(f"  values {np.array2string(vals, precision=8)}", flush=True)
+        paths[f"12c {key}"] = counts
+
+    # matrix-free: BiCGSTAB with ILU(0), the DIA kernel for the product and
+    # both triangles
+    a = convection_diffusion_2d(bicg_nx, rho=P12_RHO, dtype=np.float64,
+                                device="cpu")[1]
+    n = bicg_nx * bicg_nx
+    t0 = time.perf_counter()
+    op_s = pt.from_scipy(a, format="dia", device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        pc = solvers.ilu0_preconditioner(a, n_pad=op_s.n_pad, device=dev)
+    t_host = time.perf_counter() - t0
+    solve = solvers.make_iterative_solve(
+        op_s.a_apply, symmetric=False, tol=1e-12, maxiter=P12_BICG_MAXITER,
+        precond=pc)
+    op = transforms.shift_invert_operator(
+        n, np.float64, solve, sigma=0.0, mode=3, n_pad=op_s.n_pad,
+        a_apply=op_s.a_apply, device=dev)
+    tag = f"12c eigs(shift-invert sigma=0, BiCGSTAB + ILU(0), nx={bicg_nx})"
+    (vals, vecs, out), wall, counts = _counted(
+        torch, dev, need("dia_matvec"), lambda: pt.eigs(op, **kw))
+    its = np.asarray(solve.iterations)
+    if its.max() >= P12_BICG_MAXITER:
+        raise AssertionError(f"{tag}: a BiCGSTAB solve ran to its cap")
+    ref = spla.eigs(a.tocsc(), k=24, sigma=0.0, return_eigenvectors=False)
+    dmax, rmax = _gate_pairs(vals, vecs, a, ref, 1e-8, 1e-6, tag, count=6)
+    del vecs
+    print(f"{tag}: wall {wall:.4f} s (host, not in it: from_scipy and "
+          f"ilu0_preconditioner {t_host:.2f} s); {len(vals)} values; "
+          f"{_stats_line(out.stats)}; BiCGSTAB: {_iters(its)}, "
+          f"{wall * 1e3 / its.sum():.4f} ms per iteration; max value dist "
+          f"{dmax:.2e} (scipy's 24 nearest), max residual {rmax:.2e}; "
+          f"launches {counts}; card {gpu}", flush=True)
+    paths["12c bicgstab"] = counts
+    return paths
+
+
+def _svds_full(torch, dev, gpu, shape, need):
+    """12d: ``svds`` of a float32 ``A = U diag(s) V^T`` made on the card
+    from seeded orthonormal factors (top eight singular values 10..3, the
+    rest 1..0.01), through both methods.  Returns each path's launches."""
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.utils.precision import pin_full_precision
+
+    pin_full_precision()
+    m, n = shape
+    s_true = np.concatenate([np.arange(10.0, 2.0, -1.0),
+                             np.linspace(1.0, 0.01, n - 8)])
+    g = torch.Generator(device=dev).manual_seed(12)
+    t0 = time.perf_counter()
+    u = torch.linalg.qr(torch.randn(m, n, generator=g, device=dev)).Q
+    v = torch.linalg.qr(torch.randn(n, n, generator=g, device=dev)).Q
+    A = (u * torch.from_numpy(s_true).float().to(dev)) @ v.T
+    del u, v
+    t_make = time.perf_counter() - t0
+    want = s_true[:8][::-1]
+    paths = {}
+    for method in ("normal", "augmented"):
+        tag = f"12d svds({m} x {n} float32, k=8, method='{method}')"
+        (uu, s, vh), wall, counts = _counted(
+            torch, dev, need("sym_cycle"),
+            lambda: pt.svds(A, k=8, tol=1e-6, method=method, device=dev))
+        err = float(np.max(np.abs(s - want) / want))
+        vd = torch.from_numpy(vh.T.astype(np.float32)).to(dev)
+        ud = torch.from_numpy(uu.astype(np.float32)).to(dev)
+        sd = torch.from_numpy(s.astype(np.float32)).to(dev)
+        r_u = float(((A @ vd - ud * sd).norm(dim=0) / sd).max())
+        r_v = float(((A.T @ ud - vd * sd).norm(dim=0) / sd).max())
+        if not err <= 1e-4 or not r_u <= 1e-3 or not r_v <= 1e-3:
+            raise AssertionError(f"{tag}: s {s} (want {want}), rel err "
+                                 f"{err:.2e}, ||Av - su||/s {r_u:.2e}, "
+                                 f"||A^T u - sv||/s {r_v:.2e}")
+        print(f"{tag}: wall {wall:.4f} s (A made in {t_make:.2f} s), "
+              f"cycles {counts['sym_cycle']} (one reduced-space launch "
+              f"each); max rel err of s {err:.2e}, max ||Av - su||/s "
+              f"{r_u:.2e}, "
+              f"||A^T u - sv||/s {r_v:.2e}; launches {counts}; card {gpu}",
+              flush=True)
+        paths[f"12d {method}"] = counts
+    return paths
+
+
+def transform_paths(torch, dev, gpu, nx=P12_NX, dense_n=P12_DENSE_N,
+                    mode2_n=P12_MODE2_N, eigs_nx=P12_EIGS_NX,
+                    bicg_nx=P12_BICG_NX, svd_shape=P12_SVD_SHAPE):
+    """Phase 12: the spectral transforms, their linear solvers and
+    ``svds`` at full width (see the module docstring).  Returns each
+    path's kernel launches."""
+    def need(*kernels):
+        # a wrapper counts only the kernel launches a card makes
+        return kernels if dev.type == "cuda" else ()
+
+    t0 = time.perf_counter()
+    paths = {"12a": _shift_invert_main(torch, dev, gpu, nx, need)}
+    paths.update(_dense_modes(torch, dev, gpu, dense_n, mode2_n, need))
+    paths.update(_eigs_transforms(torch, dev, gpu, eigs_nx, bicg_nx, need))
+    paths.update(_svds_full(torch, dev, gpu, svd_shape, need))
+    elapsed = time.perf_counter() - t0
+    print(f"phase 12: {elapsed:.2f} s (limit {P12_MAX_S:.0f} s)", flush=True)
+    if elapsed > P12_MAX_S:
+        raise AssertionError(f"phase 12 took {elapsed:.1f} s")
+    return paths
+
+
 def _device_ms(evt) -> float:
     """Self device time of a profiler average, in ms (the attribute was
     renamed from ``self_cuda_time_total`` in newer torch)."""
@@ -2135,8 +2560,9 @@ def kernel_entries(rows, launches, errs, phases):
     """The ``kernels`` JSON entries: each kernel at the float32 shape its
     solve runs most (the update of the dgks path carries the fused norm),
     with the launches of the path that exercises it and, in
-    ``launches_phase10`` and ``launches_phase11``, those of each path of
-    phases 10 and 11 (``phases``: phase -> path -> counts)."""
+    ``launches_phase10``, ``launches_phase11`` and ``launches_phase12``,
+    those of each path of phases 10-12 (``phases``: phase -> path ->
+    counts)."""
     from arpack_ng_tpu_torch.bench import gather_primitives as gp
 
     ops = "arpack_ng_tpu/ops/"
@@ -2297,7 +2723,8 @@ def main() -> int:
         raise AssertionError(f"eigs phase took {elapsed:.1f} s")
 
     phases = {10: new_paths(torch, dev, gpu, vals_9),
-              11: mode1_paths(torch, dev, gpu)}
+              11: mode1_paths(torch, dev, gpu),
+              12: transform_paths(torch, dev, gpu)}
     entries = kernel_entries(rows + rows_cgs + rows_dia + rows_ps + rows_g,
                              launches, errs, phases)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -441,15 +441,16 @@ def test_values_only_and_stats():
     dict(validate="f64", return_schur=True), dict(strategy="fused"),
     dict(strategy="hybrid", cgs_kernel="pallas")])
 def test_outside_the_slice_raises(kwargs):
-    # sigma, M and mesh are outside the slice (NotImplementedError);
-    # select= and strategy='fused' are ported and solve to the reference's
-    # values from the same start vector (within 1e-8: the complexified
-    # solve's values carry imaginary parts of 1e-9 from rounding, the
-    # solve's tol 1e-10); ported options raise ValueError:
-    # validate='f64' on a matrix-free operator (the reference's own error),
-    # validate= under return_schur (which the reference skips without a
-    # word, arpack_ng_tpu/api.py:463) and the hybrid driver's CGS kernels on
-    # float64 (the reference's)
+    # mesh is outside the slice (NotImplementedError); select= and
+    # strategy='fused' are ported and solve to the reference's values from
+    # the same start vector (within 1e-8: the complexified solve's values
+    # carry imaginary parts of 1e-9 from rounding, the solve's tol 1e-10);
+    # ported options raise ValueError: sigma and M on an operator (the
+    # built-in transforms take matrices, as in the reference;
+    # tests/test_torch_modes.py), validate='f64' on a matrix-free operator
+    # (the reference's own error), validate= under return_schur (which the
+    # reference skips without a word, arpack_ng_tpu/api.py:463) and the
+    # hybrid driver's CGS kernels on float64 (the reference's)
     op, _ = pmodels.convection_diffusion_1d(64, dtype=np.float64,
                                             device="cpu")
     if "select" in kwargs or kwargs.get("strategy") == "fused":
@@ -459,10 +460,15 @@ def test_outside_the_slice_raises(kwargs):
         np.testing.assert_allclose(pt.eigs(op, **kw), at.eigs(opj, **kw),
                                    rtol=1e-8)
         return
-    exc = ValueError if ("validate" in kwargs or "cgs_kernel" in kwargs) \
-        else NotImplementedError
+    transform = "sigma" in kwargs or "M" in kwargs
+    exc = ValueError if ("validate" in kwargs or "cgs_kernel" in kwargs
+                         or transform) else NotImplementedError
     with pytest.raises(exc):
         pt.eigs(op, k=2, **kwargs)
+    if transform:
+        opj, _ = jmodels.convection_diffusion_1d(64, dtype=np.float64)
+        with pytest.raises(ValueError):
+            at.eigs(opj, k=2, **kwargs)
 
 
 def test_complex_inputs_raise():

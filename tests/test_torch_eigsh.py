@@ -140,10 +140,14 @@ def test_no_convergence_raises_with_partial_results():
     assert ei.value.info == 1
 
 
-@pytest.mark.parametrize("solver", ["eigsh", "eigs"])
+@pytest.mark.parametrize("solver", ["eigsh", "eigs", "sigma", "eigs_sigma",
+                                    "svds"])
 def test_solve_pins_full_precision_matmuls(solver):
-    # both drivers build through make_init, which pins full-precision
-    # float32 matmuls whatever the caller set
+    # every driver builds through make_init, which pins full-precision
+    # float32 matmuls whatever the caller set, before the first product: the
+    # spectral transforms' explicit inverse, svds's Gram products and the
+    # products after the solve (purification, Rayleigh quotients, svds's
+    # u = A v / s) run pinned too
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.set_float32_matmul_precision("high")
     try:
@@ -151,6 +155,17 @@ def test_solve_pins_full_precision_matmuls(solver):
             op, _ = pmodels.laplacian_1d(64, dtype=np.float32, device="cpu")
             pt.eigsh(op, k=2, which="LA", tol=1e-4,
                      return_eigenvectors=False)
+        elif solver == "sigma":
+            a = np.diag(np.arange(1.0, 65.0, dtype=np.float32))
+            pt.eigsh(a, M=np.eye(64, dtype=np.float32), sigma=0.5, k=2,
+                     tol=1e-4, device="cpu")
+        elif solver == "eigs_sigma":
+            a = np.diag(np.arange(1.0, 65.0, dtype=np.float32))
+            a[0, 1] = 0.5
+            pt.eigs(a, sigma=0.5 + 0.1j, k=2, tol=1e-4, device="cpu")
+        elif solver == "svds":
+            a = np.random.default_rng(0).standard_normal((80, 40))
+            pt.svds(a.astype(np.float32), k=2, tol=1e-4, device="cpu")
         else:
             op, _ = pmodels.convection_diffusion_1d(64, dtype=np.float32,
                                                     device="cpu")
@@ -167,12 +182,13 @@ def test_solve_pins_full_precision_matmuls(solver):
     dict(restart="thick"), dict(validate="f64"),
     dict(strategy="hybrid", restart="thick"), dict(cgs_kernel="pallas")])
 def test_outside_the_slice_raises(kwargs):
-    # sigma and mesh are outside the slice (NotImplementedError); shift_fn
-    # and restart='thick' are ported and solve to the reference's values
-    # from the same start vector; ported options raise ValueError where the
-    # reference does: cgs_kernel='pallas' on float64 (real float32 compute
-    # only) and validate='f64' on a matrix-free operator
-    # (tests/test_torch_validate.py); the hybrid driver refuses
+    # mesh is outside the slice (NotImplementedError); shift_fn and
+    # restart='thick' are ported and solve to the reference's values from
+    # the same start vector; ported options raise ValueError where the
+    # reference does: sigma on an operator (the built-in transforms take
+    # matrices; tests/test_torch_modes.py), cgs_kernel='pallas' on float64
+    # (real float32 compute only) and validate='f64' on a matrix-free
+    # operator (tests/test_torch_validate.py); the hybrid driver refuses
     # restart='thick', which the reference's silently runs as the implicit
     # restart (arpack_ng_tpu/api.py:132)
     op, _ = pmodels.laplacian_1d(64, dtype=np.float64, device="cpu")
@@ -183,7 +199,8 @@ def test_outside_the_slice_raises(kwargs):
         np.testing.assert_allclose(pt.eigsh(op, **kw), at.eigsh(opj, **kw),
                                    rtol=1e-10)
         return
-    ported = "cgs_kernel" in kwargs or "validate" in kwargs
+    ported = "cgs_kernel" in kwargs or "validate" in kwargs \
+        or "sigma" in kwargs
     exc = ValueError if ported or "strategy" in kwargs \
         else NotImplementedError
     with pytest.raises(exc):

@@ -874,3 +874,67 @@ def test_complexified_dia_matches_twin_on_card(dev, dtype):
     assert torch.equal(y.imag, cuda_dia.dia_matvec_plain(
         offs, tab, x.imag.contiguous(), n))
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["lower", "upper", "far"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dia_matvec_fn_strict_triangles_on_card(dev, dtype, case):
+    # the ILU(0) preconditioner's tables: offsets of one sign, and offsets
+    # at or past n, which select nothing; the kernel launches and equals
+    # the twin bit for bit (the same order and rounding)
+    from arpack_ng_tpu_torch.ops import sparse
+    n, n_pad = 60_003, 60_416
+    off = {"lower": [-1024, -245, -1], "upper": [1, 3, 1024],
+           "far": [-n - 7, -n, -1, 1, n, n + 2]}[case]
+    rng = np.random.default_rng(6)
+    diags = [rng.standard_normal(n).astype(dtype) for _ in off]
+    mv = sparse.dia_matvec_fn(off, diags, n, n_pad, device=dev)
+    mv_cpu = sparse.dia_matvec_fn(off, diags, n, n_pad, device="cpu")
+    x = torch.from_numpy(rng.standard_normal(n_pad).astype(dtype))
+    before = cuda_dia.dia_matvec.launches
+    y = mv(x.to(dev))
+    assert cuda_dia.dia_matvec.launches - before == 1
+    assert torch.equal(y.cpu(), mv_cpu(x))
+    assert not y[n:].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cg_solve_on_card_matches_cpu(dev):
+    # one preconditioned CG solve of the shifted 2-D Laplacian on the card
+    # (DIA kernel for the product and the IC(0) triangles) against the same
+    # solve on the CPU (the twins; the dot products sum in another order):
+    # iteration counts within one, both true residuals within twice the
+    # tolerance (CG tests its recurrence's residual) and the solutions
+    # within 1e-8 relative in norm
+    import scipy.sparse as sp
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.ops import solvers
+    nx = 128
+    eye = sp.eye(nx)
+    t = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    a = (sp.kron(eye, t) + sp.kron(t, eye)).tocsr()
+    b = np.random.default_rng(7).standard_normal(nx * nx)
+    x, its = [], []
+    for d in (dev, "cpu"):
+        op = pt.from_scipy(a, format="dia", device=d)
+        pc = solvers.ilu0_preconditioner(a, symmetric=True, sweeps=3,
+                                         n_pad=op.n_pad, device=d)
+        solve = solvers.make_iterative_solve(op.a_apply, symmetric=True,
+                                             tol=1e-10, maxiter=2000,
+                                             precond=pc)
+        bp = torch.zeros(op.n_pad, dtype=torch.float64)
+        bp[: nx * nx] = torch.from_numpy(b)
+        before = cuda_dia.dia_matvec.launches
+        x.append(solve(bp.to(d)).cpu())
+        its.append(solve.iterations[0])
+        if d is dev:
+            assert cuda_dia.dia_matvec.launches - before > 3 * its[0]
+    assert abs(its[0] - its[1]) <= 1
+    for xi in x:
+        r = a @ xi[: nx * nx].numpy() - b
+        assert np.linalg.norm(r) <= 2e-10 * np.linalg.norm(b)
+    assert torch.linalg.norm(x[0] - x[1]) <= 1e-8 * torch.linalg.norm(x[1])
+    torch.cuda.synchronize()

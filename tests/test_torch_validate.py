@@ -177,7 +177,7 @@ def test_report_fields_equal_reference(case):
     mv = (lambda v: a64 @ v) if case == "callable" else None
     with warnings.catch_warnings(record=True) as wp:
         warnings.simplefilter("always")
-        rp = papi._f64_validate(None if mv else a, out,
+        rp = papi._f64_validate(None if mv else a, None, out,
                                 pt.IRAMConfig(**ckw), matvec64=mv)
     with warnings.catch_warnings(record=True) as wj:
         warnings.simplefilter("always")
