@@ -12,12 +12,15 @@ one), ``eigs`` for real and complex non-symmetric ones (modes 1-4, the
 fused real, fused complex or hybrid driver) and ``svds``, with
 ``validate=``, for operators, dense matrices and scipy sparse matrices
 (``from_scipy``); matrix-free shift-invert through the CG/BiCGSTAB solves
-of ``ops/solvers``.
+of ``ops/solvers``; the banded drivers ``ops.banded.eigsh_banded`` /
+``eigs_banded`` (modes 1-5, shift-invert by block cyclic reduction,
+``ops/bandsolve``) and thick-restart block Lanczos
+``core.block.eigsh_block``.
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``.  On the card the reorthogonalization passes, the restart
-rotation and the DIA and PSELL sparse products run the kernels of
-``csrc/``, built with ``nvcc`` at first use; on the CPU the same wrappers
-run their plain PyTorch twins.
+rotation and the DIA (single and block) and PSELL sparse products run the
+kernels of ``csrc/``, built with ``nvcc`` at first use; on the CPU the same
+wrappers run their plain PyTorch twins.
 """
 
 from .api import (ArpackError, ArpackNoConvergence, F64Validation,

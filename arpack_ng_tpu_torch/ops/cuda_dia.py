@@ -8,10 +8,19 @@ is the ``(nd, n_pad)`` table of row-aligned diagonals
 (``dtab[k, i] = A[i, i + offsets[k]]``), ``offsets`` an int64 tensor of
 ``nd`` offsets on the same device; the diagonals are summed in that order.
 
-The wrapper runs its plain twin (:func:`dia_matvec_plain`, the
-shift-multiply of ``arpack_ng_tpu/ops/sparse.py:100-113``) for tensors on
-the CPU and launches the CUDA kernel for tensors on a CUDA device;
-``launches`` counts the kernel launches.
+:func:`dia_block_matvec` is the same product over a block of ``b``
+vectors, ``Y = A X`` with ``X`` and ``Y`` row-major ``(b, n_pad)``: the
+block apply of ``core/block`` (port of
+``arpack_ng_tpu/ops/sparse.py:118-183``).
+Its kernel reads each diagonal once per block (per 8 columns past 8),
+and column ``c`` of ``Y`` equals ``dia_matvec(offsets, dtab, X[c], n)``
+bit for bit.
+
+Each wrapper runs its plain twin (:func:`dia_matvec_plain`, the
+shift-multiply of ``arpack_ng_tpu/ops/sparse.py:100-113``, and
+:func:`dia_block_matvec_plain`) for tensors on the CPU and launches its
+CUDA kernel for tensors on a CUDA device; ``launches`` counts the kernel
+launches.
 """
 from __future__ import annotations
 
@@ -22,22 +31,9 @@ from . import cuda_lib
 
 def dia_matvec_plain(offsets, dtab, x, n):
     """Plain twin of :func:`dia_matvec`: one shifted multiply-add per
-    diagonal, in the order of ``offsets``."""
-    xs = x[:n]
-    y = torch.zeros(n, dtype=x.dtype, device=x.device)
-    for k, d in enumerate(offsets.tolist()):
-        if abs(d) >= n:
-            continue
-        diag = dtab[k, :n]
-        if d == 0:
-            y = y + diag * xs
-        elif d > 0:
-            y[: n - d] += diag[: n - d] * xs[d:]
-        else:
-            y[-d:] += diag[-d:] * xs[: n + d]
-    out = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-    out[:n] = y
-    return out
+    diagonal, in the order of ``offsets`` (:func:`dia_block_matvec_plain`
+    of the one-row block)."""
+    return dia_block_matvec_plain(offsets, dtab, x[None], n)[0]
 
 
 def dia_matvec(offsets: torch.Tensor, dtab: torch.Tensor, x: torch.Tensor,
@@ -74,3 +70,65 @@ def dia_matvec(offsets: torch.Tensor, dtab: torch.Tensor, x: torch.Tensor,
 
 
 dia_matvec.launches = 0
+
+
+def dia_block_matvec_plain(offsets, dtab, X, n):
+    """Plain twin of :func:`dia_block_matvec`: the shift-multiply of
+    :func:`dia_matvec_plain` over the ``(b, n)`` rows at once, so each
+    column rounds as the single product does.  The reference package's
+    lane-major ``(G, b, 128)`` interleave (``arpack_ng_tpu/ops/sparse.py:
+    131-152``) answered the TPU's layout and is not carried over."""
+    Xs = X[:, :n]
+    Y = torch.zeros((X.shape[0], n), dtype=X.dtype, device=X.device)
+    for k, d in enumerate(offsets.tolist()):
+        if abs(d) >= n:
+            continue
+        diag = dtab[k, :n]
+        if d == 0:
+            Y = Y + diag * Xs
+        elif d > 0:
+            Y[:, : n - d] += diag[: n - d] * Xs[:, d:]
+        else:
+            Y[:, -d:] += diag[-d:] * Xs[:, : n + d]
+    out = torch.zeros(X.shape, dtype=X.dtype, device=X.device)
+    out[:, :n] = Y
+    return out
+
+
+def dia_block_matvec(offsets: torch.Tensor, dtab: torch.Tensor,
+                     X: torch.Tensor, n: int) -> torch.Tensor:
+    """``Y = A X`` for the DIA matrix ``(offsets, dtab)`` of logical size
+    ``n`` and a contiguous block ``X`` of ``b`` rows of length
+    ``dtab.shape[1]``; returns ``Y`` of ``X``'s shape."""
+    if dtab.dim() != 2 or not dtab.is_contiguous():
+        raise ValueError("dtab must be a contiguous (nd, n_pad) table")
+    nd, n_pad = dtab.shape
+    if offsets.shape != (nd,) or offsets.dtype != torch.int64 \
+            or not offsets.is_contiguous():
+        raise ValueError(f"offsets must be a contiguous int64 tensor of "
+                         f"{nd} offsets")
+    if X.dim() != 2 or X.shape[1] != n_pad or X.shape[0] < 1 \
+            or X.dtype != dtab.dtype or not X.is_contiguous():
+        raise ValueError(f"X must be a contiguous {dtab.dtype} block of "
+                         f"shape (b, {n_pad}), b >= 1")
+    if not 0 <= n <= n_pad or nd < 1:
+        raise ValueError(f"n={n} outside [0, {n_pad}] or no diagonal")
+    if not (offsets.device == dtab.device == X.device):
+        raise ValueError("offsets, dtab and X must share one device")
+    if X.device.type == "cpu":
+        return dia_block_matvec_plain(offsets, dtab, X, n)
+    if X.device.type != "cuda":
+        raise ValueError(f"no kernel for device {X.device}")
+    code = cuda_lib.dtype_code(X.dtype, X.dtype)
+    lib = cuda_lib.load()
+    Y = torch.empty_like(X)
+    err = lib.atpt_dia_block_matvec(
+        code, offsets.data_ptr(), nd, dtab.data_ptr(), dtab.stride(0),
+        X.data_ptr(), X.stride(0), X.shape[0], n, n_pad, Y.data_ptr(),
+        Y.stride(0), cuda_lib.stream_handle(X.device))
+    cuda_lib.check(lib, err, "dia_block_matvec")
+    dia_block_matvec.launches += 1
+    return Y
+
+
+dia_block_matvec.launches = 0

@@ -15,7 +15,8 @@ row permutation (internal row i holds logical coordinate ``perm[i]``);
 ``format`` is the execution structure the sparse importer chose;
 ``capturable`` says whether a CUDA graph may capture ``apply`` (the
 operator's declared property: the package's own operators set it, a
-caller's ``from_matvec`` callable does not unless told).
+caller's ``from_matvec`` callable does not unless told); ``apply_block``
+is an optional batched raw matvec over ``(b, n_pad)`` rows.
 """
 from __future__ import annotations
 
@@ -53,6 +54,10 @@ class Operator:
     #   kernels with no host read or sync, which a CUDA graph can hold
     #   (the restart loop then replays its extensions as graphs); False
     #   for a caller's Python matvec, which may do anything
+    apply_block: Optional[Callable] = None  # optional batched raw matvec
+    #   (b, n_pad) -> (b, n_pad) for the block solver (core/block), which
+    #   reads the operator's data once per block (from_scipy's DIA
+    #   operators carry one)
 
     def __post_init__(self):
         if self.n_pad == 0:

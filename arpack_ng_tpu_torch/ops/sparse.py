@@ -8,7 +8,8 @@ permutation and build the same host arrays.
 * DIA (the kernel of ``csrc/dia.cu`` on the card) when the structural
   diagonal count is bounded, directly or after Reverse-Cuthill-McKee
   reordering (the permutation is carried on the Operator and unwound on
-  extraction);
+  extraction); a DIA operator also carries ``apply_block``, the block
+  product of the same table;
 * otherwise gather-ELL, or hybrid ELL + COO for hub rows (Bell & Garland),
   as plain torch gathers and ``index_add_``: the reference's choice on
   every backend but the TPU, where it took PSELL because gathers are
@@ -36,7 +37,8 @@ from ..config import pad_dim
 from ..utils import dtypes as _dt
 from ..utils.device import DEFAULT, require
 from . import psell as ps
-from .cuda_dia import dia_matvec, dia_matvec_plain
+from .cuda_dia import (dia_block_matvec, dia_block_matvec_plain, dia_matvec,
+                       dia_matvec_plain)
 from .cuda_psell import psell_matvec, psell_tiles
 from .operator import Operator, from_dense
 
@@ -127,6 +129,35 @@ def dia_table(a: sp.spmatrix, n_pad: int):
             _dia_tab(diags, a.shape[0], n_pad, a.dtype))
 
 
+def _dia_products(offsets, diags, n: int, n_pad: int, device):
+    """``(matvec, apply_block)`` over one device copy of the table: the
+    products of :func:`dia_matvec_fn` and :func:`dia_block_matvec_fn`."""
+    device = require(device)
+    dtype = np.result_type(*diags) if len(diags) else np.float64
+    if not len(offsets):
+        return torch.zeros_like, torch.zeros_like
+    dtab_d = torch.from_numpy(_dia_tab(diags, n, n_pad, dtype)).to(device)
+    offs = torch.from_numpy(np.asarray(offsets, np.int64))
+    if _dt.is_complex(dtype):
+        # the twins read their offsets on the host: no device read, so a
+        # CUDA graph can hold the product
+        def matvec(x):
+            return dia_matvec_plain(offs, dtab_d, x, n)
+
+        def apply_block(X):
+            return dia_block_matvec_plain(offs, dtab_d, X, n)
+    else:
+        offs_d = offs.to(device)
+
+        def matvec(x):
+            return dia_matvec(offs_d, dtab_d, x, n)
+
+        def apply_block(X):
+            return dia_block_matvec(offs_d, dtab_d, X, n)
+
+    return matvec, apply_block
+
+
 def dia_matvec_fn(offsets, diags, n: int, n_pad: int, device=DEFAULT):
     """The DIA matvec ``x -> A x`` of ``diags[k][i] = A[i, i + offsets[k]]``
     on ``device`` (port of ``arpack_ng_tpu/ops/sparse.py:92-115``): ``x``
@@ -137,27 +168,20 @@ def dia_matvec_fn(offsets, diags, n: int, n_pad: int, device=DEFAULT):
     :func:`~arpack_ng_tpu_torch.ops.cuda_dia.dia_matvec` (the kernel on the
     card, its twin on the CPU); a complex one the twin with host offsets,
     as ``from_scipy`` does; no diagonal at all gives zero."""
-    device = require(device)
-    dtype = np.result_type(*diags) if len(diags) else np.float64
-    if not len(offsets):
-        def matvec(x):
-            return torch.zeros_like(x)
+    return _dia_products(offsets, diags, n, n_pad, device)[0]
 
-        return matvec
-    dtab_d = torch.from_numpy(_dia_tab(diags, n, n_pad, dtype)).to(device)
-    offs = torch.from_numpy(np.asarray(offsets, np.int64))
-    if _dt.is_complex(dtype):
-        # the twin reads its offsets on the host: no device read, so a
-        # CUDA graph can hold the product
-        def matvec(x):
-            return dia_matvec_plain(offs, dtab_d, x, n)
-    else:
-        offs_d = offs.to(device)
 
-        def matvec(x):
-            return dia_matvec(offs_d, dtab_d, x, n)
-
-    return matvec
+def dia_block_matvec_fn(offsets, diags, n: int, n_pad: int, device=DEFAULT):
+    """The block DIA product ``X -> A X`` over ``(b, n_pad)`` rows on
+    ``device`` (port of ``arpack_ng_tpu/ops/sparse.py:118-183``): a real
+    table runs :func:`~arpack_ng_tpu_torch.ops.cuda_dia.dia_block_matvec`
+    (each diagonal read once per block on the card), a complex one its
+    twin with host offsets; row ``c`` of the result is
+    :func:`dia_matvec_fn`'s product of ``X[c]``.  ``n_pad`` must be a
+    multiple of 128, as in the reference."""
+    if n_pad % 128:
+        raise ValueError("n_pad must be a multiple of 128")
+    return _dia_products(offsets, diags, n, n_pad, device)[1]
 
 
 def structural_diagonals(a: sp.spmatrix) -> int:
@@ -255,8 +279,11 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
                               device=device)
         format, a, perm = choose_format(a, hermitian)
 
+    blk = None
     if format == "dia":
-        matvec = dia_matvec_fn(*_to_dia(a), n, n_pad, device=device)
+        matvec, blk = _dia_products(*_to_dia(a), n, n_pad, device)
+        if n_pad % 128:
+            blk = None
     elif format in ("ell", "hyb"):
         width = _hyb_width(a) if format == "hyb" else 0
         cols_np, vals_np, tail = _to_ell(a, n_pad, width=width)
@@ -300,4 +327,5 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
 
     return Operator(n=n, dtype=a.dtype, apply=apply, bmat="I", mode=1,
                     a_apply=matvec, n_pad=n_pad, hermitian=hermitian,
-                    perm=perm, format=format, device=device, capturable=True)
+                    perm=perm, format=format, device=device, capturable=True,
+                    apply_block=blk)

@@ -179,7 +179,47 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    from seeded orthonormal factors with singular values 10..3 on top,
    k = 8, methods 'normal' and 'augmented': ``s`` within 1e-4 relative,
    ``||Av - su||/s`` and ``||A^T u - sv||/s <= 1e-3``; the phase within
-   P12_MAX_S.
+   P12_MAX_S;
+13. the banded and block solvers at full width (each path's launches
+   counted from zero): (a) the main path, the reference's n = 2^20 "done
+   bar": ``eigsh_banded`` on ``tridiag(-1, 2, -1)``, float64, sigma =
+   P13_SIGMA, k = 4, 'LM', tol = 1e-10, shift-invert by block cyclic
+   reduction in its full-length DIA form (every sweep a chain of DIA
+   launches); before it, on the same factor: BCR in the DIA form (probe
+   residual printed), one solve through the DIA kernel equal to the same
+   solve through its twin (gate 1e-12), the DIA launches of one OP
+   apply, and ms per apply in the DIA form and in the compacted form (a
+   second factor with the memory gate at 0 bytes), device-only in
+   alternation; the solve at the reference's default ncv (one cycle, run
+   eagerly) and at ncv = P13_NCV (it restarts: the device loop replays
+   its graphs, each holding its applies' DIA launches); gates: values
+   within 1e-8 of ``2 - 2 cos(j pi/(n+1))``, residuals ``<= 1e-8``; (b)
+   the pencil ``K = tridiag(-1, 2, -1)``, ``M = tridiag(1, 4, 1)/6`` at n
+   = 2^20, sigma = P13_GEN_SIGMA: values within ``1e-8 |lambda|`` of the
+   closed form, ``||Kv - lambda Mv|| <= 1e-8``; mode 2 (M factored by BCR)
+   **cut to n = 2000** as the reference's test (ncv = 32, maxiter = 3000):
+   gates 1e-6; (c) ``eigs_banded`` on the 1-D convection-diffusion band
+   (rho = 10): a real shift 1.0 **cut to n = 2^16** (a float64 Ritz
+   vector's residual floor, ~1e-14 ||A||, is 3.8e-8 at n = 2^20, above
+   its 1e-8 gate), residuals ``<= 1e-8``; a complex shift 1+5j,
+   ``part='real'`` (realified, b = 2) **cut to n = 2^15** (at 2^20 the
+   operator's top values lie ~5e-6 apart relative: no convergence in 500
+   restarts), residuals ``<= 1e-7``; the realified factor at n = 2^20,
+   over the DIA form's memory gate, so in the compacted form: one solve
+   held by ``||S x - v|| / ||v|| <= 1e-10`` and timed; (d)
+   ``eigsh_block`` (float32, k = 8, ncv = 32, b = 1, 2, 4) beside the
+   scalar selective ``eigsh`` on the same operator: the flagship's CSR
+   through ``from_scipy`` (DIA with the block product), tol = 1e-5, under
+   phase 4's gates with the multiplet convention, and
+   ``bench_block.py``'s dia65 (65 diagonals) at n = 2^20, tol = 1e-4: top
+   value within ``1e-4 |lambda|`` of the scalar's, residuals ``<= 1e-3``
+   by the block DIA twin on the card in float64; wall, cycles, matvecs,
+   ms per cycle, the share of ``eigh`` of T in it and ms per block
+   apply; (e) the block DIA kernel against its twin on both tables, b in
+   {1, 2, 4, 8}, float32 and float64, at n and n + 3, bit for bit (and
+   each column against the single kernel), timed beside its bound, b
+   single launches and ``torch.sparse.mm`` (cuSPARSE SpMM); the phase
+   within P13_MAX_S.
 
     python3 chip_smoke.py --profile
 
@@ -318,6 +358,36 @@ P12_BICG_NX = 256
 P12_BICG_MAXITER = 5_000
 P12_SVD_SHAPE = (65_536, 4_096)
 P12_MAX_S = 300.0
+#: phase 13: the banded and block solvers.  The main path's dimension (13a:
+#: the reference's n = 2^20 "done bar", tests/test_bandsolve.py:208-224)
+#: and shift, with 13a's restarting ncv below; the generalized pencil's
+#: shift (13b); mode 2's dimension, cut as the reference's test cuts it
+#: (its top values cluster: ncv = 32, maxiter = 3000 at n = 2000); the
+#: convection of 13c's band, its complex shift and the dimensions of its
+#: real- and complex-shift solves (cut: see _banded_eigs); the block sizes
+#: and restart cap of 13d (bench_block.py's cap), the half-width of its 65-diagonal operator
+#: (bench_block.py:build_dia(n, 32)); the timed rounds of one BCR apply;
+#: the phase's wall limit, seconds (2.6 times the ~115 s its parts took on
+#: an H100 at 700 W, 13d 73 s of it)
+P13_N = 1 << 20
+P13_SIGMA = 1.234567
+#: 13a's second solve: an ncv at which it restarts (the reference's
+#: default, 20, converges in the loop's eager first cycle)
+P13_NCV = 10
+P13_GEN_SIGMA = 0.7
+P13_MODE2_N = 2000
+P13_RHO = 10.0
+P13_ZSIGMA = 1.0 + 5.0j
+P13_CD_REAL_N = 1 << 16
+P13_CD_COMPLEX_N = 1 << 15
+P13_BLOCKS = (1, 2, 4)
+#: the block size whose run gives the block kernel's launches and timed
+#: row in the kernels line (the flagship's multiplicity-2 pairs)
+P13_JSON_B = 2
+P13_BLOCK_MAXITER = 3000
+P13_NDIAG = 32
+P13_SOLVE_REPS = 10
+P13_MAX_S = 300.0
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
 #: the tensor cores by accumulation dtype; its SMs (one block of the
 #: reduced-space kernel runs on one)
@@ -1369,8 +1439,9 @@ def _counted(torch, dev, need, fn):
 
     every = (cuda_sel.sel_proj, cuda_sel.sel_update, cuda_rot.rotate_rows,
              cuda_cgs.cgs_proj, cuda_cgs.cgs_update, cuda_dia.dia_matvec,
-             cuda_psell.psell_matvec, cuda_gather.take_flat,
-             cuda_gather.take_lanes, cuda_sym_cycle.sym_cycle)
+             cuda_dia.dia_block_matvec, cuda_psell.psell_matvec,
+             cuda_gather.take_flat, cuda_gather.take_lanes,
+             cuda_sym_cycle.sym_cycle)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     for k in every:
         k.launches = 0
@@ -2418,6 +2489,604 @@ def transform_paths(torch, dev, gpu, nx=P12_NX, dense_n=P12_DENSE_N,
     return paths
 
 
+def _band(n, diags):
+    """LAPACK band storage of the Toeplitz band ``{offset: value}`` (the
+    helper of the reference's tests/test_bandsolve.py)."""
+    kl, ku = -min(diags), max(diags)
+    ab = np.zeros((kl + ku + 1, n))
+    for d, v in diags.items():
+        if d >= 0:
+            ab[ku - d, d:] = v
+        else:
+            ab[ku - d, : n + d] = v
+    return ab, kl, ku
+
+
+def _nearest_dist(vals, spectrum) -> np.ndarray:
+    """Each value's distance to the nearest of the ascending ``spectrum``."""
+    vals = np.asarray(vals)
+    pos = np.clip(np.searchsorted(spectrum, vals), 1, len(spectrum) - 1)
+    return np.minimum(np.abs(spectrum[pos] - vals),
+                      np.abs(spectrum[pos - 1] - vals))
+
+
+def _device_bytes(torch, dev) -> int:
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _bcr_checks(torch, dev, gpu, ab, kl, ku, n):
+    """13a's checks before the solve, on the factor of ``A - sigma I`` that
+    ``eigsh_banded`` builds: BCR in its DIA form (probe residual printed);
+    one solve through the DIA kernel against the same solve through its
+    twin on the same tables; the DIA launches of one OP apply; the same
+    solve on a second factor in the compacted form (the gate at 0 bytes on
+    the instance); both forms' ms per apply, device-only, in alternation.
+    Returns the DIA launches of one apply."""
+    from unittest import mock
+
+    from arpack_ng_tpu_torch.config import pad_dim
+    from arpack_ng_tpu_torch.ops import bandsolve, cuda_dia, sparse
+
+    sb, skl, sku = bandsolve.shifted_band(ab, kl, ku, None, 0, 0, P13_SIGMA,
+                                          n)
+    m0 = _device_bytes(torch, dev)
+    t0 = time.perf_counter()
+    fac = bandsolve.BandedFactor(sb, skl, sku, dtype=np.float64, n=n,
+                                 device=dev)
+    t_fac = time.perf_counter() - t0
+    m1 = _device_bytes(torch, dev)
+    if (fac.method, fac.form) != ("cr", "dia"):
+        raise AssertionError(f"13a: the factor is {fac.method} in the "
+                             f"{fac.form} form, not BCR in its DIA form")
+    g = torch.Generator(device=dev).manual_seed(13)
+    v = torch.zeros(pad_dim(n), dtype=torch.float64, device=dev)
+    v[:n] = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    cuda_dia.dia_matvec.launches = 0
+    x = fac.solve(v)
+    per_apply = cuda_dia.dia_matvec.launches
+    with mock.patch.object(sparse, "dia_matvec", cuda_dia.dia_matvec_plain):
+        x_twin = fac.solve(v)
+    rel = float((x - x_twin).norm() / x_twin.norm())
+    sx = fac._band_mv(x[:n].contiguous())
+    resid = float((sx - v[:n]).norm() / v[:n].norm())
+    compact = bandsolve.BandedFactor.__new__(bandsolve.BandedFactor)
+    compact._DIA_CR_MAX_BYTES = 0
+    t0 = time.perf_counter()
+    compact.__init__(sb, skl, sku, dtype=np.float64, n=n, device=dev)
+    t_comp = time.perf_counter() - t0
+    m2 = _device_bytes(torch, dev)
+    rel_c = float((compact.solve(v) - x).norm() / x.norm())
+    # the kernel sums as its twin does (gate 1e-12; it is 0 on the card);
+    # the two forms round apart, and the forward gap and the residual
+    # grow with cond(S) (gates 1e-10)
+    if not rel <= 1e-12 or not rel_c <= 1e-10 or not resid <= 1e-10 \
+            or compact.form != "compact":
+        raise AssertionError(
+            f"13a: BCR solve: kernel vs twin {rel:.2e} (gate 1e-12), "
+            f"compacted ({compact.form}) vs DIA form {rel_c:.2e}, ||S x - v|| "
+            f"/ ||v|| {resid:.2e} (gates 1e-10)")
+    ms = ("not measured", "not measured")
+    if dev.type == "cuda":
+        ms = tuple(f"{t:.4f}" for t in timing.alternating_ms(
+            [lambda: fac.solve(v), lambda: compact.solve(v)],
+            timing.flush_buffer(dev), P13_SOLVE_REPS))
+    print(f"13a factor of A - {P13_SIGMA} I (n={n}, float64): method "
+          f"{fac.method}, form {fac.form}, probe residual "
+          f"{fac.probe_residual:.3e}, host {t_fac:.2f} s, "
+          f"{(m1 - m0) / 2**20:.0f} MiB on the card ({len(fac._dia_bwd)} "
+          f"levels); one solve (refine=1): {per_apply} DIA launches, kernel "
+          f"vs twin on the same tables rel diff {rel:.3e}, ||S x - v|| / "
+          f"||v|| {resid:.3e}; compacted form: host {t_comp:.2f} s, "
+          f"{(m2 - m1) / 2**20:.0f} MiB, rel diff to the DIA form "
+          f"{rel_c:.3e}; ms per apply (device-only median of "
+          f"{P13_SOLVE_REPS} in alternation, L2 flushed): DIA form {ms[0]}, "
+          f"compacted {ms[1]}; card {gpu}", flush=True)
+    return per_apply
+
+
+def _banded_main(torch, dev, gpu, n, need):
+    """13a, the main path: ``eigsh_banded`` on ``tridiag(-1, 2, -1)`` at
+    ``n``, float64, sigma = P13_SIGMA, k = 4, 'LM', tol = 1e-10: BCR in its
+    DIA form through the device loop.  First at the reference's default
+    ncv (20: one cycle, which the loop runs eagerly as its warm-up), then
+    at ncv = P13_NCV, where the solve restarts and the loop replays its
+    CUDA graphs, each replay holding its OP applies' DIA launches.  Returns
+    the launches of the second."""
+    from arpack_ng_tpu_torch.ops import banded
+
+    ab, kl, ku = _band(n, {-1: -1.0, 0: 2.0, 1: -1.0})
+    per_apply = _bcr_checks(torch, dev, gpu, ab, kl, ku, n)
+    a_sp = banded._ab_to_sparse(ab, kl, ku, n)
+    lam = np.sort(2 - 2 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1)))
+    for ncv in (None, P13_NCV):
+        tag = (f"13a eigsh_banded(tridiag(-1, 2, -1), n={n}, "
+               f"sigma={P13_SIGMA}, k=4, ncv={ncv or 'default'}, float64)")
+        rec = _Recorded()
+        with rec.patch():
+            (vals, vecs, out), wall, counts = _counted(
+                torch, dev, need("dia_matvec", "sym_cycle"),
+                lambda: banded.eigsh_banded(ab, kl, ku, k=4, ncv=ncv,
+                                            sigma=P13_SIGMA, which="LM",
+                                            tol=1e-10, dtype=np.float64,
+                                            return_stats=True, device=dev))
+        (fac, t_fac), = rec.factors
+        if (fac.method, fac.form) != ("cr", "dia"):
+            raise AssertionError(f"{tag}: factor {fac.method} / {fac.form}")
+        del fac, rec
+        dist = _nearest_dist(vals, lam)
+        _, rmax = _gate_pairs(vals, vecs, a_sp, lam, 1e-8, 1e-8, tag,
+                              count=4)
+        del vecs
+        if dist.max() > 1e-8:
+            raise AssertionError(f"{tag}: values {dist.max():.2e} from the "
+                                 "closed form (gate 1e-8)")
+        st = out.stats
+        if ncv and dev.type == "cuda" and not (
+                st.graph_replays and all(
+                    d.get("dia_matvec", 0) >= per_apply
+                    for d in st.replay_launches.values())):
+            raise AssertionError(f"{tag}: no graph replayed with its DIA "
+                                 f"launches ({_loop_line(st)})")
+        solve_s = wall - t_fac
+        print(f"{tag}: wall {wall:.4f} s, of which the host factor "
+              f"{t_fac:.2f} s; {_stats_line(st)}; {counts['dia_matvec']} DIA "
+              f"launches ({per_apply} per OP apply; "
+              f"{counts['dia_matvec'] / st.nopx:.1f} per nopx), "
+              f"{solve_s * 1e3 / st.nopx:.4f} ms of the wall after the factor "
+              f"per OP apply; max dist to 2 - 2 cos(j pi/(n+1)) "
+              f"{dist.max():.2e}, max residual {rmax:.2e}; launches {counts}; "
+              f"card {gpu}", flush=True)
+        print(f"  device loop: {_loop_line(st)}", flush=True)
+        print(f"  values {np.array2string(vals, precision=12)}", flush=True)
+    return counts
+
+
+def _banded_pencil(torch, dev, gpu, n, mode2_n, need):
+    """13b: the pencil ``K = tridiag(-1, 2, -1)``, ``M = tridiag(1, 4,
+    1)/6`` through ``eigsh_banded``: shift-invert at sigma = P13_GEN_SIGMA
+    at ``n`` (values ``(2 - 2 cos t)/((4 + 2 cos t)/6)``, t = j pi/(n+1)),
+    and mode 2 (``OP = inv(M) K``, M factored by BCR) at ``mode2_n``.
+    Returns each path's launches."""
+    from arpack_ng_tpu_torch.ops import banded
+
+    paths = {}
+    for tag, dim, kw, gate in (
+            (f"13b eigsh_banded(K, mb=M, sigma={P13_GEN_SIGMA}, n={n})", n,
+             dict(sigma=P13_GEN_SIGMA, tol=1e-10), 1e-8),
+            (f"13b eigsh_banded(K, mb=M, mode 2, n={mode2_n})", mode2_n,
+             dict(tol=1e-8, ncv=32, maxiter=3000, solver="cr"), 1e-6)):
+        ab, kl, ku = _band(dim, {-1: -1.0, 0: 2.0, 1: -1.0})
+        mb = _band(dim, {-1: 1 / 6, 0: 4 / 6, 1: 1 / 6})[0]
+        t = np.arange(1, dim + 1) * np.pi / (dim + 1)
+        lam = np.sort((2 - 2 * np.cos(t)) / ((4 + 2 * np.cos(t)) / 6))
+        (vals, vecs, out), wall, counts = _counted(
+            torch, dev, need("dia_matvec", "sym_cycle"),
+            lambda: banded.eigsh_banded(ab, kl, ku, k=4, mb=mb, which="LM",
+                                        dtype=np.float64, return_stats=True,
+                                        device=dev, **kw))
+        dmax, rmax = _gate_pairs(vals, vecs, banded._ab_to_sparse(
+            ab, kl, ku, dim), lam, gate, gate, tag,
+            m_sp=banded._ab_to_sparse(mb, kl, ku, dim), count=4)
+        print(f"{tag}: wall {wall:.4f} s, {_stats_line(out.stats)}; max "
+              f"relative value dist {dmax:.2e}, max ||Kv - lambda Mv|| / "
+              f"max(1, |lambda|) {rmax:.2e} (gates {gate:.0e}); launches "
+              f"{counts}; card {gpu}", flush=True)
+        print(f"  values {np.array2string(vals, precision=12)}", flush=True)
+        paths[tag[:3] + (" mode 2" if "mode 2" in tag else " shift-invert")] \
+            = counts
+    return paths
+
+
+class _Recorded:
+    """``banded.BandedFactor`` patched to record each factor built and its
+    host seconds (``factors``)."""
+
+    def __init__(self):
+        from arpack_ng_tpu_torch.ops import bandsolve
+
+        self.factors = []
+        rec = self
+
+        class Factor(bandsolve.BandedFactor):
+            def __init__(self, *args, **kwargs):
+                t0 = time.perf_counter()
+                super().__init__(*args, **kwargs)
+                rec.factors.append((self, time.perf_counter() - t0))
+
+        self.cls = Factor
+
+    def patch(self):
+        from unittest import mock
+
+        from arpack_ng_tpu_torch.ops import banded
+        return mock.patch.object(banded, "BandedFactor", self.cls)
+
+
+def _realified_factor(torch, dev, gpu, ab, kl, ku, n):
+    """13c at ``n``: the realified factor of ``A - P13_ZSIGMA I`` (b = 2)
+    built as ``eigs_banded`` builds it, over the DIA form's memory gate, so
+    in the compacted form; one ``solve_parts`` held by its residual
+    ``||S x - v|| / ||v||`` (S applied through the band's real and
+    imaginary parts, gate 1e-10) and timed device-only."""
+    from arpack_ng_tpu_torch.config import pad_dim
+    from arpack_ng_tpu_torch.ops import bandsolve
+
+    sb, skl, sku = bandsolve.shifted_band(ab, kl, ku, None, 0, 0,
+                                          P13_ZSIGMA, n)
+    t0 = time.perf_counter()
+    fac = bandsolve.BandedFactor(sb, skl, sku, dtype=np.float64, n=n,
+                                 device=dev)
+    t_fac = time.perf_counter() - t0
+    # (a rehearsal at a smaller n fits the DIA form under the gate)
+    if fac.method != "cr" or not fac.realified \
+            or (n >= P13_N and fac.form != "compact"):
+        raise AssertionError(f"13c: the realified factor is {fac.method} in "
+                             f"the {fac.form} form")
+    g = torch.Generator(device=dev).manual_seed(15)
+    v = torch.zeros(pad_dim(n), dtype=torch.float64, device=dev)
+    v[:n] = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    xr, xi = (x[:n].contiguous() for x in fac.solve_parts(v))
+    rr = fac._band_mv_re(xr, xi) - v[:n]
+    ri = fac._band_mv_im(xr, xi)
+    resid = float(torch.sqrt(rr.norm() ** 2 + ri.norm() ** 2) / v.norm())
+    if not resid <= 1e-10:
+        raise AssertionError(f"13c: realified solve residual {resid:.2e}")
+    ms = "not measured"
+    if dev.type == "cuda":
+        ms = timing.alternating_ms([lambda: fac.solve_parts(v)],
+                                   timing.flush_buffer(dev),
+                                   P13_SOLVE_REPS)[0]
+        ms = f"{ms:.4f}"
+    print(f"13c realified factor of A - {P13_ZSIGMA} I (n={n}, float64): "
+          f"form {fac.form}, b = {fac.b}, probe residual "
+          f"{fac.probe_residual:.3e}, host {t_fac:.2f} s; ||S x - v|| / "
+          f"||v|| {resid:.3e} (gate 1e-10); ms per solve_parts (refine=1, "
+          f"device-only median of {P13_SOLVE_REPS}, L2 flushed) {ms}; card "
+          f"{gpu}", flush=True)
+
+
+def _banded_eigs(torch, dev, gpu, n, n_real, n_cplx, need):
+    """13c: ``eigs_banded`` on the 1-D convection-diffusion band (rho =
+    P13_RHO, h = 1/(n+1)): a real shift 1.0 at ``n_real`` and P13_ZSIGMA
+    with ``part='real'`` (realified, b = 2) at ``n_cplx``, gates: residuals
+    ``<= 1e-8`` / ``1e-7``, the reference tests' (at n = 3000); then the
+    realified factor at ``n``, over the DIA form's memory gate, in the
+    compacted form (:func:`_realified_factor`).  Both solves are cut from
+    2^20: a float64 Ritz vector's residual has a floor of about ``1e-14
+    ||A||`` (3.8e-8 at n = 2^20, ``||A|| = 4.2e6``, with one refinement
+    step or two), above the real shift's 1e-8 gate; and the complex
+    shift's operator ``Re 1/(lambda - sigma)`` peaks at lambda = 6, where
+    its top values lie ~5e-6 apart relative at n = 2^20 (no convergence
+    in 500 restarts there).  The distance to the closed form ``2/h - 2
+    sqrt(1/h^2 - rho^2/4) cos(j pi h)`` is reported.  Returns each path's
+    launches."""
+    from arpack_ng_tpu_torch.ops import banded
+
+    def band(dim):
+        h = 1.0 / (dim + 1)
+        ab, kl, ku = _band(dim, {-1: -1.0 / h - P13_RHO / 2, 0: 2.0 / h,
+                                 1: -1.0 / h + P13_RHO / 2})
+        lam = np.sort(2 / h - 2 * np.sqrt(1 / h ** 2 - P13_RHO ** 2 / 4)
+                      * np.cos(np.arange(1, dim + 1) * np.pi * h))
+        return ab, kl, ku, lam
+
+    paths = {}
+    for dim, sigma, res_max in ((n_real, 1.0, 1e-8),
+                                (n_cplx, P13_ZSIGMA, 1e-7)):
+        ab, kl, ku, lam = band(dim)
+        tag = (f"13c eigs_banded(conv-diff rho={P13_RHO}, n={dim}, "
+               f"sigma={sigma})")
+        rec = _Recorded()
+        with rec.patch():
+            (vals, vecs, out), wall, counts = _counted(
+                torch, dev, need("dia_matvec"),
+                lambda: banded.eigs_banded(
+                    ab, kl, ku, k=4, sigma=sigma, which="LM", tol=1e-10,
+                    dtype=np.float64, return_stats=True, device=dev))
+        (fac, t_fac), = rec.factors
+        if fac.method != "cr":
+            raise AssertionError(f"{tag}: factor {fac.method}, want cr")
+        _, rmax = _gate_pairs(vals, vecs, banded._ab_to_sparse(ab, kl, ku,
+                                                               dim),
+                              vals, 0.0, res_max, tag, count=4)
+        del vecs
+        dist = _nearest_dist(vals.real, lam)
+        print(f"{tag}: wall {wall:.4f} s (factor: {fac.form} form, b = "
+              f"{fac.b}, realified {fac.realified}, host {t_fac:.2f} s), "
+              f"{_stats_line(out.stats)}; max residual {rmax:.2e} (gate "
+              f"{res_max:.0e}); max |Im| {np.abs(vals.imag).max():.2e}, max "
+              f"dist of Re to the closed form {dist.max():.2e} (not gated); "
+              f"launches {counts}; card {gpu}", flush=True)
+        print(f"  values {np.array2string(vals, precision=10)}", flush=True)
+        paths[f"13c sigma={sigma}"] = counts
+    _realified_factor(torch, dev, gpu, *band(n)[:3], n)
+    return paths
+
+
+def dia65(n, ndiag=P13_NDIAG, seed=0):
+    """``benchmarks/bench_block.py``'s ``build_dia(n, ndiag, float32,
+    seed)``: a symmetric diagonally dominant matrix with ``2 ndiag + 1``
+    diagonals (offsets 0, +-step, ..., +-ndiag*step), as the offsets and
+    row-aligned float32 diagonals (no scipy assembly)."""
+    rng = np.random.default_rng(seed)
+    offsets = [0]
+    diags = [(2.0 * ndiag + rng.standard_normal(n)).astype(np.float32)]
+    step = max(1, ndiag // 8)
+    for o in sorted({(i + 1) * step for i in range(ndiag)}):
+        d = (rng.standard_normal(n) * 0.5).astype(np.float32)
+        d[n - o:] = 0.0
+        offsets += [o, -o]
+        diags += [d, np.roll(d, o)]
+    return offsets, diags
+
+
+def _dia_operator(offsets, diags, n, dev):
+    """A mode-1 DIA operator with its block product over one table."""
+    from arpack_ng_tpu_torch.config import pad_dim
+    from arpack_ng_tpu_torch.ops.operator import Operator
+    from arpack_ng_tpu_torch.ops.sparse import _dia_products
+
+    n_pad = pad_dim(n)
+    mv, blk = _dia_products(offsets, diags, n, n_pad, dev)
+
+    def apply(v, bv):
+        w = mv(v)
+        return w, w
+
+    return Operator(n=n, dtype=np.float32, apply=apply, bmat="I", mode=1,
+                    a_apply=mv, n_pad=n_pad, hermitian=True, format="dia",
+                    device=dev, capturable=True, apply_block=blk)
+
+
+def _eigh_ms(torch, dev, ncv=NCV, reps=50) -> float:
+    """Host ms of one ``torch.linalg.eigh`` of a float64 ncv x ncv matrix
+    on the card, sync included (the block cycle's reduced eigensolve)."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    T = torch.randn(ncv, ncv, device=dev, dtype=torch.float64)
+    T = T + T.T
+    torch.linalg.eigh(T)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        torch.linalg.eigh(T)
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _block_apply_ms(torch, dev, op, b) -> str:
+    if dev.type != "cuda":
+        return "not measured"
+    X = torch.randn(b, op.n_pad, device=dev)
+    X[:, op.n:] = 0
+    ms = timing.alternating_ms([lambda: op.apply_block(X)],
+                               timing.flush_buffer(dev))[0]
+    return f"{ms:.4f}"
+
+
+def _multiplets(vals, spectrum) -> str:
+    """Copies captured of each distinct spectrum value nearest to a
+    returned value, beside its multiplicity in the spectrum."""
+    pos = np.clip(np.searchsorted(spectrum, vals), 1, len(spectrum) - 1)
+    near = np.where(np.abs(spectrum[pos] - vals)
+                    < np.abs(spectrum[pos - 1] - vals),
+                    spectrum[pos], spectrum[pos - 1])
+    out = []
+    for lam in np.unique(np.round(near, 9)):
+        mult = int(np.sum(np.abs(spectrum - lam) <= 1e-9 * abs(lam)))
+        got = int(np.sum(np.abs(near - lam) <= 1e-9 * abs(lam)))
+        out.append(f"{lam:.7f}: {got} of {mult}")
+    return ", ".join(out)
+
+
+def _block_solves(torch, dev, gpu, nx, n65, need):
+    """13d: ``eigsh_block`` (float32, k = 8, ncv = 32) beside the scalar
+    selective ``eigsh`` on the same operator: (i) the flagship's CSR through
+    ``from_scipy`` (DIA, with the block product), tol = 1e-5, under phase
+    4's gates with the multiplet convention; (ii) ``dia65`` at ``n65``, tol =
+    1e-4: the top value within 1e-4*|lambda| of the scalar solve's,
+    residuals ``<= 1e-3`` by the DIA twin on the card in float64.  Returns
+    each path's launches."""
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core.block import eigsh_block
+    from arpack_ng_tpu_torch.models import laplacian_2d
+
+    paths = {}
+    eigh_ms = _eigh_ms(torch, dev)
+    a_sp = laplacian_2d(nx, np.float32, device="cpu")[1]
+    spectrum = _analytic_spectrum(nx)
+    op = pt.from_scipy(a_sp, dtype=np.float32, hermitian=True, device=dev)
+    if op.format != "dia" or op.apply_block is None:
+        raise AssertionError("13d: the flagship's CSR is not DIA with a "
+                             "block product")
+    offs65, diags65 = dia65(n65)
+    op65 = _dia_operator(offs65, diags65, n65, dev)
+    for key, label, A, tol in (("(i)", "flagship CSR", op, 1e-5),
+                               ("(ii)", f"dia65 n={n65}", op65, 1e-4)):
+        kw = dict(k=8, ncv=NCV, tol=tol)
+        (vals, vecs, out), wall, counts = _counted(
+            torch, dev, need("sym_cycle"),
+            lambda: pt.eigsh(A, which="LA", return_stats=True, **kw))
+        st = out.stats
+        if key == "(i)":
+            check_values(vals, vecs, a_sp, spectrum, f"13d{key} scalar")
+        top = float(np.max(vals))
+        print(f"13d{key} {label} scalar eigsh (selective, tol={tol}): wall "
+              f"{wall:.4f} s, {_stats_line(st)}, "
+              f"{wall * 1e3 / st.nopx:.4f} ms of wall per matvec; top "
+              f"{top:.7f}; card {gpu}", flush=True)
+        paths[f"13d{key} scalar"] = counts
+        for b in P13_BLOCKS:
+            tag = f"13d{key} {label} eigsh_block(b={b}, tol={tol})"
+            (vals, vecs, info), wall, counts = _counted(
+                torch, dev, need("dia_block_matvec", "rotate_rows"),
+                lambda: eigsh_block(A, block_size=b, maxiter=P13_BLOCK_MAXITER,
+                                    dtype=np.float32, **kw))
+            if key == "(i)":
+                dmax, rmax = check_values(vals, vecs, a_sp, spectrum, tag)
+                note = (f"max value dist {dmax:.2e}, max residual "
+                        f"{rmax:.2e}; copies {_multiplets(vals, spectrum)}")
+            else:
+                rmax = _dia65_residual(torch, dev, offs65, diags65, n65,
+                                       vals, vecs)
+                gap = abs(np.max(vals) - top) / abs(top)
+                if not gap <= 1e-4 or not rmax <= 1e-3:
+                    raise AssertionError(f"{tag}: top {np.max(vals)} vs "
+                                         f"scalar {top} ({gap:.2e}), residual "
+                                         f"{rmax:.2e}")
+                note = (f"top {np.max(vals):.7f} ({gap:.2e} from the "
+                        f"scalar's), max residual {rmax:.2e}")
+            cyc_ms = wall * 1e3 / info["iters"]
+            print(f"{tag}: wall {wall:.4f} s, cycles {info['iters']} (cap "
+                  f"{P13_BLOCK_MAXITER}), {info['nconv']} of 8 converged by "
+                  f"their bounds, matvecs {info['matvecs']}, {cyc_ms:.4f} ms "
+                  f"per cycle "
+                  f"(eigh of T {eigh_ms:.4f} ms of it, "
+                  f"{100 * eigh_ms / cyc_ms:.1f}%), block apply "
+                  f"{_block_apply_ms(torch, dev, A, b)} ms device-only; "
+                  f"{note}; launches {counts}; card {gpu}", flush=True)
+            paths[f"13d{key} b={b}"] = counts
+        del vecs
+    return paths
+
+
+def _dia65_residual(torch, dev, offsets, diags, n, vals, vecs) -> float:
+    """max ||A v - lambda v|| / |lambda| of the dia65 pairs in float64 by
+    the block DIA twin on the card (host offsets, float64 table)."""
+    from arpack_ng_tpu_torch.config import pad_dim
+    from arpack_ng_tpu_torch.ops import cuda_dia
+    from arpack_ng_tpu_torch.ops.sparse import _dia_tab
+
+    n_pad = pad_dim(n)
+    tab = torch.from_numpy(_dia_tab(diags, n, n_pad, np.float64)).to(dev)
+    V = torch.zeros((len(vals), n_pad), dtype=torch.float64, device=dev)
+    V[:, :n] = torch.from_numpy(np.ascontiguousarray(vecs.T)).to(dev)
+    AV = cuda_dia.dia_block_matvec_plain(torch.tensor(offsets), tab, V, n)
+    lam = torch.from_numpy(np.asarray(vals, np.float64)).to(dev)
+    res = (AV - lam[:, None] * V).norm(dim=1) / lam.abs()
+    return float(res.max())
+
+
+def _dia_csr(torch, offs, dtab, n):
+    """The DIA table as a torch sparse CSR tensor (the cuSPARSE yardstick
+    of the block product), built on the card."""
+    import warnings
+
+    i = torch.arange(n, device=dtab.device)
+    rows, cols, vals = [], [], []
+    for k, o in enumerate(offs.tolist()):
+        j = i + o
+        m = (j >= 0) & (j < n) & (dtab[k, :n] != 0)
+        rows.append(i[m])
+        cols.append(j[m])
+        vals.append(dtab[k, :n][m])
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
+                                               torch.cat(cols)]),
+                                  torch.cat(vals), (n, n),
+                                  check_invariants=False).coalesce()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # "CSR ... beta"
+        return coo.to_sparse_csr()
+
+
+def check_dia_block(torch, dev, gpu, nx=NX, n65=P13_N, timed=True):
+    """13e: the block DIA kernel against its twin on the flagship's 5
+    diagonals and on dia65's 65, b in {1, 2, 4, 8}, float32 and float64, at
+    n and n + 3: equal bit for bit to the twin, each column to the single
+    kernel, two calls to each other; timed at n (device-only, in
+    alternation) beside its bound ``(nd + 2b) n_pad itemsize / 3.35 TB/s``,
+    ``b`` launches of the single kernel and ``torch.sparse.mm`` of the CSR
+    with ``X^T``.  Returns (max abs err by dtype, timed rows)."""
+    from arpack_ng_tpu_torch.config import pad_dim
+    from arpack_ng_tpu_torch.models import laplacian_2d
+    from arpack_ng_tpu_torch.ops import cuda_dia
+    from arpack_ng_tpu_torch.ops.sparse import _dia_tab, _to_dia
+
+    flush = timing.flush_buffer(dev) if timed else None
+    g = torch.Generator(device=dev).manual_seed(14)
+    tables = (("dia_block", *_to_dia(laplacian_2d(nx, np.float64,
+                                                  device="cpu")[1]),
+               nx * nx),
+              ("dia_block65", *dia65(n65), n65))
+    err, rows = {}, []
+    for name, offsets, diags, n in tables:
+        offs = torch.tensor(offsets, dtype=torch.int64, device=dev)
+        for dtype in (np.float32, np.float64):
+            tdt = torch.float32 if dtype == np.float32 else torch.float64
+            csr = None
+            for nn in (n, n + 3):
+                n_pad = pad_dim(nn, 1024)
+                tab = torch.from_numpy(_dia_tab(diags, n, n_pad, dtype)
+                                       ).to(dev)
+                if nn > n:
+                    tab[:, n:nn] = torch.randn(len(offsets), nn - n,
+                                               generator=g, device=dev,
+                                               dtype=tdt)
+                for b in (1, 2, 4, 8):
+                    X = torch.randn(b, n_pad, generator=g, device=dev,
+                                    dtype=tdt)
+                    Y = cuda_dia.dia_block_matvec(offs, tab, X, nn)
+                    same = torch.equal(Y, cuda_dia.dia_block_matvec_plain(
+                        offs, tab, X, nn)) and torch.equal(
+                        Y, cuda_dia.dia_block_matvec(offs, tab, X, nn)) \
+                        and all(torch.equal(Y[c], cuda_dia.dia_matvec(
+                            offs, tab, X[c], nn)) for c in range(b)) \
+                        and not Y[:, nn:].any()
+                    if not same:
+                        raise AssertionError(
+                            f"13e {name} {dtype.__name__} n={nn} b={b}: the "
+                            "block kernel is not bit-equal to its twin, "
+                            "itself and the single kernel per column")
+                    err[str(tdt)] = 0.0
+                    if not timed or nn > n:
+                        continue
+                    if csr is None:
+                        csr = _dia_csr(torch, offs, tab, n)
+                    Xt = X.T.contiguous()
+                    isz = X.element_size()
+                    nd = len(offsets)
+                    row = _timed_row(
+                        torch, flush, name, str(tdt), b,
+                        (nd + 2 * b) * n_pad * isz + 8 * nd,
+                        2.0 * csr._nnz() * b, str(tdt),
+                        lambda: cuda_dia.dia_block_matvec(offs, tab, X, n),
+                        lambda: cuda_dia.dia_block_matvec_plain(offs, tab, X,
+                                                                n),
+                        lambda: torch.sparse.mm(csr, Xt),
+                        extra={"single_ms": lambda: [
+                            cuda_dia.dia_matvec(offs, tab, X[c], n)
+                            for c in range(b)]})
+                    rows.append(row)
+            del csr
+    return err, rows
+
+
+def banded_block_paths(torch, dev, gpu, n=P13_N, mode2_n=P13_MODE2_N,
+                       n_real=P13_CD_REAL_N, n_cplx=P13_CD_COMPLEX_N, nx=NX,
+                       n65=P13_N):
+    """Phase 13: the banded and block solvers (see the module docstring).
+    Returns (each path's kernel launches, 13e's errors, 13e's rows)."""
+    def need(*kernels):
+        # a wrapper counts only the kernel launches a card makes
+        return kernels if dev.type == "cuda" else ()
+
+    t0 = time.perf_counter()
+    paths = {"13a": _banded_main(torch, dev, gpu, n, need)}
+    paths.update(_banded_pencil(torch, dev, gpu, n, mode2_n, need))
+    paths.update(_banded_eigs(torch, dev, gpu, n, n_real, n_cplx, need))
+    paths.update(_block_solves(torch, dev, gpu, nx, n65, need))
+    err, rows = check_dia_block(torch, dev, gpu, nx, n65,
+                                timed=dev.type == "cuda")
+    elapsed = time.perf_counter() - t0
+    print(f"phase 13 block DIA kernel vs twin (device-only median of "
+          f"{timing.REPS} in alternation, L2 flushed by a read; card {gpu}):",
+          flush=True)
+    _print_rows(rows)
+    print(f"phase 13: {elapsed:.2f} s (limit {P13_MAX_S:.0f} s)", flush=True)
+    if elapsed > P13_MAX_S:
+        raise AssertionError(f"phase 13 took {elapsed:.1f} s")
+    return paths, err, rows
+
+
 def _device_ms(evt) -> float:
     """Self device time of a profiler average, in ms (the attribute was
     renamed from ``self_cuda_time_total`` in newer torch)."""
@@ -2590,7 +3259,9 @@ def kernel_entries(rows, launches, errs, phases):
            "take_lanes": ("gather.cu", probe + ":139", "take_lanes",
                           gp.N // gp.W, "take_lanes"),
            "sym_cycle": ("sym_cycle.cu", "arpack_ng_tpu/core/device_sym.py"
-                         ":141", "sym_cycle", None, "sym_cycle")}
+                         ":141", "sym_cycle", None, "sym_cycle"),
+           "dia_block": ("dia.cu", ops + "sparse.py:118", "dia_block",
+                         P13_JSON_B, "dia_block_matvec")}
     entries = []
     for kname, (source, replaces, timed, shape, counter) in src.items():
         r = next(r for r in rows if r["name"] == timed
@@ -2626,6 +3297,9 @@ def _print_rows(rows) -> None:
                 if k.startswith("word") and k.endswith("_ms"))
         if "floor_ms" in r:
             host += f"; floor {r['floor_ms']:.4f} ms"
+        if "single_ms" in r:
+            host += (f"; {r['shape']} launches of the single kernel "
+                     f"{r['single_ms']:.4f} ms")
         print(f"  {r['name']:15s} {r['dtype']:15s} shape={r['shape']:2d}: "
               f"kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms "
@@ -2725,8 +3399,13 @@ def main() -> int:
     phases = {10: new_paths(torch, dev, gpu, vals_9),
               11: mode1_paths(torch, dev, gpu),
               12: transform_paths(torch, dev, gpu)}
-    entries = kernel_entries(rows + rows_cgs + rows_dia + rows_ps + rows_g,
-                             launches, errs, phases)
+    phases[13], err_blk, rows_blk = banded_block_paths(torch, dev, gpu)
+    # the block kernel's main path: 13d(i), the flagship at b = P13_JSON_B
+    launches["dia_block_matvec"] = \
+        phases[13][f"13d(i) b={P13_JSON_B}"]["dia_block_matvec"]
+    errs["dia_block_matvec"] = err_blk["torch.float32"]
+    entries = kernel_entries(rows + rows_cgs + rows_dia + rows_ps + rows_g
+                             + rows_blk, launches, errs, phases)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

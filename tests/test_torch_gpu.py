@@ -938,3 +938,93 @@ def test_cg_solve_on_card_matches_cpu(dev):
         assert np.linalg.norm(r) <= 2e-10 * np.linalg.norm(b)
     assert torch.linalg.norm(x[0] - x[1]) <= 1e-8 * torch.linalg.norm(x[1])
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [60_000, 60_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dia_block_kernel_matches_twin_on_card(dev, dtype, n):
+    # the block DIA kernel over b = 1..9 and 17 columns (one chunk of 8,
+    # a remainder, several chunks) on 13 diagonals with offsets past the
+    # rows at both ends: equal bit for bit to its twin, each column equal
+    # to the single kernel, two calls equal, one launch per call
+    n_pad = 60_416
+    g = torch.Generator(device=dev).manual_seed(8)
+    offs = torch.tensor([0, 1, -1, 4, -4, 128, -128, 129, -300, 3000,
+                         -3000, n + 5, -n], dtype=torch.int64, device=dev)
+    dtab = torch.randn(offs.numel(), n_pad, generator=g, device=dev,
+                       dtype=dtype)
+    for b in (*range(1, 10), 17):
+        X = torch.randn(b, n_pad, generator=g, device=dev, dtype=dtype)
+        before = cuda_dia.dia_block_matvec.launches
+        Y = cuda_dia.dia_block_matvec(offs, dtab, X, n)
+        assert cuda_dia.dia_block_matvec.launches - before == 1
+        assert torch.equal(Y, cuda_dia.dia_block_matvec_plain(offs, dtab,
+                                                              X, n))
+        assert torch.equal(Y, cuda_dia.dia_block_matvec(offs, dtab, X, n))
+        for c in range(b):
+            assert torch.equal(Y[c], cuda_dia.dia_matvec(offs, dtab,
+                                                         X[c].contiguous(),
+                                                         n))
+        assert not Y[:, n:].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_banded_shift_invert_on_card(dev):
+    # eigsh_banded through BCR's DIA form on the card (at ncv = 10 the
+    # solve restarts, so the device loop's graphs replay the sweeps' DIA
+    # launches) against the same solve on the CPU: values within 1e-10
+    # relative, DIA launches counted per replay
+    from arpack_ng_tpu_torch.ops import banded
+    n = 5000
+    ab = np.zeros((3, n))
+    ab[0, 1:], ab[1], ab[2, :-1] = -1.0, 2.0, -1.0
+    v0 = np.random.default_rng(0).uniform(-1, 1, n)
+    vals = {}
+    for d in (dev, "cpu"):
+        before = cuda_dia.dia_matvec.launches
+        vals[str(d)], _, out = banded.eigsh_banded(
+            ab, 1, 1, k=4, ncv=10, sigma=0.5, tol=1e-10, v0=v0,
+            return_stats=True, device=d)
+        if d is dev:
+            assert cuda_dia.dia_matvec.launches - before > 0
+            assert out.stats.graph_replays > 0
+            assert all(r["dia_matvec"] > 0
+                       for r in out.stats.replay_launches.values())
+    np.testing.assert_allclose(np.sort(vals[str(dev)]), np.sort(vals["cpu"]),
+                               rtol=1e-10)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_block_lanczos_on_card(dev):
+    # eigsh_block on a DIA operator on the card (the block DIA kernel and
+    # the rotation kernel) against the same solve on the CPU: values within
+    # 1e-10 relative, residuals <= 1e-8
+    import scipy.sparse as sp
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core.block import eigsh_block
+    rng = np.random.default_rng(5)
+    n = 3000
+    a = sp.diags([rng.uniform(-0.5, 0.5, n - 2), rng.uniform(-1, 1, n - 1),
+                  rng.uniform(0, 10, n), rng.uniform(-1, 1, n - 1),
+                  rng.uniform(-0.5, 0.5, n - 2)], [-2, -1, 0, 1, 2])
+    a = (a + a.T).tocsr() / 2
+    vals = {}
+    for d in (dev, "cpu"):
+        op = pt.from_scipy(a, hermitian=True, device=d)
+        blk0, rot0 = (cuda_dia.dia_block_matvec.launches,
+                      cuda_rot.rotate_rows.launches)
+        vals[str(d)], vecs, info = eigsh_block(op, k=6, block_size=2,
+                                               ncv=32, tol=1e-10,
+                                               maxiter=400, dtype=np.float64)
+        assert info["nconv"] >= 6
+        res = np.linalg.norm(a @ vecs - vecs * vals[str(d)], axis=0)
+        assert res.max() <= 1e-8
+        if d is dev:
+            assert cuda_dia.dia_block_matvec.launches - blk0 > 0
+            assert cuda_rot.rotate_rows.launches - rot0 > 0
+    np.testing.assert_allclose(vals[str(dev)], vals["cpu"], rtol=1e-10)
+    torch.cuda.synchronize()
