@@ -15,7 +15,14 @@ fused real, fused complex or hybrid driver) and ``svds``, with
 of ``ops/solvers``; the banded drivers ``ops.banded.eigsh_banded`` /
 ``eigs_banded`` (modes 1-5, shift-invert by block cyclic reduction,
 ``ops/bandsolve``) and thick-restart block Lanczos
-``core.block.eigsh_block``.
+``core.block.eigsh_block``.  The file entry points: MatrixMarket input
+(``io.matrix_market.read_matrix`` / ``write_matrix`` /
+``load_operator``), checkpoints in the JAX package's file format, which
+either package resumes (``io.checkpoint.save_state`` / ``load_state``;
+the device loop hands back a state between cycles,
+``core.device_sym.FusedSymSolver.multi``), the ``arpackmm`` command line
+(``python -m arpack_ng_tpu_torch.cli``, ``--cpu`` for the CPU) and the
+runnable examples (``python -m arpack_ng_tpu_torch.examples.dssimp``).
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``.  On the card the reorthogonalization passes, the restart
 rotation and the DIA (single and block) and PSELL sparse products run the

@@ -319,7 +319,13 @@ class FusedSymSolver(HostLoopSolver):
     The reference runs up to ``cycles_per_dispatch`` cycles in one
     ``lax.while_loop``; here the unit of dispatch is one cycle, because the
     next extension's start ``k = nev_eff`` picks the graph to replay and is
-    known only from the cycle's packet.
+    known only from the cycle's packet.  :meth:`multi` bounds a run
+    instead: at most ``n_cycles`` cycles, then the state at the cycle
+    boundary, which ``io/checkpoint`` can dump and a fresh solver's
+    :meth:`solve` resumes.  The loop defers each cycle's restart (the
+    kev-row rotation and the residual update) to the start of the next
+    cycle; a boundary applies it first, so the state handed back is the one
+    the host loop holds there.
 
     ``reorth='dgks'``, ``restart='thick'`` and caller-supplied shifts
     (``shift_fn``, with ``cfg.exact_shifts`` False) keep the host loop
@@ -360,6 +366,31 @@ class FusedSymSolver(HostLoopSolver):
             info = 2
         return r_x, b_x, info
 
+    def _open(self, out: CycleOut) -> bool:
+        """Whether a run that handed back ``out`` stopped at a boundary
+        (the exit test has not fired, cycles and no error remain)."""
+        st = out.state
+        return not out.done and st.iter < self.cfg.max_iter and st.info == 0
+
+    def multi(self, state: FactorizationState, n_cycles: int) -> CycleOut:
+        """At most ``n_cycles`` restart cycles from ``state`` (reference
+        ``make_sym_multi_cycle``).  A run that stops at the bound hands
+        back the restarted state (``k = nev_eff``; ``done`` False), which
+        :meth:`solve` resumes here or in a fresh solver; a run that exits
+        hands back the exit's state as :meth:`solve` does.  The state's
+        basis is updated in place."""
+        out = self._start(state)
+        if n_cycles < 1 or not self._open(out):
+            return out
+        if not self._host_loop:
+            return _DeviceLoop(self, state).run(n_cycles)
+        for _ in range(n_cycles):
+            st = out.state
+            out = self._tail(self._head(st), st.iter + 1 >= self.cfg.max_iter)
+            if not self._open(out):
+                break
+        return out
+
     def solve(self, gen=None, v0=None, state=None) -> IRAMResult:
         if self._host_loop:
             return super().solve(gen=gen, v0=v0, state=state)
@@ -385,6 +416,8 @@ class FusedSymSolver(HostLoopSolver):
             res = self._result(state, ritz, bounds, out.nconv, info,
                                state.iter, timers)
         loop.record(res.stats)
+        if debug.maupd > 0:
+            print(res.stats.summary())
         return res
 
 
@@ -481,14 +514,16 @@ class _DeviceLoop:
         return self.pk_host.numpy().copy()
 
     # ---- the loop ------------------------------------------------------
-    def run(self) -> CycleOut:
+    def run(self, n_cycles=None) -> CycleOut:
+        """The restart loop from the state, to its exit or, with
+        ``n_cycles``, to the boundary after that many cycles."""
         if not self.cuda:
-            return self._loop()
+            return self._loop(n_cycles)
         cur = torch.cuda.current_stream(self.op.device)
         self.stream.wait_stream(cur)
         try:
             with torch.cuda.stream(self.stream):
-                return self._loop()
+                return self._loop(n_cycles)
         finally:
             cur.wait_stream(self.stream)
 
@@ -504,14 +539,18 @@ class _DeviceLoop:
         self.events.append((e0, e1))
         return out, None
 
-    def _loop(self) -> CycleOut:
+    def _loop(self, n_cycles=None) -> CycleOut:
         cfg, ext, ncv = self.cfg, self.ext, self.ncv
         st = self.state
         counts, it, info, k = st.counts, st.iter, st.info, st.k
         nev_cur = st.nev_cur
         pk = None
         first = True
+        ran = 0
         while it < cfg.max_iter and info == 0:
+            if n_cycles is not None and ran == n_cycles:
+                return self._boundary(pk, counts, it, k)
+            ran += 1
             is_last = it + 1 >= cfg.max_iter
             k0 = k
             if first:
@@ -535,6 +574,7 @@ class _DeviceLoop:
                 pk = self._reduce(is_last)
             else:
                 counts = ext.static_counts(counts, ncv - k0)
+            self._trace(pk, it)
             it += 1
             if int(pk[P_INFO]) != 0:
                 info = int(pk[P_INFO])
@@ -545,23 +585,46 @@ class _DeviceLoop:
             k = nev_cur = int(pk[P_NEV])
         return self._out(pk, counts, it, info, k, nev_cur)
 
-    def _out(self, pk, counts, it, info, k, nev_cur) -> CycleOut:
+    def _trace(self, pk, it: int) -> None:
+        """The host loop's per-cycle trace (``make_sym_head``), from the
+        packet already read."""
+        if debug.maup2 > 0:
+            ncv = self.ncv
+            trace(debug.maup2, 0, "_sym_cycle: iter {i}: nconv={nc} "
+                  "rnorm={rn}", i=it, nc=int(pk[P_NCONV]), rn=pk[P_RNORM])
+            trace(debug.maup2, 1, "_sym_cycle: ritz (wanted last) {r}\n"
+                  " _sym_cycle: bounds {b}",
+                  r=pk[P_HEAD + 2 * ncv:P_HEAD + 3 * ncv],
+                  b=pk[P_HEAD + 3 * ncv:])
+
+    def _boundary(self, pk, counts, it, k) -> CycleOut:
+        """The state between cycles: the restart the next cycle would begin
+        with (:meth:`_prefix`: the kev-row rotation, the residual update
+        and its norm; T is already the restarted one), applied now, then
+        the state from one read."""
+        counts = counts.add(nbx=int(self.is_g), nrotr=self._prefix(k))
+        return self._out(pk, counts, it, 0, k, k, read=True)
+
+    def _out(self, pk, counts, it, info, k, nev_cur, read=False
+             ) -> CycleOut:
         """The state's host fields from the last packet (the factorization
         before its shifts: every exit skips them), or, after a failed
-        restart vector, from one read."""
+        restart vector or at a boundary (``read``), from one read."""
         ds, ncv, cfg = self.ds, self.ncv, self.cfg
-        if pk is None or info > 0:
+        if pk is None or info > 0 or read:
             back = torch.cat([ds.a.double(), ds.b.double(),
                               ds.rnorm.double().reshape(1),
                               ds.cnt.double()]).cpu().numpy()
             a, b, rn = back[:ncv], back[ncv:2 * ncv - 1], back[2 * ncv]
             ev = back[2 * ncv + 1:]
-            ritz = bounds = np.zeros(ncv)
-            done, nconv = False, 0
         else:
             a = pk[P_HEAD:P_HEAD + ncv]
             b = pk[P_HEAD + ncv:P_HEAD + 2 * ncv - 1]
             rn, ev = pk[P_RNORM], pk[P_CNT:P_CNT + 4]
+        if pk is None or info > 0:
+            ritz = bounds = np.zeros(ncv)
+            done, nconv = False, 0
+        else:
             ritz = pk[P_HEAD + 2 * ncv:P_HEAD + 3 * ncv]
             bounds = pk[P_HEAD + 3 * ncv:]
             done, nconv = bool(pk[P_DONE]), int(pk[P_NCONV])

@@ -101,13 +101,17 @@ class HostLoopSolver:
                 with timers.timed("tapps", dev):
                     out = self._tail(h, is_last)
         state = out.state
-        it, info = state.iter, state.info
+        it, info = self._n_iter(out), state.info
         if info != 0:
             z = np.zeros(ncv)
             return self._result(state, z, z, 0,
                                 -9999 if info > 0 else info, it, timers)
         ritz, bounds, info = self._exit(out)
         return self._result(state, ritz, bounds, out.nconv, info, it, timers)
+
+    def _n_iter(self, out) -> int:
+        """The cycles run (iparam(3)) when the loop handed back ``out``."""
+        return out.state.iter
 
     def _result(self, state, ritz, bounds, nconv, info, n_iter, timers
                 ) -> IRAMResult:
@@ -163,9 +167,8 @@ def make_iram_tail(op: Operator, cfg: IRAMConfig, shift_fn=None):
         if state.info != 0:
             # no kplusp-step factorization even after random restarts: the
             # reference maps this to -9999 (SRC/dsaup2.f:434-443)
-            return IRAMCycleOut(state.replace(iter=cur_iter), True, 0, zero,
-                                zero, -9999 if state.info > 0
-                                else state.info)
+            return IRAMCycleOut(state, True, 0, zero, zero,
+                                -9999 if state.info > 0 else state.info)
         H = np.asarray(state.H).astype(host)
         rnorm = float(state.rnorm)
 
@@ -210,8 +213,7 @@ def make_iram_tail(op: Operator, cfg: IRAMConfig, shift_fn=None):
                 info = 1
             if np_ == 0 and nconv < nev0:
                 info = 2
-            return IRAMCycleOut(state.replace(iter=cur_iter), True, nconv,
-                                r_x, b_x, info)
+            return IRAMCycleOut(state, True, nconv, r_x, b_x, info)
 
         # ---- stagnation guard: inflate nev (dsaup2.f:673-693) ----
         if nconv < nev0 and cfg.exact_shifts:
@@ -232,7 +234,7 @@ def make_iram_tail(op: Operator, cfg: IRAMConfig, shift_fn=None):
         if not cfg.exact_shifts:
             shifts = np.asarray(shift_fn(r_s[:np_].copy(),
                                          b_s[:np_].copy()))[:np_]
-        trace(debug.maup2, 2, "_aup2: shifts selected {s}", s=shifts[:np_])
+        trace(debug.mgets, 2, "_aup2: shifts selected {s}", s=shifts[:np_])
 
         # ---- the shifted QR on the host (dsapps / dnapps / znapps) ----
         if sym:
@@ -282,6 +284,21 @@ class IRAMSolver(HostLoopSolver):
 
     def _exit(self, out: IRAMCycleOut):
         return out.ritz, out.bounds, out.info
+
+    def _n_iter(self, out: IRAMCycleOut) -> int:
+        # an exit hands back the last cycle's factorization before its
+        # shifts with ``iter`` at the cycles before it, as the reference's
+        # hybrid driver does: a dump of it resumes by taking that cycle up
+        # again under its own number (a run stopped at max_iter continues
+        # as the unbroken solve does); the exit cycle counts in n_iter
+        return out.state.iter + int(out.done)
+
+    def solve(self, gen: Optional[torch.Generator] = None, v0=None,
+              state: Optional[FactorizationState] = None) -> IRAMResult:
+        res = super().solve(gen=gen, v0=v0, state=state)
+        if debug.maupd > 0:
+            print(res.stats.summary())
+        return res
 
     def iterate(self, state: FactorizationState) -> IRAMCycleOut:
         """One major iteration (the dsaup2 1000-loop body)."""

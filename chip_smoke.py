@@ -219,7 +219,30 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    {1, 2, 4, 8}, float32 and float64, at n and n + 3, bit for bit (and
    each column against the single kernel), timed beside its bound, b
    single launches and ``torch.sparse.mm`` (cuSPARSE SpMM); the phase
-   within P13_MAX_S.
+   within P13_MAX_S;
+14. the file entry points (each path's launches counted from zero): (a)
+   the main path: the flagship's Laplacian written as a MatrixMarket file
+   (``io.matrix_market.write_matrix``, then read back: both seconds
+   printed), then ``python -m arpack_ng_tpu_torch.cli --A lap.mtx --nbEV
+   8 --nbCV 32 --mag LA --tol 1e-5 --simplePrec --json`` in its own
+   process on the card, then the same in this process (the reference
+   CLI's reorthogonalization, dgks: the rotation and DIA kernels); gates:
+   rc 0, 8 values within 1e-4*|lambda| of the analytic spectrum, the CLI's
+   own residuals ``<= 1e-3``; (b) the run with ``--maxIt P14_CUT --dump``
+   (rc 1), then ``--restart`` from the file: its cycles, nopx, nrorth, nrotr
+   and values must be the unbroken run's exactly; (c) the flagship on the
+   device loop (``eigsh``'s config, CUDA graphs) stopped at the boundary
+   after P14_CUT cycles (``FusedSymSolver.multi``), ``save_state``,
+   ``load_state`` into a fresh solver, resumed: the totals must be
+   ``KERNEL_COUNTERS['flagship selective']``, the values phase 4's gates;
+   (d) the ``--slv`` menu: CG with the IC(0) preconditioner for
+   shift-invert at sigma = 0 on the Laplacian at nx = P14_SI_NX, float64
+   (values within 1e-6*|lambda| of the analytic spectrum, residuals ``/
+   max(1, |lambda|) <= 1e-6``), and LU for dsdrv3-6's pencil at n =
+   P14_PENCIL_N (1e-8); (e) the seven examples of
+   ``arpack_ng_tpu_torch.examples`` once each, residuals under
+   P14_EXAMPLE_RES, the event, rotation, PSELL and reduced-space kernels
+   launched; the phase within P14_MAX_S.
 
     python3 chip_smoke.py --profile
 
@@ -388,6 +411,21 @@ P13_BLOCK_MAXITER = 3000
 P13_NDIAG = 32
 P13_SOLVE_REPS = 10
 P13_MAX_S = 300.0
+#: phase 14: the file entry points.  The CLI's main path reads the
+#: flagship's Laplacian (nx = NX) from a .mtx file; the cycle after which
+#: 14b dumps and 14c stops the device loop (half a solve's cycles where
+#: a solve takes fewer); 14d's CG + IC(0) shift-invert grid (float64) and
+#: its LU pencil's size (the explicit inverse is n_pad^2, the reference's
+#: limit too) and shift; the phase's wall limit, seconds
+P14_CUT = 100
+P14_SI_NX = 256
+P14_PENCIL_N = 4096
+P14_SIGMA = 25.0
+P14_MAX_S = 180.0
+#: 14e: each example's residual gate, relative to max(1, max |value|)
+P14_EXAMPLE_RES = {"dssimp": 1e-3, "dnsimp": 1e-8, "dsdrv4_shift_invert":
+                   1e-6, "zndrv1": 1e-8, "svd": 1e-8, "validate_f64": 1e-2,
+                   "irregular_sparse": 1e-3}
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
 #: the tensor cores by accumulation dtype; its SMs (one block of the
 #: reduced-space kernel runs on one)
@@ -3087,6 +3125,319 @@ def banded_block_paths(torch, dev, gpu, n=P13_N, mode2_n=P13_MODE2_N,
     return paths, err, rows
 
 
+def _cli_inproc(argv):
+    """``arpack_ng_tpu_torch.cli.main(argv + ['--json'])`` in this
+    process.  Returns ``(rc, its JSON line, the IRAMSolver result)``."""
+    import contextlib
+    from unittest import mock
+
+    from arpack_ng_tpu_torch import cli
+    from arpack_ng_tpu_torch.core import iram
+
+    got = []
+    solve = iram.IRAMSolver.solve
+
+    def recorded(self, *args, **kwargs):
+        got.append(solve(self, *args, **kwargs))
+        return got[-1]
+
+    buf = io.StringIO()
+    with mock.patch.object(iram.IRAMSolver, "solve", recorded), \
+            contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv) + ["--json"])
+    lines = buf.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else None), \
+        (got[-1] if got else None)
+
+
+def _cli_gate(rc, out, spectrum, rel, res_max, what, count):
+    """rc 0, ``count`` real values each within ``rel*|lambda|`` of the
+    sorted ``spectrum``, and the CLI's own residuals (``||A v - lambda B
+    v|| / max(1, |lambda|)``, arpackSolver::checkEigVec) ``<= res_max``.
+    Returns (values, max distance, max residual)."""
+    if rc != 0 or out is None:
+        raise AssertionError(f"{what}: rc {rc}")
+    vals = np.asarray(out["values_real"])
+    res = np.asarray(out["residuals"])
+    if len(vals) != count or np.any(np.asarray(out["values_imag"]) != 0):
+        raise AssertionError(f"{what}: {len(vals)} values {vals}, want "
+                             f"{count} real")
+    pos = np.clip(np.searchsorted(spectrum, vals), 1, len(spectrum) - 1)
+    dist = np.minimum(np.abs(spectrum[pos] - vals),
+                      np.abs(spectrum[pos - 1] - vals)) / np.abs(vals)
+    if dist.max() > rel or len(res) != count or not np.all(
+            np.isfinite(res)) or res.max() > res_max:
+        raise AssertionError(f"{what}: value distances {dist}, residuals "
+                             f"{res} (gates {rel:.0e}, {res_max:.0e})")
+    return vals, float(dist.max()), float(res.max())
+
+
+def _cli_main(torch, dev, gpu, tmp, nx, need):
+    """14a: the flagship's Laplacian written as a .mtx file, then
+    ``python -m arpack_ng_tpu_torch.cli`` on it in its own process (the
+    command line a user runs), then the same in this process with the
+    kernel launches counted (the reference CLI's reorthogonalization,
+    dgks: the rotation and DIA kernels).  Returns (the argv, the path's
+    launches, the in-process run's JSON and result)."""
+    import os
+
+    from arpack_ng_tpu_torch.io import matrix_market as mm
+    from arpack_ng_tpu_torch.models import laplacian_2d
+
+    a_sp = laplacian_2d(nx, np.float32, device="cpu")[1]
+    path = os.path.join(tmp, "lap.mtx")
+    t0 = time.perf_counter()
+    mm.write_matrix(path, a_sp)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = mm.read_matrix(path)
+    t_read = time.perf_counter() - t0
+    if back.nnz != a_sp.nnz:
+        raise AssertionError(f"14a: {back.nnz} non-zeros read back, wrote "
+                             f"{a_sp.nnz}")
+    del back
+    print(f"14a {path.rsplit(os.sep, 1)[-1]}: n = {nx * nx}, {a_sp.nnz} "
+          f"stored non-zeros, {os.path.getsize(path) / 1e6:.1f} MB of text; "
+          f"write_matrix {t_write:.2f} s, read_matrix (scipy mmread) "
+          f"{t_read:.2f} s (host)", flush=True)
+    spectrum = _analytic_spectrum(nx)
+    argv = ["--A", path, "--nbEV", "8", "--nbCV", str(NCV), "--mag", "LA",
+            "--tol", "1e-5", "--simplePrec"]
+    if dev.type == "cpu":
+        argv.append("--cpu")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "arpack_ng_tpu_torch.cli",
+                        *argv, "--json"], capture_output=True, text=True,
+                       env=env, cwd=here, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"14a: the CLI process exited "
+                             f"{r.returncode}: {r.stderr[-3000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    vals, dmax, rmax = _cli_gate(0, out, spectrum, 1e-4, 1e-3,
+                                 "14a CLI process", 8)
+    print(f"14a python -m arpack_ng_tpu_torch.cli {' '.join(argv[2:])} "
+          f"--json (its own process): rc 0, wall {wall:.2f} s (process "
+          f"start, read, operator, solve, residual check; the CLI's "
+          f"elapsed_s {out['elapsed_s']:.2f} s), cycles {out['n_iter']}, "
+          f"nconv {out['nconv']}; max value dist {dmax:.2e}, max residual "
+          f"{rmax:.2e}; card {gpu}", flush=True)
+    print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+    (rc, out, res), wall, counts = _counted(
+        torch, dev, need("rotate_rows", "dia_matvec"),
+        lambda: _cli_inproc(argv))
+    vals, dmax, rmax = _cli_gate(rc, out, spectrum, 1e-4, 1e-3,
+                                 "14a cli.main", 8)
+    print(f"14a cli.main (in process): wall {wall:.2f} s, "
+          f"{_stats_line(res.stats)}; max value dist {dmax:.2e}, max "
+          f"residual {rmax:.2e}; launches {counts}; card {gpu}", flush=True)
+    return argv, {"14a": counts}, (out, res)
+
+
+def _cli_dump_restart(torch, dev, gpu, tmp, argv, full, cut, need):
+    """14b: 14a's run stopped at ``--maxIt cut`` with ``--dump``
+    (rc 1), then ``--restart`` from the file with the full ``--maxIt``:
+    its cycles, counters and values must be the unbroken run's exactly."""
+    import os
+
+    from arpack_ng_tpu_torch.io import checkpoint as ckpt
+
+    full_out, full_res = full
+    cut = cut if full_out["n_iter"] > cut else full_out["n_iter"] // 2
+    ck = os.path.join(tmp, "cli.npz")
+    kernels = need("rotate_rows", "dia_matvec")
+    saves, loads = [], []
+    with _host_seconds(ckpt, "save_state", saves), \
+            _host_seconds(ckpt, "load_state", loads):
+        (rc1, o1, _), w1, c1 = _counted(
+            torch, dev, kernels,
+            lambda: _cli_inproc(argv + ["--maxIt", str(cut), "--dump", ck]))
+        (rc2, o2, r2), w2, c2 = _counted(
+            torch, dev, kernels, lambda: _cli_inproc(argv + ["--restart", ck]))
+    if rc1 != 1 or o1["n_iter"] != cut:
+        raise AssertionError(f"14b: the --maxIt {cut} run gave rc {rc1}, "
+                             f"{o1['n_iter']} cycles (want rc 1, {cut})")
+    got = (o2["n_iter"], r2.stats.nopx, r2.stats.nrorth, r2.stats.nrotr)
+    want = (full_out["n_iter"], full_res.stats.nopx, full_res.stats.nrorth,
+            full_res.stats.nrotr)
+    if rc2 != 0 or got != want or o2["values_real"] != \
+            full_out["values_real"]:
+        raise AssertionError(f"14b: the resumed run gave rc {rc2}, cycles "
+                             f"/ nopx / nrorth / nrotr {got}, values "
+                             f"{o2['values_real']}; the unbroken run {want}, "
+                             f"{full_out['values_real']}")
+    print(f"14b --maxIt {cut} --dump: rc 1, wall {w1:.2f} s; --restart: "
+          f"rc 0, wall {w2:.2f} s, cycles / nopx / nrorth / nrotr {got}, "
+          f"values equal to the unbroken run's bit for bit; save_state "
+          f"{saves[0]:.3f} s, load_state {loads[0]:.3f} s (host, to and "
+          f"from the card), file {os.path.getsize(ck) / 2 ** 20:.1f} MiB "
+          f"(V {NCV * full_res.state.V.shape[1] * 4 / 2 ** 20:.1f} MiB); "
+          f"card {gpu}", flush=True)
+    return {"14b dump": c1, "14b restart": c2}
+
+
+def _device_loop_resume(torch, dev, gpu, tmp, nx, cut, need):
+    """14c: the flagship on the device loop (``eigsh``'s config: selective,
+    CUDA graphs), stopped at the boundary after ``cut`` cycles, dumped,
+    loaded into a fresh solver and resumed: the totals must be the
+    unbroken solve's (at the flagship's size on the card:
+    ``KERNEL_COUNTERS``), the values and residuals phase 4's gates."""
+    import os
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core.device_sym import FusedSymSolver
+    from arpack_ng_tpu_torch.io import checkpoint as ckpt
+    from arpack_ng_tpu_torch.models import laplacian_2d
+
+    op, a_sp = laplacian_2d(nx, np.float32, device=dev)
+    cfg = pt.IRAMConfig(n=op.n, nev=8, ncv=NCV, which="LA", tol=1e-5,
+                        max_iter=10 * op.n, symmetric=True,
+                        dtype=np.dtype(np.float32), n_pad=op.n_pad,
+                        reorth="selective")
+    if dev.type == "cuda" and nx == NX:
+        want = KERNEL_COUNTERS["flagship selective"]
+    else:
+        st = pt.eigsh(op, k=8, ncv=NCV, which="LA", tol=1e-5,
+                      return_stats=True)[2].stats
+        want = (st.n_iter, st.nopx, st.nrorth)
+    cut = min(cut, want[0] // 2)
+    ck = os.path.join(tmp, "loop.npz")
+    times = {}
+
+    def run():
+        first = FusedSymSolver(op, cfg)
+        out = first.multi(first.init_state(), cut)
+        if out.done or out.state.iter != cut or out.state.k >= NCV:
+            raise AssertionError(f"14c: no boundary after {cut} cycles")
+        t0 = time.perf_counter()
+        ckpt.save_state(ck, out.state, cfg)
+        times["save"] = time.perf_counter() - t0
+        del out, first
+        t0 = time.perf_counter()
+        st, _ = ckpt.load_state(ck, cfg=cfg, device=dev)
+        times["load"] = time.perf_counter() - t0
+        return FusedSymSolver(op, cfg).solve(state=st)
+
+    res, wall, counts = _counted(torch, dev, need(*SELECTIVE_PATH), run)
+    st = res.stats
+    got = (st.n_iter, st.nopx, st.nrorth)
+    e = pt.extract(op, cfg, res)
+    dmax, rmax = check_values(e.values, e.vectors, a_sp,
+                              _analytic_spectrum(nx), "14c")
+    print(f"14c device loop to cycle {cut}, save_state {times['save']:.3f} "
+          f"s, file {os.path.getsize(ck) / 2 ** 20:.1f} MiB, load_state "
+          f"{times['load']:.3f} s, resumed in a fresh solver: wall "
+          f"{wall:.2f} s, {_stats_line(st)} (want {want}); resumed loop: "
+          f"{_loop_line(st)}; max value dist {dmax:.2e}, max residual "
+          f"{rmax:.2e}; launches {counts}; card {gpu}", flush=True)
+    if got != want or st.packets != st.n_iter - cut:
+        raise AssertionError(f"14c: resumed totals {got}, {st.packets} "
+                             f"packets; want {want}, {want[0] - cut}")
+    return {"14c": counts}
+
+
+def _cli_solvers(torch, dev, gpu, tmp, si_nx, pencil_n, need):
+    """14d: the ``--slv`` menu on the card: CG with the IC(0)
+    preconditioner (``--slvItrPC ILU``) for shift-invert at sigma = 0 on
+    the Laplacian, float64; LU for dsdrv3-6's generalized pencil."""
+    import os
+
+    from arpack_ng_tpu_torch.io import matrix_market as mm
+    from arpack_ng_tpu_torch.models import laplacian_2d
+
+    cpu = ["--cpu"] if dev.type == "cpu" else []
+    paths = {}
+    a_sp = laplacian_2d(si_nx, np.float64, device="cpu")[1]
+    lap = os.path.join(tmp, "lap_si.mtx")
+    mm.write_matrix(lap, a_sp)
+    k_sp, m_sp, closed = _dsdrv_pencil(pencil_n)
+    kf, mf = os.path.join(tmp, "K.mtx"), os.path.join(tmp, "M.mtx")
+    mm.write_matrix(kf, k_sp)
+    mm.write_matrix(mf, m_sp)
+    for tag, argv, spectrum, rel, count in (
+            (f"CG + IC(0), nx={si_nx}",
+             ["--A", lap, "--nbEV", "8", "--nbCV", str(NCV), "--shiftReal",
+              "0", "--invert", "--slv", "CG", "--slvItrPC", "ILU", "--tol",
+              "1e-8"], _analytic_spectrum(si_nx), 1e-6, 8),
+            (f"LU pencil, n={pencil_n}",
+             ["--A", kf, "--B", mf, "--genPb", "--shiftReal",
+              str(P14_SIGMA), "--invert", "--slv", "LU", "--nbEV", "4",
+              "--tol", "1e-10"], closed, 1e-8, 4)):
+        (rc, out, res), wall, counts = _counted(
+            torch, dev, need("dia_matvec"), lambda: _cli_inproc(argv + cpu))
+        vals, dmax, rmax = _cli_gate(rc, out, spectrum, rel, rel,
+                                     f"14d {tag}", count)
+        print(f"14d --slv {tag}: wall {wall:.2f} s, {_stats_line(res.stats)};"
+              f" max value dist {dmax:.2e}, max residual {rmax:.2e}; "
+              f"launches {counts}; card {gpu}", flush=True)
+        print(f"  values {np.array2string(vals, precision=10)}", flush=True)
+        paths[f"14d {tag.split(',')[0]}"] = counts
+    return paths
+
+
+def _examples(torch, dev, gpu, sizes, need):
+    """14e: each of the port's examples once, its printed residuals under
+    ``P14_EXAMPLE_RES``; between them they launch the event, rotation,
+    PSELL and reduced-space kernels."""
+    import importlib
+
+    from arpack_ng_tpu_torch.examples import EXAMPLES
+
+    def run_all():
+        out = {}
+        for name in EXAMPLES:
+            mod = importlib.import_module(
+                f"arpack_ng_tpu_torch.examples.{name}")
+            t0 = time.perf_counter()
+            vals, res = mod.main(*sizes.get(name, ()), device=dev)
+            out[name] = (time.perf_counter() - t0, vals, res)
+        return out
+
+    out, wall, counts = _counted(
+        torch, dev, need("sel_proj", "sel_update", "rotate_rows",
+                         "psell_matvec", "sym_cycle"), run_all)
+    for name, (t, vals, res) in out.items():
+        lim = P14_EXAMPLE_RES[name] * max(1.0, float(np.max(np.abs(vals))))
+        if not len(vals) or not np.all(np.isfinite(res)) or res.max() > lim:
+            raise AssertionError(f"14e {name}: residuals {res} (gate "
+                                 f"{lim:.1e})")
+        print(f"14e {name}: {t:.2f} s, {len(vals)} values, max residual "
+              f"{res.max():.2e}", flush=True)
+    print(f"14e examples: {wall:.2f} s; launches {counts}; card {gpu}",
+          flush=True)
+    return {"14e": counts}
+
+
+def cli_paths(torch, dev, gpu, nx=NX, si_nx=P14_SI_NX,
+              pencil_n=P14_PENCIL_N, cut=P14_CUT, example_sizes=None):
+    """Phase 14: the file entry points (see the module docstring), each
+    path's kernel launches counted from zero.  Returns them."""
+    import tempfile
+
+    def need(*kernels):
+        # a wrapper counts only the kernel launches a card makes
+        return kernels if dev.type == "cuda" else ()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        argv, paths, full = _cli_main(torch, dev, gpu, tmp, nx, need)
+        paths.update(_cli_dump_restart(torch, dev, gpu, tmp, argv, full, cut,
+                                       need))
+        paths.update(_device_loop_resume(torch, dev, gpu, tmp, nx, cut,
+                                         need))
+        paths.update(_cli_solvers(torch, dev, gpu, tmp, si_nx, pencil_n,
+                                  need))
+    paths.update(_examples(torch, dev, gpu, example_sizes or {}, need))
+    elapsed = time.perf_counter() - t0
+    print(f"phase 14: {elapsed:.2f} s (limit {P14_MAX_S:.0f} s)", flush=True)
+    if elapsed > P14_MAX_S:
+        raise AssertionError(f"phase 14 took {elapsed:.1f} s")
+    return paths
+
+
 def _device_ms(evt) -> float:
     """Self device time of a profiler average, in ms (the attribute was
     renamed from ``self_cuda_time_total`` in newer torch)."""
@@ -3229,9 +3580,8 @@ def kernel_entries(rows, launches, errs, phases):
     """The ``kernels`` JSON entries: each kernel at the float32 shape its
     solve runs most (the update of the dgks path carries the fused norm),
     with the launches of the path that exercises it and, in
-    ``launches_phase10``, ``launches_phase11`` and ``launches_phase12``,
-    those of each path of phases 10-12 (``phases``: phase -> path ->
-    counts)."""
+    ``launches_phase10`` to ``launches_phase14``, those of each path of
+    phases 10-14 (``phases``: phase -> path -> counts)."""
     from arpack_ng_tpu_torch.bench import gather_primitives as gp
 
     ops = "arpack_ng_tpu/ops/"
@@ -3400,6 +3750,7 @@ def main() -> int:
               11: mode1_paths(torch, dev, gpu),
               12: transform_paths(torch, dev, gpu)}
     phases[13], err_blk, rows_blk = banded_block_paths(torch, dev, gpu)
+    phases[14] = cli_paths(torch, dev, gpu)
     # the block kernel's main path: 13d(i), the flagship at b = P13_JSON_B
     launches["dia_block_matvec"] = \
         phases[13][f"13d(i) b={P13_JSON_B}"]["dia_block_matvec"]

@@ -1028,3 +1028,64 @@ def test_block_lanczos_on_card(dev):
             assert cuda_rot.rotate_rows.launches - rot0 > 0
     np.testing.assert_allclose(vals[str(dev)], vals["cpu"], rtol=1e-10)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cli_on_card(dev, tmp_path, capsys):
+    # the CLI on a .mtx file without --cpu runs on the card: it launches
+    # the rotation and DIA kernels; its values equal the same command's
+    # with --cpu within 1e-10 relative (float64)
+    import json
+
+    from arpack_ng_tpu_torch import cli
+    from arpack_ng_tpu_torch.io import matrix_market as mm
+    from arpack_ng_tpu_torch.models import laplacian_2d
+    mm.write_matrix(tmp_path / "lap.mtx",
+                    laplacian_2d(48, np.float64, device="cpu")[1])
+    argv = ["--A", str(tmp_path / "lap.mtx"), "--nbEV", "4", "--mag", "LA",
+            "--tol", "1e-10", "--json"]
+    kernels = (cuda_rot.rotate_rows, cuda_dia.dia_matvec)
+    before = [k.launches for k in kernels]
+    outs = []
+    for extra in ([], ["--cpu"]):
+        assert cli.main(argv + extra) == 0
+        outs.append(json.loads(capsys.readouterr().out.splitlines()[-1]))
+        if not extra:
+            assert all(k.launches > b for k, b in zip(kernels, before))
+    np.testing.assert_allclose(outs[0]["values_real"], outs[1]["values_real"],
+                               rtol=1e-10)
+    assert max(outs[0]["residuals"]) <= 1e-8
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_device_loop_boundary_resume_on_card(dev, tmp_path):
+    # the device loop (CUDA graphs) stopped after 5 cycles, dumped, loaded
+    # into a fresh solver and resumed: the unbroken solve's counters and
+    # values bit for bit, the resumed loop's graphs replayed
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core.device_sym import FusedSymSolver
+    from arpack_ng_tpu_torch.io import checkpoint as ckpt
+    from arpack_ng_tpu_torch.models import laplacian_2d
+    from arpack_ng_tpu_torch.ops import cuda_sym_cycle
+    op, _ = laplacian_2d(64, np.float32, device=dev)
+    cfg = pt.IRAMConfig(n=op.n, nev=6, ncv=24, which="LA", tol=1e-5,
+                        max_iter=1000, symmetric=True,
+                        dtype=np.dtype(np.float32), n_pad=op.n_pad,
+                        reorth="selective")
+    full = FusedSymSolver(op, cfg).solve()
+    assert full.n_iter > 10
+    first = FusedSymSolver(op, cfg)
+    out = first.multi(first.init_state(), 5)
+    ckpt.save_state(tmp_path / "ck.npz", out.state, cfg)
+    st, _ = ckpt.load_state(tmp_path / "ck.npz", cfg=cfg, device=dev)
+    before = (cuda_sel.sel_proj.launches, cuda_sym_cycle.sym_cycle.launches)
+    res = FusedSymSolver(op, cfg).solve(state=st)
+    assert cuda_sel.sel_proj.launches > before[0]
+    assert cuda_sym_cycle.sym_cycle.launches > before[1]
+    assert res.stats.graph_replays > 0
+    assert res.stats.packets == res.n_iter - 5
+    assert (res.n_iter, res.stats.nopx, res.stats.nrorth, res.stats.nrotr) \
+        == (full.n_iter, full.stats.nopx, full.stats.nrorth, full.stats.nrotr)
+    np.testing.assert_array_equal(res.ritz, full.ritz)
+    torch.cuda.synchronize()
