@@ -7,9 +7,13 @@ pairs, :class:`F64Validation`).
 Both take the reference package's arguments plus ``device`` (the CUDA
 card unless the caller asks for ``device="cpu"``), spectral transforms
 (``M``, ``sigma``, ``mode``: modes 2-5 through
-:mod:`~arpack_ng_tpu_torch.ops.transforms`) included.  ``mesh`` (the
-row-partitioned solve) is not ported yet and raises
-``NotImplementedError`` rather than run a different algorithm.  Where the
+:mod:`~arpack_ng_tpu_torch.ops.transforms`) included.  ``mesh`` (a
+:class:`~arpack_ng_tpu_torch.parallel.sharding.RowMesh`) runs the
+row-partitioned solve of PARPACK: every rank of the mesh's process group
+calls the entry point with the same arguments, the operator maps each
+rank's rows (one built for the mesh) or is applied to the gathered vector
+(any other), and the values and whole vectors come back on every rank; the
+solve's device is the mesh's unless ``device`` says otherwise.  Where the
 reference package silently does something else, the port raises
 ``ValueError``: ``restart='thick'`` with ``strategy='hybrid'`` (the
 reference runs the implicit restart), ``eigs(validate=...,
@@ -31,6 +35,7 @@ from .core.extract import EigenResult, extract
 from .core.iram import IRAMSolver
 from .ops import operator as op_mod
 from .ops.operator import Operator
+from .parallel.sharding import check_mesh
 from .utils import dtypes as _dt
 from .utils.device import DEFAULT
 from .utils.device import same as same_device
@@ -57,6 +62,13 @@ def _as_operator(A, dtype=None, hermitian=False, device=None) -> Operator:
     raise TypeError(f"cannot build an Operator from {type(A)!r}")
 
 
+def _mesh_device(mesh, device):
+    """The solve's device: the caller's, else the mesh's."""
+    if check_mesh(mesh) is not None and device is None:
+        return mesh.device
+    return device
+
+
 def _resolve_storage(storage_dtype, dtype, tol, pro_active=False):
     """Resolve ``storage_dtype='auto'``: bfloat16 basis storage for real
     float32 problems with ``tol >= 1e-2`` when the full-CGS path runs;
@@ -78,15 +90,15 @@ def _resolve_sym_reorth(reorth: str) -> str:
     return reorth
 
 
-def _make_solver(op, cfg, strategy, shift_fn=None):
+def _make_solver(op, cfg, strategy, shift_fn=None, mesh=None):
     """``eigsh``'s driver: 'fused' (and 'auto') the symmetric cycle of
     ``core/device_sym`` (the selective loop on the device), 'hybrid' the
     host float64 reduced space of ``core/iram``; either with the caller's
-    shifts."""
+    shifts, either on a mesh."""
     if strategy in ("auto", "fused"):
         from .core.device_sym import FusedSymSolver
-        return FusedSymSolver(op, cfg, shift_fn=shift_fn)
-    return IRAMSolver(op, cfg, shift_fn=shift_fn)
+        return FusedSymSolver(op, cfg, shift_fn=shift_fn, mesh=mesh)
+    return IRAMSolver(op, cfg, shift_fn=shift_fn, mesh=mesh)
 
 
 def _check_validate(validate, raw_A, raw_M=None) -> None:
@@ -230,12 +242,6 @@ def _finish(op, cfg, res, return_eigenvectors, return_stats, validate,
     return ret
 
 
-def _refuse_mesh(mesh) -> None:
-    """``mesh=`` (the row-partitioned solve) is outside the slice."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet")
-
-
 class ArpackError(RuntimeError):
     """Solver error with the reference's info-code catalog
     (SRC/dsaupd.f:247-276)."""
@@ -345,9 +351,9 @@ def eigsh(
 
     Returns ``values`` or ``(values, vectors)`` (and the
     :class:`EigenResult` with ``return_stats``), as the reference package
-    does.
+    does.  ``mesh``: the row-partitioned solve (see the module's notes).
     """
-    _refuse_mesh(mesh)
+    device = _mesh_device(mesh, device)
     if strategy not in ("auto", "fused", "hybrid"):
         raise ValueError(f"strategy must be 'auto', 'fused' or 'hybrid', "
                          f"not {strategy!r}")
@@ -378,8 +384,9 @@ def eigsh(
         symmetric=True, dtype=np.dtype(op.dtype), n_pad=op.n_pad, seed=seed,
         exact_shifts=shift_fn is None, storage_dtype=storage_dtype,
         cgs_kernel=cgs_kernel, restart=restart, reorth=reorth)
-    res = _make_solver(op, cfg, strategy, shift_fn).solve(v0=v0)
-    return _finish(op, cfg, res, return_eigenvectors, return_stats,
+    solver = _make_solver(op, cfg, strategy, shift_fn, mesh)
+    res = solver.solve(v0=v0)
+    return _finish(solver.op, cfg, res, return_eigenvectors, return_stats,
                    validate, raw_A, M, howmny="S" if select is not None
                    else "A", select=select)
 
@@ -441,11 +448,11 @@ def eigs(
     (SRC/dneupd.f:60-66); in real arithmetic a selected member of a
     conjugate pair brings its partner.  ``return_schur`` takes precedence.
 
-    Not ported yet (``NotImplementedError``): ``mesh``.  ``validate`` under
-    ``return_schur`` raises ``ValueError``, where the reference skips it
-    without a word.
+    ``mesh``: the row-partitioned solve, through any of the three drivers
+    (see the module's notes).  ``validate`` under ``return_schur`` raises
+    ``ValueError``, where the reference skips it without a word.
     """
-    _refuse_mesh(mesh)
+    device = _mesh_device(mesh, device)
     if strategy not in ("auto", "fused_real", "hybrid", "fused"):
         raise ValueError(f"strategy must be 'auto', 'fused', 'fused_real' "
                          f"or 'hybrid', not {strategy!r}")
@@ -482,13 +489,13 @@ def eigs(
         # every config field kept (cgs_kernel too, which the extension then
         # vets for the complex dtype)
         cfg = dataclasses.replace(cfg, dtype=np.dtype(op.dtype))
-        solver = FusedNonsymSolver(op, cfg)
+        solver = FusedNonsymSolver(op, cfg, mesh=mesh)
     elif strategy == "hybrid":
-        solver = IRAMSolver(op, cfg)
+        solver = IRAMSolver(op, cfg, mesh=mesh)
     else:
         from .core.device_realnonsym import FusedRealNonsymSolver
-        solver = FusedRealNonsymSolver(op, cfg)
+        solver = FusedRealNonsymSolver(op, cfg, mesh=mesh)
     res = solver.solve(v0=v0)
     howmny = "P" if return_schur else ("S" if select is not None else "A")
-    return _finish(op, cfg, res, return_eigenvectors, return_stats,
+    return _finish(solver.op, cfg, res, return_eigenvectors, return_stats,
                    validate, raw_A, M, howmny=howmny, select=select)

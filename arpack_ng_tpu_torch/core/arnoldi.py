@@ -37,6 +37,14 @@ has the same element order.
 
 The state is updated in place: ``extend`` writes the new basis rows into
 ``state.V`` and the restart rotation overwrites ``state.V``.
+
+Under a row mesh (an operator with ``op.mesh``, ``parallel/sharding``)
+each rank holds its rows of V, resid and b_resid and runs the same steps
+on them, kernels included; the partial dot products are all-reduced at
+the reference's sites (the CGS and event coefficients, alpha, the norms,
+pdgetv0's), so H, the omega recurrence, every decision and every host
+branch are the same on every rank.  Restart vectors are drawn at full
+length on every rank and sliced to its rows.
 """
 from __future__ import annotations
 
@@ -79,7 +87,10 @@ class FactorizationState:
 
     ``V``, ``resid`` and ``b_resid`` live on the operator's device; the
     reduced quantities (``H``, ``rnorm``) and the counters live on the
-    host.  ``gen`` draws restart vectors (SRC/dgetv0.f)."""
+    host.  ``gen`` draws restart vectors (SRC/dgetv0.f).  Under a mesh,
+    ``V``, ``resid`` and ``b_resid`` are this rank's rows (``n_loc``
+    columns) and every other field is replicated
+    (``parallel/sharding.LOCAL_FIELDS``)."""
 
     V: torch.Tensor          # (ncv, n_pad) basis rows, storage dtype
     H: np.ndarray            # (ncv, ncv) projected matrix, compute dtype
@@ -213,14 +224,25 @@ def kev_rows(ncv: int, kev: int, need_next: bool = True) -> int:
     return rows_list[min((max(nrows, 1) - 1) // _BUCKET, len(rows_list) - 1)]
 
 
+def _same(t):
+    return t
+
+
+def reducer(op: Operator):
+    """The all-reduce (sum) of partial dot products under the operator's
+    mesh, in place; the identity without one."""
+    return _same if op.mesh is None else op.mesh.sum
+
+
 def complex_event(idx: torch.Tensor, V: torch.Tensor, br: torch.Tensor,
-                  take: torch.Tensor) -> torch.Tensor:
+                  take: torch.Tensor, red=_same) -> torch.Tensor:
     """The projection of a complex event as one masked GEMV over all ncv
     rows (the event kernels are real-only, as the reference's Pallas events
     are): ``<V[idx[k]], br>`` where ``take[k]``, else 0, put back in row
     order; the event's update is then ``r - c @ V``.  Torch ops with no
-    host read, so a CUDA graph can hold them."""
-    s = torch.index_select(V.conj() @ br, 0, idx)
+    host read, so a CUDA graph can hold them.  ``red``: the all-reduce of
+    the products under a mesh."""
+    s = torch.index_select(red(V.conj() @ br), 0, idx)
     s = torch.where(take, s, torch.zeros((), dtype=s.dtype, device=s.device))
     return torch.zeros(V.shape[0], dtype=s.dtype,
                        device=s.device).index_add_(0, idx, s)
@@ -235,28 +257,33 @@ def make_bnorm(op: Operator, cfg: IRAMConfig):
     """Norm closure ``bnorm(r, br) -> 0-d tensor``: ``sqrt(|<r, B r>|)``
     (SRC/dsaitr.f:634-639; conjugated for complex dtypes, SRC/znaitr.f),
     a real tensor, or with ``cfg.safe_norms`` on a standard
-    problem the overflow-safe two-phase norm of PARPACK's pdnorm2."""
+    problem the overflow-safe two-phase norm of PARPACK's pdnorm2.  Under
+    a mesh the local dot is all-reduced before the root, and pdnorm2's
+    largest entry before the scaling (pdnorm2.f:70-80)."""
     dot = torch.vdot if _dt.is_complex(cfg.dtype) else torch.dot
+    red = reducer(op)
     if not (cfg.safe_norms and op.bmat == "I"):
-        return lambda r, br: torch.sqrt(torch.abs(dot(r, br)))
+        return lambda r, br: torch.sqrt(torch.abs(red(dot(r, br))))
     tiny = _dt.safmin(cfg.dtype)
+    top = _same if op.mesh is None else op.mesh.max
 
     def bnorm(r, br):
-        m = torch.max(torch.abs(r))
+        m = top(torch.max(torch.abs(r)))
         msafe = torch.clamp_min(m, tiny)
         scaled = r / msafe
-        nrm = msafe * torch.sqrt(torch.abs(dot(scaled, scaled)))
+        nrm = msafe * torch.sqrt(torch.abs(red(dot(scaled, scaled))))
         return torch.where(m > 0, nrm, torch.zeros_like(nrm))
 
     return bnorm
 
 
 def _random_vector(gen: torch.Generator, n_pad: int, n: int, dtype,
-                   device) -> torch.Tensor:
+                   device, mesh=None) -> torch.Tensor:
     """Uniform(-1, 1) start vector (dlarnv idist=2, SRC/dgetv0.f:224-229),
     real and imaginary parts drawn apart for complex dtypes, zero on the
     pad.  Drawn on the host generator, so a seed gives the same vector on
-    every device."""
+    every device; under a mesh every rank draws it whole and keeps its
+    rows."""
     rdt = _dt.torch_dtype(_dt.real_dtype(dtype))
     if _dt.is_complex(dtype):
         re = torch.rand((2, n_pad), generator=gen, dtype=rdt) * 2 - 1
@@ -264,20 +291,26 @@ def _random_vector(gen: torch.Generator, n_pad: int, n: int, dtype,
     else:
         v = torch.rand(n_pad, generator=gen, dtype=rdt) * 2 - 1
     v[n:] = 0
+    if mesh is not None:
+        v = mesh.local(v).clone()
     return v.to(device=device, dtype=_dt.torch_dtype(dtype))
 
 
-def _check_slice(op: Operator, cfg: IRAMConfig) -> None:
+def _check_slice(op: Operator, cfg: IRAMConfig) -> int:
+    """Check the operator against the config; returns the rows this rank
+    holds (``n_pad`` without a mesh)."""
     if op.n != cfg.n or op.n_pad != cfg.n_pad:
         raise ValueError("operator/config dimension mismatch")
     require(op.device)
+    return cfg.n_pad if op.mesh is None else op.mesh.n_loc(cfg.n_pad)
 
 
 def make_init(op: Operator, cfg: IRAMConfig):
     """Build the state initializer (dgetv0, j=1 path):
     ``init(gen=None, v0=None)``; ``v0`` (length n_pad) plays the role of
-    the reference's user-supplied ``resid`` (SRC/dsaupd.f:243-246)."""
-    _check_slice(op, cfg)
+    the reference's user-supplied ``resid`` (SRC/dsaupd.f:243-246), whole
+    on every rank of a mesh."""
+    n_loc = _check_slice(op, cfg)
     pin_full_precision()
     ncv, n_pad, n = cfg.ncv, cfg.n_pad, cfg.n
     dtype = cfg.dtype
@@ -293,9 +326,12 @@ def make_init(op: Operator, cfg: IRAMConfig):
         if gen is None:
             gen = torch.Generator().manual_seed(cfg.seed)
         if v0 is None:
-            r0 = _random_vector(gen, n_pad, n, dtype, device)
+            r0 = _random_vector(gen, n_pad, n, dtype, device, op.mesh)
         else:
-            r0 = torch.as_tensor(v0).to(device=device, dtype=tdt)
+            r0 = torch.as_tensor(v0)
+            if op.mesh is not None:
+                r0 = op.mesh.local(r0).clone()
+            r0 = r0.to(device=device, dtype=tdt)
         # force the start vector into the range of OP (SRC/dgetv0.f:233-246)
         br0 = op.b_apply(r0)
         w, _ = op.apply(r0, br0)
@@ -303,7 +339,7 @@ def make_init(op: Operator, cfg: IRAMConfig):
         b_resid = op.b_apply(resid) if nbx1 else resid
         rnorm = _host(bnorm(resid, b_resid), rdt)
         return FactorizationState(
-            V=torch.zeros((ncv, n_pad), dtype=sdt, device=device),
+            V=torch.zeros((ncv, n_loc), dtype=sdt, device=device),
             H=np.zeros((ncv, ncv), dtype),
             resid=resid, b_resid=b_resid, rnorm=rnorm,
             k=0, nev_cur=cfg.nev, iter=0,
@@ -325,6 +361,8 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
     its end); ``reorth='dgks'`` runs the reference's bucketed CGS with the
     DGKS 0.717 refinement test (``_step``)."""
     _check_slice(op, cfg)
+    mesh = op.mesh
+    red = reducer(op)
     pin_full_precision()
     ncv, n_pad, n = cfg.ncv, cfg.n_pad, cfg.n
     dtype = cfg.dtype
@@ -359,10 +397,11 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
 
     def _proj(Vr, w):
         """Projection coefficients ``Vr^H w`` accumulated in the compute
-        dtype (narrow storage is widened first)."""
+        dtype (narrow storage is widened first), all-reduced under a
+        mesh."""
         if cplx:
-            return Vr.conj() @ w
-        return (Vr.to(tdt) if mixed else Vr) @ w
+            return red(Vr.conj() @ w)
+        return red((Vr.to(tdt) if mixed else Vr) @ w)
 
     def _comb(h, Vr):
         return h @ (Vr.to(tdt) if mixed else Vr)
@@ -391,7 +430,7 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         form: excluded rows contribute exact zeros)."""
         rows = _rows_upto(j)
         h = torch.zeros(ncv, dtype=tdt, device=device)
-        h[:rows] = (cgs_proj(V, w, rows) if _kernel_bucket(rows)
+        h[:rows] = (red(cgs_proj(V, w, rows)) if _kernel_bucket(rows)
                     else _proj(V[:rows], w))
         h[j + 1:] = 0
         return h
@@ -415,7 +454,7 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         else:
             r = w - _comb(h[:rows], V[:rows])
             rn2 = torch.dot(r, r)
-        return r, r, torch.sqrt(rn2)
+        return r, r, torch.sqrt(red(rn2))
 
     def _orth_refine(V, j, r, br, rn_prev, max_iter):
         """CGS against rows ``< j`` with iterative refinement until the
@@ -445,7 +484,7 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         counts = st.counts.add(nrstrt=1)
         r, br, rn, done = st.resid, st.b_resid, R(0), False
         for itry in range(_MAX_RESTART_TRIES):
-            r = _random_vector(st.gen, n_pad, n, dtype, device)
+            r = _random_vector(st.gen, n_pad, n, dtype, device, mesh)
             dop = dbx = 0
             if itry == 0:
                 r, _ = op.apply(r, b_apply(r))
@@ -563,6 +602,9 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
     # fused ||r'||^2 from the event update: real standard problems, plain
     # norms
     fuse_sel_norm = not is_g and not cfg.safe_norms and not cplx
+    # one all-reduce for wnorm's and alpha's partials (plain norms)
+    merge_wa = mesh is not None and not cfg.safe_norms
+    dot = torch.vdot if cplx else torch.dot
     # device constants, made here: a captured extension copies no host data
     rtd = _dt.torch_dtype(rdt)
     # (each torch op of a step is one node of the captured graph, and on
@@ -642,7 +684,7 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
             return r, br, bnorm(r, br)
         if fuse_sel_norm:
             r, rn2 = sel_update(idx, s, r, V, with_norm=True, word=word)
-            return r, r, torch.sqrt(rn2)
+            return r, r, torch.sqrt(red(rn2))
         sel_update(idx, s, r, V, word=word)
         br = b_apply(r)
         return r, br, bnorm(r, br)
@@ -690,9 +732,17 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         bv_j = br * inv if is_g else v_j
         V[j] = v_j
         w, bw = op.apply(v_j, bv_j)
-        wnorm = bnorm(w, bw)
         # three-term recurrence: reads one stored row, v_{j-1}
-        alpha = torch.vdot(v_j, bw).real if cplx else torch.dot(v_j, bw)
+        if merge_wa:
+            # under a mesh, <w, Bw> and alpha in one all-reduce: the
+            # collectives are latency-bound (the same partials, summed)
+            p = red(torch.stack([dot(w, bw), dot(v_j, bw)]))
+            wnorm = torch.sqrt(torch.abs(p[0]))
+            alpha = p[1].real if cplx else p[1]
+        else:
+            wnorm = bnorm(w, bw)
+            alpha = (red(torch.vdot(v_j, bw)).real if cplx
+                     else red(torch.dot(v_j, bw)))
         beta = zero_r if (restarted or j == 0) else rn_prev
         v_jm1 = V[max(j - 1, 0)].to(tdt)
         r = w - alpha * v_j - beta * v_jm1
@@ -714,9 +764,10 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
                            zero_i)
         take = (col < word) & upto[j]
         if cplx:
-            s = complex_event(idx, V, br, take)
+            s = complex_event(idx, V, br, take, red)
         else:
-            s = torch.where(take, sel_proj(idx, V, br, word=word), zero_r)
+            s = torch.where(take, red(sel_proj(idx, V, br, word=word)),
+                            zero_r)
         reset = torch.gather(take, 0, rank)
         r, br_ev, rn_ev = _pass(idx, word, V, r, br, s)
         br = torch.where(need, br_ev, br) if is_g else r

@@ -40,6 +40,11 @@ On the device:
 
 The reference cached built solvers by ``id(op)`` to amortize XLA
 compiles; the port compiles nothing and keeps no such cache.
+
+Under a row mesh (``mesh=``) each rank holds its rows of V; the block
+CGS coefficients and CholQR2's Gram matrices are all-reduced, H and the
+reduced space are replicated, and the Ritz vectors are gathered whole
+onto every rank at the end.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ import torch
 
 from ..ops.cuda_rot import rotate_rows
 from ..ops.operator import Operator
+from ..parallel.sharding import mesh_operator
 from ..utils import dtypes as _dt
 from ..utils.precision import pin_full_precision
 
@@ -60,7 +66,11 @@ class BlockState(NamedTuple):
     nmv: int           # matvec counter
 
 
-def _qr_rows(W):
+def _same(t):
+    return t
+
+
+def _qr_rows(W, red=_same):
     """Row-stored thin QR of the block via CholQR2: with column matrices
     ``W_c = W^T = Q_c R`` (R upper b x b), returns ``(Q_c^T as rows, R)``;
     the new-block coupling H[new, cur] equals R.
@@ -74,13 +84,14 @@ def _qr_rows(W):
     step never waits on the device.  The triangular solve is ``inv(L) @
     W``, the b x b inverse first: cuBLAS's triangular solve with the
     block's n columns as right-hand sides stalled the flagship's b = 2
-    solve on an H100."""
+    solve on an H100.  ``red``: the all-reduce of the Gram matrix's
+    partials under a mesh (W holds this rank's columns)."""
     b = W.shape[0]
     eye = torch.eye(b, dtype=W.dtype, device=W.device)
     eps = torch.finfo(W.dtype).eps
 
     def one(Wf):
-        G = Wf @ Wf.T
+        G = red(Wf @ Wf.T)
         ridge = 1e-30 + eps * torch.trace(G) / b
         L, _ = torch.linalg.cholesky_ex(G + ridge * eye)
         Linv = torch.linalg.solve_triangular(L, eye, upper=False)
@@ -102,7 +113,8 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
     caller's ``X0`` (``(b, n)`` or ``(b, n_pad)``), zero on the pad.
     ``cycle(state) -> (state, theta, bounds)`` with the nev wanted Ritz
     values and bounds on the device; ``extract(state) -> (vals, vecs)`` on
-    the host in float64."""
+    the host in float64.  Under the operator's mesh (``op.mesh``) the
+    basis holds this rank's rows and ``vecs`` comes back whole."""
     if ncv % b:
         raise ValueError("ncv must be a multiple of the block size")
     if op.bmat != "I":
@@ -123,6 +135,12 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
     n, n_pad = op.n, op.n_pad
     if n_pad % 128:
         raise ValueError("n_pad must be a multiple of 128")
+    mesh = op.mesh
+    red = _same if mesh is None else mesh.sum
+    if mesh is not None and (n_pad // 128) % mesh.size:
+        raise ValueError("n_pad/128 must divide the mesh size for "
+                         "the block driver")
+    n_loc = n_pad if mesh is None else mesh.n_loc(n_pad)
     pin_full_precision()
     tdt = _dt.torch_dtype(np.dtype(dtype))
     device = op.device
@@ -138,9 +156,9 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
         """Full block CGS of W (b rows) against V[:s], two passes (block
         DGKS); returns (W, coeffs (s, b))."""
         Vs = V[:s]
-        c1 = Vs @ W.T
+        c1 = red(Vs @ W.T)
         W = W - c1.T @ Vs
-        c2 = Vs @ W.T
+        c2 = red(Vs @ W.T)
         W = W - c2.T @ Vs
         return W, c1 + c2
 
@@ -153,7 +171,7 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
             AW = a_block(V[s - b:s])
             nmv += b
             AW, coeff = _ortho_block(V, s, AW)
-            Q, R = _qr_rows(AW)
+            Q, R = _qr_rows(AW, red)
             V[s:s + b] = Q
             H[:s, s - b:s] = coeff
             H[s - b:s, :s] = coeff.T
@@ -171,8 +189,10 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
                                   dtype=tdt)[:, :n] * 2 - 1
         else:
             X[:, :n] = torch.as_tensor(np.asarray(X0))[:, :n].to(tdt)
-        Q, _ = _qr_rows(X.to(device))
-        V = torch.zeros((nrow, n_pad), dtype=tdt, device=device)
+        if mesh is not None:
+            X = mesh.local(X).contiguous()
+        Q, _ = _qr_rows(X.to(device), red)
+        V = torch.zeros((nrow, n_loc), dtype=tdt, device=device)
         V[:b] = Q
         H = torch.zeros((nrow, nrow), dtype=tdt, device=device)
         V, H, nmv = _steps(V, H, b, 0)
@@ -211,7 +231,10 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
         H = (H + H.T) / 2
         theta, S = np.linalg.eigh(H)
         V = st.V[:ncv].cpu().numpy()
-        vecs = (S[:, -nev:].T @ V)[:, :n].T
+        vecs = S[:, -nev:].T @ V
+        if mesh is not None:
+            vecs = mesh.gather_host(vecs)
+        vecs = vecs[:, :n].T
         if op.perm is not None:
             # internal row i holds logical coordinate perm[i]
             unperm = np.empty_like(vecs)
@@ -237,13 +260,16 @@ def eigsh_block(op_or_a, k: int = 6, *, block_size: int = 2,
     start block is uniform(-1, 1) from a host generator seeded with
     ``seed``, or ``X0``.  Use it for degenerate clusters of multiplicity
     > 1 (``block_size >=`` the multiplicity): they converge in one sweep,
-    where scalar Lanczos cannot separate the copies.  ``mesh=`` is not
-    ported (``NotImplementedError``)."""
-    from ..api import _as_operator, _refuse_mesh
-    _refuse_mesh(mesh)
+    where scalar Lanczos cannot separate the copies.  ``mesh``: the
+    row-partitioned solve (the operator lifted onto it unless built for
+    it; n_pad/128 must be a multiple of the mesh size), on the mesh's
+    device unless ``device`` says otherwise."""
+    from ..api import _as_operator, _mesh_device
+    device = _mesh_device(mesh, device)
     op = (op_or_a if isinstance(op_or_a, Operator)
           else _as_operator(op_or_a, dtype=dtype, hermitian=True,
                             device=device))
+    op = mesh_operator(op, mesh)
     b = block_size
     ncv = ncv or max(4 * b, 2 * (-(-(k + b) // b) * b) + 2 * b)
     ncv = -(-ncv // b) * b

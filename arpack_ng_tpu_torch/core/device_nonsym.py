@@ -72,8 +72,8 @@ def complexify_operator(op: Operator) -> Operator:
     """Lift a real-dtype operator to complex arithmetic: the operator is
     applied to the real and imaginary parts apart (two real matvecs per
     complex matvec), each a contiguous real vector.  Carries the
-    permutation, padding, shift, device, capturability and the lifted B,
-    A and M products over."""
+    permutation, padding, shift, device, capturability, mesh and the
+    lifted B, A and M products over."""
     if _dt.is_complex(op.dtype):
         return op
     cdt = np.dtype(np.complex64 if op.dtype == np.float32
@@ -95,7 +95,7 @@ def complexify_operator(op: Operator) -> Operator:
                     a_apply=_lift(op.a_apply), m_apply=_lift(op.m_apply),
                     n_pad=op.n_pad, sigma=op.sigma, hermitian=False,
                     perm=op.perm, format=op.format, device=op.device,
-                    capturable=op.capturable)
+                    capturable=op.capturable, mesh=op.mesh)
 
 
 def _which_key_cplx(which: str, vals):
@@ -316,16 +316,17 @@ def make_cplx_tail(op: Operator, cfg: IRAMConfig):
 class FusedNonsymSolver(HostLoopSolver):
     """znaupd-equivalent driver over the complex cycle, with the name of the
     reference package's driver; serves real non-symmetric problems through
-    :func:`complexify_operator`.  The restart loop runs on the host."""
+    :func:`complexify_operator`.  The restart loop runs on the host.
+    ``mesh``: see :class:`HostLoopSolver`."""
 
-    def __init__(self, op: Operator, cfg: IRAMConfig):
+    def __init__(self, op: Operator, cfg: IRAMConfig, mesh=None):
         if not _dt.is_complex(cfg.dtype):
             raise ValueError(
                 "FusedNonsymSolver needs a complex dtype; use "
                 "complexify_operator + a complex IRAMConfig for real input")
         if not cfg.exact_shifts:
             raise ValueError("fused path requires exact shifts")
-        super().__init__(op, cfg, make_cplx_head, make_cplx_tail)
+        super().__init__(op, cfg, make_cplx_head, make_cplx_tail, mesh)
 
     def _start(self, state: FactorizationState) -> CplxCycleOut:
         cdt = np.dtype(self.cfg.dtype)

@@ -490,16 +490,17 @@ def make_realnonsym_tail(op: Operator, cfg: IRAMConfig):
 class FusedRealNonsymSolver(HostLoopSolver):
     """dnaupd-equivalent driver over the real non-symmetric cycle, with the
     name of the reference package's driver.  The restart loop runs on the
-    host."""
+    host.  ``mesh``: see :class:`HostLoopSolver`."""
 
-    def __init__(self, op: Operator, cfg: IRAMConfig):
+    def __init__(self, op: Operator, cfg: IRAMConfig, mesh=None):
         if _dt.is_complex(cfg.dtype):
             raise ValueError("FusedRealNonsymSolver is for real dtypes")
         if cfg.symmetric:
             raise ValueError("use FusedSymSolver for symmetric problems")
         if not cfg.exact_shifts:
             raise ValueError("the fused path requires exact shifts")
-        super().__init__(op, cfg, make_realnonsym_head, make_realnonsym_tail)
+        super().__init__(op, cfg, make_realnonsym_head, make_realnonsym_tail,
+                         mesh)
 
     def _start(self, state: FactorizationState) -> RealCycleOut:
         z = np.zeros(self.cfg.ncv, _dt.real_dtype(self.cfg.dtype))

@@ -330,9 +330,16 @@ class FusedSymSolver(HostLoopSolver):
     ``reorth='dgks'``, ``restart='thick'`` and caller-supplied shifts
     (``shift_fn``, with ``cfg.exact_shifts`` False) keep the host loop
     (:class:`HostLoopSolver` over ``make_sym_head``/``make_sym_tail``); the
-    selective extension stays read-free there, one read at its end."""
+    selective extension stays read-free there, one read at its end.
 
-    def __init__(self, op: Operator, cfg: IRAMConfig, shift_fn=None):
+    ``mesh``: the row mesh of a distributed solve (see
+    :class:`~arpack_ng_tpu_torch.core.iram.HostLoopSolver`).  The device
+    loop then runs on each rank's rows with its collectives in the
+    extension; it is captured where the mesh's transport is
+    (``RowMesh.capturable``: NCCL) and runs eagerly otherwise."""
+
+    def __init__(self, op: Operator, cfg: IRAMConfig, shift_fn=None,
+                 mesh=None):
         if cfg.exact_shifts and shift_fn is not None:
             raise ValueError("shift_fn requires exact_shifts=False "
                              "(reference iparam(1)=0, ishift=0)")
@@ -341,8 +348,8 @@ class FusedSymSolver(HostLoopSolver):
         user = shift_fn is not None
         super().__init__(
             op, cfg, lambda o, c: make_sym_head(o, c, inflate=not user),
-            lambda o, c: make_sym_tail(o, c, shift_fn=shift_fn))
-        self._ext = make_extend(op, cfg)
+            lambda o, c: make_sym_tail(o, c, shift_fn=shift_fn), mesh)
+        self._ext = make_extend(self.op, cfg)
         self._host_loop = (not self._ext.read_free or user
                            or cfg.restart == "thick")
 
@@ -395,6 +402,7 @@ class FusedSymSolver(HostLoopSolver):
         if self._host_loop:
             return super().solve(gen=gen, v0=v0, state=state)
         timers = Timers()
+        self._c0 = None if self.mesh is None else self.mesh.snapshot()
         t0 = time.perf_counter()
         if state is None:
             with timers.timed("tgetv0", self.op.device):
@@ -443,8 +451,11 @@ class _DeviceLoop:
         self.sk = torch.zeros(2, dtype=rtd, device=dev)
         self.packet = torch.zeros(packet_size(ncv), dtype=torch.float64,
                                   device=dev)
-        self.capture = self.cuda and op.capturable
-        self.graphs = {}          # k -> (graph, launches per replay)
+        self.mesh = op.mesh
+        # a mesh's collectives are captured where its transport allows
+        self.capture = self.cuda and op.capturable and (
+            self.mesh is None or self.mesh.capturable)
+        self.graphs = {}          # k -> (graph, launches, collectives)
         self.replays = 0
         self.packets = 0
         self.events = []
@@ -478,11 +489,13 @@ class _DeviceLoop:
     def _replay(self, k: int) -> None:
         """The cycle's rotation and extension from ``k`` as a CUDA graph,
         captured on first use.  A kernel wrapper counts its launch when the
-        capture records it; the capture's counts are taken back and added
-        again on every replay."""
+        capture records it, and a mesh its collectives; the capture's counts
+        are taken back and added again on every replay."""
+        mesh = self.mesh
         entry = self.graphs.get(k)
         if entry is None:
             before = [f.launches for f in GRAPH_KERNELS]
+            c0 = None if mesh is None else mesh.snapshot()
             g = torch.cuda.CUDAGraph()
             g.capture_begin(pool=self.pool)
             try:
@@ -492,11 +505,18 @@ class _DeviceLoop:
             delta = [f.launches - b for f, b in zip(GRAPH_KERNELS, before)]
             for f, d in zip(GRAPH_KERNELS, delta):
                 f.launches -= d
-            entry = self.graphs[k] = (g, delta)
-        g, delta = entry
+            coll = None
+            if mesh is not None:
+                coll = mesh.snapshot()
+                coll.subtract(c0)
+                mesh.counts.subtract(coll)
+            entry = self.graphs[k] = (g, delta, coll)
+        g, delta, coll = entry
         g.replay()
         for f, d in zip(GRAPH_KERNELS, delta):
             f.launches += d
+        if coll is not None:
+            mesh.counts.update(coll)
         self.replays += 1
 
     def _reduce(self, is_last: bool) -> np.ndarray:
@@ -657,4 +677,4 @@ class _DeviceLoop:
         stats.graph_replays = self.replays
         stats.replay_launches = {
             k: {f.__name__: d for f, d in zip(GRAPH_KERNELS, delta) if d}
-            for k, (_, delta) in sorted(self.graphs.items())}
+            for k, (_, delta, _) in sorted(self.graphs.items())}

@@ -28,6 +28,11 @@
 * purify the Ritz vectors of generalized modes 3/4/5 by one formal step of
   inverse subspace iteration, ``z += resid * (last_comp/theta)`` (SHIFTI,
   CAYLEY) or ``/(theta-1)`` (BUCKLE) (SRC/dseupd.f:817-843).
+
+Under a row mesh the Ritz vectors are formed, purified and (for the
+Rayleigh quotients) applied on each rank's rows, the quotients' dot
+products all-reduced, and the vectors gathered whole onto every rank
+once at the end, as the reference returns global arrays.
 """
 from __future__ import annotations
 
@@ -227,6 +232,8 @@ def extract(op: Operator, cfg: IRAMConfig, result: IRAMResult,
                 and s_arr.imag != 0
         if use_rayleigh and op.a_apply is not None:
             lam = _rayleigh(op, cfg, Z)
+        if op.mesh is not None:
+            Z = op.mesh.gather_host(Z)
         vectors = Z[:, : cfg.n].T  # (n, nconv)
         if op.perm is not None:
             # internal row i holds logical coordinate perm[i]
@@ -243,7 +250,8 @@ def _rayleigh(op: Operator, cfg: IRAMConfig, Z: np.ndarray) -> np.ndarray:
     """Rayleigh quotients ``z^H A z / z^H M z`` (``M = I`` for
     ``bmat='I'``) of the rows of ``Z`` through the raw device products: the
     reference's value recovery for a complex shift in real arithmetic
-    (dndrv5/6)."""
+    (dndrv5/6).  Under a mesh ``Z`` holds this rank's rows and the dot
+    products are all-reduced."""
     tdt = _dt.torch_dtype(cfg.dtype)
 
     def to_dev(x):
@@ -258,13 +266,15 @@ def _rayleigh(op: Operator, cfg: IRAMConfig, Z: np.ndarray) -> np.ndarray:
                 + 1j * fn(to_dev(z.imag)).cpu().numpy()
         return fn(to_dev(z)).cpu().numpy()
 
-    lam = np.zeros(Z.shape[0], np.complex128)
+    dots = np.zeros((2, Z.shape[0]), np.complex128)
     for i, z in enumerate(Z):
         az = apply_c(op.a_apply, z)
         mz = apply_c(op.m_apply, z) if (op.m_apply is not None
                                          and op.bmat == "G") else z
-        lam[i] = np.vdot(z, az) / np.vdot(z, mz)
-    return lam
+        dots[:, i] = np.vdot(z, az), np.vdot(z, mz)
+    if op.mesh is not None:
+        dots = op.mesh.sum_host(dots)
+    return dots[0] / dots[1]
 
 
 def _select(select, ritz_iter, theta_all, idx_conv, eps23, real_pairs

@@ -23,6 +23,7 @@ import torch
 
 from ..config import IRAMConfig
 from ..ops.operator import Operator
+from ..parallel.sharding import check_solver, mesh_operator
 from ..utils import dtypes as _dt
 from ..utils.debug import debug, trace
 from ..utils.stats import SolverStats, Timers
@@ -51,10 +52,15 @@ class HostLoopSolver:
     ``max_iter`` cycles have run or the state records an error, then the
     result.  A driver gives the builders of ``head`` and ``tail``, the
     loop's output before its first cycle (:meth:`_start`) and the exit
-    ordering and info code (:meth:`_exit`)."""
+    ordering and info code (:meth:`_exit`).  ``mesh``: the row mesh of a
+    distributed solve (``parallel/sharding``); the operator is lifted onto
+    it unless it was built for it."""
 
-    def __init__(self, op, cfg, make_head, make_tail):
-        self.op, self.cfg = op, cfg
+    def __init__(self, op, cfg, make_head, make_tail, mesh=None):
+        op = mesh_operator(op, mesh)
+        check_solver(op, cfg)
+        self.op, self.cfg, self.mesh = op, cfg, op.mesh
+        self._c0 = None     # the mesh's counters when a solve began
         self._init = make_init(op, cfg)
         self._head = make_head(op, cfg)
         self._tail = make_tail(op, cfg)
@@ -85,6 +91,7 @@ class HostLoopSolver:
         ncv = cfg.ncv
         dev = self.op.device
         timers = Timers()
+        self._c0 = None if self.mesh is None else self.mesh.snapshot()
         with timers.timed("taupd", dev):
             if state is None:
                 with timers.timed("tgetv0", dev):
@@ -117,6 +124,10 @@ class HostLoopSolver:
                 ) -> IRAMResult:
         stats = SolverStats(n_iter=n_iter, n_conv=nconv, timers=timers)
         stats.absorb_counts(state.counts)
+        if self._c0 is not None:
+            c = self.mesh.snapshot()
+            c.subtract(self._c0)
+            stats.collectives = dict(c)
         return IRAMResult(ritz=ritz, bounds=bounds, nconv=nconv, info=info,
                           n_iter=n_iter, state=state, stats=stats)
 
@@ -261,9 +272,10 @@ class IRAMSolver(HostLoopSolver):
     for symmetric (Hermitian) and non-symmetric, real and complex problems.
     :meth:`iterate` runs one cycle.  ``shift_fn``: the caller's shifts
     (see :func:`make_iram_tail`), for a config with ``exact_shifts``
-    False."""
+    False.  ``mesh``: see :class:`HostLoopSolver`."""
 
-    def __init__(self, op: Operator, cfg: IRAMConfig, shift_fn=None):
+    def __init__(self, op: Operator, cfg: IRAMConfig, shift_fn=None,
+                 mesh=None):
         if op.n != cfg.n:
             raise ValueError("operator/config dimension mismatch")
         if op.bmat != cfg.bmat:
@@ -276,7 +288,7 @@ class IRAMSolver(HostLoopSolver):
             raise ValueError("the hybrid driver runs the implicit restart "
                              "only; restart='thick' needs strategy='fused'")
         super().__init__(op, cfg, make_iram_head,
-                         lambda o, c: make_iram_tail(o, c, shift_fn))
+                         lambda o, c: make_iram_tail(o, c, shift_fn), mesh)
 
     def _start(self, state: FactorizationState) -> IRAMCycleOut:
         z = np.zeros(self.cfg.ncv)

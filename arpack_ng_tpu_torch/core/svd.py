@@ -101,10 +101,12 @@ def svds(
     with ``shape``.  The package's own dense products make a capturable
     operator; a caller's callables do not.  ``method='normal'`` is the
     reference's Gram operator (dsvd.f:60), ``'augmented'`` the cyclic one
-    (``which='LM'`` only).  ``mesh`` is not ported
-    (``NotImplementedError``)."""
-    _api._refuse_mesh(mesh)
-    device = require(DEFAULT if device is None else device)
+    (``which='LM'`` only).  ``mesh``: the Lanczos solve runs
+    row-partitioned on it (``eigsh(..., mesh=)``: the Gram or cyclic
+    product on the gathered vector, each rank's rows kept), on the mesh's
+    device unless ``device`` says otherwise; the triplets come back whole
+    on every rank."""
+    device = require(_api._mesh_device(mesh, device) or DEFAULT)
     if A is not None:
         av, ahv, m, n, dt = _matvec_pair_from(A, dtype, device)
         capturable = True
@@ -123,7 +125,7 @@ def svds(
             raise ValueError("method='augmented' supports which='LM' only")
         return _svds_augmented(av, ahv, m, n, np.dtype(dt), k, ncv, tol,
                                maxiter, return_singular_vectors, seed,
-                               device, capturable)
+                               device, capturable, mesh)
 
     use_gram_right = n <= m   # Lanczos on A^H A (dim n) vs A A^H (dim m)
     dim = n if use_gram_right else m
@@ -143,7 +145,8 @@ def svds(
     if which not in w_map:
         raise ValueError("which must be 'LM' or 'SM' for svds")
     vals, vecs = _api.eigsh(op, k=k, which=w_map[which], ncv=ncv, tol=tol,
-                            maxiter=maxiter if maxiter else 600, seed=seed)
+                            maxiter=maxiter if maxiter else 600, seed=seed,
+                            mesh=mesh)
     s = np.sqrt(np.maximum(vals, 0.0))
     order = np.argsort(s, kind="stable")   # ascending, scipy convention
     s = s[order]
@@ -172,7 +175,8 @@ def svds(
 
 
 def _svds_augmented(av, ahv, m, n, dt, k, ncv, tol, maxiter,
-                    return_singular_vectors, seed, device, capturable):
+                    return_singular_vectors, seed, device, capturable,
+                    mesh=None):
     """Largest-k triplets via Lanczos on C = [[0, A], [A^H, 0]] (dim m+n):
     the ``'LA'`` end holds +sigma_i, whose eigenvectors split as
     (u_i; v_i)/sqrt(2), so both sides come out of one solve."""
@@ -188,7 +192,8 @@ def _svds_augmented(av, ahv, m, n, dt, k, ncv, tol, maxiter,
                   a_apply=cyc_p, n_pad=dim_pad, hermitian=True,
                   device=device, capturable=capturable)
     vals, vecs = _api.eigsh(op, k=k, which="LA", ncv=ncv, tol=tol,
-                            maxiter=maxiter if maxiter else 600, seed=seed)
+                            maxiter=maxiter if maxiter else 600, seed=seed,
+                            mesh=mesh)
     s = np.maximum(np.asarray(vals, dtype=np.float64), 0.0)
     order = np.argsort(s, kind="stable")   # ascending, scipy convention
     s = s[order]

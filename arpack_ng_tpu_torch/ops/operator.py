@@ -16,7 +16,11 @@ row permutation (internal row i holds logical coordinate ``perm[i]``);
 ``capturable`` says whether a CUDA graph may capture ``apply`` (the
 operator's declared property: the package's own operators set it, a
 caller's ``from_matvec`` callable does not unless told); ``apply_block``
-is an optional batched raw matvec over ``(b, n_pad)`` rows.
+is an optional batched raw matvec over ``(b, n_pad)`` rows.  ``mesh``:
+the row mesh (``parallel/sharding.RowMesh``) an operator was built for,
+whose ``apply`` maps this rank's rows of a vector to its rows of the
+result (``n_pad`` stays the whole length); None for an operator on whole
+vectors.
 """
 from __future__ import annotations
 
@@ -58,6 +62,8 @@ class Operator:
     #   (b, n_pad) -> (b, n_pad) for the block solver (core/block), which
     #   reads the operator's data once per block (from_scipy's DIA
     #   operators carry one)
+    mesh: object = None             # the row mesh whose local rows apply
+    #   maps (parallel/sharding), None for whole vectors
 
     def __post_init__(self):
         if self.n_pad == 0:
@@ -69,13 +75,17 @@ class Operator:
 
     def matvec(self, v) -> np.ndarray:
         """Raw ``A @ v`` on a logical-length host vector (numpy in, numpy
-        out), in the operator's internal (possibly permuted) order."""
+        out), in the operator's internal (possibly permuted) order; the
+        whole vector on every rank of a mesh operator."""
         if self.a_apply is None:
             raise ValueError("operator has no raw a_apply")
         vp = torch.zeros(self.n_pad, dtype=_dt.torch_dtype(self.dtype),
                          device=self.device)
         vp[: self.n] = torch.from_numpy(np.asarray(v, self.dtype))
-        return self.a_apply(vp)[: self.n].cpu().numpy()
+        if self.mesh is None:
+            return self.a_apply(vp)[: self.n].cpu().numpy()
+        y = self.mesh.gather(self.a_apply(self.mesh.local(vp)))
+        return y[: self.n].cpu().numpy()
 
 
 def _pad_mat(a: np.ndarray, n_pad: int, fill_identity: bool = False

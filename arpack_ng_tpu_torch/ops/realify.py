@@ -172,10 +172,10 @@ def eigs_realified(a, k: int = 6, *, which: str = "LM",
                    tol: float = 0.0, ncv: Optional[int] = None,
                    maxiter: Optional[int] = None, seed: int = 0,
                    hermitian: Optional[bool] = None, mesh=None,
-                   device=DEFAULT) -> Tuple[np.ndarray, np.ndarray]:
+                   device=None) -> Tuple[np.ndarray, np.ndarray]:
     """znaupd-class solve of a complex matrix (dense or scipy sparse)
     through the REAL drivers, on ``device`` (the card unless told
-    otherwise).
+    otherwise; a mesh's device under ``mesh``).
 
     Each complex eigenvalue of A surfaces in the realified spectrum with
     its conjugate partner; twice as many pairs are asked for and the
@@ -184,14 +184,14 @@ def eigs_realified(a, k: int = 6, *, which: str = "LM",
     'LI' on an asymmetric spectrum), the subspace is enlarged and the solve
     retried, at most twice; a :class:`UserWarning` says when fewer than k
     came back.  Hermitian inputs take the real symmetric route ('LM', 'LA'
-    and 'SA'; other selectors run as 'LM').  ``mesh`` is not ported yet
-    (``NotImplementedError``)."""
+    and 'SA'; other selectors run as 'LM').  ``mesh``: the real solve runs
+    row-partitioned on it (``eigsh``/``eigs(..., mesh=)``); the recovery
+    runs on the whole vectors on every rank."""
     import scipy.sparse as sp
 
     from .. import api
 
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet")
+    device = api._mesh_device(mesh, device) or DEFAULT
     if sp.issparse(a):
         n = a.shape[0]
         op = realify_sparse(a, hermitian=hermitian, device=device)
@@ -208,10 +208,10 @@ def eigs_realified(a, k: int = 6, *, which: str = "LM",
             vals, vecs = api.eigsh(op, k=k2, which=which if which in
                                    ("LM", "LA", "SA") else "LM",
                                    tol=tol, ncv=ncv, maxiter=maxiter,
-                                   seed=seed)
+                                   seed=seed, mesh=mesh)
         else:
             vals, vecs = api.eigs(op, k=k2, which=which, tol=tol, ncv=ncv,
-                                  maxiter=maxiter, seed=seed)
+                                  maxiter=maxiter, seed=seed, mesh=mesh)
         out_vals, out_vecs = _recover(np.atleast_1d(vals), vecs, a, n,
                                       half, k, tol=tol)
         if len(out_vals) >= k or k2 >= kmax or retries >= 2:

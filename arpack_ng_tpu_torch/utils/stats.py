@@ -108,6 +108,9 @@ class SolverStats:
     graphs_captured: int = 0
     graph_replays: int = 0
     replay_launches: dict = dataclasses.field(default_factory=dict)
+    # a mesh solve's collectives by kind (parallel/sharding.KINDS), those
+    # of captured graphs counted on every replay
+    collectives: dict = dataclasses.field(default_factory=dict)
 
     def absorb_counts(self, counts: OpCounts) -> None:
         for f in OpCounts._fields:

@@ -242,7 +242,28 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    P14_PENCIL_N (1e-8); (e) the seven examples of
    ``arpack_ng_tpu_torch.examples`` once each, residuals under
    P14_EXAMPLE_RES, the event, rotation, PSELL and reduced-space kernels
-   launched; the phase within P14_MAX_S.
+   launched; the phase within P14_MAX_S;
+15. the distribution layer (``mesh=``, each path's launches counted from
+   zero): (a) the main path, a world of one under NCCL (its collectives
+   captured in the device loop's CUDA graphs): the flagship through
+   ``eigsh(mesh=)``, first on ``laplacian_2d_sharded(nx, nx)`` (the halo
+   operator) and then on ``laplacian_2d`` lifted onto the mesh (its input
+   all-gathered); a world of one sums nothing, so each must give the
+   kernel's counters ``KERNEL_COUNTERS['flagship selective']`` exactly,
+   under phase 4's value and residual gates, with one packet per cycle
+   and every cycle after the first replayed; printed: the collectives per
+   step by kind, the graphs and replays, the wall beside phase 4's, the
+   launches; (b) P15_RANKS spawned ranks on the one card under gloo
+   (NCCL does not run two ranks on one device; the transport is printed):
+   the same solve on ``laplacian_2d_sharded``, the ranks' values equal bit
+   for bit, each rank under phase 4's value and residual gates (not its
+   cycle band, which was measured on one rank's sums); printed: the
+   counters, the collectives per step and their share of the solve's
+   wall (each collective timed between device syncs); (c) the same ranks:
+   ``eigs(strategy='hybrid')`` on ``convection_diffusion_2d(EIGS_SOLVE_NX)``
+   under phase 9's gates and ``svds`` of 12d's matrix (method 'normal')
+   under 12d's gates, values bit-equal across the ranks; the phase within
+   P15_MAX_S, the ranks' own collectives within P15_COLLECTIVE_TIMEOUT_S.
 
     python3 chip_smoke.py --profile
 
@@ -423,9 +444,18 @@ P14_PENCIL_N = 4096
 P14_SIGMA = 25.0
 P14_MAX_S = 180.0
 #: 14e: each example's residual gate, relative to max(1, max |value|)
+#: (``distributed_laplacian`` runs as a world of one there)
 P14_EXAMPLE_RES = {"dssimp": 1e-3, "dnsimp": 1e-8, "dsdrv4_shift_invert":
                    1e-6, "zndrv1": 1e-8, "svd": 1e-8, "validate_f64": 1e-2,
-                   "irregular_sparse": 1e-3}
+                   "irregular_sparse": 1e-3, "distributed_laplacian": 1e-3}
+#: phase 15: the ranks of 15b-c (gloo on the one card), the seconds one of
+#: their collectives may wait before it raises, and the phase's wall
+#: limit, seconds
+P15_RANKS = 2
+P15_COLLECTIVE_TIMEOUT_S = 300
+P15_MAX_S = 300.0
+#: walls of earlier phases that phase 15 prints beside its own
+WALLS = {}
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
 #: the tensor cores by accumulation dtype; its SMs (one block of the
 #: reduced-space kernel runs on one)
@@ -1333,6 +1363,7 @@ def flagship(torch, dev, gpu, nx=NX):
         torch, dev, SELECTIVE_PATH, lambda: pt.eigsh(op, **kw))
     dmax, rmax = check_values(vals, vecs, a_sp, spectrum,
                               "flagship selective")
+    WALLS["4"] = wall
     st = out.stats
     if st.packets != st.n_iter or st.graph_replays != st.n_iter - 1:
         raise AssertionError(f"flagship selective: {st.packets} packets, "
@@ -2460,10 +2491,12 @@ def _eigs_transforms(torch, dev, gpu, nx, bicg_nx, need):
     return paths
 
 
-def _svds_full(torch, dev, gpu, shape, need):
+def _svds_full(torch, dev, gpu, shape, need, mesh=None,
+               methods=("normal", "augmented"), tag0="12d"):
     """12d: ``svds`` of a float32 ``A = U diag(s) V^T`` made on the card
     from seeded orthonormal factors (top eight singular values 10..3, the
-    rest 1..0.01), through both methods.  Returns each path's launches."""
+    rest 1..0.01), through ``methods`` (with ``mesh``: row-partitioned on
+    it, 15c).  Returns each path's launches."""
     import arpack_ng_tpu_torch as pt
     from arpack_ng_tpu_torch.utils.precision import pin_full_precision
 
@@ -2480,11 +2513,12 @@ def _svds_full(torch, dev, gpu, shape, need):
     t_make = time.perf_counter() - t0
     want = s_true[:8][::-1]
     paths = {}
-    for method in ("normal", "augmented"):
-        tag = f"12d svds({m} x {n} float32, k=8, method='{method}')"
+    for method in methods:
+        tag = f"{tag0} svds({m} x {n} float32, k=8, method='{method}')"
         (uu, s, vh), wall, counts = _counted(
             torch, dev, need("sym_cycle"),
-            lambda: pt.svds(A, k=8, tol=1e-6, method=method, device=dev))
+            lambda: pt.svds(A, k=8, tol=1e-6, method=method, device=dev,
+                            mesh=mesh))
         err = float(np.max(np.abs(s - want) / want))
         vd = torch.from_numpy(vh.T.astype(np.float32)).to(dev)
         ud = torch.from_numpy(uu.astype(np.float32)).to(dev)
@@ -2501,7 +2535,9 @@ def _svds_full(torch, dev, gpu, shape, need):
               f"{r_u:.2e}, "
               f"||A^T u - sv||/s {r_v:.2e}; launches {counts}; card {gpu}",
               flush=True)
-        paths[f"12d {method}"] = counts
+        paths[f"{tag0} {method}"] = counts
+        if mesh is not None:
+            paths[f"{tag0} {method}"] = dict(counts=counts, s=s, wall=wall)
     return paths
 
 
@@ -3438,6 +3474,248 @@ def cli_paths(torch, dev, gpu, nx=NX, si_nx=P14_SI_NX,
     return paths
 
 
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _per_step(coll, steps) -> str:
+    return ", ".join(f"{k} {v / steps:.3f}" for k, v in sorted(coll.items())
+                     if v)
+
+
+def _mesh_world_one(torch, dev, gpu, nx, need):
+    """15a: the flagship on a world of one under NCCL, through the halo
+    operator and the gathered stencil, each held to the single path's
+    counters exactly.  Returns each path's launches."""
+    import torch.distributed as dist
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.models import laplacian_2d
+    from arpack_ng_tpu_torch.models.distributed import laplacian_2d_sharded
+    from arpack_ng_tpu_torch.parallel import make_mesh
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend,
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    paths = {}
+    try:
+        mesh = make_mesh(device=dev)
+        print(f"15a {mesh}: backend {mesh.backend}, collectives captured "
+              f"in CUDA graphs: {mesh.capturable}", flush=True)
+        small, _ = laplacian_2d_sharded(64, 64, mesh, np.float32)
+        pt.eigsh(small, k=8, ncv=NCV, which="LA", tol=1e-5, mesh=mesh)
+        spectrum = _analytic_spectrum(nx)
+        kw = dict(k=8, ncv=NCV, which="LA", tol=1e-5, return_stats=True,
+                  mesh=mesh)
+        for tag, make in (
+                ("15a halo", lambda: laplacian_2d_sharded(nx, nx, mesh,
+                                                          np.float32)),
+                ("15a gathered", lambda: laplacian_2d(nx, np.float32,
+                                                      device=dev))):
+            op, a_sp = make()
+            (vals, vecs, out), wall, counts = _counted(
+                torch, dev, need(*SELECTIVE_PATH),
+                lambda: pt.eigsh(op, **kw))
+            dmax, rmax = check_values(vals, vecs, a_sp, spectrum, tag)
+            st = out.stats
+            _kernel_counters(st, "flagship selective")
+            replays = st.n_iter - 1 if (dev.type == "cuda"
+                                        and mesh.capturable) else 0
+            if st.packets != st.n_iter or st.graph_replays != replays:
+                raise AssertionError(f"{tag}: {st.packets} packets, "
+                                     f"{st.graph_replays} replays for "
+                                     f"{st.n_iter} cycles")
+            steps = st.nopx - 1
+            w4 = WALLS.get("4")
+            beside = "" if w4 is None else \
+                f" (phase 4's single path in this run: {w4:.4f} s)"
+            print(f"{tag} (flagship nx={nx}, world of one, {mesh.transport})"
+                  f": wall {wall:.4f} s{beside}, {wall * 1e3 / steps:.4f} "
+                  f"ms per step; {_stats_line(st)}; the kernel's "
+                  f"{KERNEL_COUNTERS['flagship selective']}: equal; max "
+                  f"value dist {dmax:.2e}, max residual {rmax:.2e}; "
+                  f"collectives {dict(st.collectives)}, per step "
+                  f"{_per_step(st.collectives, steps)}; {_loop_line(st)}; "
+                  f"launches {counts}; card {gpu}", flush=True)
+            paths[tag] = counts
+            del op, a_sp, vecs
+    finally:
+        dist.destroy_process_group()
+    return paths
+
+
+def _rank_paths(rank, ranks, port, out_dir, device="cuda", sizes=None):
+    """One rank of 15b-c, a process of its own on the card's gloo world
+    (``device="cpu"``: on the CPU, a rehearsal); ``sizes``: ``(nx, cd_nx,
+    m, n)``, the flagship's grid, the conv-diff grid and the svds shape.
+    Its results go to ``<out_dir>/rank<rank>.pkl`` (a failed gate
+    raises)."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.models import convection_diffusion_2d
+    from arpack_ng_tpu_torch.models.distributed import laplacian_2d_sharded
+    from arpack_ng_tpu_torch.ops import cuda_lib
+    from arpack_ng_tpu_torch.parallel import make_mesh
+
+    nx, cd_nx, m, n = sizes or (NX, EIGS_SOLVE_NX) + P12_SVD_SHAPE
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        cuda_lib.load()
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=ranks,
+        timeout=datetime.timedelta(seconds=P15_COLLECTIVE_TIMEOUT_S))
+    mesh = make_mesh(device=dev)
+    res = {"transport": mesh.transport}
+
+    def need(*kernels):
+        return kernels if dev.type == "cuda" else ()
+
+    # 15b: the flagship's solve on the halo operator, collectives timed
+    op, a_sp = laplacian_2d_sharded(nx, nx, mesh, np.float32)
+    mesh.timed = True
+    (vals, vecs, out), wall, counts = _counted(
+        torch, dev, need(*SELECTIVE_PATH),
+        lambda: pt.eigsh(op, k=8, ncv=NCV, which="LA", tol=1e-5, mesh=mesh,
+                         return_stats=True))
+    mesh.timed = False
+    dmax, rmax = check_values(vals, vecs, a_sp, _analytic_spectrum(nx),
+                              f"15b rank {rank}")
+    st = out.stats
+    res["15b"] = dict(vals=vals, wall=wall, counts=counts, dmax=dmax,
+                      rmax=rmax, stats=_stats_line(st), nopx=st.nopx,
+                      collectives=dict(st.collectives),
+                      seconds=dict(mesh.seconds), loop=_loop_line(st))
+    del op, a_sp, vecs
+
+    # 15c: the hybrid eigs on the gathered conv-diff stencil, then svds
+    op, a_sp = convection_diffusion_2d(cd_nx, dtype=np.float32, device=dev)
+    (vals, vecs, out), wall, counts = _counted(
+        torch, dev, need("rotate_rows"),
+        lambda: pt.eigs(op, k=8, ncv=NCV, which="LM", tol=1e-5,
+                        maxiter=EIGS_MAX_RESTARTS, strategy="hybrid",
+                        mesh=mesh, return_stats=True))
+    rmax = check_nonsym(vals, vecs, a_sp, f"15c eigs rank {rank}")
+    res["15c eigs"] = dict(vals=vals, wall=wall, counts=counts, rmax=rmax,
+                           stats=_stats_line(out.stats), info=out.info,
+                           collectives=dict(out.stats.collectives))
+    del op, a_sp, vecs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    res.update(_svds_full(torch, dev, f"rank {rank}", (m, n), need,
+                          mesh=mesh, methods=("normal",), tag0="15c"))
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(torch, dev, ranks, sizes):
+    """15b-c: ``ranks`` processes of this script on ``dev``, each running
+    :func:`_rank_paths`; returns their results by rank.  Every process is
+    stopped before this returns."""
+    import pickle
+    import tempfile
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    port = str(_free_port())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        logs = [open(f"{tmp}/rank{r}.log", "w+") for r in range(ranks)]
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--rank", str(r), "--ranks",
+             str(ranks), "--port", port, "--out", tmp, "--device",
+             dev.type, "--sizes", ",".join(map(str, sizes))],
+            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(ranks)]
+        deadline = time.perf_counter() + P15_MAX_S
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) \
+                        or time.perf_counter() > deadline:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        rcs = [p.returncode for p in procs]
+        if any(rcs):
+            for r, f in enumerate(logs):
+                f.seek(0)
+                print(f"15 rank {r} (rc {rcs[r]}):\n{f.read()[-4000:]}",
+                      flush=True)
+            raise AssertionError(f"15b-c ranks failed: {rcs}")
+        out = []
+        for r in range(ranks):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        for f in logs:
+            f.close()
+    return out
+
+
+def mesh_paths(torch, dev, gpu, nx=NX, ranks=P15_RANKS,
+               cd_nx=EIGS_SOLVE_NX, svd_shape=P12_SVD_SHAPE):
+    """Phase 15: the distribution layer (see the module docstring).
+    Returns each path's kernel launches (rank 0's for 15b-c)."""
+    def need(*kernels):
+        return kernels if dev.type == "cuda" else ()
+
+    t0 = time.perf_counter()
+    paths = _mesh_world_one(torch, dev, gpu, nx, need)
+    out = _spawn_ranks(torch, dev, ranks, (nx, cd_nx) + tuple(svd_shape))
+    for tag in ("15b", "15c eigs", "15c normal"):
+        for r in out[1:]:
+            for k in ("vals", "s"):
+                if k in out[0][tag] and not np.array_equal(out[0][tag][k],
+                                                           r[tag][k]):
+                    raise AssertionError(f"{tag}: the ranks' {k} differ")
+    b = out[0]["15b"]
+    steps = b["nopx"] - 1
+    share = sum(b["seconds"].values()) / b["wall"]
+    print(f"15b flagship nx={nx} on {ranks} ranks of one card "
+          f"({out[0]['transport']}): wall {b['wall']:.4f} s (collectives "
+          f"timed between syncs), {b['stats']}; values equal on the ranks "
+          f"bit for bit; max value dist {b['dmax']:.2e}, max residual "
+          f"{b['rmax']:.2e} (rank 0; every rank gated); collectives "
+          f"{b['collectives']}, per step {_per_step(b['collectives'], steps)}"
+          f"; their seconds {b['seconds']}, {100 * share:.2f}% of the wall; "
+          f"{b['loop']}; launches {b['counts']}; card {gpu}", flush=True)
+    print(f"  values {np.array2string(b['vals'], precision=7)}", flush=True)
+    c = out[0]["15c eigs"]
+    print(f"15c eigs(strategy='hybrid') conv-diff nx={cd_nx} on "
+          f"{ranks} ranks: wall {c['wall']:.4f} s, {c['stats']}; "
+          f"{len(c['vals'])} values, equal on the ranks, info {c['info']}, "
+          f"max residual {c['rmax']:.2e}; collectives {c['collectives']}; "
+          f"launches {c['counts']}; card {gpu}", flush=True)
+    s = out[0]["15c normal"]
+    print(f"15c svds on {ranks} ranks: wall {s['wall']:.4f} s, s "
+          f"{np.array2string(s['s'], precision=6)} equal on the ranks; card "
+          f"{gpu}", flush=True)
+    paths.update({"15b": b["counts"], "15c eigs": c["counts"],
+                  "15c svds": s["counts"]})
+    elapsed = time.perf_counter() - t0
+    print(f"phase 15: {elapsed:.2f} s (limit {P15_MAX_S:.0f} s)", flush=True)
+    if elapsed > P15_MAX_S:
+        raise AssertionError(f"phase 15 took {elapsed:.1f} s")
+    return paths
+
+
 def _device_ms(evt) -> float:
     """Self device time of a profiler average, in ms (the attribute was
     renamed from ``self_cuda_time_total`` in newer torch)."""
@@ -3663,8 +3941,20 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile the flagship's restart cycles in place "
                          "of the kernel, solve and basis-defect phases")
+    # a rank of phase 15b-c, started by the script itself
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--ranks", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--port", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
+    ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--sizes", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
+
+    if args.rank is not None:
+        _rank_paths(args.rank, args.ranks, args.port, args.out, args.device,
+                    tuple(int(x) for x in args.sizes.split(",")))
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3751,6 +4041,7 @@ def main() -> int:
               12: transform_paths(torch, dev, gpu)}
     phases[13], err_blk, rows_blk = banded_block_paths(torch, dev, gpu)
     phases[14] = cli_paths(torch, dev, gpu)
+    phases[15] = mesh_paths(torch, dev, gpu)
     # the block kernel's main path: 13d(i), the flagship at b = P13_JSON_B
     launches["dia_block_matvec"] = \
         phases[13][f"13d(i) b={P13_JSON_B}"]["dia_block_matvec"]

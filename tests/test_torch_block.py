@@ -144,8 +144,32 @@ class TestBlockLanczos:
         odd = pt.from_diagonal(np.arange(1.0, 101.0), device="cpu")
         with pytest.raises(ValueError, match="multiple of 128"):
             pblock.make_block_solver(odd, 2, 2, 16, np.float64)
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="RowMesh"):
             pblock.eigsh_block(op, k=2, block_size=2, mesh=object())
+
+    def test_mesh_matches_reference(self, tmp_path):
+        # mesh= on 2 gloo ranks (tests/torch_mp_worker.py) against the
+        # reference's mesh solve on 8 devices, from the reference's start
+        # block: equal cycles and matvecs, values within 1e-10; both ranks
+        # equal bit for bit; the single-device solve's values
+        from arpack_ng_tpu.parallel.sharding import make_mesh
+        from torch_mp_worker import run_world
+        a, b = _penta(3000), 2
+        jop = jsparse.from_scipy(a, hermitian=True)
+        X0 = _jax_start(0, b, a.shape[0], jop.n_pad)
+        out = run_world(2, ["block"], tmp_path,
+                        {"block": (a, X0, b)})["block"]
+        for r in out:
+            assert "error" not in r, r.get("error")
+        np.testing.assert_array_equal(out[0]["vals"], out[1]["vals"])
+        vj, _, ij = j_eigsh_block(jop, k=6, block_size=b, ncv=32,
+                                  tol=1e-10, maxiter=400, dtype=np.float64,
+                                  mesh=make_mesh(8))
+        assert out[0]["info"] == ij
+        np.testing.assert_allclose(out[0]["vals"], vj, rtol=REL)
+        np.testing.assert_allclose(out[0]["vals"], out[0]["single"],
+                                   rtol=REL)
+        assert _res(a, out[0]["vals"], out[0]["vecs"]) < 1e-8
 
     def test_no_solver_cache(self):
         # the reference cached built solvers by id(op); the port builds

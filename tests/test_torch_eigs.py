@@ -441,7 +441,8 @@ def test_values_only_and_stats():
     dict(validate="f64", return_schur=True), dict(strategy="fused"),
     dict(strategy="hybrid", cgs_kernel="pallas")])
 def test_outside_the_slice_raises(kwargs):
-    # mesh is outside the slice (NotImplementedError); select= and
+    # mesh= takes a RowMesh (TypeError for anything else; the mesh solves
+    # are tests/test_torch_parallel.py's); select= and
     # strategy='fused' are ported and solve to the reference's values from
     # the same start vector (within 1e-8: the complexified solve's values
     # carry imaginary parts of 1e-9 from rounding, the solve's tol 1e-10);
@@ -462,7 +463,7 @@ def test_outside_the_slice_raises(kwargs):
         return
     transform = "sigma" in kwargs or "M" in kwargs
     exc = ValueError if ("validate" in kwargs or "cgs_kernel" in kwargs
-                         or transform) else NotImplementedError
+                         or transform) else TypeError
     with pytest.raises(exc):
         pt.eigs(op, k=2, **kwargs)
     if transform:

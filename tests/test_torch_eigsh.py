@@ -182,7 +182,8 @@ def test_solve_pins_full_precision_matmuls(solver):
     dict(restart="thick"), dict(validate="f64"),
     dict(strategy="hybrid", restart="thick"), dict(cgs_kernel="pallas")])
 def test_outside_the_slice_raises(kwargs):
-    # mesh is outside the slice (NotImplementedError); shift_fn and
+    # mesh= takes a RowMesh (TypeError for anything else; the mesh solves
+    # are tests/test_torch_parallel.py's); shift_fn and
     # restart='thick' are ported and solve to the reference's values from
     # the same start vector; ported options raise ValueError where the
     # reference does: sigma on an operator (the built-in transforms take
@@ -201,8 +202,7 @@ def test_outside_the_slice_raises(kwargs):
         return
     ported = "cgs_kernel" in kwargs or "validate" in kwargs \
         or "sigma" in kwargs
-    exc = ValueError if ported or "strategy" in kwargs \
-        else NotImplementedError
+    exc = ValueError if ported or "strategy" in kwargs else TypeError
     with pytest.raises(exc):
         pt.eigsh(op, k=2, which="LA", **kwargs)
     if ported:

@@ -1,9 +1,10 @@
 """The port's runnable examples (``arpack_ng_tpu_torch/examples``): the
-manifest against the reference's ``examples/`` (every one but
-``distributed_laplacian``, which needs ``mesh=``), each example's
+manifest against the reference's ``examples/``, each example's
 ``main(..., device="cpu")`` at a small size against the reference
-package's API on the same problem, and the module entry point with
-``--cpu`` (without it and without a card: an error, no CPU run)."""
+package's API on the same problem (``distributed_laplacian`` on a gloo
+world of 2 processes, ``tests/torch_mp_worker.py``, and as a world of one
+in this process), and the module entry points with ``--cpu`` (without it
+and without a card: an error, no CPU run)."""
 import os
 import subprocess
 import sys
@@ -23,8 +24,8 @@ from arpack_ng_tpu.ops.sparse import from_scipy as jfrom_scipy  # noqa
 import arpack_ng_tpu_torch.examples as pex  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: examples of the reference that wait for the port's distribution layer
-WAITING = {"distributed_laplacian"}
+#: examples of the reference the port does not have yet
+WAITING = set()
 
 
 def test_manifest_matches_reference():
@@ -127,6 +128,54 @@ def test_irregular_sparse():
                    return_eigenvectors=False)
     _close_sets(vals, ref, 1e-4)
     assert res.max() < 1e-3
+
+
+def _grid_spectrum(nx, ny):
+    gx = 2 - 2 * np.cos(np.pi * np.arange(1, nx + 1) / (nx + 1))
+    gy = 2 - 2 * np.cos(np.pi * np.arange(1, ny + 1) / (ny + 1))
+    return (gx[:, None] + gy[None, :]).ravel()
+
+
+def test_distributed_laplacian(tmp_path):
+    from arpack_ng_tpu.models.distributed import laplacian_2d_sharded
+    from arpack_ng_tpu.parallel.sharding import make_mesh
+    from torch_mp_worker import run_world
+    out = run_world(2, ["example"], tmp_path,
+                    {"example": (64, 32)})["example"]
+    for r in out:
+        assert "error" not in r, r.get("error")
+    np.testing.assert_array_equal(out[0]["vals"], out[1]["vals"])
+    assert out[0]["out"].count("lambda[") == 4 and not out[1]["out"]
+    assert "mesh: 2 ranks (gloo); grid 64x32" in out[0]["out"]
+    mesh = make_mesh(8)
+    op, _ = laplacian_2d_sharded(64, 32, mesh, dtype=np.float32)
+    ref = at.eigsh(op, k=4, which="LA", tol=1e-5, mesh=mesh,
+                   return_eigenvectors=False)
+    spec = _grid_spectrum(64, 32)
+    one, res1 = _run("distributed_laplacian", 64, 32)   # a world of one
+    for vals, res in ((out[0]["vals"], out[0]["res"]), (one, res1)):
+        # each value on the analytic spectrum within the solve's tol; the
+        # reference's float32 mesh solve lies up to 1.1e-5 off it (within
+        # its own tol), so the two sets agree within twice the tol
+        assert all(np.min(np.abs(spec - v)) <= 1e-5 * v for v in vals)
+        _close_sets(vals, ref, 2e-5)
+        assert res.max() < 1e-3 * np.abs(vals).max()
+
+
+def test_distributed_entry_point():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m",
+           "arpack_ng_tpu_torch.examples.distributed_laplacian", "32", "16"]
+    r = subprocess.run(cmd + ["--cpu", "--ranks", "2"], capture_output=True,
+                       text=True, env=env, cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.count("lambda[") == 4
+    assert "mesh: 2 ranks (gloo)" in r.stdout
+    if not torch.cuda.is_available():
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=REPO, timeout=300)
+        assert r.returncode != 0 and "no CUDA device" in r.stderr
+        assert "lambda[" not in r.stdout
 
 
 def test_module_entry_point():

@@ -1,8 +1,9 @@
 """The port's fused complex driver (``arpack_ng_tpu_torch.core.device_nonsym``,
 ``eigs(strategy='fused')``) against the reference package's
 ``FusedNonsymSolver`` on the same numpy inputs and start vector; mirrors
-the fused side of tests/test_fused_nonsym.py (the distributed case waits
-for ``mesh``).
+the fused side of tests/test_fused_nonsym.py, its distributed case on a
+gloo world of 2 processes (``tests/torch_mp_worker.py``): the reference's
+residual gate, both ranks' values bit-equal.
 
 Tolerances: the Schur sweeps and last components in complex128 agree
 with LAPACK and with the reference's to 1e-12 / 1e-9; whole solves in
@@ -192,6 +193,25 @@ class TestFusedStrategy:
             at.eigs(opj, k=3, strategy="fused", cgs_kernel="pallas")
         with pytest.raises(ValueError, match="cgs_kernel"):
             pt.eigs(opp, k=3, strategy="fused", cgs_kernel="pallas")
+
+    def test_fused_distributed(self, tmp_path):
+        # mesh= (the row-partitioned solve) on 2 gloo ranks, the
+        # reference's case (rho = 40: a strongly non-normal operator whose
+        # float64 values move with the order of a sum, so the residual and
+        # the ranks' agreement are held, as tests/test_fused_nonsym.py
+        # holds its mesh solve)
+        from torch_mp_worker import run_world
+        v0 = np.random.default_rng(0).uniform(-1, 1, 144)
+        out = run_world(2, ["fused_nonsym"], tmp_path,
+                        {"fused_nonsym": v0})["fused_nonsym"]
+        for r in out:
+            assert "error" not in r, r.get("error")
+        np.testing.assert_array_equal(out[0]["vals"], out[1]["vals"])
+        np.testing.assert_array_equal(out[0]["vecs"], out[1]["vecs"])
+        _, a = jmodels.convection_diffusion_2d(12, rho=40.0,
+                                               dtype=np.float64)
+        assert residual(a, out[0]["vals"], out[0]["vecs"]).max() < 1e-7
+        assert out[0]["collectives"]["all_reduce"] > 0
 
     def test_solver_refuses_real_dtype(self):
         from arpack_ng_tpu_torch.config import IRAMConfig

@@ -1089,3 +1089,74 @@ def test_device_loop_boundary_resume_on_card(dev, tmp_path):
         == (full.n_iter, full.stats.nopx, full.stats.nrorth, full.stats.nrotr)
     np.testing.assert_array_equal(res.ritz, full.ritz)
     torch.cuda.synchronize()
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A world of one under NCCL on the card (NCCL runs one rank per
+    device), torn down after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from arpack_ng_tpu_torch.parallel import make_mesh
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh(device=torch.device("cuda", 0))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reorth", ["selective", "dgks"])
+def test_mesh_world_of_one_equals_single_on_card(nccl_mesh, reorth):
+    # a world of one sums nothing: mesh= (through the gathered stencil and
+    # the halo operator) gives the single path's counters and values bit
+    # for bit, on the device loop (selective) and the host loop (dgks)
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.models import laplacian_2d
+    from arpack_ng_tpu_torch.models.distributed import laplacian_2d_sharded
+    mesh = nccl_mesh
+    op, _ = laplacian_2d(64, np.float32, device=mesh.device)
+    halo, _ = laplacian_2d_sharded(64, 64, mesh, np.float32)
+    kw = dict(k=8, ncv=32, which="LA", tol=1e-5, reorth=reorth,
+              return_stats=True)
+    v1, x1, o1 = pt.eigsh(op, **kw)
+    for o in (op, halo):
+        v2, x2, o2 = pt.eigsh(o, mesh=mesh, **kw)
+        for f in ("n_iter", "nopx", "nrorth", "nrorthr", "nitref", "nrotr"):
+            assert getattr(o1.stats, f) == getattr(o2.stats, f), f
+        np.testing.assert_array_equal(v1, v2)
+        np.testing.assert_array_equal(x1, x2)
+        assert o2.stats.collectives["all_reduce"] >= o2.stats.nopx
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_mesh_graph_capture_on_card(nccl_mesh):
+    # NCCL's collectives are captured in the device loop's graphs: one
+    # packet per cycle, every cycle after the first replayed, and the
+    # captured collectives counted on every replay (four all-reduces and
+    # one halo exchange per Lanczos step, a norm per restart)
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.models.distributed import laplacian_2d_sharded
+    mesh = nccl_mesh
+    assert mesh.transport == "nccl" and mesh.capturable
+    op, a_sp = laplacian_2d_sharded(64, 64, mesh, np.float32)
+    vals, vecs, out = pt.eigsh(op, k=8, ncv=32, which="LA", tol=1e-5,
+                               mesh=mesh, return_stats=True)
+    st = out.stats
+    assert st.graphs_captured > 0 and st.graph_replays == st.n_iter - 1
+    assert st.packets == st.n_iter
+    c = st.collectives
+    assert c["halo"] == st.nopx and c["all_gather"] == 0
+    assert 4 * (st.nopx - 1) <= c["all_reduce"] <= 4 * st.nopx + st.n_iter
+    res = np.linalg.norm(a_sp @ vecs - vecs * vals, axis=0)
+    assert res.max() < 1e-3 * np.abs(vals).max()
+    torch.cuda.synchronize()

@@ -1,5 +1,6 @@
 """``arpack_ng_tpu_torch.svds`` against ``arpack_ng_tpu.svds`` and numpy's
-dense SVD (tests/test_svd.py without its mesh test, and
+dense SVD (tests/test_svd.py, its mesh test on a gloo world of 2
+processes, ``tests/torch_mp_worker.py``, and
 tests/test_hermitian.py::test_svds_complex_hermitian_route).
 
 Both packages take the same seeded numpy matrix.  In float64 the singular
@@ -64,6 +65,35 @@ class TestSvds:
         np.testing.assert_allclose(s, np.sort(s_ref[:3]), rtol=1e-8)
         for i in range(3):
             assert np.linalg.norm(a @ vh[i].conj() - s[i] * u[:, i]) < 1e-6
+
+    def test_mesh_sharded(self, rng, tmp_path):
+        # mesh= on 2 gloo ranks: the Gram and cyclic Lanczos solves
+        # row-partitioned, the triplets whole on both ranks (bit-equal);
+        # the reference test's gates against numpy, the unsharded solve
+        # and the reference's mesh solve (1e-10)
+        import jax
+        from jax.sharding import Mesh
+        from torch_mp_worker import run_world
+        a = rng.standard_normal((256, 128)).astype(np.float64)
+        out = run_world(2, ["svd"], tmp_path, {"svd": a})["svd"]
+        for r in out:
+            assert "error" not in r, r.get("error")
+        for k in ("u", "s", "vh", "s_aug"):
+            np.testing.assert_array_equal(out[0][k], out[1][k])
+        u, s, vh = out[0]["u"], out[0]["s"], out[0]["vh"]
+        s_ref = np.sort(np.linalg.svd(a, compute_uv=False))[::-1][:3]
+        np.testing.assert_allclose(np.sort(s)[::-1], s_ref, rtol=1e-9)
+        for i in range(3):
+            r = np.linalg.norm(a @ vh.conj().T[:, i] - s[i] * u[:, i])
+            assert r < 1e-8 * max(s)
+        np.testing.assert_allclose(np.sort(s), np.sort(out[0]["s0"]),
+                                   rtol=1e-10)
+        np.testing.assert_allclose(np.sort(out[0]["s_aug"]), s_ref[::-1],
+                                   rtol=1e-8)
+        mesh = Mesh(np.array(jax.devices()[:8]).reshape(8), ("rows",))
+        sj = at.svds(a, k=3, tol=1e-10, mesh=mesh,
+                     return_singular_vectors=False)
+        np.testing.assert_allclose(np.sort(s), np.sort(sj), rtol=1e-10)
 
     def test_values_only(self, rng):
         a = rng.standard_normal((100, 50)).astype(np.float64)
@@ -133,7 +163,8 @@ class TestSvds:
                                     dict(which="LA")])
     def test_refusals(self, rng, kw):
         a = rng.standard_normal((30, 20))
-        exc = NotImplementedError if "mesh" in kw else ValueError
+        # mesh= takes a RowMesh: anything else is a TypeError
+        exc = TypeError if "mesh" in kw else ValueError
         with pytest.raises(exc):
             pt.svds(a, k=2, device="cpu", **kw)
         if "mesh" not in kw:
