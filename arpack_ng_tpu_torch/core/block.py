@@ -122,9 +122,6 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
                          "problems (bmat='I') only")
     if _dt.is_complex(np.dtype(dtype)):
         raise ValueError("block Lanczos harness is real-only")
-    if np.dtype(dtype) != op.dtype:
-        raise ValueError(f"the solve's dtype {np.dtype(dtype)} is not the "
-                         f"operator's {op.dtype} (the port does not promote)")
     kev = -(-(nev + b) // b) * b            # static thick-restart size
     if kev + 2 * b > ncv:
         raise ValueError("need ncv >= kev + 2b (room to expand)")
@@ -145,12 +142,17 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
     tdt = _dt.torch_dtype(np.dtype(dtype))
     device = op.device
     nrow = ncv + b
-    blk_fn = op.apply_block
+    # an operator of another dtype gets the solve's vectors, and its
+    # product promotes (or refuses) as torch's arithmetic does, as the
+    # reference's jnp products promote; its block product, a kernel of the
+    # operator's dtype, is left out
+    promote = np.dtype(dtype) != op.dtype
+    blk_fn = None if promote else op.apply_block
 
     def a_block(Vb):                       # (b, n_pad) -> same
         if blk_fn is not None:
             return blk_fn(Vb)
-        return torch.stack([op.apply(x, x)[0] for x in Vb])
+        return torch.stack([op.apply(x, x)[0].to(tdt) for x in Vb])
 
     def _ortho_block(V, s, W):
         """Full block CGS of W (b rows) against V[:s], two passes (block
@@ -258,7 +260,13 @@ def eigsh_block(op_or_a, k: int = 6, *, block_size: int = 2,
     operator of ``from_scipy`` brings its block product) or a dense or
     scipy sparse matrix moved to ``device`` (default: the card).  The
     start block is uniform(-1, 1) from a host generator seeded with
-    ``seed``, or ``X0``.  Use it for degenerate clusters of multiplicity
+    ``seed``, or ``X0``.  ``dtype``: the solve's (default: the
+    operator's); an operator of another dtype is applied to vectors of
+    ``dtype`` and its results taken in ``dtype``, so a matrix-free product
+    written with elementwise torch ops promotes (a float32 operator solved
+    in float64), while one that multiplies a stored matrix of its own
+    dtype refuses: pass the matrix itself, imported at ``dtype``.  Use it
+    for degenerate clusters of multiplicity
     > 1 (``block_size >=`` the multiplicity): they converge in one sweep,
     where scalar Lanczos cannot separate the copies.  ``mesh``: the
     row-partitioned solve (the operator lifted onto it unless built for

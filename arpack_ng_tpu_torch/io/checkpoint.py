@@ -34,7 +34,11 @@ the device loop (``core/device_sym.FusedSymSolver``) hands back a state at
 a cycle boundary (``multi``).  The hybrid driver's exit state holds the
 cycles before the exit cycle (its factorization before the shifts), as
 the reference's does: a run stopped at ``max_iter`` and resumed under a
-larger one repeats the unbroken solve.  The port updates
+larger one repeats the unbroken solve.  A row-partitioned solve
+(``mesh=``) writes the same file: :func:`save_state` gathers the ranks'
+rows and one rank writes, and :func:`load_state` hands each rank its rows
+back, so a file moves between a mesh, one device and the reference
+package either way.  The port updates
 ``state.V`` in place: :func:`save_state` copies everything to the host
 before it returns, so a solve may go on from the saved state.
 """
@@ -46,6 +50,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import IRAMConfig
 from ..core.arnoldi import FactorizationState
@@ -102,21 +107,45 @@ def seed_of(key) -> int:
 
 
 def save_state(path, state: FactorizationState, cfg: IRAMConfig,
-               save_resid_only: bool = False) -> None:
-    """Write the solver state (and the config echo) to ``path`` (.npz)."""
+               save_resid_only: bool = False, mesh=None) -> None:
+    """Write the solver state (and the config echo) to ``path`` (.npz).
+
+    ``mesh``: the :class:`~arpack_ng_tpu_torch.parallel.sharding.RowMesh`
+    of a row-partitioned solve, whose state holds each rank's rows of V,
+    resid and b_resid.  Every rank of the mesh calls this: the rows are
+    all-gathered to the whole ``n_pad``, the mesh's rank 0 writes the file
+    (the same one a single-device solve writes) and every rank returns
+    once it exists."""
+    resid, b_resid, V = state.resid, state.b_resid, state.V
+    if mesh is not None:
+        resid = mesh.gather(resid)
+        if not save_resid_only:
+            V = mesh.gather(V)
+            b_resid = (resid if state.b_resid is state.resid
+                       else mesh.gather(b_resid))
+    elif resid.shape[-1] != cfg.n_pad:
+        raise ValueError(f"the state holds {resid.shape[-1]} rows of "
+                         f"n_pad = {cfg.n_pad}: pass the solve's mesh")
+    if mesh is None or mesh.rank == 0:
+        _write(path, state, cfg, save_resid_only, resid, b_resid, V)
+    if mesh is not None:
+        dist.barrier(group=mesh.group)
+
+
+def _write(path, state, cfg, save_resid_only, resid, b_resid, V) -> None:
     arrays = {
-        "resid": _host(state.resid),
+        "resid": _host(resid),
         "rnorm": np.asarray(state.rnorm),
         "key": key_of(state.gen),
     }
     if not save_resid_only:
-        V = _host(state.V)
+        V = _host(V)
         if v_is_3d(cfg):
             V = V.reshape(V.shape[0], -1, 128)
         arrays.update({
             "V": V,
             "H": np.array(state.H),
-            "b_resid": _host(state.b_resid),
+            "b_resid": _host(b_resid),
             "k": np.int32(state.k),
             "nev_cur": np.int32(state.nev_cur),
             "iter": np.int32(state.iter),
@@ -130,10 +159,13 @@ def save_state(path, state: FactorizationState, cfg: IRAMConfig,
     np.savez(path, __meta__=json.dumps(meta), **arrays)
 
 
-def load_state(path, cfg: Optional[IRAMConfig] = None, device=DEFAULT
-               ) -> Tuple[Optional[FactorizationState], dict]:
+def load_state(path, cfg: Optional[IRAMConfig] = None, device=None,
+               mesh=None) -> Tuple[Optional[FactorizationState], dict]:
     """Load a checkpoint written by either package onto ``device`` (the
     card unless told otherwise).  Returns ``(state | None, meta)``.
+    ``mesh``: a row mesh to resume on; the state then holds this rank's
+    rows of V, resid and b_resid (on the mesh's device unless ``device``
+    names another), whatever wrote the file.
 
     ``state`` is None for a resid-only checkpoint: pass ``meta['resid']``
     (a numpy array) as ``v0`` to a fresh solve, the reference's info != 0
@@ -151,7 +183,15 @@ def load_state(path, cfg: Optional[IRAMConfig] = None, device=DEFAULT
         if meta["resid_only"]:
             meta["resid"] = z["resid"]
             return None, meta
+        if device is None:
+            device = DEFAULT if mesh is None else mesh.device
         device = require(device)
+
+        def rows(a):
+            if mesh is None:
+                return a
+            return np.ascontiguousarray(a[..., slice(*mesh.rows(a.shape[-1]))])
+
         # counters are stored positionally; older checkpoints may carry
         # fewer of them: missing trailing counters resume from zero
         cvals = [int(c) for c in np.asarray(z["counts"]).reshape(-1)]
@@ -160,10 +200,10 @@ def load_state(path, cfg: Optional[IRAMConfig] = None, device=DEFAULT
         H = np.array(z["H"])
         V = np.asarray(z["V"])
         state = FactorizationState(
-            V=_device(V.reshape(V.shape[0], -1), device),
+            V=_device(rows(V.reshape(V.shape[0], -1)), device),
             H=H,
-            resid=_device(z["resid"], device),
-            b_resid=_device(z["b_resid"], device),
+            resid=_device(rows(z["resid"]), device),
+            b_resid=_device(rows(z["b_resid"]), device),
             rnorm=_dt.real_dtype(H.dtype).type(np.asarray(z["rnorm"])),
             k=int(z["k"]), nev_cur=int(z["nev_cur"]), iter=int(z["iter"]),
             info=int(z["info"]),

@@ -263,7 +263,25 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    ``eigs(strategy='hybrid')`` on ``convection_diffusion_2d(EIGS_SOLVE_NX)``
    under phase 9's gates and ``svds`` of 12d's matrix (method 'normal')
    under 12d's gates, values bit-equal across the ranks; the phase within
-   P15_MAX_S, the ranks' own collectives within P15_COLLECTIVE_TIMEOUT_S.
+   P15_MAX_S, the ranks' own collectives within P15_COLLECTIVE_TIMEOUT_S;
+16. the C ABI (``native/src/capi.cc`` built unchanged against the port's
+   ``native_bridge`` by ``arpack_ng_tpu_torch.native_capi``, loaded in this
+   process with ``ctypes.PyDLL``; each path's launches counted from zero):
+   (a) the main path, the flagship's CSR (nx = 1024, float32) through
+   ``atpu_eigsh_csr_s`` (k = 8, ncv = 32, 'LA', tol = 1e-5; the bridge's
+   hybrid driver with the reference bridge's dgks: the rotation kernel and
+   the DIA kernel, ``from_scipy`` importing the CSR as DIA; the event
+   kernels are not on this path); gates: rc 0, nconv >= 8, phase 4's
+   value and residual gates, the rotation and DIA kernels launched, and
+   the bridge of this process ran the solve; ``atpu_stat_c``'s counters
+   and the wall printed beside 10a's; (b) ``atpu_eigsh_matvec_s`` with a C
+   callback (``csrc/stencil5.c``, the same 5-point stencil) **cut to nx =
+   P16_MV_NX**: every OP*x crosses to the host and back; same gates, the
+   rotation kernel launched; ms per round trip and ``tmvopx``'s share of
+   the wall printed; (c) the unchanged ``native/tests/test_capi.c``
+   against the port's library as a subprocess on the default device: rc
+   0 and ``C-ABI OK`` (its parallel block skips in a world of one); the
+   phase within P16_MAX_S.
 
     python3 chip_smoke.py --profile
 
@@ -454,8 +472,16 @@ P14_EXAMPLE_RES = {"dssimp": 1e-3, "dnsimp": 1e-8, "dsdrv4_shift_invert":
 P15_RANKS = 2
 P15_COLLECTIVE_TIMEOUT_S = 300
 P15_MAX_S = 300.0
-#: walls of earlier phases that phase 15 prints beside its own
+#: phase 16: the matrix-free path's grid (16b; each OP*x crosses to the
+#: host and back, so it is cut from NX), the test client's time limit and
+#: the phase's wall limit, seconds
+P16_MV_NX = 256
+P16_CLIENT_S = 300
+P16_MAX_S = 90.0
+#: walls and solver stats of earlier phases that phases 15-16 print beside
+#: their own
 WALLS = {}
+STATS = {}
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
 #: the tensor cores by accumulation dtype; its SMs (one block of the
 #: reduced-space kernel runs on one)
@@ -1897,6 +1923,7 @@ def new_paths(torch, dev, gpu, vals_9, nx=NX, eigs_nx=EIGS_NX,
           f"residual {rmax:.2e}; launches {counts}; card {gpu}", flush=True)
     print(f"  values {np.array2string(vals, precision=7)}", flush=True)
     paths["10a"] = counts
+    WALLS["10a"], STATS["10a"] = wall, st
     del op, vecs
 
     # (b) eigs on the conv-diff cell at nx = 1024, the hybrid driver
@@ -3716,6 +3743,168 @@ def mesh_paths(torch, dev, gpu, nx=NX, ranks=P15_RANKS,
     return paths
 
 
+def _capi_out(nconv, evals, evecs, n):
+    """The values and ``(n, nconv)`` vectors a C entry point wrote (vector
+    j at offset j*n), in float64."""
+    m = nconv.value
+    return (evals[:m].astype(np.float64),
+            evecs[:m * n].reshape(m, n).T.astype(np.float64))
+
+
+def _capi_csr(torch, dev, gpu, lib, nx, need):
+    """16a: the flagship's CSR through ``atpu_eigsh_csr_s`` in this
+    process.  Returns the path's launches."""
+    import ctypes
+
+    from arpack_ng_tpu_torch import native_bridge, native_capi
+    from arpack_ng_tpu_torch.models import laplacian_2d
+
+    a_sp = laplacian_2d(nx, np.float32, device="cpu")[1]
+    a32 = a_sp.astype(np.float32)
+    n, k = a32.shape[0], 8
+    indptr = a32.indptr.astype(np.int64)
+    indices = a32.indices.astype(np.int64)
+    data = np.ascontiguousarray(a32.data)
+    evals = np.zeros(2 * k, np.float32)
+    evecs = np.zeros(2 * k * n, np.float32)
+    nconv = ctypes.c_int64()
+    native_bridge.stats_reset()
+    tag = f"16a atpu_eigsh_csr_s(flagship nx={nx})"
+    rc, wall, counts = _counted(
+        torch, dev, need("rotate_rows", "dia_matvec"),
+        lambda: lib.atpu_eigsh_csr_s(
+            n, indptr.ctypes.data, indices.ctypes.data, data.ctypes.data,
+            a32.nnz, k, b"LA", 1e-5, NCV, 0, evals.ctypes.data,
+            evecs.ctypes.data, ctypes.byref(nconv)))
+    if rc != 0 or nconv.value < k:
+        raise AssertionError(f"{tag}: rc {rc}, nconv {nconv.value}")
+    vals, vecs = _capi_out(nconv, evals, evecs, n)
+    dmax, rmax = check_values(vals, vecs, a_sp, _analytic_spectrum(nx), tag,
+                              count=nconv.value)
+    st = native_capi.stat_c(lib)
+    own = native_bridge._last_stats
+    if own is None or own.nopx != st[0]:
+        raise AssertionError(f"{tag}: the C call did not run this process's "
+                             f"bridge (stat_c nopx {st[0]})")
+    beside = ""
+    if "10a" in STATS:
+        s10 = STATS["10a"]
+        beside = (f"; 10a (eigsh strategy='hybrid', selective) in this run: "
+                  f"wall {WALLS['10a']:.4f} s, cycles {s10.n_iter}, nopx "
+                  f"{s10.nopx}, nrorth {s10.nrorth}, nitref {s10.nitref}, "
+                  f"nrstrt {s10.nrstrt}")
+    print(f"{tag}: rc {rc}, nconv {nconv.value}, wall {wall:.4f} s "
+          f"({wall * 1e3 / own.n_iter:.4f} ms per cycle), cycles "
+          f"{own.n_iter}; stat_c nopx {st[0]}, nbx {st[1]}, nrorth {st[2]}, "
+          f"nitref {st[3]}, nrstrt {st[4]}, tsaupd {st[5]:.4f} s"
+          f"{beside}; max value dist {dmax:.2e}, max residual {rmax:.2e}; "
+          f"launches {counts}; card {gpu}", flush=True)
+    print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+    return counts
+
+
+def _capi_matvec(torch, dev, gpu, lib, nx, need):
+    """16b: ``atpu_eigsh_matvec_s`` with the C stencil of
+    ``csrc/stencil5.c`` as the operator (cut to ``nx``: every OP*x crosses
+    to the host and back).  Returns the path's launches."""
+    import ctypes
+
+    from arpack_ng_tpu_torch import native_bridge, native_capi
+    from arpack_ng_tpu_torch.models import laplacian_2d
+
+    a_sp = laplacian_2d(nx, np.float32, device="cpu")[1]
+    n, k = nx * nx, 8
+    stencil = ctypes.CDLL(str(native_capi.build_stencil()))
+    fn = ctypes.cast(stencil.atpu_stencil5_s, ctypes.c_void_p).value
+    ctx = ctypes.c_int64(nx)
+    evals = np.zeros(2 * k, np.float32)
+    evecs = np.zeros(2 * k * n, np.float32)
+    nconv = ctypes.c_int64()
+    tag = f"16b atpu_eigsh_matvec_s(C stencil nx={nx})"
+    rc, wall, counts = _counted(
+        torch, dev, need("rotate_rows"),
+        lambda: lib.atpu_eigsh_matvec_s(
+            n, fn, ctypes.addressof(ctx), k, b"LA", 1e-5, NCV, 0,
+            evals.ctypes.data, evecs.ctypes.data, ctypes.byref(nconv)))
+    if rc != 0 or nconv.value < k:
+        raise AssertionError(f"{tag}: rc {rc}, nconv {nconv.value}")
+    vals, vecs = _capi_out(nconv, evals, evecs, n)
+    dmax, rmax = check_values(vals, vecs, a_sp, _analytic_spectrum(nx), tag,
+                              count=nconv.value)
+    st = native_capi.stat_c(lib)
+    own = native_bridge._last_stats
+    tmv = own.timers.tmvopx
+    print(f"{tag}: rc {rc}, nconv {nconv.value}, wall {wall:.4f} s, cycles "
+          f"{own.n_iter}, nopx {st[0]}, nrorth {st[2]}; OP*x round trips "
+          f"(device -> pinned host -> C -> device) {tmv * 1e3 / st[0]:.4f} "
+          f"ms each, tmvopx {tmv:.4f} s = {100 * tmv / wall:.1f}% of the "
+          f"wall; max value dist {dmax:.2e}, max residual {rmax:.2e}; "
+          f"launches {counts}; card {gpu}", flush=True)
+    return counts
+
+
+def _capi_client(torch, dev, gpu):
+    """16c: the unchanged ``native/tests/test_capi.c`` against the port's
+    library, a process of its own on the default device."""
+    from arpack_ng_tpu_torch import native_bridge, native_capi
+    t0 = time.perf_counter()
+    exe = native_capi.build_client(native_capi.NATIVE / "tests"
+                                   / "test_capi.c")
+    t_build = time.perf_counter() - t0
+    env = native_capi.client_env()
+    if dev.type == "cuda":
+        env.pop(native_bridge.DEVICE_ENV, None)
+    t0 = time.perf_counter()
+    r = subprocess.run([str(exe)], capture_output=True, text=True, env=env,
+                       timeout=P16_CLIENT_S)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 or "C-ABI OK" not in r.stdout:
+        raise AssertionError(f"16c test_capi: rc {r.returncode}\n"
+                             f"{(r.stdout + r.stderr)[-3000:]}")
+    lines = "; ".join(x for x in r.stdout.strip().splitlines())
+    print(f"16c native/tests/test_capi.c (unchanged, its own process, "
+          f"device {env.get(native_bridge.DEVICE_ENV, 'cuda')}): rc 0, "
+          f"built in {t_build:.2f} s, ran in {wall:.2f} s; {lines}; card "
+          f"{gpu}", flush=True)
+
+
+def capi_paths(torch, dev, gpu, nx=NX, mv_nx=P16_MV_NX):
+    """Phase 16: the C ABI (see the module docstring).  Returns the
+    in-process paths' launches."""
+    import os
+
+    from arpack_ng_tpu_torch import native_bridge, native_capi
+
+    def need(*kernels):
+        # a wrapper counts only the kernel launches a card makes
+        return kernels if dev.type == "cuda" else ()
+
+    t0 = time.perf_counter()
+    saved = os.environ.get(native_bridge.DEVICE_ENV)
+    if dev.type == "cpu":
+        os.environ[native_bridge.DEVICE_ENV] = "cpu"
+    try:
+        tb = time.perf_counter()
+        lib = native_capi.load()
+        print(f"16 {native_capi.library_path().name}: built and loaded "
+              f"(ctypes.PyDLL) in {time.perf_counter() - tb:.2f} s; "
+              f"atpu_device_count() = {lib.atpu_device_count()}", flush=True)
+        paths = {"16a": _capi_csr(torch, dev, gpu, lib, nx, need),
+                 "16b": _capi_matvec(torch, dev, gpu, lib, mv_nx, need)}
+        _capi_client(torch, dev, gpu)
+    finally:
+        if dev.type == "cpu":
+            if saved is None:
+                os.environ.pop(native_bridge.DEVICE_ENV, None)
+            else:
+                os.environ[native_bridge.DEVICE_ENV] = saved
+    elapsed = time.perf_counter() - t0
+    print(f"phase 16: {elapsed:.2f} s (limit {P16_MAX_S:.0f} s)", flush=True)
+    if elapsed > P16_MAX_S:
+        raise AssertionError(f"phase 16 took {elapsed:.1f} s")
+    return paths
+
+
 def _device_ms(evt) -> float:
     """Self device time of a profiler average, in ms (the attribute was
     renamed from ``self_cuda_time_total`` in newer torch)."""
@@ -3858,8 +4047,8 @@ def kernel_entries(rows, launches, errs, phases):
     """The ``kernels`` JSON entries: each kernel at the float32 shape its
     solve runs most (the update of the dgks path carries the fused norm),
     with the launches of the path that exercises it and, in
-    ``launches_phase10`` to ``launches_phase14``, those of each path of
-    phases 10-14 (``phases``: phase -> path -> counts)."""
+    ``launches_phase10`` to ``launches_phase16``, those of each path of
+    phases 10-16 (``phases``: phase -> path -> counts)."""
     from arpack_ng_tpu_torch.bench import gather_primitives as gp
 
     ops = "arpack_ng_tpu/ops/"
@@ -4042,6 +4231,7 @@ def main() -> int:
     phases[13], err_blk, rows_blk = banded_block_paths(torch, dev, gpu)
     phases[14] = cli_paths(torch, dev, gpu)
     phases[15] = mesh_paths(torch, dev, gpu)
+    phases[16] = capi_paths(torch, dev, gpu)
     # the block kernel's main path: 13d(i), the flagship at b = P13_JSON_B
     launches["dia_block_matvec"] = \
         phases[13][f"13d(i) b={P13_JSON_B}"]["dia_block_matvec"]

@@ -171,6 +171,44 @@ class TestBlockLanczos:
                                    rtol=REL)
         assert _res(a, out[0]["vals"], out[0]["vecs"]) < 1e-8
 
+    def test_matrix_free_float32_operator_promotes(self):
+        # a float32 matrix-free operator solved with dtype=float64: the
+        # reference promotes in its products (float32 coefficients times
+        # float64 vectors), and so does the port's elementwise product
+        n = 1000
+        rng = np.random.default_rng(11)
+        d = rng.uniform(0, 10, n).astype(np.float32)
+        e = rng.uniform(-1, 1, n - 1).astype(np.float32)
+        n_pad = at.pad_dim(n)
+        dj, ej = jnp.asarray(d), jnp.asarray(e)
+        dp, ep = torch.from_numpy(d), torch.from_numpy(e)
+
+        def jmv(v):
+            y = v.at[:n].multiply(dj)
+            y = y.at[:n - 1].add(ej * v[1:n])
+            return y.at[1:n].add(ej * v[:n - 1])
+
+        def pmv(v):
+            y = v.clone()
+            y[:n] = dp * v[:n]
+            y[:n - 1] += ep * v[1:n]
+            y[1:n] += ep * v[:n - 1]
+            return y
+
+        jop = at.from_matvec(jmv, n, np.float32, n_pad=n_pad, hermitian=True)
+        pop = pt.from_matvec(pmv, n, np.float32, n_pad=n_pad, hermitian=True,
+                             device="cpu")
+        kw = dict(k=4, block_size=2, ncv=24, tol=1e-10, maxiter=300,
+                  dtype=np.float64)
+        vj, _, ij = j_eigsh_block(jop, **kw)
+        vp, vecs, ip = pblock.eigsh_block(pop, X0=_jax_start(0, 2, n, n_pad),
+                                          **kw)
+        assert vecs.dtype == np.float64 and ip == ij
+        np.testing.assert_allclose(vp, vj, rtol=REL)
+        a = sp.diags([e.astype(np.float64), d.astype(np.float64),
+                      e.astype(np.float64)], [-1, 0, 1])
+        assert _res(a, vp, vecs) < 1e-8 * np.abs(vp).max()
+
     def test_no_solver_cache(self):
         # the reference cached built solvers by id(op); the port builds
         # each solve anew, so two operators solved in turn (and the first

@@ -141,7 +141,7 @@ def test_no_convergence_raises_with_partial_results():
 
 
 @pytest.mark.parametrize("solver", ["eigsh", "eigs", "sigma", "eigs_sigma",
-                                    "svds"])
+                                    "svds", "bridge"])
 def test_solve_pins_full_precision_matmuls(solver):
     # every driver builds through make_init, which pins full-precision
     # float32 matmuls whatever the caller set, before the first product: the
@@ -166,6 +166,16 @@ def test_solve_pins_full_precision_matmuls(solver):
         elif solver == "svds":
             a = np.random.default_rng(0).standard_normal((80, 40))
             pt.svds(a.astype(np.float32), k=2, tol=1e-4, device="cpu")
+        elif solver == "bridge":
+            # the C ABI's solves (native_bridge, the hybrid driver)
+            import json
+
+            from arpack_ng_tpu_torch import native_bridge
+            a = np.diag(np.arange(1.0, 65.0, dtype=np.float32))
+            native_bridge.solve(
+                json.dumps(dict(dtype="s", symmetric=True, n=64, k=2,
+                                which="LA", tol=1e-4)),
+                buf_a=memoryview(a.tobytes()), device="cpu")
         else:
             op, _ = pmodels.convection_diffusion_1d(64, dtype=np.float32,
                                                     device="cpu")

@@ -342,6 +342,60 @@ def case_block(mesh, inp):
     return dict(vals=vals, vecs=vecs, info=info, single=single, info1=info1)
 
 
+def _ckpt_problem(d, max_iter):
+    import arpack_ng_tpu_torch as pt
+    n = len(d)
+    op = pt.from_diagonal(d, n_pad=pt.pad_dim(n), device="cpu")
+    cfg = pt.IRAMConfig(n=n, nev=4, ncv=12, which="LA", symmetric=True,
+                        dtype=d.dtype, n_pad=op.n_pad, tol=1e-12,
+                        max_iter=max_iter)
+    return op, cfg
+
+
+def _iram_out(res):
+    st = res.stats
+    return dict(ritz=res.ritz, n_iter=res.n_iter, nconv=res.nconv,
+                info=res.info, counts=tuple(int(getattr(st, f)) for f in (
+                    "nopx", "nbx", "nrorth", "nitref", "nrstrt")))
+
+
+def case_checkpoint(mesh, inp):
+    """A mesh solve stopped by max_iter dumps its state (every rank calls
+    ``save_state``, rank 0 writes the whole rows), then resumes from the
+    file on the mesh with the full max_iter."""
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.io import checkpoint as ck
+    d, v0, cut, full, path = inp
+    op, cfg_cut = _ckpt_problem(d, cut)
+    res = pt.IRAMSolver(op, cfg_cut, mesh=mesh).solve(v0=v0)
+    out = dict(cut=_iram_out(res), rows=tuple(res.state.V.shape))
+    ck.save_state(path, res.state, cfg_cut, mesh=mesh)
+    op, cfg = _ckpt_problem(d, full)
+    st, _ = ck.load_state(path, cfg=cfg, device="cpu", mesh=mesh)
+    out["loaded_rows"] = tuple(st.V.shape)
+    out["resumed"] = _iram_out(pt.IRAMSolver(op, cfg, mesh=mesh).solve(
+        state=st))
+    return out
+
+
+def case_bridge_mesh(mesh, inp):
+    """The C ABI's distributed entry points through the port's bridge:
+    ``n_devices`` 0 (the world), 1 (sequential), 2 (a sub-mesh of ranks 0
+    and 1; every rank makes the group), 3 and 4 (more than the world)."""
+    import json
+    from arpack_ng_tpu_torch import native_bridge as nb
+    a, start = inp
+    os.environ[nb.DEVICE_ENV] = "cpu"
+    out = {"device_count": nb.device_count()}
+    n = a.shape[0]
+    for nd in (0, 1, 2, 3, 4):
+        opt = dict(dtype="d", symmetric=True, n=n, k=4, which="LM",
+                   tol=1e-10, restart=start, n_devices=nd)
+        out[f"nd{nd}"] = nb.solve(json.dumps(opt),
+                                  buf_a=memoryview(a.tobytes()))
+    return out
+
+
 def case_example(mesh, inp):
     import io
     from contextlib import redirect_stdout
