@@ -20,8 +20,17 @@ the eta-selected rows are device tensors, and the event kernels read
 their row count from device memory (0: no event).  A breakdown
 (rnorm <= 0) and the rare doubtful event (the norm still collapsed after
 it) are finished by the host (``Extension.recover``): it draws restart
-vectors on its generator and runs the doubtful pass.  The dgks step (``_step``) still takes
-its DGKS test on the host from scalars read back once per step.
+vectors on its generator and runs the doubtful pass.
+
+The dgks step runs read-free too (``_dgks_step``, the reference's
+``_step`` as one device program): the DGKS test ``rnorm <= 0.717 wnorm``
+is a device flag, and the first refinement pass runs on every step with
+its coefficients zeroed where the flag is false (``r - 0 V`` is ``r`` bit
+for bit), its norm and H's correction selected on the device.  The second
+refinement pass (the first one failed the test; rare) is only flagged
+(``REDO``): the host restores the extension's entry and runs it again
+with the host step (``_step``, which reads its decisions back once per
+step and pass), as it does after a breakdown.
 
 What the reference package computes and counts is kept exactly: the
 8-row buckets of the CGS passes and of the eta-subset events, the pair
@@ -79,6 +88,11 @@ _BUCKET = 8
 #: the breakdown word of an extension that met a doubtful event: the host
 #: runs the whole extension again (``Extension.recover``)
 REDO = -2
+#: the read-free extensions the host finished (``Extension.recover``) since
+#: a caller last set the counts to 0, by cause: ``redo`` (a failed dgks
+#: refinement or a doubtful selective event: the whole extension again on
+#: the host) and ``breakdown`` (rnorm <= 0: the host drew a restart vector)
+reruns = {"redo": 0, "breakdown": 0}
 
 
 @dataclasses.dataclass
@@ -110,14 +124,18 @@ class FactorizationState:
 
 @dataclasses.dataclass
 class DeviceLanczos:
-    """What the selective extension reads and writes, on the operator's
+    """What a read-free extension reads and writes, on the operator's
     device, in place: the buffers a captured extension (a CUDA graph) is
     bound to.  ``b[j]`` is the residual norm after step j (the subdiagonal
     of T below row ncv - 1); ``cnt`` the events' counters (nrorth, nitref,
     nbx, nrorthr); ``brk`` the first step that met rnorm <= 0 (-1: none;
-    ``REDO``: a doubtful event) and ``force`` the pair rule's flag entering
-    it; ``resid0``, ``b_resid0``, ``rnorm0`` and ``cnt0`` the extension's
-    entry, which ``REDO`` restores."""
+    ``REDO``: a doubtful event, or a dgks step whose first refinement
+    failed) and ``force`` the pair rule's flag entering it; ``resid0``,
+    ``b_resid0``, ``rnorm0`` and ``cnt0`` the extension's entry, which
+    ``REDO`` restores.  ``H``: the dgks step's projected matrix (ncv, ncv)
+    in the compute dtype, whole Hessenberg columns (None for the selective
+    step); for symmetric problems the step also writes its diagonal and
+    subdiagonal into ``a`` and ``b``."""
 
     V: torch.Tensor
     resid: torch.Tensor
@@ -132,19 +150,24 @@ class DeviceLanczos:
     b_resid0: torch.Tensor
     rnorm0: torch.Tensor
     cnt0: torch.Tensor
+    H: Optional[torch.Tensor] = None
 
 
 class Extension:
-    """``extend(state, k_end)``, and for the selective step the pieces the
-    device restart loop drives: ``load`` (a state's device buffers),
-    ``run`` (steps with no device-to-host read), ``recover`` (the host's
-    steps after a breakdown or a doubtful event) and ``static_counts``."""
+    """``extend(state, k_end)`` and the pieces the device restart loop
+    drives: ``load`` (a state's device buffers), ``run`` (steps with no
+    device-to-host read), ``recover`` (the host's steps after a breakdown,
+    a doubtful event or a failed dgks refinement) and ``static_counts``.
+    ``stepwise``: for the dgks step, the extension step by step on the
+    host, each decision read back (``recover``'s path and the twin the
+    read-free steps are held against)."""
 
     def __init__(self, extend, load=None, run=None, recover=None,
-                 static_counts=None):
+                 static_counts=None, stepwise=None):
         self._extend = extend
         self.load, self.run, self.recover = load, run, recover
         self.static_counts = static_counts
+        self.stepwise = stepwise
 
     @property
     def read_free(self) -> bool:
@@ -357,9 +380,10 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
 
     ``reorth='selective'`` runs the three-term recurrence with Simon's
     omega recurrence and eta-subset reorthogonalization events
-    (``_pro_step``, read-free; ``extend`` reads the results back once at
-    its end); ``reorth='dgks'`` runs the reference's bucketed CGS with the
-    DGKS 0.717 refinement test (``_step``)."""
+    (``_pro_step``); ``reorth='dgks'`` runs the reference's bucketed CGS
+    with the DGKS 0.717 refinement test (``_dgks_step``; ``_step`` on the
+    host, ``Extension.stepwise``).  Both are read-free: ``extend`` reads
+    the results back once at its end."""
     _check_slice(op, cfg)
     mesh = op.mesh
     red = reducer(op)
@@ -424,22 +448,33 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
     def _kernel_bucket(rows):
         return use_kernels and rows % 8 == 0 and rows <= MAX_FAST_ROWS
 
-    def _proj_upto(V, w, j):
-        """``V[:rows] w`` padded to (ncv,) and masked to ``col <= j``; rows
-        = the smallest bucket holding row j (bit-exact vs the full masked
-        form: excluded rows contribute exact zeros)."""
+    zero_c = torch.zeros((), dtype=tdt, device=device)
+    # for each step j, the rows <= j of its bucket (a device constant: a
+    # captured step copies no host data); None where that is every row
+    keep = [torch.arange(_rows_upto(j), device=device) <= j
+            if _rows_upto(j) > j + 1 else None for j in range(ncv)]
+
+    def _proj_rows(V, w, j):
+        """``V[:rows] w`` masked to ``col <= j``, (rows,); rows = the
+        smallest bucket holding row j (bit-exact vs the full masked form:
+        excluded rows contribute exact zeros)."""
         rows = _rows_upto(j)
-        h = torch.zeros(ncv, dtype=tdt, device=device)
-        h[:rows] = (red(cgs_proj(V, w, rows)) if _kernel_bucket(rows)
-                    else _proj(V[:rows], w))
-        h[j + 1:] = 0
-        return h
+        h = (red(cgs_proj(V, w, rows)) if _kernel_bucket(rows)
+             else _proj(V[:rows], w))
+        return h if keep[j] is None else torch.where(keep[j], h, zero_c)
+
+    def _proj_upto(V, w, j):
+        """:func:`_proj_rows` padded with zeros to (ncv,)."""
+        h = _proj_rows(V, w, j)
+        return torch.nn.functional.pad(h, (0, ncv - h.shape[0]))
 
     def _update_upto(w, h, V, j):
+        """``w - h^T V[:rows]``; ``h`` of length ncv or rows."""
         rows = _rows_upto(j)
+        h = h if h.shape[0] == rows else h[:rows]
         if _kernel_bucket(rows):
-            return cgs_update(w, h[:rows], V)
-        return w - _comb(h[:rows], V[:rows])
+            return cgs_update(w, h, V)
+        return w - _comb(h, V[:rows])
 
     def _update_bnorm(w, h, V, j):
         """One CGS subtraction and the new residual's B-norm:
@@ -449,10 +484,11 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
             br = b_apply(r)
             return r, br, bnorm(r, br)
         rows = _rows_upto(j)
+        h = h if h.shape[0] == rows else h[:rows]
         if _kernel_bucket(rows):
-            r, rn2 = cgs_update(w, h[:rows], V, with_norm=True)
+            r, rn2 = cgs_update(w, h, V, with_norm=True)
         else:
-            r = w - _comb(h[:rows], V[:rows])
+            r = w - _comb(h, V[:rows])
             rn2 = torch.dot(r, r)
         return r, r, torch.sqrt(red(rn2))
 
@@ -511,7 +547,7 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         w, bw = op.apply(v_j, bv_j)
         return v_j, w, bw, st.counts.add(nopx=1, nbx=nbx_op)
 
-    # ---- full CGS + DGKS (reorth='dgks'), SRC/dsaitr.f:570-781 ---------
+    # ---- full CGS + DGKS on the host (reorth='dgks'), SRC/dsaitr.f:570-781
     def _step(j: int, st: FactorizationState) -> FactorizationState:
         rstart = st.rnorm <= 0
         if rstart and st.info == 0:
@@ -564,22 +600,234 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         return st.replace(H=H, resid=r, b_resid=br, rnorm=rnorm, k=j + 1,
                           counts=counts)
 
-    # ---- partial reorthogonalization (reorth='selective') --------------
     def static_counts(counts: OpCounts, steps: int) -> OpCounts:
-        """What ``steps`` selective steps count whatever the data: one OP
-        (and its B) per step, one B for the recurrence's residual."""
+        """What ``steps`` steps of either read-free extension count
+        whatever the data: one OP (and its B) per step, one B for the
+        step's residual."""
         return counts.add(nopx=steps, nbx=steps * (nbx_op + nbx1))
 
+    def stepwise(st: FactorizationState, k_end: int) -> FactorizationState:
+        """The dgks extension from ``st.k`` to ``k_end`` on the host's
+        steps (``_step``)."""
+        for j in range(st.k, k_end):
+            st = _step(j, st)
+        return st
+
+    # device constants, made here: a captured extension copies no host data
+    rtd = _dt.torch_dtype(rdt)
+    eta_f, tiny_f = float(eta), float(tiny)
+    one_r = torch.ones((), dtype=rtd, device=device)
+    zero_r = torch.zeros((), dtype=rtd, device=device)
+    zero_l = torch.zeros((), dtype=torch.int64, device=device)
+    no_brk = torch.full((), -1, dtype=torch.int32, device=device)
+    redo_brk = torch.full((), REDO, dtype=torch.int32, device=device)
+    live0 = torch.ones((), dtype=torch.bool, device=device)
+
+    def load(st: FactorizationState) -> DeviceLanczos:
+        """The device buffers of an extension from a state: T's diagonals
+        from ``st.H`` (and for dgks a copy of H), copies of the residual
+        (the state is not changed), the basis itself (updated in place),
+        room for the entry."""
+        a = torch.from_numpy(np.ascontiguousarray(
+            np.diagonal(st.H).real.astype(rdt))).to(device)
+        b = torch.zeros(ncv, dtype=rtd, device=device)
+        b[:ncv - 1] = torch.from_numpy(np.ascontiguousarray(
+            np.diagonal(st.H, offset=-1).real.astype(rdt)))
+        resid = st.resid.clone()
+        resid0 = torch.empty_like(resid)
+        return DeviceLanczos(
+            V=st.V, resid=resid,
+            b_resid=st.b_resid.clone() if is_g else resid,
+            rnorm=torch.tensor(float(st.rnorm), dtype=rtd, device=device),
+            a=a, b=b, cnt=torch.zeros(4, dtype=torch.int64, device=device),
+            brk=no_brk.clone(), force=torch.zeros((), dtype=torch.int32,
+                                                  device=device),
+            resid0=resid0,
+            b_resid0=torch.empty_like(resid) if is_g else resid0,
+            rnorm0=torch.empty((), dtype=rtd, device=device),
+            cnt0=torch.empty(4, dtype=torch.int64, device=device),
+            H=None if use_pro else torch.from_numpy(
+                np.array(st.H, dtype=dtype)).to(device))
+
+    def _save_entry(ds: DeviceLanczos) -> None:
+        """The extension's entry, which ``REDO`` restores."""
+        ds.resid0.copy_(ds.resid)
+        if is_g:
+            ds.b_resid0.copy_(ds.b_resid)
+        ds.rnorm0.copy_(ds.rnorm)
+        ds.cnt0.copy_(ds.cnt)
+
+    def _restore_entry(ds: DeviceLanczos) -> None:
+        ds.resid.copy_(ds.resid0)
+        if is_g:
+            ds.b_resid.copy_(ds.b_resid0)
+        ds.rnorm.copy_(ds.rnorm0)
+        ds.cnt.copy_(ds.cnt0)
+
+    def _first_break(bds, flagged):
+        """The breakdown word: ``REDO`` where a step was flagged for the
+        host, else the first breakdown (argmax takes the first of equal
+        maxima), else -1."""
+        return torch.where(
+            flagged, redo_brk,
+            torch.where(bds.any(), torch.argmax(bds.to(torch.int32)), no_brk))
+
     if not use_pro:
-        def extend(st: FactorizationState, k_end: int) -> FactorizationState:
-            """Extend from the state's current length ``st.k`` to
-            ``k_end``."""
-            for j in range(st.k, k_end):
-                st = _step(j, st)
-            return st
+        # ---- full CGS + DGKS with no device-to-host read ---------------
+        def _dgks_step(j, ds, c):
+            """Step j of ``_step`` with no device-to-host read: the same
+            operations in the same order, each decision a device flag.
+            ``c`` carries (r, br, rnorm, live) and the per-step records,
+            lists stacked once at the end (each step's breakdown flag,
+            DGKS flag, failed refinement, H column and subdiagonal entry:
+            an eager step dispatches fewer ops).  The first refinement
+            pass runs on every step,
+            its coefficients zeroed where the DGKS test passed (``r - 0
+            V`` is ``r``), its norm and H's correction selected; a step
+            whose refinement fails (the second pass, SRC/dsaitr.f:
+            760-781) is only flagged, and the host runs the extension
+            again (``recover``).  A step entering with rnorm <= 0 is a
+            breakdown: it and every later step commit no counter or flag
+            (``live``)."""
+            r, br, rn_prev, live, rec = c
+            brk = rn_prev <= 0
+            live = live & ~brk
+            inv = one_r / torch.clamp_min(rn_prev, tiny_f)
+            v_j = r * inv
+            bv_j = br * inv if is_g else v_j
+            ds.V[j] = v_j
+            w, bw = op.apply(v_j, bv_j)
+            wnorm = bnorm(w, bw)
+            h = _proj_rows(ds.V, bw, j)
+            r, br, rnorm = _update_bnorm(w, h, ds.V, j)
+            needs = (rnorm <= eta_f * wnorm) & live
+            s = torch.where(needs, _proj_rows(ds.V, br, j), zero_c)
+            r, br, rn2 = _update_bnorm(r, s, ds.V, j)
+            col = torch.where(needs, h + s, h)
+            for lst, t in zip(rec, (brk, needs,
+                                    needs & ~(rn2 > eta_f * rnorm),
+                                    torch.nn.functional.pad(
+                                        col, (0, ncv - col.shape[0])),
+                                    rn_prev)):
+                lst.append(t)
+            return r, br, torch.where(needs, rn2, rnorm), live, rec
 
-        return Extension(extend)
+        def _tridiag(ds: DeviceLanczos, k0: int, k_end: int, rn) -> None:
+            """T's diagonal and subdiagonal from H's steps ``k0 ..
+            k_end - 1`` (what the symmetric reduced space reads), and
+            ``b[k_end - 1]`` the residual norm."""
+            lo = max(k0 - 1, 0)
+            ds.a[k0:k_end] = torch.diagonal(ds.H)[k0:k_end].real
+            ds.b[lo:k_end - 1] = torch.diagonal(ds.H, -1)[lo:k_end - 1].real
+            ds.b[k_end - 1] = rn
 
+        def run_dgks(ds: DeviceLanczos, k0: int, k_end: int) -> None:
+            """Steps ``k0 .. k_end - 1`` with no device-to-host read (what
+            a CUDA graph captures): the results go into ``ds`` in place,
+            the entry is saved for ``REDO``."""
+            _save_entry(ds)
+            if k_end <= k0:
+                ds.brk.copy_(no_brk)
+                return
+            c = (ds.resid, ds.b_resid, ds.rnorm, live0,
+                 ([], [], [], [], []))
+            for j in range(k0, k_end):
+                c = _dgks_step(j, ds, c)
+            r, br, rn, _, (brks, needs, fails, cols, rn_prevs) = c
+            # H's columns k0..k_end-1, then the subdiagonal entries each
+            # step wrote after its column: H[j, j-1] = the rnorm it began
+            # with (dsaitr.f:680-690)
+            ds.H[:, k0:k_end] = torch.stack(cols, 1)
+            lo = max(k0, 1)
+            if lo < k_end:
+                torch.diagonal(ds.H, -1)[lo - 1:k_end - 1] = torch.stack(
+                    rn_prevs[lo - k0:])
+            n_ref = torch.count_nonzero(torch.stack(needs))
+            ds.cnt.add_(torch.stack([n_ref, zero_l, n_ref * nbx1, zero_l]))
+            ds.resid.copy_(r)
+            if is_g:
+                ds.b_resid.copy_(br)
+            ds.rnorm.copy_(rn)
+            if cfg.symmetric:
+                _tridiag(ds, k0, k_end, rn)
+            bds = torch.zeros(ncv, dtype=torch.bool, device=device)
+            bds[k0:k_end] = torch.stack(brks)
+            ds.brk.copy_(_first_break(bds, torch.stack(fails).any()))
+
+        def recover_dgks(ds: DeviceLanczos, brk: int, k0: int, k_end: int,
+                         gen, counts, info, force: int = 0):
+            """The host's steps (``_step``) after an extension ``k0 ..
+            k_end - 1`` whose breakdown word is ``brk``: from the
+            breakdown step on (it draws a restart vector on the host
+            generator, dsaitr.f:380-427), or after a failed refinement
+            (``REDO``) the whole extension again from its saved entry.
+            The results go back into ``ds``.  ``force`` is the selective
+            step's and unused.  Returns ``(counts, info, k_stop)``."""
+            reruns["redo" if brk == REDO else "breakdown"] += 1
+            if brk == REDO:
+                _restore_entry(ds)
+                j0, rn = k0, _host(ds.rnorm, rdt)
+            else:
+                counts = static_counts(counts, brk - k0)
+                j0, rn = brk, R(0)
+            # rows past j0 hold the first run's values (after a breakdown,
+            # maybe not finite); zero them, as a masked product reads them
+            ds.V[j0:] = 0
+            st = stepwise(FactorizationState(
+                V=ds.V, H=ds.H.cpu().numpy().copy(), resid=ds.resid,
+                b_resid=ds.b_resid, rnorm=rn, k=j0, nev_cur=0, iter=0,
+                info=info, gen=gen, counts=counts), k_end)
+            ds.H.copy_(torch.from_numpy(st.H))
+            if st.resid is not ds.resid:
+                ds.resid.copy_(st.resid)
+                if is_g:
+                    ds.b_resid.copy_(st.b_resid)
+            ds.rnorm.fill_(float(st.rnorm))
+            if cfg.symmetric and st.k > j0:
+                _tridiag(ds, j0, st.k, ds.rnorm)
+            ds.brk.fill_(-1)
+            return st.counts, st.info, st.k
+
+        def _read(ds: DeviceLanczos):
+            """One read: the breakdown word, rnorm, the counters, H."""
+            Hr = torch.view_as_real(ds.H) if cplx else ds.H
+            back = torch.cat([ds.brk.double().reshape(1),
+                              ds.rnorm.double().reshape(1), ds.cnt.double(),
+                              Hr.double().reshape(-1)]).cpu().numpy()
+            H = back[6:].reshape((ncv, ncv, 2) if cplx else (ncv, ncv))
+            if cplx:
+                H = H.view(np.complex128)[..., 0]
+            return (int(back[0]), R(back[1]), back[2:6].astype(np.int64),
+                    H.astype(dtype))
+
+        def extend_dgks(st: FactorizationState, k_end: int
+                        ) -> FactorizationState:
+            """Extend from ``st.k`` to ``k_end``: :func:`run_dgks`, then
+            one read (a second after the host's rerun)."""
+            if st.info != 0 or st.k >= k_end:
+                return st
+            k0 = st.k
+            ds = load(st)
+            run_dgks(ds, k0, k_end)
+            counts, info, k_stop = st.counts, st.info, k_end
+            brk, rn, cnt, H = _read(ds)
+            if brk != -1:
+                counts, info, k_stop = recover_dgks(ds, brk, k0, k_end,
+                                                    st.gen, counts, info)
+                _, rn, cnt, H = _read(ds)
+            else:
+                counts = static_counts(counts, k_end - k0)
+            counts = counts.add(nrorth=cnt[0], nitref=cnt[1], nbx=cnt[2],
+                                nrorthr=cnt[3])
+            return st.replace(V=ds.V, H=H, resid=ds.resid,
+                              b_resid=ds.b_resid, rnorm=rn, k=k_stop,
+                              info=info, counts=counts)
+
+        return Extension(extend_dgks, load=load, run=run_dgks,
+                         recover=recover_dgks, static_counts=static_counts,
+                         stepwise=stepwise)
+
+    # ---- partial reorthogonalization (reorth='selective') --------------
     # Noise floor of an inner product: 8*log2(n)*eps under pairwise/tree
     # summation (every reduction of this package and of its CUDA kernels is
     # a tree), plus the storage representation error.  The 'sequential'
@@ -598,15 +846,12 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
     eta_sub = float(R(min(eps_eff ** 0.75,
                           float(np.sqrt(eps_eff) / _dt.SELECTIVE_SAFETY)
                           / 2.0)))
-    eta_f, tiny_f = float(eta), float(tiny)
     # fused ||r'||^2 from the event update: real standard problems, plain
     # norms
     fuse_sel_norm = not is_g and not cfg.safe_norms and not cplx
     # one all-reduce for wnorm's and alpha's partials (plain norms)
     merge_wa = mesh is not None and not cfg.safe_norms
     dot = torch.vdot if cplx else torch.dot
-    # device constants, made here: a captured extension copies no host data
-    rtd = _dt.torch_dtype(rdt)
     # (each torch op of a step is one node of the captured graph, and on
     # the card a node costs about as much as its work: the masks and
     # tables below save ops)
@@ -623,18 +868,12 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
          rows_list[min(max(max(c - 1, 0) // _BUCKET + sel_extra, 0),
                        nbuckets - 1)] for c in range(ncv + 1)],
         dtype=torch.int32, device=device)
-    one_r = torch.ones((), dtype=rtd, device=device)
-    zero_r = torch.zeros((), dtype=rtd, device=device)
     zero_1 = torch.zeros(1, dtype=rtd, device=device)
     ninf_r = torch.full((), -np.inf, dtype=rtd, device=device)
     zero_i = torch.zeros((), dtype=torch.int32, device=device)
-    zero_l = torch.zeros((), dtype=torch.int64, device=device)
     tau_vec = torch.full((ncv,), tau, dtype=rtd, device=device)
     eps1_vec = torch.full((ncv,), eps1, dtype=rtd, device=device)
     no_force = torch.zeros((), dtype=torch.bool, device=device)
-    no_brk = torch.full((), -1, dtype=torch.int32, device=device)
-    redo_brk = torch.full((), REDO, dtype=torch.int32, device=device)
-    live0 = torch.ones((), dtype=torch.bool, device=device)
 
     def _omega_update(a, b, wp, wc, j, wnorm, beta_j):
         """One row of Simon's omega recurrence (signed terms, abs at the
@@ -793,29 +1032,6 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         force = torch.where(live, force_out, force)
         return r, br, rn_out, wc, wn, force, live, bds, ev, words
 
-    def load(st: FactorizationState) -> DeviceLanczos:
-        """The device buffers of an extension from a state: T's diagonals
-        from ``st.H``, copies of the residual (the state is not changed),
-        the basis itself (updated in place), room for the entry."""
-        a = torch.from_numpy(np.ascontiguousarray(
-            np.diagonal(st.H).real.astype(rdt))).to(device)
-        b = torch.zeros(ncv, dtype=rtd, device=device)
-        b[:ncv - 1] = torch.from_numpy(np.ascontiguousarray(
-            np.diagonal(st.H, offset=-1).real.astype(rdt)))
-        resid = st.resid.clone()
-        resid0 = torch.empty_like(resid)
-        return DeviceLanczos(
-            V=st.V, resid=resid,
-            b_resid=st.b_resid.clone() if is_g else resid,
-            rnorm=torch.tensor(float(st.rnorm), dtype=rtd, device=device),
-            a=a, b=b, cnt=torch.zeros(4, dtype=torch.int64, device=device),
-            brk=no_brk.clone(), force=torch.zeros((), dtype=torch.int32,
-                                                  device=device),
-            resid0=resid0,
-            b_resid0=torch.empty_like(resid) if is_g else resid0,
-            rnorm0=torch.empty((), dtype=rtd, device=device),
-            cnt0=torch.empty(4, dtype=torch.int64, device=device))
-
     def run(ds: DeviceLanczos, k0: int, k_end: int, carry=None,
             restarted: bool = False, host_doubt: bool = False):
         """Steps ``k0 .. k_end - 1`` with no device-to-host read (what a
@@ -829,11 +1045,7 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         last step."""
         if carry is None:
             wp, wc, force = tau_vec, tau_vec, no_force
-            ds.resid0.copy_(ds.resid)
-            if is_g:
-                ds.b_resid0.copy_(ds.b_resid)
-            ds.rnorm0.copy_(ds.rnorm)
-            ds.cnt0.copy_(ds.cnt)
+            _save_entry(ds)
         else:
             wp, wc, force = carry
         # each step's breakdown flag, (event, doubtful case) and row-count
@@ -846,11 +1058,8 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         for j in range(k0, k_end):
             c = _pro_step(j, ds, c, restarted and j == k0, host_doubt)
         r, br, rn, wp, wc, force, _, _, _, _ = c
-        # a doubtful event, else the first breakdown (argmax takes the
-        # first of equal maxima)
-        brk = torch.where(
-            ev[k0:k_end, 1].any(), redo_brk,
-            torch.where(bds.any(), torch.argmax(bds.to(torch.int32)), no_brk))
+        # a doubtful event, else the first breakdown
+        brk = _first_break(bds, ev[k0:k_end, 1].any())
         n_ev = ev[k0:k_end, 0].long().sum()
         ds.cnt.add_(torch.stack([n_ev, zero_l, n_ev * nbx1,
                                  words[k0:k_end].long().sum()]))
@@ -873,12 +1082,9 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         generator (dsaitr.f:380-427) and a doubtful event runs its pass.
         ``force``: the pair rule's flag entering ``brk``.  Returns
         ``(counts, info, k_stop)``."""
+        reruns["redo" if brk == REDO else "breakdown"] += 1
         if brk == REDO:
-            ds.resid.copy_(ds.resid0)
-            if is_g:
-                ds.b_resid.copy_(ds.b_resid0)
-            ds.rnorm.copy_(ds.rnorm0)
-            ds.cnt.copy_(ds.cnt0)
+            _restore_entry(ds)
             j0, broken, force = k0, False, 0
         else:
             counts = static_counts(counts, brk - k0)

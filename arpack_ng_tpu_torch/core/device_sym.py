@@ -17,11 +17,12 @@ on-device ``make_sym_multi_cycle``: each cycle is the restart rotation and
 residual update of the previous cycle plus the Lanczos extension, with no
 device-to-host read (on a CUDA card, one CUDA graph per start ``k``), then
 the reduced space as one kernel (``ops/cuda_sym_cycle.py``), then one read
-of a small packet.  ``make_sym_head`` / ``make_sym_tail`` keep the host
-loop, its reduced space in numpy, which ``reorth='dgks'`` runs and the
-mid-solve hand-over drives cycle by cycle, and so do the re-tridiagonalizing
-thick restart (``restart='thick'``, :func:`thick_restart`) and caller-
-supplied shifts (``shift_fn``, the ido=3 protocol).
+of a small packet; the dgks loop (``reorth='dgks'``) is the same loop over
+the read-free CGS + DGKS extension.  ``make_sym_head`` / ``make_sym_tail``
+keep the host loop, its reduced space in numpy, which the mid-solve
+hand-over drives cycle by cycle, and so do the re-tridiagonalizing thick
+restart (``restart='thick'``, :func:`thick_restart`) and caller-supplied
+shifts (``shift_fn``, the ido=3 protocol).
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ import numpy as np
 import torch
 
 from ..config import IRAMConfig
-from ..ops import cuda_dia, cuda_psell, cuda_rot, cuda_sel, cuda_sym_cycle
+from ..ops import (cuda_cgs, cuda_dia, cuda_psell, cuda_rot, cuda_sel,
+                   cuda_sym_cycle)
 from ..ops.cuda_sym_cycle import (P_BRK, P_CNT, P_DONE, P_FORCE, P_HEAD,
                                   P_INFO, P_NCONV, P_NEV, P_RNORM, Params,
                                   head_of, head_plain, packet_size,
@@ -49,6 +51,7 @@ from .iram import HostLoopSolver, IRAMResult
 #: the kernel wrappers whose launches a captured graph holds: on each
 #: replay the solver adds the launches its capture counted
 GRAPH_KERNELS = (cuda_sel.sel_proj, cuda_sel.sel_update,
+                 cuda_cgs.cgs_proj, cuda_cgs.cgs_update,
                  cuda_rot.rotate_rows, cuda_dia.dia_matvec,
                  cuda_psell.psell_matvec)
 
@@ -304,12 +307,15 @@ class FusedSymSolver(HostLoopSolver):
     """dsaupd-equivalent driver over the symmetric cycle, with the name of
     the reference package's driver.
 
-    ``reorth='selective'`` (``'auto'``) runs the restart loop on the
+    ``reorth='selective'`` (``'auto'``) and ``reorth='dgks'`` with the
+    implicit restart and exact shifts run the restart loop on the
     operator's device (:class:`_DeviceLoop`): per cycle, the restart
     rotation and residual update of the previous cycle and the Lanczos
-    extension from ``k`` with no device-to-host read, the reduced space as
-    one kernel launch, and one read of a small packet (exit test, next
-    ``k``, counters; ``ops/cuda_sym_cycle.py``).  On a CUDA card, for an
+    extension from ``k`` with no device-to-host read (a dgks step whose
+    first refinement fails, or a breakdown, sends the extension to the
+    host, ``Extension.recover``, and a second packet is read), the
+    reduced space as one kernel launch, and one read of a small packet
+    (exit test, next ``k``, counters; ``ops/cuda_sym_cycle.py``).  On a CUDA card, for an
     operator that declares itself ``capturable``, the rotation and
     extension from each ``k`` are captured once as a CUDA graph (all in one
     memory pool, on the solver's stream) and replayed; the first cycle runs
@@ -327,10 +333,10 @@ class FusedSymSolver(HostLoopSolver):
     cycle; a boundary applies it first, so the state handed back is the one
     the host loop holds there.
 
-    ``reorth='dgks'``, ``restart='thick'`` and caller-supplied shifts
-    (``shift_fn``, with ``cfg.exact_shifts`` False) keep the host loop
-    (:class:`HostLoopSolver` over ``make_sym_head``/``make_sym_tail``); the
-    selective extension stays read-free there, one read at its end.
+    ``restart='thick'`` and caller-supplied shifts (``shift_fn``, with
+    ``cfg.exact_shifts`` False) keep the host loop (:class:`HostLoopSolver`
+    over ``make_sym_head``/``make_sym_tail``); the extension stays
+    read-free there, one read at its end.
 
     ``mesh``: the row mesh of a distributed solve (see
     :class:`~arpack_ng_tpu_torch.core.iram.HostLoopSolver`).  The device
@@ -430,9 +436,9 @@ class FusedSymSolver(HostLoopSolver):
 
 
 class _DeviceLoop:
-    """One solve of the selective restart loop on the operator's device
-    (see :class:`FusedSymSolver`): its buffers, graphs, stream and
-    packet."""
+    """One solve of the restart loop on the operator's device, over the
+    selective or the dgks extension (see :class:`FusedSymSolver`): its
+    buffers, graphs, stream and packet."""
 
     def __init__(self, solver: FusedSymSolver, state: FactorizationState):
         op, cfg = solver.op, solver.cfg

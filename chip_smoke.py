@@ -48,10 +48,20 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    that must repeat the host loop's 299 / 6446 / 2270 exactly), then with
    the plain twins in place of the event kernels (a witness of how far
    their summation order alone moves the counters; not counted), and then
-   with ``reorth='dgks'`` (the host loop).  Each returned value must lie
+   with ``reorth='dgks'`` on the same device loop (the read-free CGS +
+   DGKS step: graphs captured, every cycle after the first replayed, one
+   packet per cycle and per extension the host finished; its cycles in
+   DGKS_BAND, 176-348, the span over seeds 0-4 of both reduced spaces,
+   ``tools/flagship_seeds.py --reorth dgks``, and its cycles / nopx /
+   nrorth the kernel's recorded 241 / 5390 / 5384) and again with the
+   reduced space on
+   the host (a witness that must repeat the host loop's 320 / 6962 / 6956
+   exactly).  Each returned value must lie
    within 1e-4*|lambda| of an analytic eigenvalue and each residual
    ||Av - lambda v|| / |lambda| (scipy CSR, float64, on the host) must be
-   <= 1e-3;
+   <= 1e-3.  Each dgks path (4, 7b, 9a-c, 10b, 14a, 16a) prints the
+   extensions the host finished (``arnoldi.reruns``: ``redo``, a failed
+   refinement; ``breakdown``), summed up before the kernels line;
 5. basis defect: 30 selective cycles at the floor tolerance must keep
    ``||V V^T - I||_max`` below ``64 sqrt(eps_f32)``;
 6. the CGS, DIA and PSELL kernels against their twins at full size, timed
@@ -69,7 +79,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 7. sparse-entry solves through ``eigsh`` on the default device, k = 8,
    ncv = 32, which = 'LA', tol = 1e-5: (a) the flagship's scipy CSR matrix
    (imported as DIA), (b) the same with ``reorth='dgks',
-   cgs_kernel='pallas'``, both under the phase-4 gates, then (b) again
+   cgs_kernel='pallas'`` (the device loop, its host-reduced witness
+   repeating the host loop's 381 / 7832), both under the phase-4 gates
+   and the device loop's dispatch gates, then (b) again
    with the plain twins in place of the CGS kernels and with the kernels
    but ``||r||^2`` summed in float64 (witnesses of how far the summation
    order alone moves its counters; same gates, not counted), and (c) the
@@ -228,8 +240,10 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    process on the card, then the same in this process (the reference
    CLI's reorthogonalization, dgks: the rotation and DIA kernels); gates:
    rc 0, 8 values within 1e-4*|lambda| of the analytic spectrum, the CLI's
-   own residuals ``<= 1e-3``; (b) the run with ``--maxIt P14_CUT --dump``
-   (rc 1), then ``--restart`` from the file: its cycles, nopx, nrorth, nrotr
+   own residuals ``<= 1e-3``, the in-process run's cycles / nopx / nrorth
+   the host step's 299 / 6379 / 6372 (its wall printed beside the one
+   recorded while the step read back); (b) the run with ``--maxIt
+   P14_CUT --dump`` (rc 1), then ``--restart`` from the file: its cycles, nopx, nrorth, nrotr
    and values must be the unbroken run's exactly; (c) the flagship on the
    device loop (``eigsh``'s config, CUDA graphs) stopped at the boundary
    after P14_CUT cycles (``FusedSymSolver.multi``), ``save_state``,
@@ -272,8 +286,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    hybrid driver with the reference bridge's dgks: the rotation kernel and
    the DIA kernel, ``from_scipy`` importing the CSR as DIA; the event
    kernels are not on this path); gates: rc 0, nconv >= 8, phase 4's
-   value and residual gates, the rotation and DIA kernels launched, and
-   the bridge of this process ran the solve; ``atpu_stat_c``'s counters
+   value and residual gates, the rotation and DIA kernels launched, the
+   bridge of this process ran the solve, and its cycles / nopx / nrorth
+   the host step's 299 / 6379 / 6372; ``atpu_stat_c``'s counters
    and the wall printed beside 10a's; (b) ``atpu_eigsh_matvec_s`` with a C
    callback (``csrc/stencil5.c``, the same 5-point stencil) **cut to nx =
    P16_MV_NX**: every OP*x crosses to the host and back; same gates, the
@@ -287,9 +302,10 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 
 runs phases 1-2 and then, in place of phases 3-9, the restart-cycle
 profile of the flagship behind ``PERF.md`` section 5: for each reorth
-variant (selective: the device loop; dgks: the host loop) the wall per
-Lanczos step over steady cycles, the card's busy share and largest device
-items under ``torch.profiler``, and the host's ``cProfile``.
+variant on the device loop (selective, then dgks), and for dgks on the
+host loop with the host's step, the wall per Lanczos step over steady
+cycles, the card's busy share and largest device items under
+``torch.profiler``, and the host's ``cProfile``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script needs no
@@ -348,7 +364,31 @@ SELECTIVE_BAND = (194, 322)
 #: value's operations and order must repeat them).  A change meant to move
 #: the kernel's bits updates them, inside SELECTIVE_BAND.
 KERNEL_COUNTERS = {"flagship selective": (237, 5335, 1868),
-                   "(a)": (236, 5321)}
+                   "(a)": (236, 5321),
+                   "flagship dgks": (241, 5390, 5384)}
+#: the dgks solves' counters on the host loop (PERF.md), (cycles, nopx,
+#: nrorth) of the flagship and (cycles, nopx) of 7b: the dgks device loop
+#: with the reduced space on the host repeats them exactly (its read-free
+#: steps compute the host step's bits)
+DGKS_HOST_COUNTERS = {"flagship dgks": (320, 6962, 6956), "(b)": (381, 7832)}
+#: the gate on the dgks flagship's cycles on the device loop: the span of
+#: its cycles over start-vector seeds 0-4 on the card, with the
+#: reduced-space kernel (241-348) and with the host loop's reduced space
+#: (176-320) (``tools/flagship_seeds.py --reorth dgks``; PERF.md section 6)
+DGKS_BAND = (176, 348)
+#: the dgks counters (cycles, nopx, nrorth) of the CLI (14a) and the C ABI
+#: (16a): the hybrid driver's reduced space is on the host, so the
+#: read-free extension repeats the host step's run exactly
+HYBRID_DGKS_COUNTERS = (299, 6379, 6372)
+#: walls recorded while the dgks step read back every step (PERF.md;
+#: NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+RECORDED_WALLS = {"flagship dgks": "5.56-5.80 s", "14a": "5.65 s",
+                  "16a": "4.24-5.10 s"}
+#: the kernels the dgks flagship must launch on the device loop
+DGKS_PATH = ("rotate_rows", "sym_cycle")
+#: the extensions the host finished by path (``arnoldi.reruns``: a failed
+#: dgks refinement or doubtful event, ``redo``; a breakdown)
+RERUNS = {}
 #: the reduced-space kernel against its twin (phase 3 and
 #: tests/test_torch_gpu.py): the largest gap each check allows, in the
 #: units of ``_sym_gaps``, about twice the largest the kernel showed (chip
@@ -1356,8 +1396,8 @@ def _loop_line(st) -> str:
             f"per replay by start k {st.replay_launches}")
 
 
-def _in_band(st, what):
-    lo, hi = SELECTIVE_BAND
+def _in_band(st, what, band=SELECTIVE_BAND):
+    lo, hi = band
     if not lo <= st.n_iter <= hi:
         raise AssertionError(f"{what}: {st.n_iter} cycles, outside the "
                              f"recorded band {lo}-{hi}")
@@ -1372,11 +1412,27 @@ def _kernel_counters(st, tag):
                              f"kernel's recorded {want}")
 
 
+def _loop_gate(st, what):
+    """The device loop's dispatch: graphs captured on the card, every cycle
+    after the first replayed, one packet per cycle and one more for each
+    extension the host finished (``RERUNS[what]``)."""
+    rr = sum(RERUNS.get(what, {}).values())
+    if st.packets != st.n_iter + rr or st.graph_replays != st.n_iter - 1 \
+            or not st.graphs_captured:
+        raise AssertionError(f"{what}: {st.packets} packets, "
+                             f"{st.graphs_captured} graphs, "
+                             f"{st.graph_replays} replays for {st.n_iter} "
+                             f"cycles and {rr} host reruns (want a packet per "
+                             "cycle and rerun, every cycle after the first "
+                             "replayed)")
+
+
 def flagship(torch, dev, gpu, nx=NX):
     """Phase 4: the selective flagship through ``eigsh`` (the main path:
     the device restart loop, extensions replayed as CUDA graphs, the
     reduced space as one kernel, one packet per cycle), its two witnesses,
-    then ``reorth='dgks'`` (the host loop)."""
+    then ``reorth='dgks'`` on the same device loop and its host-reduced
+    witness."""
     import arpack_ng_tpu_torch as pt
     from arpack_ng_tpu_torch.models import laplacian_2d
 
@@ -1410,23 +1466,43 @@ def flagship(torch, dev, gpu, nx=NX):
           flush=True)
     print(f"  values {np.array2string(vals, precision=7)}", flush=True)
     launches = {k: counts[k] for k in SELECTIVE_PATH}
-    # the gates of the selective loop are held after every run has printed
+
+    def check(v, x, what):
+        return check_values(v, x, a_sp, spectrum, what)
+
+    # the gates of both loops are held after every run has printed
     gates = [lambda: _in_band(st, "flagship selective"),
              lambda: _kernel_counters(st, "flagship selective"),
-             _reduced_witness(torch, dev, gpu, op, a_sp, spectrum, kw)]
+             _reduced_witness(torch, dev, gpu, "flagship selective",
+                              HOST_LOOP_COUNTERS, lambda: pt.eigsh(op, **kw),
+                              check)]
     _sel_witness(torch, dev, gpu, op, a_sp, spectrum)
 
     (vals, vecs, out), wall, counts = _counted(
-        torch, dev, ("rotate_rows",),
-        lambda: pt.eigsh(op, reorth="dgks", **kw))
+        torch, dev, DGKS_PATH, lambda: pt.eigsh(op, reorth="dgks", **kw),
+        tag="flagship dgks")
     dmax, rmax = check_values(vals, vecs, a_sp, spectrum, "flagship dgks")
-    print(f"flagship reorth=dgks: wall {wall:.4f} s, "
-          f"{_stats_line(out.stats)}, "
-          f"{5 * nx * nx * out.stats.nopx / wall / 1e9:.4f} Gnnz/s; max value "
-          f"dist {dmax:.2e}, max residual {rmax:.2e}; launches {counts}; "
-          f"card {gpu}", flush=True)
-    print(f"  recorded: {RECORDED_COUNTERS['flagship dgks']}", flush=True)
+    sd = out.stats
+    steps = sd.nopx - 1
+    print(f"flagship reorth=dgks (device loop): wall {wall:.4f} s "
+          f"({wall * 1e3 / steps:.4f} ms per step), {_stats_line(sd)}, "
+          f"{5 * nx * nx * sd.nopx / wall / 1e9:.4f} Gnnz/s; host reruns "
+          f"{RERUNS['flagship dgks']}; max value dist {dmax:.2e}, max "
+          f"residual {rmax:.2e}; launches {counts}; card {gpu}", flush=True)
+    print(f"  device loop: {_loop_line(sd)}", flush=True)
+    print(f"  recorded (host loop): {RECORDED_COUNTERS['flagship dgks']}, "
+          f"nrorth {DGKS_HOST_COUNTERS['flagship dgks'][2]}, wall "
+          f"{RECORDED_WALLS['flagship dgks']}; the gate's band (the seed "
+          f"sweep's span) {DGKS_BAND[0]}-{DGKS_BAND[1]} cycles; the kernel's: "
+          f"{KERNEL_COUNTERS['flagship dgks']}", flush=True)
     print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+    gates += [lambda: _loop_gate(sd, "flagship dgks"),
+              lambda: _in_band(sd, "flagship dgks", DGKS_BAND),
+              lambda: _kernel_counters(sd, "flagship dgks"),
+              _reduced_witness(torch, dev, gpu, "flagship dgks",
+                               DGKS_HOST_COUNTERS["flagship dgks"],
+                               lambda: pt.eigsh(op, reorth="dgks", **kw),
+                               check)]
     for gate in gates:
         gate()
     return launches
@@ -1444,34 +1520,34 @@ def _host_sym_cycle(*args):
         bufs[i].copy_(cpu[i])
 
 
-def _reduced_witness(torch, dev, gpu, op, a_sp, spectrum, kw):
-    """The selective solve again with the reduced space on the host as
-    before (the loop's reduced-space call patched to the numpy twin on
-    host copies): every other piece of the loop is the main path's, so it
-    must repeat the host loop's counters exactly.  Its launches are not
-    the main path's.  Returns its gate."""
+def _reduced_witness(torch, dev, gpu, what, want, solve, check):
+    """A device-loop solve (``solve()``) again with the reduced space on
+    the host as before (the loop's reduced-space call patched to the numpy
+    twin on host copies): every other piece of the loop is the main
+    path's, so it must repeat the host loop's counters ``want`` (cycles,
+    nopx and nrorth, or the first two) exactly; ``check(vals, vecs,
+    what)`` is the solve's value gate.  Its launches are not the main
+    path's.  Returns its gate."""
     from unittest import mock
 
-    import arpack_ng_tpu_torch as pt
     from arpack_ng_tpu_torch.core import device_sym
 
+    tag = f"{what} witness, host reduced"
     with mock.patch.object(device_sym, "sym_cycle", _host_sym_cycle):
-        (vals, vecs, out), wall, counts = _counted(
-            torch, dev, (), lambda: pt.eigsh(op, **kw))
-    dmax, rmax = check_values(vals, vecs, a_sp, spectrum,
-                              "flagship selective witness, host reduced")
+        (vals, vecs, out), wall, counts = _counted(torch, dev, (), solve,
+                                                   tag=tag)
+    dmax, rmax = check(vals, vecs, tag)
     st = out.stats
-    got = (st.n_iter, st.nopx, st.nrorth)
-    print(f"  witness, reduced space on the host: wall {wall:.4f} s, "
-          f"{_stats_line(st)}; {_loop_line(st)}; max value dist {dmax:.2e}, "
-          f"max residual {rmax:.2e}; sym_cycle launches "
-          f"{counts['sym_cycle']}; card {gpu}", flush=True)
+    got = (st.n_iter, st.nopx, st.nrorth)[:len(want)]
+    print(f"  {what} witness, reduced space on the host: wall {wall:.4f} s, "
+          f"{_stats_line(st)}; host reruns {RERUNS[tag]}; {_loop_line(st)}; "
+          f"max value dist {dmax:.2e}, max residual {rmax:.2e}; sym_cycle "
+          f"launches {counts['sym_cycle']}; card {gpu}", flush=True)
 
     def gate():
-        if got != HOST_LOOP_COUNTERS:
-            raise AssertionError(f"host-reduced witness: cycles/nopx/nrorth "
-                                 f"{got}, want the host loop's "
-                                 f"{HOST_LOOP_COUNTERS}")
+        if got != want:
+            raise AssertionError(f"{what} host-reduced witness: counters "
+                                 f"{got}, want the host loop's {want}")
 
     return gate
 
@@ -1524,10 +1600,12 @@ def basis_defect(torch, dev, gpu, nx=NX):
         raise AssertionError(f"basis defect {defect:.3e} >= {bound:.3e}")
 
 
-def _counted(torch, dev, need, fn):
+def _counted(torch, dev, need, fn, tag=None):
     """Run ``fn`` with every kernel's launch count set to 0 just before and
     read just after; fail if a kernel of ``need`` was never launched.
-    Returns ``(fn(), wall seconds, counts)``."""
+    With ``tag``, the host's reruns of read-free extensions in ``fn`` go
+    into ``RERUNS[tag]``.  Returns ``(fn(), wall seconds, counts)``."""
+    from arpack_ng_tpu_torch.core import arnoldi
     from arpack_ng_tpu_torch.ops import (cuda_cgs, cuda_dia, cuda_gather,
                                          cuda_psell, cuda_rot, cuda_sel,
                                          cuda_sym_cycle)
@@ -1540,12 +1618,16 @@ def _counted(torch, dev, need, fn):
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     for k in every:
         k.launches = 0
+    for k in arnoldi.reruns:
+        arnoldi.reruns[k] = 0
     sync()
     t0 = time.perf_counter()
     out = fn()
     sync()
     wall = time.perf_counter() - t0
     counts = {k.__name__: k.launches for k in every}
+    if tag is not None:
+        RERUNS[tag] = dict(arnoldi.reruns)
     idle = [k for k in need if counts[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched: {idle}")
@@ -1611,23 +1693,33 @@ def sparse_solves(torch, dev, gpu, fem, nx=NX, device=None):
             ("(a) eigsh(A_csr)", ("dia_matvec", "sym_cycle"),
              lambda: pt.eigsh(a_sp, dtype=np.float32, **kw, **dkw)),
             ("(b) eigsh(A_csr) dgks, cgs_kernel='pallas'",
-             ("cgs_proj", "cgs_update", "dia_matvec", "rotate_rows"),
+             ("cgs_proj", "cgs_update", "dia_matvec", "rotate_rows",
+              "sym_cycle"),
              lambda: pt.eigsh(op, reorth="dgks", cgs_kernel="pallas",
                               **kw))):
-        (vals, vecs, out), wall, counts = _counted(torch, dev, need, fn)
+        path = f"7{tag[:3]}"
+        (vals, vecs, out), wall, counts = _counted(torch, dev, need, fn,
+                                                   tag=path)
         dmax, rmax = check_values(vals, vecs, a_sp, spectrum, tag)
-        print(f"sparse {tag}: format dia, wall {wall:.4f} s, "
-              f"{_stats_line(out.stats)}; max value dist {dmax:.2e}, max "
-              f"residual {rmax:.2e}; launches {counts}; card {gpu}",
-              flush=True)
-        if out.stats.packets:
-            print(f"  device loop: {_loop_line(out.stats)}", flush=True)
+        st = out.stats
+        print(f"sparse {tag}: format dia, wall {wall:.4f} s "
+              f"({wall * 1e3 / (st.nopx - 1):.4f} ms per step), "
+              f"{_stats_line(st)}; host reruns {RERUNS[path]}; max value "
+              f"dist {dmax:.2e}, max residual {rmax:.2e}; launches {counts}; "
+              f"card {gpu}", flush=True)
+        print(f"  device loop: {_loop_line(st)}", flush=True)
         print(f"  recorded: {RECORDED_COUNTERS[tag[:3]]}", flush=True)
         if tag[:3] in KERNEL_COUNTERS:
             print(f"  the kernel's: {KERNEL_COUNTERS[tag[:3]]}", flush=True)
-            _kernel_counters(out.stats, tag[:3])
+            _kernel_counters(st, tag[:3])
+        if dev.type == "cuda":
+            _loop_gate(st, path)
         for k in need:
             launches.setdefault(k, counts[k])
+    _reduced_witness(
+        torch, dev, gpu, "7(b)", DGKS_HOST_COUNTERS["(b)"],
+        lambda: pt.eigsh(op, reorth="dgks", cgs_kernel="pallas", **kw),
+        lambda v, x, what: check_values(v, x, a_sp, spectrum, what))()
     _dgks_witnesses(torch, dev, gpu, op, a_sp, spectrum, kw)
 
     t0 = time.perf_counter()
@@ -1807,7 +1899,8 @@ def eigs_cycles(torch, dev, gpu, nx=EIGS_NX):
         sync()
         return state, c0, time.perf_counter() - t0
 
-    (state, c0, wall), _, counts = _counted(torch, dev, ("rotate_rows",), run)
+    (state, c0, wall), _, counts = _counted(torch, dev, ("rotate_rows",), run,
+                                            tag="9a")
     state = cycles(state, 1, last=True)  # a full factorization
     V = state.V.double()
     eye = torch.eye(NCV, dtype=torch.float64, device=dev)
@@ -1819,7 +1912,8 @@ def eigs_cycles(torch, dev, gpu, nx=EIGS_NX):
           f"{c.nopx - c0.nopx}, nrorth {c.nrorth - c0.nrorth}, nitref "
           f"{c.nitref - c0.nitref}, nrotr {c.nrotr - c0.nrotr} over the 20 "
           f"and the last extension); basis defect {defect:.4e} (bound "
-          f"{bound:.4e}); launches {counts}; card {gpu}", flush=True)
+          f"{bound:.4e}); host reruns {RERUNS['9a']}; launches {counts}; "
+          f"card {gpu}", flush=True)
     if not defect <= bound:
         raise AssertionError(f"eigs basis defect {defect:.3e} > {bound:.3e}")
 
@@ -1843,10 +1937,12 @@ def eigs_solves(torch, dev, gpu, nx=EIGS_SOLVE_NX, device=None):
              ("rotate_rows", "cgs_proj", "cgs_update", "dia_matvec"),
              lambda: pt.eigs(a_sp, dtype=np.float32, cgs_kernel="pallas",
                              device=device, **kw))):
-        (vals, vecs, out), wall, counts = _counted(torch, dev, need, fn)
+        (vals, vecs, out), wall, counts = _counted(torch, dev, need, fn,
+                                                   tag=f"9{tag[1]}")
         print(f"eigs {tag} conv-diff nx={nx}: wall {wall:.4f} s, "
               f"{_stats_line(out.stats)}; {len(vals)} values, extraction "
-              f"info {out.info}; launches {counts}; card {gpu}", flush=True)
+              f"info {out.info}; host reruns {RERUNS[f'9{tag[1]}']}; "
+              f"launches {counts}; card {gpu}", flush=True)
         print(f"  values {np.array2string(vals, precision=8)}", flush=True)
         rmax = check_nonsym(vals, vecs, a_sp, f"eigs {tag}")
         print(f"  max residual {rmax:.2e}", flush=True)
@@ -1933,11 +2029,13 @@ def new_paths(torch, dev, gpu, vals_9, nx=NX, eigs_nx=EIGS_NX,
     (vals, vecs, out), wall, counts = _counted(
         torch, dev, ("rotate_rows", "cgs_proj", "cgs_update"),
         lambda: pt.eigs(op, which="LM", strategy="hybrid",
-                        cgs_kernel="pallas", maxiter=P10_MAX_RESTARTS, **kw))
+                        cgs_kernel="pallas", maxiter=P10_MAX_RESTARTS, **kw),
+        tag="10b")
     st = out.stats
     print(f"{tag}: wall {wall:.4f} s ({wall * 1e3 / st.n_iter:.4f} ms per "
           f"cycle), {_stats_line(st)}; {len(vals)} values, extraction info "
-          f"{out.info}; launches {counts}; card {gpu}", flush=True)
+          f"{out.info}; host reruns {RERUNS['10b']}; launches {counts}; card "
+          f"{gpu}", flush=True)
     print(f"  values {np.array2string(vals, precision=8)}", flush=True)
     rmax = check_nonsym(vals, vecs, a_sp, tag, counted=False)
     print(f"  max residual {rmax:.2e}; the fused real driver's float32 "
@@ -3291,12 +3389,19 @@ def _cli_main(torch, dev, gpu, tmp, nx, need):
     print(f"  values {np.array2string(vals, precision=7)}", flush=True)
     (rc, out, res), wall, counts = _counted(
         torch, dev, need("rotate_rows", "dia_matvec"),
-        lambda: _cli_inproc(argv))
+        lambda: _cli_inproc(argv), tag="14a")
     vals, dmax, rmax = _cli_gate(rc, out, spectrum, 1e-4, 1e-3,
                                  "14a cli.main", 8)
-    print(f"14a cli.main (in process): wall {wall:.2f} s, "
-          f"{_stats_line(res.stats)}; max value dist {dmax:.2e}, max "
-          f"residual {rmax:.2e}; launches {counts}; card {gpu}", flush=True)
+    st = res.stats
+    print(f"14a cli.main (in process): wall {wall:.2f} s (recorded while the "
+          f"dgks step read back every step: {RECORDED_WALLS['14a']}), "
+          f"{_stats_line(st)}; host reruns {RERUNS['14a']}; max value dist "
+          f"{dmax:.2e}, max residual {rmax:.2e}; launches {counts}; card "
+          f"{gpu}", flush=True)
+    got = (st.n_iter, st.nopx, st.nrorth)
+    if dev.type == "cuda" and nx == NX and got != HYBRID_DGKS_COUNTERS:
+        raise AssertionError(f"14a cli.main: cycles/nopx/nrorth {got}, want "
+                             f"the host step's {HYBRID_DGKS_COUNTERS}")
     return argv, {"14a": counts}, (out, res)
 
 
@@ -3775,7 +3880,7 @@ def _capi_csr(torch, dev, gpu, lib, nx, need):
         lambda: lib.atpu_eigsh_csr_s(
             n, indptr.ctypes.data, indices.ctypes.data, data.ctypes.data,
             a32.nnz, k, b"LA", 1e-5, NCV, 0, evals.ctypes.data,
-            evecs.ctypes.data, ctypes.byref(nconv)))
+            evecs.ctypes.data, ctypes.byref(nconv)), tag="16a")
     if rc != 0 or nconv.value < k:
         raise AssertionError(f"{tag}: rc {rc}, nconv {nconv.value}")
     vals, vecs = _capi_out(nconv, evals, evecs, n)
@@ -3794,12 +3899,18 @@ def _capi_csr(torch, dev, gpu, lib, nx, need):
                   f"{s10.nopx}, nrorth {s10.nrorth}, nitref {s10.nitref}, "
                   f"nrstrt {s10.nrstrt}")
     print(f"{tag}: rc {rc}, nconv {nconv.value}, wall {wall:.4f} s "
-          f"({wall * 1e3 / own.n_iter:.4f} ms per cycle), cycles "
+          f"({wall * 1e3 / own.n_iter:.4f} ms per cycle; recorded while the "
+          f"dgks step read back every step: {RECORDED_WALLS['16a']}), cycles "
           f"{own.n_iter}; stat_c nopx {st[0]}, nbx {st[1]}, nrorth {st[2]}, "
           f"nitref {st[3]}, nrstrt {st[4]}, tsaupd {st[5]:.4f} s"
-          f"{beside}; max value dist {dmax:.2e}, max residual {rmax:.2e}; "
-          f"launches {counts}; card {gpu}", flush=True)
+          f"{beside}; host reruns {RERUNS['16a']}; max value dist "
+          f"{dmax:.2e}, max residual {rmax:.2e}; launches {counts}; card "
+          f"{gpu}", flush=True)
     print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+    got = (own.n_iter, int(st[0]), int(st[2]))
+    if dev.type == "cuda" and nx == NX and got != HYBRID_DGKS_COUNTERS:
+        raise AssertionError(f"{tag}: cycles/nopx/nrorth {got}, want the "
+                             f"host step's {HYBRID_DGKS_COUNTERS}")
     return counts
 
 
@@ -3945,19 +4056,25 @@ def _host_profile(fn, what):
 
 def profile_cycles(torch, dev, gpu, nx=NX, warm=3, steady=20, profiled=5):
     """Where the time goes: the flagship's restart cycles at the floor
-    tolerance (no cycle exits).  Selective (the device loop, the main
-    path): a solve of ``warm`` cycles and one of ``warm + steady``; their
-    difference is the wall of ``steady`` steady cycles (each solve captures
-    its graphs in its first cycles), per Lanczos step; then both solves
-    under ``torch.profiler`` (the card's busy share over each solve, the
-    largest device items, and the steady share: the difference of their
-    device times over the difference of the unprofiled walls) and the
-    longer under ``cProfile``.  dgks (the host loop): the wall per step over ``steady``
-    cycles after ``warm``, then ``profiled`` cycles under each profiler."""
+    tolerance (no cycle exits).  For each reorth variant on the device loop
+    (selective, the main path, then dgks): a solve of ``warm`` cycles and
+    one of ``warm + steady``; their difference is the wall of ``steady``
+    steady cycles (each solve captures its graphs in its first cycles),
+    per Lanczos step; then both solves under ``torch.profiler`` (the
+    card's busy share over each solve, the largest device items, and the
+    steady share: the difference of their device times over the
+    difference of the unprofiled walls) and the longer under ``cProfile``.
+    Then dgks on the host loop with the host's step (each step's decisions
+    read back): the wall per step over ``steady`` cycles after ``warm``,
+    then ``profiled`` cycles under each profiler."""
+    from unittest import mock
+
     from torch.profiler import ProfilerActivity, profile
 
     from arpack_ng_tpu_torch.config import IRAMConfig
-    from arpack_ng_tpu_torch.core.arnoldi import make_init
+    from arpack_ng_tpu_torch.core import device_sym
+    from arpack_ng_tpu_torch.core.arnoldi import (Extension, make_extend,
+                                                  make_init)
     from arpack_ng_tpu_torch.core.device_sym import (FusedSymSolver,
                                                      make_sym_head,
                                                      make_sym_tail)
@@ -3976,42 +4093,49 @@ def profile_cycles(torch, dev, gpu, nx=NX, warm=3, steady=20, profiled=5):
                           dtype=np.dtype(np.float32), n_pad=op.n_pad,
                           tol=1e-30, max_iter=cycles, reorth=reorth)
 
-    def solve(cycles):
-        sync()
-        t0 = time.perf_counter()
-        res = FusedSymSolver(op, cfg_of("selective", cycles)).solve()
-        sync()
-        return res, time.perf_counter() - t0
+    for reorth in ("selective", "dgks"):
+        def solve(cycles):
+            sync()
+            t0 = time.perf_counter()
+            res = FusedSymSolver(op, cfg_of(reorth, cycles)).solve()
+            sync()
+            return res, time.perf_counter() - t0
 
-    solve(warm)
-    (r1, w1), (r2, w2) = solve(warm), solve(warm + steady)
-    steps = r2.stats.nopx - r1.stats.nopx
-    wall = w2 - w1
-    print(f"profile reorth=selective (device loop): {steady} cycles after "
-          f"{warm}, {wall * 1e3:.4f} ms, {steps} steps, "
-          f"{wall * 1e3 / steps:.4f} ms/step, events "
-          f"{r2.stats.nrorth - r1.stats.nrorth}, event rows "
-          f"{r2.stats.nrorthr - r1.stats.nrorthr}; solve of {warm + steady}"
-          f" cycles {w2 * 1e3:.4f} ms, graphs captured "
-          f"{r2.stats.graphs_captured}, replays {r2.stats.graph_replays}, "
-          f"packets {r2.stats.packets}; card {gpu}", flush=True)
-    busy = []
-    for cycles in (warm, warm + steady):
-        with profile(activities=activities) as prof:
-            _, wall = solve(cycles)
-        busy.append(_profile_table(torch, prof, wall, f"reorth=selective, "
-                                   f"a solve of {cycles} cycles", gpu, sort,
-                                   dev))
-    print(f"profile reorth=selective, steady: device busy "
-          f"{busy[1] - busy[0]:.4f} ms over the {steady} cycles' wall "
-          f"{(w2 - w1) * 1e3:.4f} ms (unprofiled): "
-          f"{100 * (busy[1] - busy[0]) / ((w2 - w1) * 1e3):.2f}%; card {gpu}",
-          flush=True)
-    _host_profile(lambda: solve(warm + steady),
-                  f"reorth=selective, a solve of {warm + steady} cycles")
+        solve(warm)
+        (r1, w1), (r2, w2) = solve(warm), solve(warm + steady)
+        s1, s2 = r1.stats, r2.stats
+        steps = s2.nopx - s1.nopx
+        wall = w2 - w1
+        print(f"profile reorth={reorth} (device loop): {steady} cycles after "
+              f"{warm}, {wall * 1e3:.4f} ms, {steps} steps, "
+              f"{wall * 1e3 / steps:.4f} ms/step, events (nrorth) "
+              f"{s2.nrorth - s1.nrorth}, event rows "
+              f"{s2.nrorthr - s1.nrorthr}, nitref {s2.nitref - s1.nitref}, "
+              f"host reruns (packets past one per cycle) "
+              f"{s2.packets - s2.n_iter - s1.packets + s1.n_iter}; solve of "
+              f"{warm + steady} cycles {w2 * 1e3:.4f} ms, graphs captured "
+              f"{s2.graphs_captured}, replays {s2.graph_replays}, packets "
+              f"{s2.packets}; card {gpu}", flush=True)
+        busy = []
+        for cycles in (warm, warm + steady):
+            with profile(activities=activities) as prof:
+                _, wall = solve(cycles)
+            busy.append(_profile_table(torch, prof, wall,
+                                       f"reorth={reorth}, a solve of "
+                                       f"{cycles} cycles", gpu, sort, dev))
+        print(f"profile reorth={reorth}, steady: device busy "
+              f"{busy[1] - busy[0]:.4f} ms over the {steady} cycles' wall "
+              f"{(w2 - w1) * 1e3:.4f} ms (unprofiled): "
+              f"{100 * (busy[1] - busy[0]) / ((w2 - w1) * 1e3):.2f}%; card "
+              f"{gpu}", flush=True)
+        _host_profile(lambda: solve(warm + steady),
+                      f"reorth={reorth}, a solve of {warm + steady} cycles")
 
     cfg = cfg_of("dgks", 10**6)
-    head, tail = make_sym_head(op, cfg), make_sym_tail(op, cfg)
+    with mock.patch.object(device_sym, "make_extend",
+                           lambda o, c: Extension(make_extend(o, c).stepwise)):
+        head = make_sym_head(op, cfg)
+    tail = make_sym_tail(op, cfg)
     state = make_init(op, cfg)()
 
     def cycles(state, m):
@@ -4029,18 +4153,19 @@ def profile_cycles(torch, dev, gpu, nx=NX, warm=3, steady=20, profiled=5):
     sync()
     wall = time.perf_counter() - t0
     steps = state.counts.nopx - c0.nopx
-    print(f"profile reorth=dgks: {steady} cycles after {warm}, "
-          f"{wall * 1e3:.4f} ms, {steps} steps, {wall * 1e3 / steps:.4f} "
-          f"ms/step; card {gpu}", flush=True)
+    print(f"profile reorth=dgks (host loop, the host's step): {steady} "
+          f"cycles after {warm}, {wall * 1e3:.4f} ms, {steps} steps, "
+          f"{wall * 1e3 / steps:.4f} ms/step; card {gpu}", flush=True)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         state = cycles(state, profiled)
         sync()
         wall = time.perf_counter() - t0
-    _profile_table(torch, prof, wall, f"reorth=dgks, {profiled} cycles", gpu,
-                   sort, dev)
+    _profile_table(torch, prof, wall, f"reorth=dgks (host loop, the host's "
+                   f"step), {profiled} cycles", gpu, sort, dev)
     _host_profile(lambda: (cycles(state, profiled), sync()),
-                  f"reorth=dgks, {profiled} cycles")
+                  f"reorth=dgks (host loop, the host's step), {profiled} "
+                  "cycles")
 
 
 def kernel_entries(rows, launches, errs, phases):
@@ -4238,6 +4363,9 @@ def main() -> int:
     errs["dia_block_matvec"] = err_blk["torch.float32"]
     entries = kernel_entries(rows + rows_cgs + rows_dia + rows_ps + rows_g
                              + rows_blk, launches, errs, phases)
+    print(f"extensions the host finished, by path (redo: a failed dgks "
+          f"refinement or a doubtful event; breakdown: rnorm <= 0): "
+          f"{RERUNS}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

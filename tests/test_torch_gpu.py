@@ -590,6 +590,69 @@ def test_graph_replay_equals_eager_on_card(dev):
     np.testing.assert_array_equal(x1, x2)
 
 
+def _host_sym_cycle(*args):
+    """The reduced space as the host loop computes it: the kernel's buffers
+    copied to the host, its numpy twin, the results copied back."""
+    from arpack_ng_tpu_torch.ops import cuda_sym_cycle as csc
+    bufs, (p, is_last) = args[:9], args[9:]
+    cpu = [t.cpu() for t in bufs]
+    csc.sym_cycle_plain(*cpu, p, is_last)
+    for i in (0, 1, 6, 7, 8):  # a, b, Q, sk, packet
+        bufs[i].copy_(cpu[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capturable", [True, False])
+def test_dgks_device_loop_equals_host_loop_on_card(dev, capturable):
+    # the dgks flagship class at nx = 128 on the device loop (graphs
+    # replayed, or eager for an operator that does not declare itself
+    # capturable): with the reduced space patched to its host twin (the
+    # host-reduced witness) the read-free steps give the host loop with
+    # the host's step (each decision read back) bit for bit; with the
+    # kernel, graphs captured, one packet per cycle and extension the host
+    # finished, the values within 1e-4*|lambda| of the witness's
+    import dataclasses
+    from unittest import mock
+
+    from arpack_ng_tpu_torch.config import IRAMConfig
+    from arpack_ng_tpu_torch.core import arnoldi, device_sym
+    from arpack_ng_tpu_torch.models import laplacian_2d
+    op, _ = laplacian_2d(128, np.float32, device=dev)
+    op = dataclasses.replace(op, capturable=capturable)
+    cfg = IRAMConfig(n=op.n, nev=8, ncv=32, which="LA", symmetric=True,
+                     dtype=np.dtype(np.float32), n_pad=op.n_pad, tol=1e-5,
+                     max_iter=3000, reorth="dgks")
+    real = device_sym.make_extend
+    with mock.patch.object(device_sym, "make_extend",
+                           lambda o, c: arnoldi.Extension(
+                               real(o, c).stepwise)):
+        host_solver = device_sym.FusedSymSolver(op, cfg)
+    assert host_solver._host_loop
+    host = host_solver.solve()
+    with mock.patch.object(device_sym, "sym_cycle", _host_sym_cycle):
+        witness = device_sym.FusedSymSolver(op, cfg).solve()
+    arnoldi.reruns.update(redo=0, breakdown=0)
+    kernel = device_sym.FusedSymSolver(op, cfg).solve()
+    reruns = sum(arnoldi.reruns.values())
+    for f in ("n_iter", "nopx", "nbx", "nrorth", "nitref", "nrstrt",
+              "nrotr"):
+        assert getattr(witness.stats, f) == getattr(host.stats, f), f
+    np.testing.assert_array_equal(witness.ritz, host.ritz)
+    assert torch.equal(witness.state.V, host.state.V)
+    st = kernel.stats
+    assert st.nrorth > 0
+    assert st.packets == kernel.n_iter + reruns
+    if capturable:
+        assert st.graphs_captured > 0
+        assert st.graph_replays == kernel.n_iter - 1
+        assert any("rotate_rows" in d for d in st.replay_launches.values())
+    else:
+        assert st.graphs_captured == 0
+    np.testing.assert_allclose(np.sort(kernel.ritz[:8]),
+                               np.sort(witness.ritz[:8]), rtol=1e-4)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_failed_capture_raises_on_card(dev):
     # an operator that declares itself capturable but reads back raises
@@ -1118,7 +1181,8 @@ def nccl_mesh(dev):
 def test_mesh_world_of_one_equals_single_on_card(nccl_mesh, reorth):
     # a world of one sums nothing: mesh= (through the gathered stencil and
     # the halo operator) gives the single path's counters and values bit
-    # for bit, on the device loop (selective) and the host loop (dgks)
+    # for bit, on the device loop (selective and dgks), its NCCL
+    # collectives captured in the loop's graphs
     import arpack_ng_tpu_torch as pt
     from arpack_ng_tpu_torch.models import laplacian_2d
     from arpack_ng_tpu_torch.models.distributed import laplacian_2d_sharded
@@ -1135,6 +1199,7 @@ def test_mesh_world_of_one_equals_single_on_card(nccl_mesh, reorth):
         np.testing.assert_array_equal(v1, v2)
         np.testing.assert_array_equal(x1, x2)
         assert o2.stats.collectives["all_reduce"] >= o2.stats.nopx
+        assert o2.stats.graphs_captured > 0 and o2.stats.graph_replays > 0
     torch.cuda.synchronize()
 
 

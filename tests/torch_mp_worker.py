@@ -227,6 +227,33 @@ def case_comm_model(mesh, inp):
     return out
 
 
+def case_dgks_loop(mesh, inp):
+    """The symmetric dgks solve on the device loop (``FusedSymSolver``),
+    row-partitioned and then unsharded on each rank from the same start
+    vector: values, counters, packets and the mesh's collectives."""
+    import numpy as np
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.config import IRAMConfig
+    from arpack_ng_tpu_torch.core.device_sym import FusedSymSolver
+    d, v0 = inp
+    op = pt.from_diagonal(d, n_pad=pt.pad_dim(len(d)), device="cpu")
+    cfg = IRAMConfig(n=op.n, nev=4, ncv=16, which="LA", symmetric=True,
+                     dtype=np.dtype(np.float64), n_pad=op.n_pad, tol=1e-10,
+                     max_iter=500, reorth="dgks")
+    out = {}
+    for tag, m in (("mesh", mesh), ("single", None)):
+        solver = FusedSymSolver(op, cfg, mesh=m)
+        res = solver.solve(v0=v0)
+        st = res.stats
+        out[tag] = dict(
+            host_loop=solver._host_loop, ritz=res.ritz, nconv=res.nconv,
+            n_iter=res.n_iter, packets=st.packets,
+            counts=tuple(int(getattr(st, f)) for f in (
+                "nopx", "nbx", "nrorth", "nitref", "nrstrt", "nrotr")),
+            collectives=dict(st.collectives or {}))
+    return out
+
+
 def case_refusals(mesh, inp):
     """The reference's refusals under a mesh, each raised on every rank
     before any collective: the message of each ValueError."""
