@@ -427,8 +427,9 @@ def eigs(
     ``hermitian=False``), moved to ``device`` (default: the CUDA card).
     ``strategy='auto'`` is the reference's default: ``'fused_real'`` for
     real dtypes (the restart cycle of
-    :mod:`~arpack_ng_tpu_torch.core.device_realnonsym` with its reduced
-    space in the problem dtype) and ``'hybrid'`` for complex ones (the host
+    :mod:`~arpack_ng_tpu_torch.core.device_realnonsym` on the device loop,
+    its reduced space one kernel launch per cycle, in float64) and
+    ``'hybrid'`` for complex ones (the host
     float64 / complex128 reduced space of
     :mod:`~arpack_ng_tpu_torch.core.iram`, which real dtypes may ask for
     too).  ``'fused'`` runs the complex cycle of

@@ -18,7 +18,10 @@ residual update of the previous cycle plus the Lanczos extension, with no
 device-to-host read (on a CUDA card, one CUDA graph per start ``k``), then
 the reduced space as one kernel (``ops/cuda_sym_cycle.py``), then one read
 of a small packet; the dgks loop (``reorth='dgks'``) is the same loop over
-the read-free CGS + DGKS extension.  ``make_sym_head`` / ``make_sym_tail``
+the read-free CGS + DGKS extension.  The loop (:class:`DeviceLoopSolver`,
+:class:`_DeviceLoop`) is shared with the real non-symmetric driver
+(``core/device_realnonsym.py``), which gives it its own reduce step and
+exit.  ``make_sym_head`` / ``make_sym_tail``
 keep the host loop, its reduced space in numpy, which the mid-solve
 hand-over drives cycle by cycle, and so do the re-tridiagonalizing thick
 restart (``restart='thick'``, :func:`thick_restart`) and caller-supplied
@@ -303,24 +306,22 @@ def thick_restart(op: Operator, cfg: IRAMConfig, h: HeadOut
                          counts=state.counts.add(nrotr=rots))
 
 
-class FusedSymSolver(HostLoopSolver):
-    """dsaupd-equivalent driver over the symmetric cycle, with the name of
-    the reference package's driver.
-
-    ``reorth='selective'`` (``'auto'``) and ``reorth='dgks'`` with the
-    implicit restart and exact shifts run the restart loop on the
-    operator's device (:class:`_DeviceLoop`): per cycle, the restart
-    rotation and residual update of the previous cycle and the Lanczos
-    extension from ``k`` with no device-to-host read (a dgks step whose
-    first refinement fails, or a breakdown, sends the extension to the
-    host, ``Extension.recover``, and a second packet is read), the
-    reduced space as one kernel launch, and one read of a small packet
-    (exit test, next ``k``, counters; ``ops/cuda_sym_cycle.py``).  On a CUDA card, for an
-    operator that declares itself ``capturable``, the rotation and
-    extension from each ``k`` are captured once as a CUDA graph (all in one
-    memory pool, on the solver's stream) and replayed; the first cycle runs
-    eagerly on that stream, which warms it up.  A capture that fails
-    raises.
+class DeviceLoopSolver(HostLoopSolver):
+    """A cycle driver whose restart loop runs on the operator's device
+    (:class:`_DeviceLoop`) where its extension is read-free and the driver
+    does not ask for the host loop (``_host_loop``).  The driver gives the
+    loop its reduce step: the packet's size (:meth:`_packet_size`), the
+    reduced-space kernel's launch (:meth:`_reduce`), the factorization's
+    host fields from a packet or from one read of the device buffers
+    (:meth:`_packet_fields`, :meth:`_read_fields`), the cycle output
+    (:meth:`_cycle_out`) and the per-cycle trace (:meth:`_trace_packet`);
+    its exit is :meth:`_exit`, as on the host loop.  The rest of the loop
+    is shared: the deferred restart (the kev-row rotation by
+    ``csrc/rot.cu``, the residual update from ``sk``, the B-norm), the CUDA
+    graph per start ``k`` on a capturable operator, the first cycle run
+    eagerly, the host's rerun after a breakdown or a failed refinement
+    (``Extension.recover``, then the kernel again) and the mesh's
+    collectives.
 
     The reference runs up to ``cycles_per_dispatch`` cycles in one
     ``lax.while_loop``; here the unit of dispatch is one cycle, because the
@@ -331,67 +332,45 @@ class FusedSymSolver(HostLoopSolver):
     :meth:`solve` resumes.  The loop defers each cycle's restart (the
     kev-row rotation and the residual update) to the start of the next
     cycle; a boundary applies it first, so the state handed back is the one
-    the host loop holds there.
+    the host loop holds there."""
 
-    ``restart='thick'`` and caller-supplied shifts (``shift_fn``, with
-    ``cfg.exact_shifts`` False) keep the host loop (:class:`HostLoopSolver`
-    over ``make_sym_head``/``make_sym_tail``); the extension stays
-    read-free there, one read at its end.
+    _host_loop = True
 
-    ``mesh``: the row mesh of a distributed solve (see
-    :class:`~arpack_ng_tpu_torch.core.iram.HostLoopSolver`).  The device
-    loop then runs on each rank's rows with its collectives in the
-    extension; it is captured where the mesh's transport is
-    (``RowMesh.capturable``: NCCL) and runs eagerly otherwise."""
+    def _packet_size(self) -> int:
+        raise NotImplementedError
 
-    def __init__(self, op: Operator, cfg: IRAMConfig, shift_fn=None,
-                 mesh=None):
-        if cfg.exact_shifts and shift_fn is not None:
-            raise ValueError("shift_fn requires exact_shifts=False "
-                             "(reference iparam(1)=0, ishift=0)")
-        if not cfg.exact_shifts and shift_fn is None:
-            raise ValueError("exact_shifts=False requires a shift_fn")
-        user = shift_fn is not None
-        super().__init__(
-            op, cfg, lambda o, c: make_sym_head(o, c, inflate=not user),
-            lambda o, c: make_sym_tail(o, c, shift_fn=shift_fn), mesh)
-        self._ext = make_extend(self.op, cfg)
-        self._host_loop = (not self._ext.read_free or user
-                           or cfg.restart == "thick")
+    def _reduce(self, ds, Q, sk, packet, is_last: bool) -> None:
+        raise NotImplementedError
 
-    def _start(self, state: FactorizationState) -> CycleOut:
-        z = np.zeros(self.cfg.ncv, _dt.real_dtype(self.cfg.dtype))
-        return CycleOut(state=state, done=False, nconv=0, ritz_s=z,
-                        bounds_s=z)
+    def _packet_fields(self, pk):
+        """``(H, rnorm, counters)`` of the factorization from a packet."""
+        raise NotImplementedError
 
-    def _exit(self, out: CycleOut):
-        cfg = self.cfg
-        nconv = out.nconv
-        r_s = np.asarray(out.ritz_s, np.float64)
-        b_s = np.asarray(out.bounds_s, np.float64)
-        r_x, b_x = reduced.exit_sort(cfg.which, cfg.nev, nconv, r_s.copy(),
-                                     b_s.copy(), cfg.eps23, True, False)
-        info = 0
-        if out.state.iter >= cfg.max_iter and nconv < cfg.nev:
-            info = 1
-        np_rem = int(np.count_nonzero(b_s[: cfg.ncv - cfg.nev] == 0))
-        if (cfg.ncv - cfg.nev - np_rem) == 0 and nconv < cfg.nev:
-            info = 2
-        return r_x, b_x, info
+    def _read_fields(self, ds):
+        """``(H, rnorm, counters)`` from one read of the device buffers."""
+        raise NotImplementedError
 
-    def _open(self, out: CycleOut) -> bool:
+    def _cycle_out(self, state: FactorizationState, pk):
+        """The cycle output with ``state``; ``pk`` None before any cycle
+        ended (no Ritz values)."""
+        raise NotImplementedError
+
+    def _trace_packet(self, pk, it: int) -> None:
+        pass
+
+    def _open(self, out) -> bool:
         """Whether a run that handed back ``out`` stopped at a boundary
         (the exit test has not fired, cycles and no error remain)."""
         st = out.state
         return not out.done and st.iter < self.cfg.max_iter and st.info == 0
 
-    def multi(self, state: FactorizationState, n_cycles: int) -> CycleOut:
+    def multi(self, state: FactorizationState, n_cycles: int):
         """At most ``n_cycles`` restart cycles from ``state`` (reference
-        ``make_sym_multi_cycle``).  A run that stops at the bound hands
-        back the restarted state (``k = nev_eff``; ``done`` False), which
-        :meth:`solve` resumes here or in a fresh solver; a run that exits
-        hands back the exit's state as :meth:`solve` does.  The state's
-        basis is updated in place."""
+        ``make_sym_multi_cycle``, ``make_realnonsym_multi_cycle``).  A run
+        that stops at the bound hands back the restarted state (``k =
+        nev_eff``; ``done`` False), which :meth:`solve` resumes here or in
+        a fresh solver; a run that exits hands back the exit's state as
+        :meth:`solve` does.  The state's basis is updated in place."""
         out = self._start(state)
         if n_cycles < 1 or not self._open(out):
             return out
@@ -435,16 +414,131 @@ class FusedSymSolver(HostLoopSolver):
         return res
 
 
+class FusedSymSolver(DeviceLoopSolver):
+    """dsaupd-equivalent driver over the symmetric cycle, with the name of
+    the reference package's driver.
+
+    ``reorth='selective'`` (``'auto'``) and ``reorth='dgks'`` with the
+    implicit restart and exact shifts run the restart loop on the
+    operator's device (:class:`DeviceLoopSolver`): per cycle, the restart
+    rotation and residual update of the previous cycle and the Lanczos
+    extension from ``k`` with no device-to-host read (a dgks step whose
+    first refinement fails, or a breakdown, sends the extension to the
+    host, ``Extension.recover``, and a second packet is read), the
+    reduced space as one kernel launch, and one read of a small packet
+    (exit test, next ``k``, counters; ``ops/cuda_sym_cycle.py``).  On a
+    CUDA card, for an operator that declares itself ``capturable``, the
+    rotation and extension from each ``k`` are captured once as a CUDA
+    graph (all in one memory pool, on the solver's stream) and replayed;
+    the first cycle runs eagerly on that stream, which warms it up.  A
+    capture that fails raises.
+
+    ``restart='thick'`` and caller-supplied shifts (``shift_fn``, with
+    ``cfg.exact_shifts`` False) keep the host loop (:class:`HostLoopSolver`
+    over ``make_sym_head``/``make_sym_tail``); the extension stays
+    read-free there, one read at its end.
+
+    ``mesh``: the row mesh of a distributed solve (see
+    :class:`~arpack_ng_tpu_torch.core.iram.HostLoopSolver`).  The device
+    loop then runs on each rank's rows with its collectives in the
+    extension; it is captured where the mesh's transport is
+    (``RowMesh.capturable``: NCCL) and runs eagerly otherwise."""
+
+    def __init__(self, op: Operator, cfg: IRAMConfig, shift_fn=None,
+                 mesh=None):
+        if cfg.exact_shifts and shift_fn is not None:
+            raise ValueError("shift_fn requires exact_shifts=False "
+                             "(reference iparam(1)=0, ishift=0)")
+        if not cfg.exact_shifts and shift_fn is None:
+            raise ValueError("exact_shifts=False requires a shift_fn")
+        user = shift_fn is not None
+        super().__init__(
+            op, cfg, lambda o, c: make_sym_head(o, c, inflate=not user),
+            lambda o, c: make_sym_tail(o, c, shift_fn=shift_fn), mesh)
+        self._ext = make_extend(self.op, cfg)
+        self._host_loop = (not self._ext.read_free or user
+                           or cfg.restart == "thick")
+        self._p = _params(cfg)
+
+    def _start(self, state: FactorizationState) -> CycleOut:
+        z = np.zeros(self.cfg.ncv, _dt.real_dtype(self.cfg.dtype))
+        return CycleOut(state=state, done=False, nconv=0, ritz_s=z,
+                        bounds_s=z)
+
+    def _exit(self, out: CycleOut):
+        cfg = self.cfg
+        nconv = out.nconv
+        r_s = np.asarray(out.ritz_s, np.float64)
+        b_s = np.asarray(out.bounds_s, np.float64)
+        r_x, b_x = reduced.exit_sort(cfg.which, cfg.nev, nconv, r_s.copy(),
+                                     b_s.copy(), cfg.eps23, True, False)
+        info = 0
+        if out.state.iter >= cfg.max_iter and nconv < cfg.nev:
+            info = 1
+        np_rem = int(np.count_nonzero(b_s[: cfg.ncv - cfg.nev] == 0))
+        if (cfg.ncv - cfg.nev - np_rem) == 0 and nconv < cfg.nev:
+            info = 2
+        return r_x, b_x, info
+
+    # ---- the reduce step of the device loop (ops/cuda_sym_cycle.py) ----
+    def _packet_size(self) -> int:
+        return packet_size(self.cfg.ncv)
+
+    def _reduce(self, ds, Q, sk, packet, is_last: bool) -> None:
+        sym_cycle(ds.a, ds.b, ds.rnorm, ds.brk, ds.force, ds.cnt, Q, sk,
+                  packet, self._p, is_last)
+
+    @staticmethod
+    def _tridiagonal(a, b):
+        return np.diag(a) + np.diag(b, 1) + np.diag(b, -1)
+
+    def _packet_fields(self, pk):
+        ncv = self.cfg.ncv
+        return (self._tridiagonal(pk[P_HEAD:P_HEAD + ncv],
+                                  pk[P_HEAD + ncv:P_HEAD + 2 * ncv - 1]),
+                pk[P_RNORM], pk[P_CNT:P_CNT + 4])
+
+    def _read_fields(self, ds):
+        ncv = self.cfg.ncv
+        back = torch.cat([ds.a.double(), ds.b.double(),
+                          ds.rnorm.double().reshape(1),
+                          ds.cnt.double()]).cpu().numpy()
+        return (self._tridiagonal(back[:ncv], back[ncv:2 * ncv - 1]),
+                back[2 * ncv], back[2 * ncv + 1:])
+
+    def _cycle_out(self, state: FactorizationState, pk) -> CycleOut:
+        if pk is None:
+            return self._start(state)
+        ncv = self.cfg.ncv
+        rdt = _dt.real_dtype(self.cfg.dtype)
+        ritz = pk[P_HEAD + 2 * ncv:P_HEAD + 3 * ncv]
+        return CycleOut(state=state, done=bool(pk[P_DONE]),
+                        nconv=int(pk[P_NCONV]), ritz_s=ritz.astype(rdt),
+                        bounds_s=pk[P_HEAD + 3 * ncv:].astype(rdt))
+
+    def _trace_packet(self, pk, it: int) -> None:
+        """The host loop's per-cycle trace (``make_sym_head``), from the
+        packet already read."""
+        if debug.maup2 > 0:
+            ncv = self.cfg.ncv
+            trace(debug.maup2, 0, "_sym_cycle: iter {i}: nconv={nc} "
+                  "rnorm={rn}", i=it, nc=int(pk[P_NCONV]), rn=pk[P_RNORM])
+            trace(debug.maup2, 1, "_sym_cycle: ritz (wanted last) {r}\n"
+                  " _sym_cycle: bounds {b}",
+                  r=pk[P_HEAD + 2 * ncv:P_HEAD + 3 * ncv],
+                  b=pk[P_HEAD + 3 * ncv:])
+
+
 class _DeviceLoop:
     """One solve of the restart loop on the operator's device, over the
-    selective or the dgks extension (see :class:`FusedSymSolver`): its
-    buffers, graphs, stream and packet."""
+    selective or the dgks extension, with the driver's reduce step (see
+    :class:`DeviceLoopSolver`): its buffers, graphs, stream and packet."""
 
-    def __init__(self, solver: FusedSymSolver, state: FactorizationState):
+    def __init__(self, solver: DeviceLoopSolver, state: FactorizationState):
         op, cfg = solver.op, solver.cfg
+        self.solver = solver
         self.op, self.cfg, self.ext = op, cfg, solver._ext
         self.state = state
-        self.params = _params(cfg)
         self.ncv = ncv = cfg.ncv
         dev = op.device
         self.cuda = dev.type == "cuda"
@@ -455,7 +549,7 @@ class _DeviceLoop:
         self.ds = self.ext.load(state)
         self.Q = torch.zeros((ncv, ncv), dtype=rtd, device=dev)
         self.sk = torch.zeros(2, dtype=rtd, device=dev)
-        self.packet = torch.zeros(packet_size(ncv), dtype=torch.float64,
+        self.packet = torch.zeros(solver._packet_size(), dtype=torch.float64,
                                   device=dev)
         self.mesh = op.mesh
         # a mesh's collectives are captured where its transport allows
@@ -468,8 +562,8 @@ class _DeviceLoop:
         if self.cuda:
             self.stream = torch.cuda.Stream(device=dev)
             self.pool = torch.cuda.graph_pool_handle()
-            self.pk_host = torch.empty(packet_size(ncv), dtype=torch.float64,
-                                       pin_memory=True)
+            self.pk_host = torch.empty(solver._packet_size(),
+                                       dtype=torch.float64, pin_memory=True)
             self.done_evt = torch.cuda.Event()
         self.t_ext = self.t_red = 0.0
 
@@ -527,11 +621,8 @@ class _DeviceLoop:
 
     def _reduce(self, is_last: bool) -> np.ndarray:
         """The cycle's reduced space and its packet, read once."""
-        ds = self.ds
-        args = (ds.a, ds.b, ds.rnorm, ds.brk, ds.force, ds.cnt, self.Q,
-                self.sk, self.packet)
         self.packets += 1
-        sym_cycle(*args, self.params, is_last)
+        self.solver._reduce(self.ds, self.Q, self.sk, self.packet, is_last)
         if not self.cuda:
             return self.packet.numpy().copy()
         self.pk_host.copy_(self.packet, non_blocking=True)
@@ -540,7 +631,7 @@ class _DeviceLoop:
         return self.pk_host.numpy().copy()
 
     # ---- the loop ------------------------------------------------------
-    def run(self, n_cycles=None) -> CycleOut:
+    def run(self, n_cycles=None):
         """The restart loop from the state, to its exit or, with
         ``n_cycles``, to the boundary after that many cycles."""
         if not self.cuda:
@@ -565,7 +656,7 @@ class _DeviceLoop:
         self.events.append((e0, e1))
         return out, None
 
-    def _loop(self, n_cycles=None) -> CycleOut:
+    def _loop(self, n_cycles=None):
         cfg, ext, ncv = self.cfg, self.ext, self.ncv
         st = self.state
         counts, it, info, k = st.counts, st.iter, st.info, st.k
@@ -600,7 +691,7 @@ class _DeviceLoop:
                 pk = self._reduce(is_last)
             else:
                 counts = ext.static_counts(counts, ncv - k0)
-            self._trace(pk, it)
+            self.solver._trace_packet(pk, it)
             it += 1
             if int(pk[P_INFO]) != 0:
                 info = int(pk[P_INFO])
@@ -611,19 +702,7 @@ class _DeviceLoop:
             k = nev_cur = int(pk[P_NEV])
         return self._out(pk, counts, it, info, k, nev_cur)
 
-    def _trace(self, pk, it: int) -> None:
-        """The host loop's per-cycle trace (``make_sym_head``), from the
-        packet already read."""
-        if debug.maup2 > 0:
-            ncv = self.ncv
-            trace(debug.maup2, 0, "_sym_cycle: iter {i}: nconv={nc} "
-                  "rnorm={rn}", i=it, nc=int(pk[P_NCONV]), rn=pk[P_RNORM])
-            trace(debug.maup2, 1, "_sym_cycle: ritz (wanted last) {r}\n"
-                  " _sym_cycle: bounds {b}",
-                  r=pk[P_HEAD + 2 * ncv:P_HEAD + 3 * ncv],
-                  b=pk[P_HEAD + 3 * ncv:])
-
-    def _boundary(self, pk, counts, it, k) -> CycleOut:
+    def _boundary(self, pk, counts, it, k):
         """The state between cycles: the restart the next cycle would begin
         with (:meth:`_prefix`: the kev-row rotation, the residual update
         and its norm; T is already the restarted one), applied now, then
@@ -631,40 +710,25 @@ class _DeviceLoop:
         counts = counts.add(nbx=int(self.is_g), nrotr=self._prefix(k))
         return self._out(pk, counts, it, 0, k, k, read=True)
 
-    def _out(self, pk, counts, it, info, k, nev_cur, read=False
-             ) -> CycleOut:
+    def _out(self, pk, counts, it, info, k, nev_cur, read=False):
         """The state's host fields from the last packet (the factorization
         before its shifts: every exit skips them), or, after a failed
         restart vector or at a boundary (``read``), from one read."""
-        ds, ncv, cfg = self.ds, self.ncv, self.cfg
+        ds, cfg, solver = self.ds, self.cfg, self.solver
         if pk is None or info > 0 or read:
-            back = torch.cat([ds.a.double(), ds.b.double(),
-                              ds.rnorm.double().reshape(1),
-                              ds.cnt.double()]).cpu().numpy()
-            a, b, rn = back[:ncv], back[ncv:2 * ncv - 1], back[2 * ncv]
-            ev = back[2 * ncv + 1:]
+            H, rn, ev = solver._read_fields(ds)
         else:
-            a = pk[P_HEAD:P_HEAD + ncv]
-            b = pk[P_HEAD + ncv:P_HEAD + 2 * ncv - 1]
-            rn, ev = pk[P_RNORM], pk[P_CNT:P_CNT + 4]
-        if pk is None or info > 0:
-            ritz = bounds = np.zeros(ncv)
-            done, nconv = False, 0
-        else:
-            ritz = pk[P_HEAD + 2 * ncv:P_HEAD + 3 * ncv]
-            bounds = pk[P_HEAD + 3 * ncv:]
-            done, nconv = bool(pk[P_DONE]), int(pk[P_NCONV])
+            H, rn, ev = solver._packet_fields(pk)
         ev = np.asarray(ev).astype(np.int64)
         counts = counts.add(nrorth=ev[0], nitref=ev[1], nbx=ev[2],
                             nrorthr=ev[3])
-        H = (np.diag(a) + np.diag(b, 1) + np.diag(b, -1)).astype(cfg.dtype)
         rdt = _dt.real_dtype(cfg.dtype)
         state = self.state.replace(
-            V=ds.V, H=H, resid=ds.resid, b_resid=ds.b_resid,
-            rnorm=rdt.type(rn), k=k, nev_cur=nev_cur, iter=it, info=info,
-            counts=counts)
-        return CycleOut(state=state, done=done, nconv=nconv,
-                        ritz_s=ritz.astype(rdt), bounds_s=bounds.astype(rdt))
+            V=ds.V, H=np.asarray(H).astype(cfg.dtype), resid=ds.resid,
+            b_resid=ds.b_resid, rnorm=rdt.type(rn), k=k, nev_cur=nev_cur,
+            iter=it, info=info, counts=counts)
+        return solver._cycle_out(state, None if pk is None or info > 0
+                                 else pk)
 
     def times(self):
         """Seconds of the extensions (with the restart rotations) and of

@@ -100,16 +100,31 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    then the gather probe's six forms once (``arpack_ng_tpu_torch.bench.
    gather_primitives``: the main path of these kernels, whose launches are
    counted);
-9. ``eigs`` at full width: the convection-diffusion operator of
-   ``benchmarks/bench_nonsym.py`` (nx = 1024, rho = 100, float32, k = 8,
-   ncv = 32, which = 'LM'): (a) the reference's timing protocol, 2 warm
-   cycles and 20 timed cycles at tol = 1e-30 (ms/cycle), then the basis
-   defect ``||V V^T - I||_max <= 64 sqrt(eps)`` after one more extension;
-   (b) a solve to tol = 1e-5 through ``eigs`` (at most EIGS_MAX_RESTARTS
-   restarts; at nx = EIGS_SOLVE_NX = 512, see there) and (c) the same
-   through ``eigs(A_csr)`` (DIA) with ``cgs_kernel='pallas'``: 8 or 9 values, conjugate-closed, every
-   residual ``||Av - lambda v|| / |lambda| <= 1e-3`` (scipy CSR, float64,
-   complex vectors, on the host), the rotation kernel launched, and the
+9. ``eigs`` at full width: first the real reduced-space kernel
+   (``csrc/realnonsym_cycle.cu``) against its numpy twin on Arnoldi
+   Hessenbergs of the convection-diffusion matrix (float32 and float64,
+   every which; ncv = 32 with its workspace in shared memory and ncv = 69,
+   the first past it), the counts and flags equal, every gap within
+   ``RN_LIMITS``, two launches bit-equal, then timed at ncv = 32 beside
+   the twin's host wall, the library form's wall (``torch.linalg.eig`` and
+   the shifts' QR on the card, synced) and its bound; then the
+   convection-diffusion operator of ``benchmarks/bench_nonsym.py`` (nx =
+   1024, rho = 100, float32, k = 8, ncv = 32, which = 'LM'): (a) the
+   reference's timing protocol, 2 warm cycles and 20 timed cycles at tol =
+   1e-30 (ms/cycle) through ``FusedRealNonsymSolver.multi`` on the device
+   loop (one reduced-space launch per cycle), beside the host loop's
+   ms/cycle in the same run, then the basis defect ``||V V^T - I||_max <=
+   64 sqrt(eps)`` after one more extension; (b) a solve to tol = 1e-5
+   through ``eigs`` (at most EIGS_MAX_RESTARTS restarts; at nx =
+   EIGS_SOLVE_NX = 512, see there) and (c) the same through
+   ``eigs(A_csr)`` (DIA) with ``cgs_kernel='pallas'``, both on the device
+   loop: 8 or 9 values, conjugate-closed, every residual ``||Av - lambda
+   v|| / |lambda| <= 1e-3`` (scipy CSR, float64, complex vectors, on the
+   host), the rotation and reduced-space kernels launched, graphs
+   captured, every cycle after the first replayed, one packet and one
+   reduced-space launch per cycle and host rerun, the cycles in
+   EIGS_BAND; (b) again with the reduced space on the host (the witness)
+   and on the host loop, which must agree in cycles, nopx and nrorth; the
    phase within EIGS_MAX_S.  No value is held to the analytic spectrum: the
    operator is strongly non-normal, and float32 pairs converged by
    residual may lie in its pseudospectrum;
@@ -421,6 +436,28 @@ EIGS_NX = 1024
 EIGS_SOLVE_NX = 512
 EIGS_MAX_RESTARTS = 300
 EIGS_MAX_S = 150.0
+#: the kernels the real eigs loop must launch (9a-c), and the gate on 9b's
+#: and 9c's cycles: the span of 9b's and 9c's cycles over start-vector
+#: seeds 0-4 on the card, with the real reduced-space kernel (40-48) and
+#: with its twin on the host (40-48) (``tools/eigs_seeds.py`` on an NVIDIA
+#: H100 80GB HBM3 at 700 W; PERF.md section 6)
+EIGS_PATH = ("rotate_rows", "realnonsym_cycle")
+EIGS_BAND = (40, 48)
+#: the real reduced-space kernel against its twin (phase 9 and
+#: tests/test_torch_gpu.py): the largest gap each check allows, in the
+#: units of ``_rn_gaps`` (sorted Ritz values over max |lambda|, bounds over
+#: their max, Q's kept columns, sigmak, Hc's kept block over max |H0|);
+#: and the band around the chase's guard (a factor on either side of its
+#: limit, eps23 max|H0|) in which the two may decide the implicit redo
+#: differently (the explicit chase's loss there is rounding amplified by
+#: near-zero pivots; PERF.md section 6): the kernel's restart is then held
+#: to the relation its own decision promises
+RN_GUARD_BAND = 64.0
+RN_LIMITS = {
+    "torch.float64": dict(values=1e-12, bounds=1e-10, Q=1e-9, sigmak=1e-9,
+                          H=1e-9),
+    "torch.float32": dict(values=1e-12, bounds=1e-10, Q=1e-5, sigmak=1e-5,
+                          H=1e-5)}
 #: phase 10c: the imaginary part of the Hermitian tridiagonal's
 #: off-diagonal; phase 10's restart cap (10b, 10d) and wall limit, seconds
 #: (about three times the 42 s it takes on an H100 at 700 W, PERF.md
@@ -1092,6 +1129,323 @@ def _sym_clocks(torch, csc, kernel, dev, np_eff):
     return out
 
 
+def _arnoldi_hessenberg(ncv, seed, nx=48, rho=100.0):
+    """H and rnorm of ncv Arnoldi steps (two CGS passes) on phase 9's
+    convection-diffusion matrix at a host size (float64, a seeded start):
+    the Hessenbergs the real eigs loop hands its reduced space."""
+    from arpack_ng_tpu_torch.models import convection_diffusion_2d
+
+    _, a = convection_diffusion_2d(nx, rho=rho, dtype=np.float64,
+                                   device="cpu")
+    return _arnoldi_on(a, ncv, seed)
+
+
+def _arnoldi_on(a, ncv, seed):
+    """H and rnorm of ncv Arnoldi steps (two CGS passes) on the matrix
+    ``a`` (float64) from a start drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n = a.shape[0]
+    V = np.zeros((ncv + 1, n))
+    H = np.zeros((ncv, ncv))
+    v = rng.uniform(-1, 1, n)
+    V[0] = v / np.linalg.norm(v)
+    for j in range(ncv):
+        w = a @ V[j]
+        for _ in range(2):
+            h = V[:j + 1] @ w
+            w = w - V[:j + 1].T @ h
+            H[:j + 1, j] += h
+        rn = np.linalg.norm(w)
+        if j + 1 < ncv:
+            H[j + 1, j] = rn
+        V[j + 1] = w / rn
+    return H, rn
+
+
+def _rn_params(crc, dt, which, nev):
+    f = np.finfo(np.float32 if dt == "torch.float32" else np.float64)
+    R = f.dtype.type
+    return crc.Params(which=which, nev=nev,
+                      tol=float(R(1e-5 if dt == "torch.float32" else 1e-10)),
+                      eps23=float(R(f.eps ** (2 / 3))), eps_m=float(f.eps),
+                      safmin=float(f.tiny))
+
+
+def _rn_buffers(torch, crc, H, rnorm, dt, where):
+    ncv = H.shape[0]
+    t = dict(dtype=dt, device=where)
+    return [torch.tensor(H, **t), torch.tensor(rnorm, **t),
+            torch.tensor(-1, dtype=torch.int32, device=where),
+            torch.tensor(0, dtype=torch.int32, device=where),
+            torch.zeros(4, dtype=torch.int64, device=where),
+            torch.zeros(ncv, ncv, **t), torch.zeros(2, **t),
+            torch.zeros(crc.packet_size(ncv), dtype=torch.float64,
+                        device=where)]
+
+
+def _rn_run(torch, crc, H, rnorm, dt, where, p, is_last=False):
+    bufs = _rn_buffers(torch, crc, H, rnorm, dt, where)
+    crc.realnonsym_cycle(*bufs, p, is_last)
+    return [x.double().cpu().numpy() for x in
+            (bufs[0], bufs[5], bufs[6], bufs[7])]
+
+
+def _rn_gaps(crc, twin, other, H0):
+    """How far one real reduced-space result lies from the twin's, in the
+    units of ``RN_LIMITS``; whether the packet's counts and flags (done,
+    nconv, nev_eff, np_eff, info, the implicit chase) are equal; and the
+    other's restart relation ``|H0 Q_k - Q_{k+1} Hc[:k+1, :k]|`` over max
+    |H0| (not gated against the twin: reported).  Where the two decided
+    the implicit redo differently, Q, sigmak and Hc are not compared
+    (``implicit_equal`` False)."""
+    (tH, tQ, tsk, tpk), (kH, kQ, ksk, kpk) = twin, other
+    ncv, P = H0.shape[0], crc.P_HEAD
+    lam = np.hypot(tpk[P:P + ncv], tpk[P + ncv:P + 2 * ncv]).max()
+    bnd = tpk[P + 2 * ncv:P + 3 * ncv]
+    out = {"values": float(np.abs(kpk[P:P + 2 * ncv]
+                                  - tpk[P:P + 2 * ncv]).max() / lam),
+           "bounds": float(np.abs(kpk[P + 2 * ncv:P + 3 * ncv] - bnd).max()
+                           / max(bnd.max(), 1e-300)),
+           "counts_equal": all(kpk[i] == tpk[i] for i in (
+               crc.P_DONE, crc.P_NCONV, crc.P_NEV, crc.P_NP, crc.P_INFO)),
+           "implicit_equal": kpk[crc.P_IMPL] == tpk[crc.P_IMPL]}
+    if not tpk[crc.P_DONE]:
+        k = int(tpk[crc.P_NEV])
+        scale = np.abs(H0).max()
+        out["relation"] = float(np.abs(H0 @ kQ[:, :k] - kQ[:, :k + 1]
+                                       @ kH[:k + 1, :k]).max() / scale)
+        if out["implicit_equal"]:
+            out.update(
+                Q=float(np.abs(kQ[:, :k] - tQ[:, :k]).max()),
+                sigmak=float(abs(ksk[0] - tsk[0])),
+                H=float(np.abs(kH[:k + 1, :k] - tH[:k + 1, :k]).max()
+                        / scale))
+    return out
+
+
+def _rn_library(torch, crc, H, rnorm, shifts):
+    """The library form of one cycle's real reduced space on the card (the
+    yardstick, used nowhere in the port): ``torch.linalg.eig`` (values and
+    the vectors the bounds need; it syncs), the bounds, then one
+    ``torch.linalg.qr`` per shift (a real shift, or a conjugate pair as
+    one double shift) with Q accumulated, as the host loop's numpy chase
+    runs them."""
+    w, X = torch.linalg.eig(H)
+    bounds = rnorm * torch.abs(X[-1]) / torch.linalg.vector_norm(X, dim=0)
+    eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+    Hc, Q = H, eye
+    for mur, mui in shifts:
+        if mui > 0:
+            M = Hc @ Hc - (2.0 * mur) * Hc + (mur * mur + mui * mui) * eye
+        else:
+            M = Hc - mur * eye
+        q, _ = torch.linalg.qr(M)
+        Hc = torch.triu(q.T @ Hc @ q, -1)
+        Q = Q @ q
+    torch.cuda.synchronize()
+    return bounds, Q
+
+
+def _reflector_flops(n, js, m, q_rows):
+    """Flops of Householder reflectors of order ``m`` at the rows ``js`` of
+    an n x n Hessenberg T, applied from both sides, and to ``q_rows`` rows
+    of an accumulated Q: reflector j changes rows j..j+m-1 from column j-1
+    on (4 m flops a column) and columns j..j+m-1 down to row j+m (4 m a
+    row)."""
+    flops = 0
+    for j in js:
+        mj = min(m, n - j)
+        flops += 4 * mj * ((n - max(j - 1, 0)) + min(j + mj + 1, n) + q_rows)
+    return flops
+
+
+def _rn_ops(crc, H, rnorm, p):
+    """The operations this input needs: the QR sweeps of its Schur form and
+    the shifts of its chase as the twin takes them (counted on its
+    ``np.linalg.qr`` calls and its implicit chases; a double shift, of
+    order 3, where the shifted matrix has a second subdiagonal): each
+    reflector that changes something (one per nonzero subdiagonal entry of
+    the shifted matrix; n - 1 in an implicit chase) applied to the
+    Hessenberg T from both sides over the rows and columns it reaches, to
+    Q's last row in the Schur sweeps (the bounds need no more of it) and
+    to all of Q in the chase; dtrevc's back-substitution over the rows each
+    eigenvector solves (row l of eigenvector i: 2 (i - l) flops) with its
+    last component and norm; and the guard's check of the kept columns,
+    ``(Q^T H0 Q)[:, :k]`` (3 n^2 k).  Returns ``(flops, detail, head)``,
+    the head the twin's."""
+    from unittest import mock
+
+    n = H.shape[0]
+    real_qr, real_implicit = np.linalg.qr, crc._implicit_q
+    tally = {"schur": [0, 0, 0], "chase": [0, 0, 0]}
+    where = ["schur"]
+
+    def qr(M, *args, **kwargs):
+        double = bool(np.any(np.diag(M, -2) != 0))
+        js = np.nonzero(np.diag(M, -1) != 0)[0]
+        t = tally[where[0]]
+        t[int(double)] += 1
+        t[2] += _reflector_flops(n, js, 3 if double else 2,
+                                 1 if where[0] == "schur" else n)
+        return real_qr(M, *args, **kwargs)
+
+    def implicit_q(Hc, mur, mui):
+        t = tally["chase"]
+        t[int(mui > 0)] += 1
+        t[2] += _reflector_flops(n, range(n - 1), 3 if mui > 0 else 2, n)
+        return real_implicit(Hc, mur, mui)
+
+    with mock.patch.object(np.linalg, "qr", qr), \
+            mock.patch.object(crc, "_implicit_q", implicit_q):
+        h = crc.head_plain(H, rnorm, p)
+        where[0] = "chase"
+        if not h.done:
+            crc.shifts_plain(H, h, p)
+    (s1, s2, fs), (c1, c2, fc) = tally["schur"], tally["chase"]
+    trevc = (n - 1) * n * (n + 1) // 3 + 2 * n * (n + 1)
+    guard = 0 if h.done else 3 * n * n * h.nev_eff
+    return fs + fc + trevc + guard, (
+        f"{s1} single and {s2} double Schur sweeps, {c1} real and {c2} "
+        f"double shifts"), h
+
+
+def _rn_guard_case(crc, H, rn, p, kern, g, lim, what):
+    """A case where the kernel and the twin decided the implicit redo
+    apart: the twin's explicit chase must have lost within
+    ``RN_GUARD_BAND`` of the guard's limit, and the kernel's restart keep
+    the relation its own decision promises (the guard's limit after the
+    explicit chase, 10 times RN_LIMITS' H after the redo)."""
+    h = crc.head_plain(H, np.float64(rn), p)
+    _, _, lost, limit = crc.explicit_chase(H, h, p)
+    impl = kern[3][crc.P_IMPL]
+    allowed = max(0.0 if impl else p.eps23, 10 * lim["H"])
+    if not (limit / RN_GUARD_BAND < lost < limit * RN_GUARD_BAND) \
+            or g["relation"] > allowed:
+        raise AssertionError(
+            f"{what}: implicit redo {bool(impl)} on the card, "
+            f"{not impl} in the twin, whose explicit chase lost "
+            f"{lost / limit:.3e} of the guard's limit; the kernel's "
+            f"relation {g['relation']:.3e} (allowed {allowed:.1e})")
+
+
+def check_realnonsym_cycle(torch, dev, gpu):
+    """Phase 9, the real reduced-space kernel (``csrc/realnonsym_cycle.cu``)
+    against its numpy twin on Arnoldi Hessenbergs of the convection-
+    diffusion matrix (ncv = 32, nev = 8, every ``which``, three seeds, the
+    workspace in shared memory; the first ncv past it, 69, the matrices in
+    global memory, one seed), float32 (phase 9's) and float64: the
+    packet's counts and flags equal, every gap within ``RN_LIMITS``, two
+    launches equal bit for bit; then timed at ncv = 32, 'LM', float32: the
+    kernel device-only (each call after a copy restoring H), the twin's
+    host wall per call and the library form's wall per call
+    (``torch.linalg.eig`` + the shifts' QR loop on the card, synced).
+    Returns ``(err, row)``: the float32 gaps' largest value gap, the timed
+    row of the kernels line."""
+    from arpack_ng_tpu_torch.ops import cuda_realnonsym_cycle as crc
+
+    ncv, top = NCV, crc.max_shared_ncv() + 1
+    err = {}
+    borderline = []
+    for dt in (torch.float32, torch.float64):
+        lim = RN_LIMITS[str(dt)]
+        rdt = np.float32 if dt == torch.float32 else np.float64
+        over = []
+        for m, seeds in ((ncv, 3), (top, 1)):
+            worst = {}
+            for which in crc.WHICH:
+                p = _rn_params(crc, str(dt), which, 8 if m == ncv else m // 4)
+                for seed in range(seeds):
+                    H, rn = _arnoldi_hessenberg(m, seed)
+                    H = H.astype(rdt).astype(np.float64)
+                    kern = _rn_run(torch, crc, H, rn, dt, dev, p)
+                    twin = _rn_run(torch, crc, H, rn, dt, torch.device("cpu"),
+                                   p)
+                    g = _rn_gaps(crc, twin, kern, H)
+                    what = f"realnonsym_cycle {dt} {which} seed {seed} ncv {m}"
+                    if not g.pop("counts_equal"):
+                        raise AssertionError(
+                            f"{what}: counts differ, kernel "
+                            f"{kern[3][:crc.P_HEAD]} twin "
+                            f"{twin[3][:crc.P_HEAD]}")
+                    if not g.pop("implicit_equal"):
+                        _rn_guard_case(crc, H, rn, p, kern, g, lim, what)
+                        borderline.append((str(dt)[6:], m, which, seed))
+                    for key, v in g.items():
+                        worst[key] = max(worst.get(key, 0.0), v)
+                    if m == ncv and seed == 0:
+                        again = _rn_run(torch, crc, H, rn, dt, dev, p)
+                        if not all(np.array_equal(a, b)
+                                   for a, b in zip(kern, again)):
+                            raise AssertionError(
+                                f"realnonsym_cycle {dt} {which}: two "
+                                "launches differ")
+            print(f"  realnonsym_cycle vs twin {dt} ncv={m}, largest gaps "
+                  f"over every which (implicit redo decided apart, within "
+                  f"the guard's band, so far: {borderline}): " + ", ".join(
+                      f"{k} {v:.3e}" + (f" (limit {lim[k]:.0e})"
+                                        if k in lim else "")
+                      for k, v in worst.items()), flush=True)
+            over += [(m, k) for k, v in worst.items()
+                     if k in lim and v > lim[k]]
+            if m == ncv:
+                err[str(dt)] = worst["values"]
+        if over:
+            raise AssertionError(f"realnonsym_cycle {dt}: kernel and twin "
+                                 f"differ past the limits at {over}")
+    # the timed row: ncv = 32, 'LM', float32, seed 0
+    p = _rn_params(crc, "torch.float32", "LM", 8)
+    H, rn = _arnoldi_hessenberg(ncv, 0)
+    H = H.astype(np.float32).astype(np.float64)
+    bufs = _rn_buffers(torch, crc, H, rn, torch.float32, dev)
+    H0 = bufs[0].clone()
+
+    def kernel():
+        bufs[0].copy_(H0)
+        crc.realnonsym_cycle(*bufs, p, False)
+
+    cpu = _rn_buffers(torch, crc, H, rn, torch.float32, torch.device("cpu"))
+    H0c = cpu[0].clone()
+
+    def twin():
+        cpu[0].copy_(H0c)
+        crc.realnonsym_cycle_plain(*cpu, p, False)
+
+    flops, detail, h = _rn_ops(crc, H, np.float64(rn), p)
+    shifts = crc.shift_pool(h, p.nev)
+    Hd = torch.tensor(H, dtype=torch.float64, device=dev)
+    walls = {}
+    for name, fn in (("plain_ms", twin), ("library_ms", lambda: _rn_library(
+            torch, crc, Hd, rn, shifts))):
+        fn()
+        ts = []
+        for _ in range(timing.REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        walls[name] = float(np.median(ts))
+    ms = timing.alternating_ms([kernel], timing.flush_buffer(dev))[0]
+    bound = flops / (PEAK_FLOPS["torch.float64"] / SMS) * 1e3
+    row = {"name": "realnonsym_cycle", "dtype": "torch.float32",
+           "shape": ncv, "ms": ms, "plain_ms": walls["plain_ms"],
+           "library_ms": walls["library_ms"], "bound_ms": bound,
+           "bound_by": "operations", "bytes": 0, "flops": flops,
+           "bound_note": "operations this input needs (the Householder "
+                         "reflectors of its Schur sweeps and shifts over "
+                         "the Hessenberg rows and columns they reach, "
+                         "dtrevc's rows, the guard) over one SM's float64 "
+                         "rate (the kernel is one block and computes in "
+                         "double), not the card's roofline",
+           "np_eff": h.np_eff}
+    print(f"  realnonsym_cycle ncv={ncv} float32 ({detail}): kernel "
+          f"{ms:.4f} ms device-only, twin {walls['plain_ms']:.4f} ms host, "
+          f"library (eig + {len(shifts)} QR on the card, with syncs) "
+          f"{walls['library_ms']:.4f} ms; bound {bound:.6f} ms ({flops} "
+          f"flops over one SM's float64 rate, {100 * bound / ms:.2f}% of "
+          f"it); card {gpu}", flush=True)
+    return err, row
+
+
 def _cgs_cases(torch, cuda_cgs, V, w, bf16, what, err):
     """Every row count 1..NCV against the twins, w left untouched; the
     largest error of each kernel goes into ``err``."""
@@ -1520,6 +1874,18 @@ def _host_sym_cycle(*args):
         bufs[i].copy_(cpu[i])
 
 
+def _host_realnonsym_cycle(*args):
+    """The real reduced space as the host loop computed it: the kernel's
+    buffers copied to the host, its numpy twin, the results copied back."""
+    from arpack_ng_tpu_torch.ops import cuda_realnonsym_cycle as crc
+
+    bufs, (p, is_last) = args[:8], args[8:]
+    cpu = [t.cpu() for t in bufs]
+    crc.realnonsym_cycle_plain(*cpu, p, is_last)
+    for i in (0, 5, 6, 7):  # H, Q, sk, packet
+        bufs[i].copy_(cpu[i])
+
+
 def _reduced_witness(torch, dev, gpu, what, want, solve, check):
     """A device-loop solve (``solve()``) again with the reduced space on
     the host as before (the loop's reduced-space call patched to the numpy
@@ -1607,14 +1973,15 @@ def _counted(torch, dev, need, fn, tag=None):
     into ``RERUNS[tag]``.  Returns ``(fn(), wall seconds, counts)``."""
     from arpack_ng_tpu_torch.core import arnoldi
     from arpack_ng_tpu_torch.ops import (cuda_cgs, cuda_dia, cuda_gather,
-                                         cuda_psell, cuda_rot, cuda_sel,
-                                         cuda_sym_cycle)
+                                         cuda_psell, cuda_realnonsym_cycle,
+                                         cuda_rot, cuda_sel, cuda_sym_cycle)
 
     every = (cuda_sel.sel_proj, cuda_sel.sel_update, cuda_rot.rotate_rows,
              cuda_cgs.cgs_proj, cuda_cgs.cgs_update, cuda_dia.dia_matvec,
              cuda_dia.dia_block_matvec, cuda_psell.psell_matvec,
              cuda_gather.take_flat, cuda_gather.take_lanes,
-             cuda_sym_cycle.sym_cycle)
+             cuda_sym_cycle.sym_cycle,
+             cuda_realnonsym_cycle.realnonsym_cycle)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     for k in every:
         k.launches = 0
@@ -1871,84 +2238,174 @@ def check_nonsym(vals, vecs, a_sp, what, counted=True):
 def eigs_cycles(torch, dev, gpu, nx=EIGS_NX):
     """Phase 9a: the reference's timing protocol for the non-symmetric
     driver (bench_nonsym.py --fused): 2 warm cycles, then 20 timed cycles
-    at tol = 1e-30, then one more extension and the basis defect."""
+    at tol = 1e-30, through ``FusedRealNonsymSolver.multi`` on the device
+    loop (the main path: its extensions replayed as CUDA graphs, the
+    reduced space one kernel launch, one packet per cycle; each ``multi``
+    run starts a loop, whose first cycle runs eagerly and whose graphs are
+    captured in it), then the same protocol on the host loop (the numpy
+    head and tail: the reduced space on the host, one read per
+    extension) in the same run; then one more extension and the basis
+    defect.  Returns the device loop's ms per cycle."""
     from arpack_ng_tpu_torch.config import IRAMConfig
     from arpack_ng_tpu_torch.core.arnoldi import make_init
     from arpack_ng_tpu_torch.core.device_realnonsym import (
-        make_realnonsym_head, make_realnonsym_tail)
+        FusedRealNonsymSolver, make_realnonsym_head, make_realnonsym_tail)
     from arpack_ng_tpu_torch.models import convection_diffusion_2d
+    from arpack_ng_tpu_torch.ops import cuda_realnonsym_cycle as crc
 
     op, _ = convection_diffusion_2d(nx, dtype=np.float32, device=dev)
     cfg = IRAMConfig(n=op.n, nev=8, ncv=NCV, which="LM", symmetric=False,
                      dtype=np.dtype(np.float32), n_pad=op.n_pad, tol=1e-30,
                      max_iter=10_000)
-    head, tail = make_realnonsym_head(op, cfg), make_realnonsym_tail(op, cfg)
-
-    def cycles(state, m, last=False):
-        for i in range(m):
-            state = tail(head(state), last and i == m - 1).state
-        return state
-
+    solver = FusedRealNonsymSolver(op, cfg)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
-    def run():
-        state = cycles(make_init(op, cfg)(), 2)
+    def run_device():
+        out = solver.multi(solver.init_state(), 2)
         sync()
-        c0, t0 = state.counts, time.perf_counter()
-        state = cycles(state, 20)
+        l0 = crc.realnonsym_cycle.launches
+        c0, t0 = out.state.counts, time.perf_counter()
+        out = solver.multi(out.state, 20)
         sync()
-        return state, c0, time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        return out.state, c0, wall, crc.realnonsym_cycle.launches - l0
 
-    (state, c0, wall), _, counts = _counted(torch, dev, ("rotate_rows",), run,
-                                            tag="9a")
+    (state, c0, wall, timed), _, counts = _counted(
+        torch, dev, EIGS_PATH, run_device, tag="9a")
+    reruns = dict(RERUNS["9a"])
+    c = state.counts
+    print(f"eigs (a) conv-diff nx={nx} float32, device loop "
+          f"(FusedRealNonsymSolver.multi), 20 cycles after 2: "
+          f"{wall * 1e3 / 20:.4f} ms/cycle (wall {wall:.4f} s; nopx "
+          f"{c.nopx - c0.nopx}, nrorth {c.nrorth - c0.nrorth}, nitref "
+          f"{c.nitref - c0.nitref}, nrotr {c.nrotr - c0.nrotr}; "
+          f"realnonsym_cycle launches in the 20: {timed}); host reruns "
+          f"{reruns}; launches {counts}; card {gpu}", flush=True)
+    if dev.type == "cuda" and timed != 20 + sum(reruns.values()):
+        raise AssertionError(f"9a: {timed} reduced-space launches for 20 "
+                             f"cycles and {reruns} host reruns")
+    head, tail = make_realnonsym_head(op, cfg), make_realnonsym_tail(op, cfg)
+
+    def cycles(st, m, last=False):
+        for i in range(m):
+            st = tail(head(st), last and i == m - 1).state
+        return st
+
+    def run_host():
+        st = cycles(make_init(op, cfg)(), 2)
+        sync()
+        h0, t0 = st.counts, time.perf_counter()
+        st = cycles(st, 20)
+        sync()
+        return st, h0, time.perf_counter() - t0
+
+    (hst, h0, hwall), _, _ = _counted(torch, dev, ("rotate_rows",), run_host,
+                                      tag="9a host loop")
+    hc = hst.counts
+    print(f"  host loop (the reduced space in numpy on the host), 20 cycles "
+          f"after 2: {hwall * 1e3 / 20:.4f} ms/cycle (wall {hwall:.4f} s; "
+          f"nopx {hc.nopx - h0.nopx}); device loop / host loop "
+          f"{wall / hwall:.4f}; host reruns {RERUNS['9a host loop']}; card "
+          f"{gpu}", flush=True)
     state = cycles(state, 1, last=True)  # a full factorization
     V = state.V.double()
     eye = torch.eye(NCV, dtype=torch.float64, device=dev)
     defect = float((V @ V.T - eye).abs().max())
     bound = 64 * float(np.sqrt(np.finfo(np.float32).eps))
-    c = state.counts
-    print(f"eigs (a) conv-diff nx={nx} float32, 20 cycles after 2: "
-          f"{wall * 1e3 / 20:.4f} ms/cycle (wall {wall:.4f} s; nopx "
-          f"{c.nopx - c0.nopx}, nrorth {c.nrorth - c0.nrorth}, nitref "
-          f"{c.nitref - c0.nitref}, nrotr {c.nrotr - c0.nrotr} over the 20 "
-          f"and the last extension); basis defect {defect:.4e} (bound "
-          f"{bound:.4e}); host reruns {RERUNS['9a']}; launches {counts}; "
-          f"card {gpu}", flush=True)
+    print(f"  basis defect after the 22 cycles and one extension "
+          f"{defect:.4e} (bound {bound:.4e}); card {gpu}", flush=True)
     if not defect <= bound:
         raise AssertionError(f"eigs basis defect {defect:.3e} > {bound:.3e}")
+    return wall * 1e3 / 20
+
+
+def _eigs_loop_gates(st, counts, tag, cuda=True):
+    """The real loop's dispatch: graphs captured, every cycle after the
+    first replayed, one packet per cycle and host rerun, and one
+    reduced-space launch per packet (off the card: the packets alone); the
+    cycles in ``EIGS_BAND``."""
+    if not cuda:
+        if st.packets != st.n_iter + sum(RERUNS[tag].values()):
+            raise AssertionError(f"{tag}: {st.packets} packets for "
+                                 f"{st.n_iter} cycles")
+    else:
+        _loop_gate(st, tag)
+    if cuda and counts["realnonsym_cycle"] != st.packets:
+        raise AssertionError(f"{tag}: {counts['realnonsym_cycle']} "
+                             f"reduced-space launches for {st.packets} "
+                             "packets")
+    _in_band(st, tag, EIGS_BAND)
 
 
 def eigs_solves(torch, dev, gpu, nx=EIGS_SOLVE_NX, device=None):
     """Phase 9b-c: solves to tol = 1e-5 through ``eigs``, on the stencil
     operator and on its scipy CSR matrix (DIA, CGS kernels; imported on the
-    default device, ``device=None``), under the gates of
-    :func:`check_nonsym`.  Returns the launches of (b) and the values of
-    (b) and (c) by tag."""
+    default device, ``device=None``), on the device loop, under the gates
+    of :func:`check_nonsym` and :func:`_eigs_loop_gates`; then (b) again
+    with the reduced space on the host (the witness: the loop's
+    reduced-space call patched to the numpy twin on host copies) and on
+    the host loop (``HostLoopSolver.solve``), which must agree in cycles,
+    nopx and nrorth.  Returns the launches of (b) and the values of (b)
+    and (c) by tag."""
+    from unittest import mock
+
     import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core import device_realnonsym as drn
+    from arpack_ng_tpu_torch.core.iram import HostLoopSolver
     from arpack_ng_tpu_torch.models import convection_diffusion_2d
 
     op, a_sp = convection_diffusion_2d(nx, dtype=np.float32, device=dev)
     kw = dict(k=8, ncv=NCV, which="LM", tol=1e-5,
               maxiter=EIGS_MAX_RESTARTS, return_stats=True)
-    launches, found = {}, {}
+    launches, found, gates = {}, {}, []
     for tag, need, fn in (
-            ("(b) eigs(op)", ("rotate_rows",), lambda: pt.eigs(op, **kw)),
+            ("(b) eigs(op)", EIGS_PATH, lambda: pt.eigs(op, **kw)),
             ("(c) eigs(A_csr), cgs_kernel='pallas'",
-             ("rotate_rows", "cgs_proj", "cgs_update", "dia_matvec"),
+             EIGS_PATH + ("cgs_proj", "cgs_update", "dia_matvec"),
              lambda: pt.eigs(a_sp, dtype=np.float32, cgs_kernel="pallas",
                              device=device, **kw))):
+        t9 = f"9{tag[1]}"
         (vals, vecs, out), wall, counts = _counted(torch, dev, need, fn,
-                                                   tag=f"9{tag[1]}")
+                                                   tag=t9)
+        st = out.stats
         print(f"eigs {tag} conv-diff nx={nx}: wall {wall:.4f} s, "
-              f"{_stats_line(out.stats)}; {len(vals)} values, extraction "
-              f"info {out.info}; host reruns {RERUNS[f'9{tag[1]}']}; "
-              f"launches {counts}; card {gpu}", flush=True)
+              f"{_stats_line(st)}; {len(vals)} values, extraction "
+              f"info {out.info}; host reruns {RERUNS[t9]}; launches "
+              f"{counts}; card {gpu}", flush=True)
+        print(f"  device loop: {_loop_line(st)}", flush=True)
         print(f"  values {np.array2string(vals, precision=8)}", flush=True)
         rmax = check_nonsym(vals, vecs, a_sp, f"eigs {tag}")
         print(f"  max residual {rmax:.2e}", flush=True)
+        gates.append(lambda st=st, counts=counts, t9=t9:
+                     _eigs_loop_gates(st, counts, t9, dev.type == "cuda"))
         if not launches:
             launches = {k: counts[k] for k in need}
         found[tag[:3]] = vals
+    wit = {}
+    for name, patch in (
+            ("witness, reduced space on the host", mock.patch.object(
+                drn, "realnonsym_cycle", _host_realnonsym_cycle)),
+            ("host loop", mock.patch.object(drn.FusedRealNonsymSolver,
+                                            "solve", HostLoopSolver.solve))):
+        tag = f"9b {name}"
+        with patch:
+            (vals, vecs, out), wall, counts = _counted(
+                torch, dev, (), lambda: pt.eigs(op, **kw), tag=tag)
+        rmax = check_nonsym(vals, vecs, a_sp, f"eigs (b) {name}")
+        st = out.stats
+        wit[name] = (st.n_iter, st.nopx, st.nrorth)
+        print(f"  (b) {name}: wall {wall:.4f} s, {_stats_line(st)}; "
+              f"{len(vals)} values; host reruns {RERUNS[tag]}; packets "
+              f"{st.packets}; max residual {rmax:.2e}; realnonsym_cycle "
+              f"launches {counts['realnonsym_cycle']}; card {gpu}",
+              flush=True)
+    print(f"  9b-c cycles gate (EIGS_BAND, the seed sweep's span): "
+          f"{EIGS_BAND[0]}-{EIGS_BAND[1]}", flush=True)
+    for gate in gates:
+        gate()
+    if len(set(wit.values())) != 1:
+        raise AssertionError(f"9b: the host-reduced witness and the host "
+                             f"loop disagree: {wit}")
     return launches, found
 
 
@@ -4202,6 +4659,9 @@ def kernel_entries(rows, launches, errs, phases):
                           gp.N // gp.W, "take_lanes"),
            "sym_cycle": ("sym_cycle.cu", "arpack_ng_tpu/core/device_sym.py"
                          ":141", "sym_cycle", None, "sym_cycle"),
+           "realnonsym_cycle": ("realnonsym_cycle.cu",
+                                "arpack_ng_tpu/core/device_realnonsym.py:346",
+                                "realnonsym_cycle", None, "realnonsym_cycle"),
            "dia_block": ("dia.cu", ops + "sparse.py:118", "dia_block",
                          P13_JSON_B, "dia_block_matvec")}
     entries = []
@@ -4342,8 +4802,13 @@ def main() -> int:
     errs.update(err_g)
 
     t0 = time.perf_counter()
+    err_rn, row_rn = check_realnonsym_cycle(torch, dev, gpu)
+    rows.append(row_rn)
+    errs["realnonsym_cycle"] = err_rn["torch.float32"]
     eigs_cycles(torch, dev, gpu)
-    _, vals_9 = eigs_solves(torch, dev, gpu)
+    launches_9, vals_9 = eigs_solves(torch, dev, gpu)
+    # the real reduced space's main path: 9b, eigs on the stencil operator
+    launches["realnonsym_cycle"] = launches_9["realnonsym_cycle"]
     elapsed = time.perf_counter() - t0
     print(f"eigs phase: {elapsed:.2f} s (limit {EIGS_MAX_S:.0f} s)",
           flush=True)

@@ -1225,3 +1225,218 @@ def test_mesh_graph_capture_on_card(nccl_mesh):
     res = np.linalg.norm(a_sp @ vecs - vecs * vals, axis=0)
     assert res.max() < 1e-3 * np.abs(vals).max()
     torch.cuda.synchronize()
+
+
+# ---- the real non-symmetric reduced space (csrc/realnonsym_cycle.cu) ------
+
+def _smoke():
+    """``chip_smoke.py``, whose harness of the real reduced-space kernel
+    (its inputs, runs, gaps, limits and guard band, and the host-reduced
+    witness) these card tests share, so that the card test and the smoke
+    decide 'correct' alike."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def _eig_condition(H):
+    """eps times the largest eigenvalue condition number of H times
+    ||H||_2 over max |lambda|: the relative error a backward-stable
+    eigensolve may leave in H's values, and the scale of what two of them
+    may disagree by."""
+    import scipy.linalg as sla
+    w, vl, vr = sla.eig(H, left=True, right=True)
+    kappa = 1.0 / np.abs(np.sum(vl.conj() * vr, axis=0))
+    return (np.finfo(np.float64).eps * kappa.max() * np.linalg.norm(H, 2)
+            / np.abs(w).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ncv", [8, 32, 72])
+def test_realnonsym_cycle_kernel_matches_twin_on_card(dev, dtype, ncv):
+    # one cycle's real reduced space, the kernel against its numpy twin on
+    # Arnoldi Hessenbergs of the convection-diffusion matrix (nx = 24,
+    # rho = 50), every which (ncv 8 and 32: the workspace in shared memory;
+    # 72: in global memory), with chip_smoke.py's harness: the packet's
+    # counts equal, every gap within RN_LIMITS, the kernel's restart
+    # keeping the Arnoldi relation within 10 times RN_LIMITS' H; the
+    # implicit-redo flag equal unless the twin's explicit chase lost
+    # within RN_GUARD_BAND of the guard's limit (then the kernel's restart
+    # is held to the relation the flag it took promises); a last cycle
+    # leaves H as it was.  The inputs at ncv 8 and 32 are well-conditioned
+    # (asserted: 100 eps kappa ||H|| / max|lambda| within RN_LIMITS'
+    # values), so every gap is held strictly.  At ncv 72 the input's
+    # eigenvalue condition numbers reach 1e8 and two backward-stable
+    # reduced spaces differ by up to eps kappa ||H|| / max|lambda|
+    # (_eig_condition): there the values and bounds are held to 100 times
+    # that, and the kept Q and Hc, whose differences grow with it, to the
+    # Arnoldi relation alone
+    from arpack_ng_tpu_torch.ops import cuda_realnonsym_cycle as crc
+    smoke = _smoke()
+    P = crc.P_HEAD
+    dt = getattr(torch, dtype)
+    lim = smoke.RN_LIMITS[str(dt)]
+    assert crc.fits_shared(ncv) == (ncv <= 68)
+    H, rn = smoke._arnoldi_hessenberg(ncv, ncv, nx=24, rho=50.0)
+    H = H.astype(dtype).astype(np.float64)
+    cond = 100 * _eig_condition(H)
+    ill = ncv == 72 and cond > lim["values"]
+    if ncv < 72:
+        assert cond <= lim["values"], cond
+    loose = dict(lim, values=max(lim["values"], cond),
+                 bounds=max(lim["bounds"], cond)) if ill else lim
+    bad = []
+    for which in crc.WHICH:
+        p = smoke._rn_params(crc, str(dt), which, max(2, ncv // 4))
+        for is_last in (False, True):
+            kern = smoke._rn_run(torch, crc, H, rn, dt, dev, p, is_last)
+            twin = smoke._rn_run(torch, crc, H, rn, dt, torch.device("cpu"),
+                                 p, is_last)
+            what = f"{which} last={is_last}"
+            g = smoke._rn_gaps(crc, twin, kern, H)
+            if not g.pop("counts_equal"):
+                bad.append((what, "counts", kern[3][:P], twin[3][:P]))
+            same_impl = g.pop("implicit_equal")
+            if is_last or twin[3][crc.P_DONE]:
+                if not np.array_equal(kern[0], H):
+                    bad.append((what, "H changed"))
+                g = {k: v for k, v in g.items() if k in ("values", "bounds")}
+            else:
+                if not np.array_equal(kern[3][P + 3 * ncv:],
+                                      kern[0].ravel()):
+                    bad.append((what, "packet H"))
+                relation = g.pop("relation")
+                if ill:
+                    g = {k: v for k, v in g.items()
+                         if k in ("values", "bounds")}
+                if ill or same_impl:
+                    if relation > 10 * lim["H"]:
+                        bad.append((what, "relation", relation))
+                else:
+                    try:
+                        smoke._rn_guard_case(crc, H, rn, p, kern,
+                                             {"relation": relation}, lim,
+                                             what)
+                    except AssertionError as e:
+                        bad.append(str(e))
+            bad += [(what, key, v) for key, v in g.items()
+                    if v > loose[key]]
+    assert not bad, bad
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_realnonsym_cycle_repeats_bit_for_bit_on_card(dev, dtype):
+    # one block, no atomics: two launches on the same input agree bit for
+    # bit
+    from arpack_ng_tpu_torch.ops import cuda_realnonsym_cycle as crc
+    smoke = _smoke()
+    dt = getattr(torch, dtype)
+    H, rn = smoke._arnoldi_hessenberg(32, 1, nx=24, rho=50.0)
+    p = smoke._rn_params(crc, str(dt), "LM", 8)
+    a = smoke._rn_run(torch, crc, H, rn, dt, dev, p)
+    b = smoke._rn_run(torch, crc, H, rn, dt, dev, p)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+def _convdiff_small(dev, capturable=True, nx=64):
+    import dataclasses
+
+    from arpack_ng_tpu_torch.models import convection_diffusion_2d
+    op, a = convection_diffusion_2d(nx, dtype=np.float32, device=dev)
+    return dataclasses.replace(op, capturable=capturable), a
+
+
+@pytest.mark.gpu
+def test_realnonsym_graph_replay_equals_eager_on_card(dev):
+    # eigs's real loop with its extensions replayed as CUDA graphs gives
+    # the eager card run bit for bit; one packet and one reduced-space
+    # launch per cycle (and per extension the host finished)
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core import arnoldi
+    from arpack_ng_tpu_torch.ops import cuda_realnonsym_cycle as crc
+    runs = []
+    for capturable in (True, False):
+        op, _ = _convdiff_small(dev, capturable)
+        arnoldi.reruns.update(redo=0, breakdown=0)
+        crc.realnonsym_cycle.launches = 0
+        vals, vecs, out = pt.eigs(op, k=8, ncv=32, which="LM", tol=1e-5,
+                                  maxiter=300, return_stats=True)
+        st = out.stats
+        rr = sum(arnoldi.reruns.values())
+        assert st.packets == st.n_iter + rr == crc.realnonsym_cycle.launches
+        runs.append((vals, vecs, st))
+    (v1, x1, s1), (v2, x2, s2) = runs
+    assert s1.graphs_captured > 0 and s1.graph_replays == s1.n_iter - 1
+    assert s2.graphs_captured == 0
+    for f in ("n_iter", "nopx", "nrorth", "nitref", "nrotr", "packets"):
+        assert getattr(s1, f) == getattr(s2, f), f
+    np.testing.assert_array_equal(v1, v2)
+    np.testing.assert_array_equal(x1, x2)
+
+
+@pytest.mark.gpu
+def test_realnonsym_device_loop_equals_host_loop_on_card(dev):
+    # conv-diff nx = 64, float32: the host loop over the numpy head and
+    # tail (HostLoopSolver.solve) and the device loop with the reduced
+    # space patched to its host twin (the host-reduced witness) agree bit
+    # for bit; with the kernel, the values within 1e-4 |lambda| of the
+    # witness's and the residuals under 1e-3
+    from unittest import mock
+
+    from arpack_ng_tpu_torch.config import IRAMConfig
+    from arpack_ng_tpu_torch.core import device_realnonsym as drn
+    from arpack_ng_tpu_torch.core.extract import extract
+    from arpack_ng_tpu_torch.core.iram import HostLoopSolver
+    op, a = _convdiff_small(dev)
+    cfg = IRAMConfig(n=op.n, nev=8, ncv=32, which="LM", symmetric=False,
+                     dtype=np.dtype(np.float32), n_pad=op.n_pad, tol=1e-5,
+                     max_iter=300)
+    host = HostLoopSolver.solve(drn.FusedRealNonsymSolver(op, cfg))
+    with mock.patch.object(drn, "realnonsym_cycle",
+                           _smoke()._host_realnonsym_cycle):
+        witness = drn.FusedRealNonsymSolver(op, cfg).solve()
+    kernel = drn.FusedRealNonsymSolver(op, cfg).solve()
+    for f in ("n_iter", "nopx", "nbx", "nrorth", "nitref", "nrstrt",
+              "nrotr"):
+        assert getattr(witness.stats, f) == getattr(host.stats, f), f
+    np.testing.assert_array_equal(witness.ritz, host.ritz)
+    assert torch.equal(witness.state.V, host.state.V)
+    assert kernel.stats.packets >= kernel.n_iter
+    assert kernel.stats.graphs_captured > 0
+    k = min(kernel.nconv, witness.nconv)
+    assert k >= 8
+    got = np.sort_complex(kernel.ritz[:k])
+    want = np.sort_complex(witness.ritz[:k])
+    assert np.max(np.abs(got - want) / np.abs(want)) < 1e-4
+    out = extract(op, cfg, kernel)
+    v = np.asarray(out.vectors, np.complex128)
+    res = np.linalg.norm(a @ v - v * out.values, axis=0) / np.abs(out.values)
+    assert res.max() < 1e-3
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_realnonsym_kernel_build_failure_raises_on_card(dev, tmp_path,
+                                                        monkeypatch):
+    # a source that does not compile makes the build raise (no fallback)
+    import shutil
+
+    from arpack_ng_tpu_torch.ops import cuda_lib
+    src = tmp_path / "csrc"
+    shutil.copytree(cuda_lib.CSRC, src)
+    (src / "realnonsym_cycle.cu").write_text(
+        (src / "realnonsym_cycle.cu").read_text() + "\nthis is not C++;\n")
+    monkeypatch.setattr(cuda_lib, "CSRC", src)
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_lib, "SOURCES", ("realnonsym_cycle.cu",))
+    monkeypatch.setattr(cuda_lib, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_lib.load()

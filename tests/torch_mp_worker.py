@@ -254,6 +254,33 @@ def case_dgks_loop(mesh, inp):
     return out
 
 
+def case_realnonsym_loop(mesh, inp):
+    """The real non-symmetric solve on the device loop
+    (``FusedRealNonsymSolver``), row-partitioned and then unsharded on each
+    rank from the same start vector: values, counters, packets and the
+    mesh's collectives."""
+    import numpy as np
+    from arpack_ng_tpu_torch.config import IRAMConfig
+    from arpack_ng_tpu_torch.core.device_realnonsym import (
+        FusedRealNonsymSolver)
+    op = _convdiff()
+    cfg = IRAMConfig(n=op.n, nev=4, ncv=16, which="LM", symmetric=False,
+                     dtype=np.dtype(np.float64), n_pad=op.n_pad, tol=1e-10,
+                     max_iter=500)
+    out = {}
+    for tag, m in (("mesh", mesh), ("single", None)):
+        solver = FusedRealNonsymSolver(op, cfg, mesh=m)
+        res = solver.solve(v0=inp)
+        st = res.stats
+        out[tag] = dict(
+            host_loop=solver._host_loop, ritz=res.ritz, nconv=res.nconv,
+            n_iter=res.n_iter, packets=st.packets,
+            counts=tuple(int(getattr(st, f)) for f in (
+                "nopx", "nbx", "nrorth", "nitref", "nrstrt", "nrotr")),
+            collectives=dict(st.collectives or {}))
+    return out
+
+
 def case_refusals(mesh, inp):
     """The reference's refusals under a mesh, each raised on every rank
     before any collective: the message of each ValueError."""
