@@ -18,23 +18,50 @@
 // eps23 max |H0|), the shifts are applied again by dnapps' implicit bulge
 // chases (Householder reflectors of order 2 or 3).
 //
+// H is the Arnoldi Hessenberg (every caller's is upper Hessenberg: the
+// extension writes rows 0..j + 1 of column j, the restart triu(Hc, -1)); the
+// QR steps read nothing below its first subdiagonal.
+//
 // Bound: neither bytes (a few KB in and out) nor the card's flops, but one
-// SM's and the length of the dependent chains: each sweep or shift is a QR of
-// a shifted Hessenberg (reflector j waits on reflector j - 1's update; each
-// is a lane's hypot and two double divisions between two block barriers),
-// its q, and three dense ncv x ncv products; the Schur form takes about two
-// sweeps per Ritz value.  The design is the plain one: one block, every
-// matrix dense and row-major, the QR by Householder reflectors in LAPACK's
-// conventions (dgeqr2: beta = -sign(alpha) dlapy2(alpha, |x|), tau = (beta -
-// alpha) / beta, x scaled by 1 / (alpha - beta); dorg2r's backward
-// accumulation of q), so Q's column signs, and sigmak's, agree with numpy's
-// (LAPACK's) QR, which the plain twin calls; each reflector applied over its
-// nonzero rows only (one or two below the diagonal; the zeros past them add
-// nothing); products with a thread per entry; the sequential decisions (the
-// Schur form's active block and shift, dngets' counts) on thread 0; the sorts
-// as stable ranks, a thread per value; dtrevc a thread per eigenvalue, each
-// solving its own eigenvector from the bottom row up as the twin's vectorized
-// code does per row.
+// SM and the length of the dependent chains.  The Schur form takes about two
+// explicit QR steps per Ritz value and the chase one per shift (51 and 13 at
+// ncv = 32), each the Householder QR of a shifted Hessenberg (dgeqr2, in
+// LAPACK's conventions: beta = -sign(alpha) dlapy2(alpha, |x|), tau = (beta -
+// alpha) / beta, x scaled by 1 / (alpha - beta)), its q (dorg2r's backward
+// accumulation) and the similarity triu(q^T T q, -1).  Reflector j waits on
+// reflector j - 1's update of column j: a square root, a dlapy2 and two
+// double divisions in sequence, ~30 reflectors a step.  That chain sets the
+// pace; the design overlaps the rest of the step with it and keeps every
+// value's bits (the restart count of the solve follows them):
+// * The factorization runs on warp 0 with no block barrier: every lane forms
+//   reflector j itself from column j (the same values on each, no
+//   broadcast), keeps x scaled in registers and applies the reflector to its
+//   own column right of it, preloaded; __syncwarp between reflectors, and
+//   each reflector published to the other warps as soon as it exists.
+// * q on warp 1, a lane per column: column c meets reflectors c, c - 1, ...,
+//   0 and no other column, so it starts once reflector c is published, its
+//   rows j + 1, j + 2 carried in registers.
+// * Column c of W = T q and of the new T, triu(q^T W, -1), on the other six
+//   warps in turn, as soon as q's columns up to c + 1 are done; one block
+//   barrier ends the step.  The next step's deflation and shift read the
+//   bottom of the new T, so steps do not overlap.
+// * The shifted matrix and the products over their nonzero terms only (T's
+//   lower band, each column of q past its last nonzero row); only Q's last
+//   row in the Schur sweeps (dtrevc reads no other row of the Schur
+//   vectors), the chase's Q q after the step; the guard on the kept columns
+//   only.  Each entry keeps its ascending sum; the terms left out are exact
+//   zeros, which add nothing to a sum that starts at +0.
+// * dtrevc a thread per eigenvalue, its vector a column of the scratch (the
+//   lanes of a warp on neighbouring words).
+// * Where nvcc's FMA contraction of a plain expression depends on the code
+//   around it, the operation is written out (__fma_rn, __dmul_rn, __dadd_rn,
+//   __dsub_rn) as the first design's build contracted it; without that the
+//   implicit redo, whose source is unchanged, moved in its last bits.
+// Its outputs (H, Q, sk, the whole packet) equal, bit for bit, those of the
+// first design it replaced (a block barrier per reflector and per column of
+// q, three dense products a step): tools/realnonsym_cycle_compare.py holds
+// two commits' kernels side by side.  The chase's shifts still run one after
+// another, and the implicit redo keeps the first design's dense form.
 //
 // Precision: every value is computed in double and the results are rounded to
 // the problem's type A (float or double); the thresholds (the deflation
@@ -45,9 +72,10 @@
 // and bound.
 //
 // Memory: six ncv x ncv matrices of double (H0, the working T or Hc, Q, the
-// QR's M, its q and a product) and 16 ncv-vectors, in dynamic shared memory
+// QR's M, its q and a product) and 18 ncv-vectors, in dynamic shared memory
 // up to ncv 68 (work_bytes <= 232,192 bytes), else in a global buffer the
-// caller passes (`work`).
+// caller passes (`work`); the kernel is built for each place, so that the
+// shared one is addressed as shared memory.
 //
 // A cycle that ends the solve (done or is_last) applies no shifts and leaves
 // H, Q and sk untouched; so does an extension that stopped short (`brk` not
@@ -61,10 +89,19 @@ namespace {
 
 constexpr int RN_THREADS = 256;
 constexpr int RN_MATRICES = 6;
-constexpr int RN_VECTORS = 16;
+constexpr int RN_VECTORS = 18;
 constexpr long long RN_MAX_SMEM = 232448 - 256;
 constexpr unsigned RN_FULL = 0xffffffffu;
 enum { RN_LM = 0, RN_SM, RN_LR, RN_SR, RN_LI, RN_SI };
+// Stamps (clock64(), thread 0, when the caller passes a buffer): the phases'
+// ends, a cycle that exits early stamping its exit in every later slot (C_*);
+// then the SM cycles summed over the Schur sweeps and the chase's shifts of
+// the shift choice and shifted matrix, the reflector chain, the tail of q and
+// the new T's columns behind it, and the step's end (the chase's Q q, the
+// deflation; A_*); then the Schur sweeps and the chase's shifts run (N_*).
+constexpr int RN_CLOCKS = 8;
+enum { C_ENTRY = 0, C_SCHUR, C_TREVC, C_GETS, C_CHASE, C_GUARD, C_REDO, C_EXIT };
+enum { A_SHIFT = RN_CLOCKS, A_QR, A_TAIL, A_POST, N_SWEEPS, N_SHIFTS, RN_CLOCK_SLOTS };
 // packet offsets (ops/cuda_realnonsym_cycle.py; the header is cuda_sym_cycle's)
 constexpr int P_DONE = 0, P_NCONV = 1, P_NEV = 2, P_NP = 3, P_INFO = 4, P_BRK = 5,
               P_FORCE = 6, P_RNORM = 7, P_CNT = 8, P_IMPL = 12, P_HEAD = 13;
@@ -81,7 +118,35 @@ struct RnArgs {
   void* sk;
   double* packet;
   double* work;
+  long long* clk;  // NULL, or RN_CLOCK_SLOTS stamps and counts
 };
+
+// The SM's clock, read once a shared word is read (ptxas moves a bare
+// clock read, which has no inputs, above the barrier before it; a read
+// predicated on a loaded value waits for the load, which stays after the
+// barrier).
+__device__ __forceinline__ long long clock_after(const int* word) {
+  long long t;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.s32 p, %1, -1;\n\t@p mov.u64 %0, %%clock64;\n\t"
+      "@!p mov.u64 %0, 0;\n\t}"
+      : "=l"(t)
+      : "r"(ld_relaxed(word))
+      : "memory");
+  return t;
+}
+
+// Thread 0 adds the cycles since `mark` to laps[slot - A_SHIFT] (registers:
+// a global read here would stall the warp that runs the QR) and moves the
+// mark; `word`: a shared word to order the clock read after.
+__device__ __forceinline__ void lap(const long long* clk, int slot, long long* laps,
+                                    long long& mark, const int* word) {
+  if (clk != nullptr && threadIdx.x == 0) {
+    const long long t = clock_after(word);
+    laps[slot - A_SHIFT] += t - mark;
+    mark = t;
+  }
+}
 
 __host__ __device__ inline long long work_bytes(int n) {
   return (static_cast<long long>(RN_MATRICES) * n * n + static_cast<long long>(RN_VECTORS) * n) *
@@ -113,9 +178,9 @@ __device__ void matmul(double* C, const double* A, const double* B, int n, bool 
     const int r = k / n, c = k % n;
     double acc = 0.0;
     if (ta) {
-      for (int m = 0; m < n; ++m) acc += A[m * n + r] * B[m * n + c];
+      for (int m = 0; m < n; ++m) acc = __fma_rn(A[m * n + r], B[m * n + c], acc);
     } else {
-      for (int m = 0; m < n; ++m) acc += A[r * n + m] * B[m * n + c];
+      for (int m = 0; m < n; ++m) acc = __fma_rn(A[r * n + m], B[m * n + c], acc);
     }
     C[k] = acc;
   }
@@ -134,7 +199,7 @@ __device__ void copy_mat(double* dst, const double* src, int n) {
 
 // Zero negligible subdiagonals, |h| <= eps (|d_i| + |d_{i+1}|) (dnapps.f:328-336;
 // a zero sum counts as 1); keep[i] = whether subdiagonal i stays (or NULL).
-__device__ void deflate(double* T, int n, double eps, double* keep) {
+__device__ __forceinline__ void deflate(double* T, int n, double eps, double* keep) {
   for (int i = threadIdx.x; i < n - 1; i += blockDim.x) {
     double big = fabs(T[i * n + i]) + fabs(T[(i + 1) * n + i + 1]);
     if (big == 0.0) big = 1.0;
@@ -148,89 +213,364 @@ __device__ void deflate(double* T, int n, double eps, double* keep) {
 // The discriminant of the (i, i + 1) block, ((a - d) / 2)^2 + b c: negative for
 // a conjugate pair.  One formula for both members of a pair.
 __device__ __forceinline__ double bdisc(const double* T, int n, int i) {
-  const double half = (T[i * n + i] - T[(i + 1) * n + i + 1]) / 2.0;
-  return half * half + T[i * n + i + 1] * T[(i + 1) * n + i];
+  const double half = __dmul_rn(__dsub_rn(T[i * n + i], T[(i + 1) * n + i + 1]), 0.5);
+  return __fma_rn(half, half, __dmul_rn(T[i * n + i + 1], T[(i + 1) * n + i]));
 }
 
-// Householder QR of M (in place: R on and above the diagonal, the reflectors'
-// v below it, dgeqr2) and q = H_0 H_1 ... H_{n-1} (dorg2r), in LAPACK's
-// conventions; tau, ext: n doubles.  ext[j] is the last row of reflector j's
-// nonzeros (a shifted Hessenberg has one or two below the diagonal): the
-// products skip the exact zeros past it, which add nothing to a sum.
-__device__ void qr_q(double* M, double* q, double* tau, double* ext, int n) {
-  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
-  for (int j = 0; j < n; ++j) {
-    if (tid < 32) {
-      double ss = 0.0, last = j;
-      for (int r = j + 1 + lane; r < n; r += 32) {
-        const double x = M[r * n + j];
-        ss += x * x;
-        if (x != 0.0) last = r;
-      }
-      ss = warp_sum(ss);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        last = fmax(last, __shfl_down_sync(RN_FULL, last, off));
-      double scal = 0.0;
-      if (lane == 0) {
-        const double alpha = M[j * n + j], xnorm = sqrt(ss);
-        double t = 0.0;
-        if (xnorm != 0.0) {  // dlarfg: else H = I (tau = 0), R's diagonal alpha
-          const double beta = -copysign(hypot(alpha, xnorm), alpha);
-          t = (beta - alpha) / beta;
-          scal = 1.0 / (alpha - beta);
-          M[j * n + j] = beta;
-        }
-        tau[j] = t;
-        ext[j] = last;
-      }
-      scal = __shfl_sync(RN_FULL, scal, 0);
-      if (scal != 0.0)
-        for (int r = j + 1 + lane; r < n; r += 32) M[r * n + j] *= scal;
+// ---- one explicit QR step (a Schur sweep, or one shift of the chase) ----
+// Every value keeps the operations of the sequential form (a dense shifted
+// matrix, dgeqr2's reflectors, q by dorg2r's backward loop, dense products),
+// in their order: the restart count of a solve follows the last bits.  What
+// moves is who computes each value and when, and a sum leaves out only terms
+// that are exact zeros by structure (below T's lower band, past the last
+// nonzero row of a column of q), which add nothing to a sum that starts at
+// +0.
+
+// The Schur sweep's active block and shift, on every warp with no barrier
+// (lanes over the subdiagonals, a ballot for the last active one): the last
+// subdiagonal that stays and is no converged complex 2x2 block's; a real
+// Wilkinson shift (mode 0, sa the root nearer a22) or the pair as one double
+// shift (mode 1, sa = s, sb = p).  True when no block is active.
+__device__ __forceinline__ bool schur_shift(const double* T, const double* keep, int n, int lane,
+                                            int& mode, double& sa, double& sb) {
+  int m = -1;
+  for (int i0 = 0; i0 < n - 1; i0 += 32) {
+    const int i = i0 + lane;
+    bool act = false;
+    if (i < n - 1) {
+      const bool ki = keep[i] != 0.0;
+      const bool left0 = i == 0 || keep[i - 1] == 0.0;
+      const bool right0 = i == n - 2 || keep[i + 1] == 0.0;
+      // a converged complex 2x2 block (outer couplings gone) stays
+      const bool conv2 = ki && left0 && right0 && bdisc(T, n, i) < 0.0;
+      act = ki && !conv2;
     }
-    __syncthreads();
-    const double t = tau[j];
-    const int e = static_cast<int>(ext[j]);
-    if (t != 0.0) {
-      for (int c = j + 1 + tid; c < n; c += nt) {
-        double w = M[j * n + c];
-        for (int r = j + 1; r <= e; ++r) w += M[r * n + j] * M[r * n + c];
-        const double tw = t * w;
-        M[j * n + c] -= tw;
-        for (int r = j + 1; r <= e; ++r) M[r * n + c] -= M[r * n + j] * tw;
-      }
-    }
-    __syncthreads();
+    const unsigned b = __ballot_sync(RN_FULL, act);
+    if (b != 0u) m = i0 + 31 - __clz(static_cast<int>(b));
   }
-  for (int k = tid; k < n * n; k += nt) q[k] = (k / n == k % n) ? 1.0 : 0.0;
-  __syncthreads();
-  for (int j = n - 1; j >= 0; --j) {
-    const double t = tau[j];
-    const int e = static_cast<int>(ext[j]);
-    if (t != 0.0) {
-      for (int c = j + tid; c < n; c += nt) {
-        double w = q[j * n + c];
-        for (int r = j + 1; r <= e; ++r) w += M[r * n + j] * q[r * n + c];
-        const double tw = t * w;
-        q[j * n + c] -= tw;
-        for (int r = j + 1; r <= e; ++r) q[r * n + c] -= M[r * n + j] * tw;
-      }
-    }
-    __syncthreads();
+  if (m < 0) return true;
+  const double a11 = T[m * n + m], a12 = T[m * n + m + 1];
+  const double a21 = T[(m + 1) * n + m], a22 = T[(m + 1) * n + m + 1];
+  const double s = a11 + a22, p = __fma_rn(a11, a22, -__dmul_rn(a12, a21));
+  const double dsc = __fma_rn(__dmul_rn(s, s), 0.25, -p);  // s^2 / 4 - p
+  if (dsc >= 0.0) {  // a real Wilkinson shift: the root nearer a22
+    const double r = sqrt(fmax(dsc, 0.0));
+    const double mu1 = __fma_rn(s, 0.5, r), mu2 = __fma_rn(s, 0.5, -r);
+    mode = 0;
+    sa = fabs(mu1 - a22) < fabs(mu2 - a22) ? mu1 : mu2;
+  } else {  // the conjugate pair as one double shift
+    mode = 1;
+    sa = s;
+    sb = p;
   }
+  return false;
 }
 
-// M = T - a I (mode 0) or T^2 - a T + b I (mode 1: a double shift).
-__device__ void shifted(double* M, const double* T, int n, int mode, double a, double b) {
+// shifted_band and q_product give thread t the column c = t % n of their
+// result and, RN_ROWS at a time, the rows 4g..4g + 3, 4(g + G).., ... (g = t
+// / n, G = blockDim.x / n): one pass over the sum's index m serves the four
+// rows' sums (each in its own register, over its own nonzero terms, in
+// ascending order) and loads column c's factor once.
+constexpr int RN_ROWS = 4;
+
+__device__ __forceinline__ int row_groups(int n) {
+  return max(1, static_cast<int>(blockDim.x) / n);
+}
+
+// M = T - a I (mode 0) or T^2 - a T + b I (mode 1: a double shift), for the
+// Hessenberg T: the entries on and above M's lower band (1, or 2), each T^2
+// sum over its nonzero terms; nothing reads M below its band (the QR stops
+// at each column's last nonzero row).
+__device__ __forceinline__ void shifted_band(double* M, const double* T, int n, int mode, double a,
+                                             double b) {
+  const int band = mode == 0 ? 1 : 2;
+  const int G = row_groups(n);
   if (mode == 0) {
-    for (int k = threadIdx.x; k < n * n; k += blockDim.x)
-      M[k] = k / n == k % n ? T[k] - a : T[k];
-    __syncthreads();
-    return;
+    for (int t = threadIdx.x; t < G * n; t += blockDim.x) {
+      const int c = t % n;
+      for (int r = t / n; r < n && r <= c + band; r += G)
+        M[r * n + c] = r == c ? T[r * n + c] - a : T[r * n + c];
+    }
+  } else {
+    for (int t = threadIdx.x; t < G * n; t += blockDim.x) {
+      const int c = t % n, hi = min(n - 1, c + 1);
+      for (int r0 = RN_ROWS * (t / n); r0 < n && r0 <= c + band; r0 += RN_ROWS * G) {
+        double acc[RN_ROWS];
+#pragma unroll
+        for (int i = 0; i < RN_ROWS; ++i) acc[i] = 0.0;
+        for (int m = max(0, r0 - 1); m <= hi; ++m) {
+          const double tv = T[m * n + c];
+#pragma unroll
+          for (int i = 0; i < RN_ROWS; ++i) {
+            const int r = r0 + i;
+            if (r < n && m >= r - 1) acc[i] = __fma_rn(T[r * n + m], tv, acc[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RN_ROWS; ++i) {
+          const int r = r0 + i, k = r * n + c;
+          if (r < n && r <= c + band)
+            M[k] = __dadd_rn(__fma_rn(-a, T[k], acc[i]), r == c ? b : 0.0);
+        }
+      }
+    }
   }
-  matmul(M, T, T, n, false);
-  for (int k = threadIdx.x; k < n * n; k += blockDim.x)
-    M[k] = (M[k] - a * T[k]) + (k / n == k % n ? b : 0.0);
+  __syncthreads();
+}
+
+// One QR step's work is split over the warps, which hand it over through two
+// progress words in shared memory (tagged with the step, so that they only
+// grow; csrc/common.cuh's release stores and acquire polls) instead of a
+// block barrier: warp 0 runs the reflector chain and publishes each
+// reflector (prog[0]); warp 1 forms q's columns as soon as their reflectors
+// exist and publishes how many are done (prog[1]); the other warps, the
+// entry warps, form column c of W = T q and of T' = triu(q^T W, -1) as soon
+// as q's columns up to c + 1 are done.  One block barrier ends the step.
+constexpr int RN_ENTRY_WARPS = RN_THREADS / 32 - 2;
+constexpr int RN_PASS_STEPS = 4;  // column steps per pass of the column warp's loop
+
+// The Householder QR of M (lower band `band`, 1 or 2; in place: R on and
+// above the diagonal, the reflectors' v below it, dgeqr2) on warp 0, in
+// LAPACK's conventions: reflector j's dlarfg (beta = -sign(alpha)
+// dlapy2(alpha, |x|), tau = (beta - alpha) / beta, x scaled by 1 / (alpha -
+// beta)), then the reflector applied to the columns right of it, a lane per
+// column (the columns are independent), __syncwarp between.  tau[j], and
+// ext[j] the last row of reflector j's nonzeros; lane 0 publishes each
+// reflector (prog[0], tag + j + 1) once they and column j are written.  |x|^2
+// is the sum of the two squares below the diagonal (with at most two rows
+// in the band, the warp tree of lane partials the first design took adds
+// just these two); every lane forms the reflector itself (the same values
+// on each: no broadcast), keeps x scaled in registers and preloads its
+// first column, which no reflector's arithmetic waits on.
+__device__ __forceinline__ void qr_factor(double* M, double* tau, int* ext, int n, int band,
+                                          int lane, int* prog, int tag) {
+  for (int j = 0; j < n; ++j) {
+    const int r1 = j + 1, r2 = j + 2, rmax = min(n - 1, j + band), c0 = j + 1 + lane;
+    const double alpha = M[j * n + j];
+    const double x1 = r1 <= rmax ? M[r1 * n + j] : 0.0;
+    const double x2 = r2 <= rmax ? M[r2 * n + j] : 0.0;
+    // this lane's first column, rows j..j + 2
+    const double m0 = c0 < n ? M[j * n + c0] : 0.0;
+    const double m1 = c0 < n && r1 <= rmax ? M[r1 * n + c0] : 0.0;
+    const double m2 = c0 < n && r2 <= rmax ? M[r2 * n + c0] : 0.0;
+    const double ss = __dadd_rn(__dmul_rn(x1, x1), __dmul_rn(x2, x2));
+    const int e = x2 != 0.0 ? r2 : (x1 != 0.0 ? r1 : j);
+    const double xnorm = sqrt(ss);
+    double t = 0.0, scal = 0.0, beta = alpha;
+    if (xnorm != 0.0) {  // dlarfg: else H = I (tau = 0), R's diagonal alpha
+      beta = -copysign(hypot(alpha, xnorm), alpha);
+      t = (beta - alpha) / beta;
+      scal = 1.0 / (alpha - beta);
+    }
+    // x scaled (the sequential form scaled M's rows j + 1.. in place)
+    const double v1 = scal != 0.0 ? __dmul_rn(x1, scal) : x1;
+    const double v2 = scal != 0.0 ? __dmul_rn(x2, scal) : x2;
+    if (t != 0.0) {
+      for (int c = c0; c < n; c += 32) {
+        const double y0 = c == c0 ? m0 : M[j * n + c];
+        const double y1 = c == c0 ? m1 : (e >= r1 ? M[r1 * n + c] : 0.0);
+        const double y2 = c == c0 ? m2 : (e >= r2 ? M[r2 * n + c] : 0.0);
+        double w = y0;
+        if (e >= r1) w = __fma_rn(v1, y1, w);
+        if (e >= r2) w = __fma_rn(v2, y2, w);
+        const double tw = __dmul_rn(t, w);
+        M[j * n + c] = __dsub_rn(y0, tw);
+        if (e >= r1) M[r1 * n + c] = __fma_rn(-tw, v1, y1);
+        if (e >= r2) M[r2 * n + c] = __fma_rn(-tw, v2, y2);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {  // column j, which every lane has read
+      M[j * n + j] = beta;
+      if (scal != 0.0 && e >= r1) M[r1 * n + j] = v1;
+      if (scal != 0.0 && e >= r2) M[r2 * n + j] = v2;
+      tau[j] = t;
+      ext[j] = e;
+      st_release(prog, tag + j + 1);
+    }
+  }
+}
+
+// q = H_0 H_1 ... H_{n-1} by dorg2r's backward accumulation on warp 1:
+// column c meets reflectors c, c - 1, ..., 0, in that order, and no other
+// column, so it starts as soon as reflector c exists (prog[0]).  Lane l forms
+// the columns l, l + 32, ..., RN_PASS_STEPS steps per pass of the loop
+// (which share its polls and votes), the lanes in step: columns finish in
+// order, and the count done is published (prog[1]).  Reflector j meets rows
+// j..j + 2 of the column (M's band is at most 2), row j still the
+// identity's and rows j + 1, j + 2 carried in registers from the reflector
+// before (row j + 2 is final after it; rows past n - 1 clamped to it, whose
+// own value is written after them); each lane reads the next reflector's
+// data one step ahead.  A term of a row past ext[j], or a reflector with tau
+// = 0, enters as an exact zero, which leaves a value that is not -0 (none of
+// q's is: they start +0 or 1 and only sums change them) as it was.  qb[c]:
+// the last row of column c that may be nonzero (no one reads q past it).
+__device__ __forceinline__ void q_columns(double* __restrict__ q, const double* __restrict__ M,
+                                          const double* __restrict__ tau,
+                                          const int* __restrict__ ext, int* __restrict__ qb, int n,
+                                          int lane, int* prog, int tag) {
+  int col = lane, j = -1, nref = 0, done = 0, bot = 0, en = 0;
+  double y1 = 0.0, y2 = 0.0, tn = 0.0, v1n = 0.0, v2n = 0.0;
+  while (done < n) {
+    // poll the reflectors only while a lane waits for one
+    if (__any_sync(RN_FULL, j < 0 && col < n && nref <= col))
+      nref = warp_poll(prog, tag + nref, lane) - tag;
+    if (j < 0 && col < n && nref > col) {
+      j = bot = col;
+      y1 = y2 = 0.0;
+      tn = tau[j];
+      en = ext[j];
+      v1n = M[min(j + 1, n - 1) * n + j];
+      v2n = M[min(j + 2, n - 1) * n + j];
+    }
+    // every lane runs every step, an idle one (j < 0) on reflector 0 with
+    // its stores dropped and its registers garbage until its next column
+    // starts: a branch in this loop costs more than the step
+    bool fin = false;
+#pragma unroll
+    for (int step = 0; step < RN_PASS_STEPS; ++step) {
+      const bool act = j >= 0;
+      const int jj = max(j, 0), e = en;
+      const double t = tn;
+      const double v1 = e >= jj + 1 ? v1n : 0.0, v2 = e >= jj + 2 ? v2n : 0.0;
+      const int jn = max(jj - 1, 0);  // the next reflector's data
+      tn = tau[jn];
+      en = ext[jn];
+      v1n = M[(jn + 1) * n + jn];
+      v2n = M[min(jn + 2, n - 1) * n + jn];
+      const double y0 = jj == col ? 1.0 : 0.0;
+      const double w = __fma_rn(v2, y2, __fma_rn(v1, y1, y0));
+      const double tw = __dmul_rn(t, w);
+      const double z0 = __dsub_rn(y0, tw);
+      const double z1 = __fma_rn(-tw, v1, y1);
+      const double z2 = __fma_rn(-tw, v2, y2);
+      bot = max(bot, e);
+      if (act) q[min(jj + 2, n - 1) * n + col] = z2;  // row j + 2 is final
+      if (act && jj == 0) {  // the column's last step
+        q[col] = z0;
+        q[n + col] = z1;
+        qb[col] = bot;
+      }
+      y2 = z1;
+      y1 = z0;
+      fin = fin || (act && jj == 0);
+      j -= act;
+    }
+    if (fin) col += 32;
+    const int nd = __popc(__ballot_sync(RN_FULL, fin));
+    if (nd > 0) {
+      done += nd;
+      __syncwarp();  // the columns' writes before the count
+      if (lane == 0) st_release(prog + 1, tag + done);
+    }
+  }
+}
+
+// A warp waits until q's columns 0..want - 1 are done (`seen`: the count it
+// knew; returns the count it saw): lane 0 polls, the lanes' reads are
+// ordered after its acquire.
+__device__ __forceinline__ int columns_done(const int* prog, int tag, int want, int seen,
+                                            int lane) {
+  if (seen < want) {
+    int v = 0;
+    if (lane == 0) {  // the poll sleeps between reads, leaving the SM's issue
+                      // slots and shared memory to the chains
+      while ((v = ld_relaxed(prog + 1)) < tag + want) __nanosleep(100);
+      fence_acquire();
+    }
+    seen = __shfl_sync(RN_FULL, v, 0) - tag;
+    __syncwarp();
+  }
+  return seen;
+}
+
+// Entry warp k of RN_ENTRY_WARPS: the columns c = k, k + RN_ENTRY_WARPS, ...
+// of W = T q (into wc, this warp's vector; lanes over the rows, row r over
+// T's nonzero columns m = r - 1..qb[c], q's column c first copied to qc) and
+// of T' = triu(q^T W, -1) (into Tn's column c; entry (r, c), r <= c + 1,
+// over the rows up to the last nonzero one of q's column r and of W's,
+// qb[c] + 1; the lanes in step over m); in the Schur sweeps also qn[c], the
+// last row of Q q (lane 31; dtrevc reads no other row of the Schur
+// vectors).  Every entry is summed in ascending order.
+__device__ __forceinline__ void entries(const double* T, double* Tn, const double* q, const int* qb,
+                                        const double* Q, double* qn, double* qc, double* wc, int n,
+                                        int k, int lane, const int* prog, int tag) {
+  int done = 0;
+  for (int c = k; c < n; c += RN_ENTRY_WARPS) {
+    done = columns_done(prog, tag, c + 1, done, lane);
+    const int hi = qb[c];
+    for (int r = lane; r <= hi; r += 32) qc[r] = q[r * n + c];
+    __syncwarp();
+    for (int r = lane; r < n; r += 32) {
+      double w = 0.0;
+#pragma unroll 4
+      for (int m = max(0, r - 1); m <= hi; ++m) w = __fma_rn(T[r * n + m], qc[m], w);
+      wc[r] = w;
+    }
+    if (qn != nullptr && lane == 31) {
+      double z = 0.0;
+      for (int m = 0; m <= hi; ++m) z = __fma_rn(Q[(n - 1) * n + m], qc[m], z);
+      qn[c] = z;
+    }
+    done = columns_done(prog, tag, min(c + 2, n), done, lane);
+    __syncwarp();  // wc
+    const int wb = hi + 1;
+    for (int r = lane; r < n; r += 32) {
+      const int h = r <= c + 1 ? min(qb[r], wb) : -1;
+      double acc = 0.0;
+#pragma unroll 4
+      for (int m = 0; m <= h; ++m) acc = __fma_rn(q[m * n + r], wc[m], acc);
+      Tn[r * n + c] = acc;
+    }
+    __syncwarp();  // qc and wc are this warp's next column's
+  }
+}
+
+// One QR step of M (shifted_band, lower band `band`) on T: q into q, T' =
+// triu(q^T T q, -1) into Tn and, with qn, the last row of Q q into qn.  scr:
+// 2 RN_ENTRY_WARPS vectors for the entry warps; step: the QR steps before
+// this one in the launch (the progress words' tag).
+__device__ __forceinline__ void qr_step(const double* T, double* Tn, double* M, double* q,
+                                        double* tau, int* ext, int* qb, const double* Q,
+                                        double* qn, double* scr, int n, int band, int step,
+                                        int* prog, const long long* clk, long long* laps,
+                                        long long& mark) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tag = step * (n + 1);
+  if (warp == 0) {
+    qr_factor(M, tau, ext, n, band, lane, prog, tag);
+    lap(clk, A_QR, laps, mark, prog);
+  } else if (warp == 1) {
+    q_columns(q, M, tau, ext, qb, n, lane, prog, tag);
+  } else {
+    const int k = warp - 2;
+    entries(T, Tn, q, qb, Q, qn, scr + 2 * k * n, scr + (2 * k + 1) * n, n, k, lane, prog, tag);
+  }
+  __syncthreads();
+  lap(clk, A_TAIL, laps, mark, prog);
+}
+
+// Qn = Q q (the chase), each entry in ascending order over q's nonzero rows
+// (qb[c]).
+__device__ __forceinline__ void q_product(double* Qn, const double* Q, const double* q,
+                                          const int* qb, int n) {
+  const int G = row_groups(n);
+  for (int t = threadIdx.x; t < G * n; t += blockDim.x) {
+    const int c = t % n, hi = qb[c];
+    for (int r0 = RN_ROWS * (t / n); r0 < n; r0 += RN_ROWS * G) {
+      double z[RN_ROWS];
+#pragma unroll
+      for (int i = 0; i < RN_ROWS; ++i) z[i] = 0.0;
+      for (int m = 0; m <= hi; ++m) {
+        const double qv = q[m * n + c];
+#pragma unroll
+        for (int i = 0; i < RN_ROWS; ++i)
+          if (r0 + i < n) z[i] = __fma_rn(Q[(r0 + i) * n + m], qv, z[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < RN_ROWS; ++i)
+        if (r0 + i < n) Qn[(r0 + i) * n + c] = z[i];
+    }
+  }
   __syncthreads();
 }
 
@@ -265,9 +605,10 @@ __device__ void implicit_q(const double* H, double* M, double* q, int n, double 
       int m = nb;
       if (j == 0) {
         if (mui > 0.0) {
-          xv[0] = H[0] * H[0] + H[1] * H[n] - (2.0 * mur) * H[0] + (mur * mur + mui * mui);
-          xv[1] = H[n] * (H[0] + H[n + 1] - 2.0 * mur);
-          xv[2] = H[n] * H[2 * n + 1];
+          const double m2 = mur + mur, mm = __fma_rn(mur, mur, __dmul_rn(mui, mui));
+          xv[0] = __dadd_rn(mm, __fma_rn(-m2, H[0], __fma_rn(H[0], H[0], __dmul_rn(H[n], H[1]))));
+          xv[1] = __dmul_rn(__dsub_rn(__dadd_rn(H[n + 1], H[0]), m2), H[n]);
+          xv[2] = __dmul_rn(H[n], H[2 * n + 1]);
         } else {
           xv[0] = H[0] - mur;
           xv[1] = H[n];
@@ -277,10 +618,10 @@ __device__ void implicit_q(const double* H, double* M, double* q, int n, double 
         for (int k = 0; k < m; ++k) xv[k] = M[(j + k) * n + j - 1];
       }
       double ss = 0.0;
-      for (int k = 0; k < m; ++k) ss += xv[k] * xv[k];
+      for (int k = 0; k < m; ++k) ss = __fma_rn(xv[k], xv[k], ss);
       xv[0] += copysign(sqrt(ss), xv[0]);
       double vv = 0.0;
-      for (int k = 0; k < m; ++k) vv += xv[k] * xv[k];
+      for (int k = 0; k < m; ++k) vv = __fma_rn(xv[k], xv[k], vv);
       sh[0] = vv == 0.0 ? 0.0 : 2.0 / vv;
       sh[1] = m;
     }
@@ -290,19 +631,20 @@ __device__ void implicit_q(const double* H, double* M, double* q, int n, double 
     if (beta != 0.0) {
       for (int c = tid; c < n; c += nt) {
         double t = 0.0;
-        for (int k = 0; k < m; ++k) t += xv[k] * M[(j + k) * n + c];
-        for (int k = 0; k < m; ++k) M[(j + k) * n + c] -= beta * (xv[k] * t);
+        for (int k = 0; k < m; ++k) t = __fma_rn(xv[k], M[(j + k) * n + c], t);
+        for (int k = 0; k < m; ++k)
+          M[(j + k) * n + c] = __fma_rn(-beta, __dmul_rn(xv[k], t), M[(j + k) * n + c]);
       }
       __syncthreads();
       for (int r = tid; r < n; r += nt) {
         double t = 0.0, tq = 0.0;
         for (int k = 0; k < m; ++k) {
-          t += M[r * n + j + k] * xv[k];
-          tq += q[r * n + j + k] * xv[k];
+          t = __fma_rn(M[r * n + j + k], xv[k], t);
+          tq = __fma_rn(q[r * n + j + k], xv[k], tq);
         }
         for (int k = 0; k < m; ++k) {
-          M[r * n + j + k] -= beta * (t * xv[k]);
-          q[r * n + j + k] -= beta * (tq * xv[k]);
+          M[r * n + j + k] = __fma_rn(-beta, __dmul_rn(t, xv[k]), M[r * n + j + k]);
+          q[r * n + j + k] = __fma_rn(-beta, __dmul_rn(tq, xv[k]), q[r * n + j + k]);
         }
       }
     }
@@ -343,7 +685,7 @@ __device__ bool straddle(const double* wr, const double* wi, int n, int b) {
 }
 
 // dtrevc for eigen-index i of the quasi-triangular T: its eigenvector (re, im)
-// in rows i of ur, ui, solved from the bottom row up with its clamps; returns
+// in columns i of ur, ui, solved from the bottom row up with its clamps; returns
 // |last component| of the unit eigenvector of H = Qs T Qs^T.
 __device__ double last_component(int i, const double* T, const double* Qs, double* ur,
                                  double* ui, const double* wr, const double* wi,
@@ -362,15 +704,17 @@ __device__ double last_component(int i, const double* T, const double* Qs, doubl
   const double ssi = (is_pair && !use_b) ? li : 0.0;
   const double ser = use_b ? lr - a : c;
   const double sei = use_b ? li : 0.0;
-  double* u = ur + static_cast<long long>(i) * n;
-  double* v = ui + static_cast<long long>(i) * n;
-  for (int m = 0; m < n; ++m) u[m] = v[m] = 0.0;
+  // eigenvector i is column i of ur, ui (row m at [m n + i]): the lanes of a
+  // warp, on neighbouring eigen-indices, read and write neighbouring words
+  double* u = ur + i;
+  double* v = ui + i;
+  for (int m = 0; m < n; ++m) u[m * n] = v[m * n] = 0.0;
   bool skip = false;
   for (int l = n - 1; l >= 0; --l) {
     double cr = 0.0, ci = 0.0;
     for (int m = l + 1; m < n; ++m) {
-      cr += T[l * n + m] * u[m];
-      ci += T[l * n + m] * v[m];
+      cr += T[l * n + m] * u[m * n];
+      ci += T[l * n + m] * v[m * n];
     }
     const bool solve = l < s && !skip;
     bool solved_skip;
@@ -379,8 +723,8 @@ __device__ double last_component(int i, const double* T, const double* Qs, doubl
       const int lm1 = l - 1;
       double crm = 0.0, cim = 0.0;
       for (int m = l + 1; m < n; ++m) {
-        crm += T[lm1 * n + m] * u[m];
-        cim += T[lm1 * n + m] * v[m];
+        crm += T[lm1 * n + m] * u[m * n];
+        cim += T[lm1 * n + m] * v[m * n];
       }
       const double a11r = T[lm1 * n + lm1] - lr, a11i = -li;
       const double a12 = T[lm1 * n + l], a21 = T[l * n + lm1];
@@ -399,10 +743,10 @@ __device__ double last_component(int i, const double* T, const double* Qs, doubl
       const double x2r = a11r * b2r - a11i * b2i - a21 * b1r;
       const double x2i = a11r * b2i + a11i * b2r - a21 * b1i;
       if (solve) {
-        u[lm1] = (x1r * detr + x1i * deti) / dmag2;
-        v[lm1] = (x1i * detr - x1r * deti) / dmag2;
-        u[l] = (x2r * detr + x2i * deti) / dmag2;
-        v[l] = (x2i * detr - x2r * deti) / dmag2;
+        u[lm1 * n] = (x1r * detr + x1i * deti) / dmag2;
+        v[lm1 * n] = (x1i * detr - x1r * deti) / dmag2;
+        u[l * n] = (x2r * detr + x2i * deti) / dmag2;
+        v[l * n] = (x2i * detr - x2r * deti) / dmag2;
       }
       solved_skip = true;
     } else {
@@ -414,8 +758,8 @@ __device__ double last_component(int i, const double* T, const double* Qs, doubl
         dmag2 = small2;
       }
       if (solve) {
-        u[l] = (-cr * denr - ci * deni) / dmag2;
-        v[l] = (-ci * denr + cr * deni) / dmag2;
+        u[l * n] = (-cr * denr - ci * deni) / dmag2;
+        v[l * n] = (-ci * denr + cr * deni) / dmag2;
       }
       solved_skip = false;
     }
@@ -423,48 +767,72 @@ __device__ double last_component(int i, const double* T, const double* Qs, doubl
     // row after a seeded pair or a joint solve
     const bool at_e = !solve && l == e && !skip;
     if (at_e) {
-      u[e] = ser;
-      v[e] = sei;
-      u[s] = ssr;
-      if (is_pair) v[s] = ssi;
+      u[e * n] = ser;
+      v[e * n] = sei;
+      u[s * n] = ssr;
+      if (is_pair) v[s * n] = ssi;
     }
     skip = solve ? solved_skip : (at_e && is_pair);
   }
   double nrm = 0.0, pr = 0.0, pi = 0.0;
   for (int m = 0; m < n; ++m) {
-    nrm += u[m] * u[m] + v[m] * v[m];
-    pr += Qs[(n - 1) * n + m] * u[m];
-    pi += Qs[(n - 1) * n + m] * v[m];
+    nrm += u[m * n] * u[m * n] + v[m * n] * v[m * n];
+    pr += Qs[(n - 1) * n + m] * u[m * n];
+    pi += Qs[(n - 1) * n + m] * v[m * n];
   }
   return hypot(pr, pi) / fmax(sqrt(nrm), tiny);
 }
 
-template <typename A>
+// GMEM: the workspace is in g.work (global memory), else in dynamic shared
+// memory (the compiler then addresses it as shared memory).
+template <typename A, bool GMEM>
 __global__ void __launch_bounds__(RN_THREADS, 1) realnonsym_cycle_kernel(RnArgs g) {
   extern __shared__ __align__(16) double rn_smem[];
   __shared__ double s_red[33];
-  __shared__ double s_sh[4];
-  __shared__ int s_int[8];  // brk, stop, mode, done, nev_eff, np_eff
-  const int n = g.ncv, nn = n * n, tid = threadIdx.x, nt = blockDim.x;
-  double* base = g.work != nullptr ? g.work : rn_smem;
+  __shared__ double s_sh[2];  // the implicit chase's beta and order
+  __shared__ int s_int[4];    // brk, done, nev_eff, np_eff
+  __shared__ int s_prog[2];   // the QR steps' progress words (qr_step)
+  const int n = g.ncv, nn = n * n, tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  double* base = GMEM ? g.work : rn_smem;
   double* H0 = base;
   double* T = base + nn;  // the Schur form's T, then the chase's Hc
   double* Qa = base + 2 * nn;
   double* M = base + 3 * nn;
   double* q = base + 4 * nn;
   double* W = base + 5 * nn;
+  // the vectors: the first 2 RN_ENTRY_WARPS are the entry warps' while a QR
+  // step runs (scr), and those of the other phases that no step reads
   double* vec = base + RN_MATRICES * nn;
-  double *wr = vec, *wi = vec + n, *out = vec + 2 * n, *bnd = vec + 3 * n, *key = vec + 4 * n;
-  double *wrs = vec + 5 * n, *wis = vec + 6 * n, *bs = vec + 7 * n, *swr = vec + 8 * n;
-  double *swi = vec + 9 * n, *tau = vec + 10 * n, *keep = vec + 11 * n, *pst = vec + 12 * n;
-  double *psec = vec + 13 * n, *xv = vec + 14 * n, *ext = vec + 15 * n;
+  double* scr = vec;
+  double *wr = vec, *wi = vec + n, *key = vec + 2 * n, *wrs = vec + 3 * n, *wis = vec + 4 * n;
+  double *bs = vec + 5 * n, *keep = vec + 6 * n, *pst = vec + 7 * n, *psec = vec + 8 * n;
+  double* xv = vec + 9 * n;
+  double *out = vec + 12 * n, *bnd = vec + 13 * n, *swr = vec + 14 * n, *swi = vec + 15 * n;
+  double *tau = vec + 16 * n, *ext = vec + 17 * n;
+  // free while the QR steps run: q's last nonzero rows, the new last row of
+  // the Schur vectors
+  int* qb = reinterpret_cast<int*>(bnd);
+  double* qn = out;
+  int* exti = reinterpret_cast<int*>(ext);  // the last row of each reflector
   A* Hg = static_cast<A*>(g.H);
   double* pk = g.packet;
   const double rnorm = static_cast<double>(*static_cast<const A*>(g.rnorm));
   const int psize = P_HEAD + 3 * n + nn;
-
+  long long* clk = g.clk;
+  long long mark = 0, laps[RN_CLOCK_SLOTS - A_SHIFT] = {};
+  // stamp phase `from` and every later one (the exit overwrites the rest),
+  // and the laps and counts so far
+  auto stamp = [&](int from) {
+    if (clk != nullptr && tid == 0) {
+      const long long t = clock_after(s_prog);
+      for (int i = from; i < RN_CLOCKS; ++i) clk[i] = t;
+      for (int i = A_SHIFT; i < RN_CLOCK_SLOTS; ++i) clk[i] = laps[i - A_SHIFT];
+    }
+  };
   for (int k = tid; k < psize; k += nt) pk[k] = 0.0;
+  if (tid < 2) s_prog[tid] = 0;
   __syncthreads();
+  stamp(C_ENTRY);
   if (tid == 0) {
     s_int[0] = *g.brk;
     pk[P_BRK] = s_int[0];
@@ -473,53 +841,41 @@ __global__ void __launch_bounds__(RN_THREADS, 1) realnonsym_cycle_kernel(RnArgs 
     for (int i = 0; i < 4; ++i) pk[P_CNT + i] = static_cast<double>(g.cnt[i]);
   }
   __syncthreads();
-  if (s_int[0] != -1) return;
+  if (s_int[0] != -1) {
+    stamp(C_SCHUR);
+    return;
+  }
 
+  // max |H0| (the guard's scale)
+  double hm = 0.0;
   for (int k = tid; k < nn; k += nt) {
     H0[k] = static_cast<double>(Hg[k]);
     T[k] = H0[k];
     Qa[k] = (k / n == k % n) ? 1.0 : 0.0;
+    hm = fmax(hm, fabs(H0[k]));
   }
-  __syncthreads();
+  const double hmax = block_max(hm, s_red);
 
   // ---- dneigh: the real Schur form by explicit QR sweeps ----
+  int step = 0;  // the QR steps so far (both loops)
   for (int sweep = 0; sweep < g.sweeps; ++sweep) {
+    if (clk != nullptr && tid == 0) mark = clock_after(s_prog);
     deflate(T, n, g.eps_m, keep);
-    if (tid == 0) {
-      int m = -1;
-      for (int i = 0; i < n - 1; ++i) {
-        const bool ki = keep[i] != 0.0;
-        const bool left0 = i == 0 || keep[i - 1] == 0.0;
-        const bool right0 = i == n - 2 || keep[i + 1] == 0.0;
-        // a converged complex 2x2 block (outer couplings gone) stays
-        const bool conv2 = ki && left0 && right0 && bdisc(T, n, i) < 0.0;
-        if (ki && !conv2) m = i;
-      }
-      s_int[1] = m < 0;
-      if (m >= 0) {
-        const double a11 = T[m * n + m], a12 = T[m * n + m + 1];
-        const double a21 = T[(m + 1) * n + m], a22 = T[(m + 1) * n + m + 1];
-        const double s = a11 + a22, p = a11 * a22 - a12 * a21;
-        const double dsc = s * s / 4.0 - p;
-        if (dsc >= 0.0) {  // a real Wilkinson shift: the root nearer a22
-          const double r = sqrt(fmax(dsc, 0.0));
-          const double mu1 = s / 2.0 + r, mu2 = s / 2.0 - r;
-          s_int[2] = 0;
-          s_sh[0] = fabs(mu1 - a22) < fabs(mu2 - a22) ? mu1 : mu2;
-        } else {  // the conjugate pair as one double shift
-          s_int[2] = 1;
-          s_sh[0] = s;
-          s_sh[1] = p;
-        }
-      }
-    }
-    __syncthreads();
-    if (s_int[1]) break;
-    shifted(M, T, n, s_int[2], s_sh[0], s_sh[1]);
-    qr_q(M, q, tau, ext, n);
-    W = similarity(T, Qa, q, W, n);
+    int mode = 0;
+    double sa = 0.0, sb = 0.0;
+    if (schur_shift(T, keep, n, lane, mode, sa, sb)) break;
+    shifted_band(M, T, n, mode, sa, sb);
+    lap(clk, A_SHIFT, laps, mark, s_prog);
+    qr_step(T, W, M, q, tau, exti, qb, Qa, qn, scr, n, mode + 1, step++, s_prog, clk, laps, mark);
+    double* swap = T;
+    T = W;
+    W = swap;
+    for (int c = tid; c < n; c += nt) Qa[(n - 1) * n + c] = qn[c];
+    lap(clk, A_POST, laps, mark, s_prog);
+    if (clk != nullptr && tid == 0) ++laps[N_SWEEPS - A_SHIFT];
   }
   deflate(T, n, g.eps_m, nullptr);
+  stamp(C_SCHUR);
 
   // ---- the block eigenvalues (dlanv2's role) and the Ritz bounds ----
   double tmax = 0.0;
@@ -559,6 +915,7 @@ __global__ void __launch_bounds__(RN_THREADS, 1) realnonsym_cycle_kernel(RnArgs 
     key[i] = which_key(g.which, wr[i], wi[i]);
   }
   __syncthreads();
+  stamp(C_TREVC);
   // ---- dngets: the stable which-sort, wanted last ----
   for (int i = tid; i < n; i += nt) {
     const int r = stable_rank(key, n, i);
@@ -592,9 +949,9 @@ __global__ void __launch_bounds__(RN_THREADS, 1) realnonsym_cycle_kernel(RnArgs 
       np_eff -= step;
       nev_eff += step;
     }
-    s_int[3] = done;
-    s_int[4] = nev_eff;
-    s_int[5] = np_eff;
+    s_int[1] = done;
+    s_int[2] = nev_eff;
+    s_int[3] = np_eff;
     pk[P_DONE] = done;
     pk[P_NCONV] = nconv;
     pk[P_NEV] = nev_eff;
@@ -607,9 +964,10 @@ __global__ void __launch_bounds__(RN_THREADS, 1) realnonsym_cycle_kernel(RnArgs 
     pk[P_HEAD + 2 * n + i] = bs[i];
   }
   __syncthreads();
-  const int nev_eff = s_int[4], np_eff = s_int[5];
-  if (s_int[3] || g.is_last) {  // exit before dnapps: H as it was
+  const int nev_eff = s_int[2], np_eff = s_int[3];
+  if (s_int[1] || g.is_last) {  // exit before dnapps: H as it was
     for (int k = tid; k < nn; k += nt) pk[P_HEAD + 3 * n + k] = H0[k];
+    stamp(C_GETS);
     return;
   }
 
@@ -622,36 +980,62 @@ __global__ void __launch_bounds__(RN_THREADS, 1) realnonsym_cycle_kernel(RnArgs 
     swi[r] = wis[i];
   }
   __syncthreads();
+  stamp(C_GETS);
   int implicit = 0;
-  for (int pass = 0; pass < 2; ++pass) {
+  copy_mat(T, H0, n);
+  set_eye(Qa, n);
+  for (int i = 0; i < np0 && i < np_eff; ++i) {
+    const double mur = swr[i], mui = swi[i];
+    if (mui < 0.0) continue;  // a pair's second member: applied with the first
+    if (clk != nullptr && tid == 0) mark = clock_after(s_prog);
+    const int mode = mui > 0.0;
+    shifted_band(M, T, n, mode, mode ? mur + mur : mur, __fma_rn(mur, mur, __dmul_rn(mui, mui)));
+    lap(clk, A_SHIFT, laps, mark, s_prog);
+    qr_step(T, W, M, q, tau, exti, qb, Qa, nullptr, scr, n, mode + 1, step++, s_prog, clk, laps,
+            mark);
+    q_product(M, Qa, q, qb, n);  // into M, free after the step
+    double* swap = T;
+    T = W;
+    W = swap;
+    swap = Qa;
+    Qa = M;
+    M = swap;
+    deflate(T, n, g.eps_m, nullptr);
+    lap(clk, A_POST, laps, mark, s_prog);
+    if (clk != nullptr && tid == 0) ++laps[N_SHIFTS - A_SHIFT];
+  }
+  stamp(C_CHASE);
+  // the explicit chase's loss in the kept columns (a near-zero pivot):
+  // (Q^T H0 Q - Hc)[:, :nev_eff], column by column
+  for (int k = tid; k < n * nev_eff; k += nt) {
+    const int r = k / nev_eff, c = k % nev_eff;
+    double acc = 0.0;
+    for (int m = max(0, r - 1); m < n; ++m) acc = __fma_rn(H0[r * n + m], Qa[m * n + c], acc);
+    W[r * n + c] = acc;
+  }
+  __syncthreads();
+  double lost = 0.0;
+  for (int k = tid; k < n * nev_eff; k += nt) {
+    const int r = k / nev_eff, c = k % nev_eff;
+    double acc = 0.0;
+    for (int m = 0; m < n; ++m) acc = __fma_rn(Qa[m * n + r], W[m * n + c], acc);
+    lost = fmax(lost, fabs(acc - T[r * n + c]));
+  }
+  lost = block_max(lost, s_red);
+  stamp(C_GUARD);
+  if (lost > g.eps23 * hmax) {  // the shifts again, by implicit bulge chases
+    implicit = 1;
     copy_mat(T, H0, n);
     set_eye(Qa, n);
     for (int i = 0; i < np0 && i < np_eff; ++i) {
       const double mur = swr[i], mui = swi[i];
-      if (mui < 0.0) continue;  // a pair's second member: applied with the first
-      if (pass == 0) {
-        shifted(M, T, n, mui > 0.0, mui > 0.0 ? 2.0 * mur : mur, mur * mur + mui * mui);
-        qr_q(M, q, tau, ext, n);
-      } else {
-        implicit_q(T, M, q, n, mur, mui, xv, s_sh + 2);
-      }
+      if (mui < 0.0) continue;
+      implicit_q(T, M, q, n, mur, mui, xv, s_sh);
       W = similarity(T, Qa, q, W, n);
       deflate(T, n, g.eps_m, nullptr);
     }
-    if (pass == 1) break;
-    // the explicit chase's loss in the kept columns (a near-zero pivot)
-    matmul(W, H0, Qa, n, false);
-    matmul(M, Qa, W, n, true);
-    double lost = 0.0, hmax = 0.0;
-    for (int k = tid; k < nn; k += nt) {
-      if (k % n < nev_eff) lost = fmax(lost, fabs(M[k] - T[k]));
-      hmax = fmax(hmax, fabs(H0[k]));
-    }
-    lost = block_max(lost, s_red);
-    hmax = block_max(hmax, s_red);
-    if (!(lost > g.eps23 * hmax)) break;
-    implicit = 1;
   }
+  stamp(C_REDO);
 
   A* Qg = static_cast<A*>(g.Q);
   for (int k = tid; k < nn; k += nt) {
@@ -666,6 +1050,7 @@ __global__ void __launch_bounds__(RN_THREADS, 1) realnonsym_cycle_kernel(RnArgs 
     sk[1] = static_cast<A>(T[nev_eff * n + nev_eff - 1]);
     pk[P_IMPL] = implicit;
   }
+  stamp(C_EXIT);
 }
 
 template <typename A>
@@ -681,10 +1066,10 @@ int realnonsym_cycle_typed(RnArgs g, cudaStream_t st) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = shared ? static_cast<int>(bytes) : 0;
-  cudaError_t err = cudaFuncSetAttribute(realnonsym_cycle_kernel<A>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kern = shared ? realnonsym_cycle_kernel<A, false> : realnonsym_cycle_kernel<A, true>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  realnonsym_cycle_kernel<A><<<1, RN_THREADS, static_cast<size_t>(smem), st>>>(g);
+  kern<<<1, RN_THREADS, static_cast<size_t>(smem), st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -696,11 +1081,13 @@ extern "C" {
 // One cycle's reduced space (see the head note).  code 0: float, 2: double
 // (the dtype codes of common.cuh); which: 0 LM, 1 SM, 2 LR, 3 SR, 4 LI, 5 SI.
 // `work`: NULL where the workspace fits in shared memory, else a global buffer
-// of its bytes (work_bytes).
+// of its bytes (work_bytes).  `clocks`: NULL (the solver's call), or
+// RN_CLOCK_SLOTS int64 for the stamps.
 int atpt_realnonsym_cycle(int code, int ncv, int nev0, int which, int is_last, int sweeps,
                           double tol, double eps23, double eps_m, double safmin, void* H,
                           const void* rnorm, const void* brk, const void* force, const void* cnt,
-                          void* Q, void* sk, void* packet, void* work, void* stream) {
+                          void* Q, void* sk, void* packet, void* work, void* clocks,
+                          void* stream) {
   const atpt::RnArgs g{ncv,
                        nev0,
                        which,
@@ -718,7 +1105,8 @@ int atpt_realnonsym_cycle(int code, int ncv, int nev0, int which, int is_last, i
                        Q,
                        sk,
                        static_cast<double*>(packet),
-                       static_cast<double*>(work)};
+                       static_cast<double*>(work),
+                       static_cast<long long*>(clocks)};
   auto st = static_cast<cudaStream_t>(stream);
   switch (code) {
     case 0: return atpt::realnonsym_cycle_typed<float>(g, st);

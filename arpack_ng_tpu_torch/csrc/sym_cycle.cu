@@ -173,33 +173,6 @@ inline int smem_parts(int n, int itemsize) {
   return k;
 }
 
-// Progress words (always in shared memory, addressed as such: a generic
-// strong load would take the slow path on every poll): a block-scope
-// release store publishes; a reader polls with relaxed loads and, once the
-// value it waits for is there, takes one acquire fence (a fence per poll
-// would cost one per pass of the column warps' loop).
-__device__ __forceinline__ unsigned smem_addr(const int* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.cta.shared.b32 [%0], %1;" ::"r"(smem_addr(p)), "r"(v) : "memory");
-}
-__device__ __forceinline__ int ld_relaxed(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.cta.shared.b32 %0, [%1];" : "=r"(v) : "r"(smem_addr(p)) : "memory");
-  return v;
-}
-__device__ __forceinline__ void fence_acquire() {
-  asm volatile("fence.acq_rel.cta;" ::: "memory");
-}
-// One thread waits until *p >= want; returns the value it saw.
-__device__ __forceinline__ int wait_geq(const int* p, int want) {
-  int v;
-  while ((v = ld_relaxed(p)) < want) {
-  }
-  fence_acquire();
-  return v;
-}
 // The Q warps' barrier (QACC_WARPS * 32 threads), apart from __syncthreads.
 __device__ __forceinline__ void qacc_sync() {
   asm volatile("bar.sync %0, %1;" ::"n"(QACC_BARRIER), "n"(QACC_WARPS * 32) : "memory");
@@ -347,20 +320,6 @@ __device__ __forceinline__ A diag_part(const A* qr, const A* qc, const A* d, con
     acc += m * qc[r];
   }
   return acc;
-}
-
-// A warp polls a progress word: lane 0 reads it (relaxed) and hands it to
-// the lanes; where it exceeds `seen`, lane 0 takes the acquire fence and the
-// warp's later reads are ordered after it.  Returns max(seen, value).
-__device__ __forceinline__ int warp_poll(const int* p, int seen, int lane) {
-  int v = lane == 0 ? ld_relaxed(p) : 0;
-  v = __shfl_sync(FULL, v, 0);
-  if (v > seen) {
-    if (lane == 0) fence_acquire();
-    __syncwarp();
-    return v;
-  }
-  return seen;
 }
 
 // The reflector chain of exact shift s, on lane 0 of its reflector warp:

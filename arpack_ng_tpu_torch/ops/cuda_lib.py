@@ -138,7 +138,7 @@ def load() -> ctypes.CDLL:
                                    f64, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                    vp, vp, vp]
     lib.atpt_sym_cycle.restype = i32
-    lib.atpt_realnonsym_cycle.argtypes = [i32] * 6 + [f64] * 4 + [vp] * 10
+    lib.atpt_realnonsym_cycle.argtypes = [i32] * 6 + [f64] * 4 + [vp] * 11
     lib.atpt_realnonsym_cycle.restype = i32
     lib.atpt_rotate_rows.argtypes = [i32, i32, i32, i32, vp, i32, i32, i32,
                                      vp, i64, i64, vp]

@@ -40,7 +40,11 @@ The kernel's QR follows LAPACK's conventions (dlarfg's ``beta =
 with the twin's.  The wrapper launches the kernel for CUDA tensors of
 every ``ncv`` (its workspace in shared memory up to :func:`max_shared_ncv`,
 else in a global buffer the wrapper allocates) and runs the twin for CPU
-tensors; ``launches`` counts the kernel launches.
+tensors; ``launches`` counts the kernel launches.  A caller may pass
+``clocks``, an int64 tensor of :func:`clock_size` values on H's device,
+for the kernel's stamps (``clock64()``, SM cycles): the :data:`CLOCKS`
+phase ends, then the cycles summed over the Schur sweeps and the chase's
+shifts of the :data:`LAPS`, then the :data:`COUNTS`; the twin ignores it.
 """
 from __future__ import annotations
 
@@ -65,7 +69,15 @@ SWEEPS_PER_EV = 4
 #: ncv matrices (H0, the working T or Hc, Q, the QR's M, its q, a product)
 #: and VECTORS ncv-length vectors
 MATRICES = 6
-VECTORS = 16
+VECTORS = 18
+#: the kernel's phase stamps (a cycle that exits early stamps its exit in
+#: every later one), its per-sweep parts summed over the sweeps and shifts
+#: (the shift choice and shifted matrix, the reflector chain, the tail of q
+#: and the new T's columns behind it, the step's end), and its counts of
+#: Schur sweeps and chase shifts
+CLOCKS = ("entry", "schur", "trevc", "gets", "chase", "guard", "redo", "exit")
+LAPS = ("shift", "qr", "tail", "post")
+COUNTS = ("sweeps", "shifts")
 
 
 class Params(NamedTuple):
@@ -79,6 +91,11 @@ class Params(NamedTuple):
 
 def packet_size(ncv: int) -> int:
     return P_HEAD + 3 * ncv + ncv * ncv
+
+
+def clock_size(ncv: int) -> int:
+    """Length of the kernel's optional stamp buffer (any ncv)."""
+    return len(CLOCKS) + len(LAPS) + len(COUNTS)
 
 
 def work_bytes(ncv: int) -> int:
@@ -559,13 +576,18 @@ def realnonsym_cycle_plain(H, rnorm, brk, force, cnt, Q, sk, packet,
 
 
 def realnonsym_cycle(H, rnorm, brk, force, cnt, Q, sk, packet, p: Params,
-                     is_last: bool) -> None:
+                     is_last: bool, clocks=None) -> None:
     """One cycle's reduced space (see the module note); on a CUDA device
     one kernel launch on the current stream, nothing read back."""
     _check(H, rnorm, brk, force, cnt, Q, sk, packet)
     if p.which not in WHICH:
         raise ValueError(f"bad which={p.which!r}")
     ncv = H.shape[0]
+    if clocks is not None and (clocks.shape != (clock_size(ncv),)
+                               or clocks.dtype != torch.int64
+                               or clocks.device != H.device):
+        raise ValueError(f"clocks must be an int64 ({clock_size(ncv)},) "
+                         "tensor on H's device")
     if H.device.type == "cpu":
         return realnonsym_cycle_plain(H, rnorm, brk, force, cnt, Q, sk,
                                       packet, p, is_last)
@@ -582,6 +604,7 @@ def realnonsym_cycle(H, rnorm, brk, force, cnt, Q, sk, packet, p: Params,
         H.data_ptr(), rnorm.data_ptr(), brk.data_ptr(), force.data_ptr(),
         cnt.data_ptr(), Q.data_ptr(), sk.data_ptr(), packet.data_ptr(),
         None if work is None else work.data_ptr(),
+        None if clocks is None else clocks.data_ptr(),
         cuda_lib.stream_handle(H.device))
     cuda_lib.check(lib, err, "realnonsym_cycle")
     realnonsym_cycle.launches += 1

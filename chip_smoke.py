@@ -1425,6 +1425,10 @@ def check_realnonsym_cycle(torch, dev, gpu):
             ts.append((time.perf_counter() - t0) * 1e3)
         walls[name] = float(np.median(ts))
     ms = timing.alternating_ms([kernel], timing.flush_buffer(dev))[0]
+    clk = torch.zeros(crc.clock_size(ncv), dtype=torch.int64, device=dev)
+    bufs[0].copy_(H0)
+    crc.realnonsym_cycle(*bufs, p, False, clocks=clk)
+    clocks = _rn_clocks(crc, clk.cpu().numpy())
     bound = flops / (PEAK_FLOPS["torch.float64"] / SMS) * 1e3
     row = {"name": "realnonsym_cycle", "dtype": "torch.float32",
            "shape": ncv, "ms": ms, "plain_ms": walls["plain_ms"],
@@ -1436,14 +1440,29 @@ def check_realnonsym_cycle(torch, dev, gpu):
                          "dtrevc's rows, the guard) over one SM's float64 "
                          "rate (the kernel is one block and computes in "
                          "double), not the card's roofline",
-           "np_eff": h.np_eff}
+           "np_eff": h.np_eff, "clocks": clocks}
     print(f"  realnonsym_cycle ncv={ncv} float32 ({detail}): kernel "
           f"{ms:.4f} ms device-only, twin {walls['plain_ms']:.4f} ms host, "
           f"library (eig + {len(shifts)} QR on the card, with syncs) "
           f"{walls['library_ms']:.4f} ms; bound {bound:.6f} ms ({flops} "
           f"flops over one SM's float64 rate, {100 * bound / ms:.2f}% of "
           f"it); card {gpu}", flush=True)
+    print("  realnonsym_cycle phase clocks (SM cycles, one launch; the QR "
+          "steps' parts summed over its sweeps and shifts): " + ", ".join(
+              f"{k} {v}" for k, v in clocks.items()), flush=True)
     return err, row
+
+
+def _rn_clocks(crc, c):
+    """The real reduced-space kernel's stamp buffer as named numbers: each
+    phase's SM cycles (the difference of consecutive stamps), the QR
+    steps' parts summed over the Schur sweeps and the chase's shifts, and
+    the counts of both."""
+    nc, nl = len(crc.CLOCKS), len(crc.LAPS)
+    out = dict(zip(crc.CLOCKS[1:], np.diff(c[:nc]).tolist()))
+    out.update(zip(crc.LAPS, c[nc:nc + nl].tolist()))
+    out.update(zip(crc.COUNTS, c[nc + nl:].tolist()))
+    return out
 
 
 def _cgs_cases(torch, cuda_cgs, V, w, bf16, what, err):

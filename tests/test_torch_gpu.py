@@ -1346,6 +1346,130 @@ def test_realnonsym_cycle_repeats_bit_for_bit_on_card(dev, dtype):
         np.testing.assert_array_equal(x, y)
 
 
+def _rn_held(smoke, crc, H, rn, dt, dev, p, is_last=False):
+    """One real reduced-space case on the card, with chip_smoke.py's
+    harness: the kernel against its twin (the packet's counts equal, every
+    gap within RN_LIMITS, the implicit redo decided alike or within the
+    guard's band) and two launches equal bit for bit.  Returns the faults
+    and the kernel's outputs."""
+    lim = smoke.RN_LIMITS[str(dt)]
+    kern = smoke._rn_run(torch, crc, H, rn, dt, dev, p, is_last)
+    again = smoke._rn_run(torch, crc, H, rn, dt, dev, p, is_last)
+    twin = smoke._rn_run(torch, crc, H, rn, dt, torch.device("cpu"), p,
+                         is_last)
+    bad = []
+    if not all(np.array_equal(a, b) for a, b in zip(kern, again)):
+        bad.append("two launches differ")
+    g = smoke._rn_gaps(crc, twin, kern, H)
+    if not g.pop("counts_equal"):
+        bad.append(("counts", kern[3][:crc.P_HEAD], twin[3][:crc.P_HEAD]))
+    if not g.pop("implicit_equal"):
+        try:
+            smoke._rn_guard_case(crc, H, rn, p, kern, g, lim, "redo")
+        except AssertionError as e:
+            bad.append(str(e))
+    bad += [(k, v) for k, v in g.items() if k in lim and v > lim[k]]
+    return bad, kern
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ncv", [3, 68, 69])
+def test_realnonsym_cycle_edge_sizes_on_card(dev, dtype, ncv):
+    # the smallest ncv (np_eff of 1 or 2, a double shift at the last
+    # position), the last ncv whose workspace fits in shared memory (68)
+    # and the first past it (69: the matrices in global memory), on phase
+    # 9's Arnoldi Hessenbergs, every which, two seeds: the kernel against
+    # its twin within RN_LIMITS, two launches equal bit for bit
+    from arpack_ng_tpu_torch.ops import cuda_realnonsym_cycle as crc
+    smoke = _smoke()
+    dt = getattr(torch, dtype)
+    assert crc.fits_shared(ncv) == (ncv <= 68)
+    bad = []
+    for seed in (0, 1):
+        H, rn = smoke._arnoldi_hessenberg(ncv, seed)
+        H = H.astype(dtype).astype(np.float64)
+        for which in crc.WHICH:
+            p = smoke._rn_params(crc, str(dt), which, max(1, ncv // 4))
+            faults, _ = _rn_held(smoke, crc, H, rn, dt, dev, p)
+            bad += [(seed, which, f) for f in faults]
+    assert not bad, bad
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["brk", "done", "last", "sweeps"])
+def test_realnonsym_cycle_exits_on_card(dev, dtype, case, monkeypatch):
+    # each early exit at ncv 32: an extension that stopped short (brk = 3:
+    # only the packet's header, H, Q and sk untouched), a converged cycle
+    # (rnorm 1e-30: done, H as it was), a last cycle (H as it was), and a
+    # Schur loop cut by its sweep count (SWEEPS_PER_EV = 1, the twin cut
+    # alike); the kernel against its twin within RN_LIMITS, two launches
+    # equal bit for bit
+    from arpack_ng_tpu_torch.ops import cuda_realnonsym_cycle as crc
+    smoke = _smoke()
+    dt = getattr(torch, dtype)
+    H, rn = smoke._arnoldi_hessenberg(32, 0)
+    H = H.astype(dtype).astype(np.float64)
+    p = smoke._rn_params(crc, str(dt), "LM", 8)
+    if case == "brk":
+        outs = []
+        for where in (dev, torch.device("cpu"), dev):
+            bufs = smoke._rn_buffers(torch, crc, H, rn, dt, where)
+            bufs[2].fill_(3)
+            crc.realnonsym_cycle(*bufs, p, False)
+            outs.append([x.double().cpu().numpy() for x in bufs])
+        for a, b in zip(outs[0], outs[2]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(outs[0], outs[1]):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(outs[0][0], H)
+        assert outs[0][7][crc.P_BRK] == 3 and not outs[0][7][crc.P_HEAD:].any()
+        return
+    if case == "done":
+        rn = 1e-30
+    if case == "sweeps":
+        monkeypatch.setattr(crc, "SWEEPS_PER_EV", 1)
+    bad, kern = _rn_held(smoke, crc, H, rn, dt, dev, p, case == "last")
+    assert not bad, bad
+    exits = case in ("done", "last")
+    assert bool(kern[3][crc.P_DONE]) == (case == "done")
+    assert np.array_equal(kern[0], H) == exits
+    np.testing.assert_array_equal(kern[3][crc.P_HEAD + 3 * 32:],
+                                  kern[0].ravel())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ncv", [32, 69])
+def test_realnonsym_cycle_stamps_on_card(dev, ncv):
+    # the stamp buffer: the phases' stamps in order, the laps and counts
+    # of a cycle that sweeps and shifts, and the outputs bit for bit those
+    # of a launch without it
+    from arpack_ng_tpu_torch.ops import cuda_realnonsym_cycle as crc
+    smoke = _smoke()
+    H, rn = smoke._arnoldi_hessenberg(ncv, 0)
+    H = H.astype(np.float32).astype(np.float64)
+    p = smoke._rn_params(crc, "torch.float32", "LM", 8 if ncv == 32 else 17)
+    outs = []
+    clk = torch.zeros(crc.clock_size(ncv), dtype=torch.int64, device=dev)
+    for clocks in (None, clk):
+        bufs = smoke._rn_buffers(torch, crc, H, rn, torch.float32, dev)
+        crc.realnonsym_cycle(*bufs, p, False, clocks=clocks)
+        outs.append([x.double().cpu().numpy() for x in bufs])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    c = clk.cpu().numpy()
+    nc, nl = len(crc.CLOCKS), len(crc.LAPS)
+    assert np.all(np.diff(c[:nc]) >= 0) and c[nc - 1] > c[0]
+    assert np.all(c[nc:nc + nl] > 0)
+    sweeps, shifts = c[nc + nl:]
+    assert 0 < sweeps <= crc.SWEEPS_PER_EV * ncv
+    assert 0 < shifts <= outs[1][7][crc.P_NP]
+    # the laps lie within the Schur sweeps and the chase
+    assert c[nc:nc + nl].sum() <= c[crc.CLOCKS.index("chase")] - c[0]
+
+
 def _convdiff_small(dev, capturable=True, nx=64):
     import dataclasses
 

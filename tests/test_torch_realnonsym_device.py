@@ -389,10 +389,10 @@ def test_twin_matches_reference_cycle(name):
 def test_packet_layout_and_shared_memory_rule():
     # the packet: the symmetric header, the implicit flag, the sorted
     # values and bounds, then H; the workspace of six ncv x ncv matrices
-    # and 16 vectors in double fits one block's shared memory to ncv 68
+    # and 18 vectors in double fits one block's shared memory to ncv 68
     assert (crc.P_IMPL, crc.P_HEAD) == (12, 13)
     assert crc.packet_size(32) == 13 + 96 + 1024
-    assert crc.work_bytes(32) == (6 * 32 * 32 + 16 * 32) * 8
+    assert crc.work_bytes(32) == (6 * 32 * 32 + 18 * 32) * 8
     assert crc.max_shared_ncv() == 68
     assert crc.fits_shared(68) and not crc.fits_shared(69)
     assert crc.WHICH == {"LM": 0, "SM": 1, "LR": 2, "SR": 3, "LI": 4,
@@ -423,6 +423,38 @@ def test_wrapper_refuses_bad_buffers_and_leaves_a_breakdown():
     assert (pk[crc.P_BRK], pk[crc.P_FORCE], pk[crc.P_RNORM]) == (5, 1, 1)
     assert not pk[crc.P_HEAD:].any() and not args[5].any()
     assert torch.equal(args[0], torch.eye(8, **f))
+
+
+def test_clocks_argument_checked_and_ignored_by_the_twin():
+    # the optional stamp buffer: an int64 vector of clock_size(ncv) on H's
+    # device, refused otherwise; the twin (CPU tensors) leaves it as it was
+    # and writes what it writes without it
+    H, rn = chip_smoke._arnoldi_hessenberg(12, 0, nx=12)
+    p = _params("LM", 3, 1e-10)
+    size = crc.clock_size(12)
+    assert size == len(crc.CLOCKS) + len(crc.LAPS) + len(crc.COUNTS) == 14
+
+    def bufs():
+        f = dict(dtype=torch.float64)
+        return [torch.tensor(H, **f), torch.tensor(rn, **f),
+                torch.tensor(-1, dtype=torch.int32),
+                torch.tensor(0, dtype=torch.int32),
+                torch.tensor([3, 1, 2, 0], dtype=torch.int64),
+                torch.zeros(12, 12, **f), torch.zeros(2, **f),
+                torch.zeros(crc.packet_size(12), **f)]
+
+    for bad in (torch.zeros(size + 1, dtype=torch.int64),
+                torch.zeros(size, dtype=torch.int32),
+                torch.zeros(size, dtype=torch.int64, device="meta")):
+        with pytest.raises(ValueError, match="clocks"):
+            crc.realnonsym_cycle(*bufs(), p, False, clocks=bad)
+    plain, stamped = bufs(), bufs()
+    clk = torch.full((size,), 7, dtype=torch.int64)
+    crc.realnonsym_cycle(*plain, p, False)
+    crc.realnonsym_cycle(*stamped, p, False, clocks=clk)
+    for a, b in zip(plain, stamped):
+        assert torch.equal(a, b)
+    assert torch.equal(clk, torch.full((size,), 7, dtype=torch.int64))
 
 
 # ---- (b) the device loop ----------------------------------------------------

@@ -15,7 +15,8 @@ two columns differ only by the reduced space's rounding.  Each solve must
 pass phase 9's gates (``chip_smoke.check_nonsym``; a failure is printed
 and makes the exit code 1).  Prints one line per
 seed (cycles, matvecs, refinements, the host's reruns of an extension,
-packets and the wall of each run) and a JSON line with each run's counts
+packets, the count of values, the extraction's info and the wall of each
+run) and a JSON line with each run's counts
 over the seeds: the spread that ``chip_smoke.EIGS_BAND`` is read from.
 """
 from __future__ import annotations
@@ -91,7 +92,8 @@ def main() -> int:
                 line.append(f"{tag} {name}: cycles {st.n_iter}, nopx "
                             f"{st.nopx}, nrorth {st.nrorth}, host reruns "
                             f"{dict(arnoldi.reruns)}, packets {st.packets}, "
-                            f"{len(vals)} values, {gate}, {wall:.4f} s")
+                            f"{len(vals)} values, extraction info "
+                            f"{out.info}, {gate}, {wall:.4f} s")
         print(f"seed {seed}: " + "; ".join(line), flush=True)
     cycles = [r[0] for v in runs.values() for r in v]
     print(json.dumps({"nx": args.nx, "card": gpu, "cycles span":
