@@ -13,8 +13,10 @@ vectors, ``Y = A X`` with ``X`` and ``Y`` row-major ``(b, n_pad)``: the
 block apply of ``core/block`` (port of
 ``arpack_ng_tpu/ops/sparse.py:118-183``).
 Its kernel reads each diagonal once per block (per 8 columns past 8),
-and column ``c`` of ``Y`` equals ``dia_matvec(offsets, dtab, X[c], n)``
-bit for bit.
+takes X through shared memory in windows, one per run of diagonals whose
+offsets lie close together (:func:`block_plan` gives the runs and the
+launch's shape), and column ``c`` of ``Y`` equals ``dia_matvec(offsets,
+dtab, X[c], n)`` bit for bit.
 
 Each wrapper runs its plain twin (:func:`dia_matvec_plain`, the
 shift-multiply of ``arpack_ng_tpu/ops/sparse.py:100-113``, and
@@ -23,6 +25,8 @@ CUDA kernel for tensors on a CUDA device; ``launches`` counts the kernel
 launches.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -70,6 +74,68 @@ def dia_matvec(offsets: torch.Tensor, dtab: torch.Tensor, x: torch.Tensor,
 
 
 dia_matvec.launches = 0
+
+
+#: the block kernel's shape (``csrc/dia.cu``): threads per block, columns
+#: per chunk, bytes of a block's two stages of X windows, the values a
+#: window column's stride holds past the window, the most offsets it plans
+#: in shared memory
+BLOCK_THREADS, DIA_COLS, WINDOW_BYTES, BLOCK_PAD, PLAN_CAP = \
+    256, 8, 96 * 1024, 4, 512
+
+
+def block_plan(offsets, n: int, b: int, dtype) -> dict:
+    """The plan ``dia_block_kernel`` derives on the card for host
+    ``offsets`` (a sequence of ints), ``n`` and ``b`` columns of
+    ``dtype``: ``tile`` rows T per item, ``window`` values W per column of
+    a stage, ``span`` S = W - T (the widest run), ``smem`` dynamic shared
+    bytes per block and ``runs``, the ``(first, end, lo, hi)`` diagonal
+    ranges whose offsets span at most S, in the order of ``offsets``
+    (each run copies a window of T + span values a column).  Offsets with
+    ``|off| >= n`` add nothing and are left out; past
+    PLAN_CAP offsets each kept offset is a run of its own."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    cb = min(b, DIA_COLS)
+    tile = BLOCK_THREADS * (4 if isz == 4 or cb <= 4 else 2)
+    window = min(WINDOW_BYTES // (2 * cb * isz) // 4 * 4, 5 * tile)
+    span = window - tile
+    offs = [int(o) for o in offsets]
+    planned = len(offs) <= PLAN_CAP
+    runs = []
+    for k, o in enumerate(offs):
+        if abs(o) >= n:
+            continue
+        if planned and runs and max(runs[-1][3], o) - min(runs[-1][2], o) \
+                <= span:
+            first, _, lo, hi = runs[-1]
+            runs[-1] = (first, k + 1, min(lo, o), max(hi, o))
+        else:
+            runs.append((k, k + 1, o, o))
+    if planned and runs:
+        # a run ends where the next begins (left-out offsets between add
+        # nothing), the last at nd
+        runs = [(f, e, lo, hi) for (f, _, lo, hi), e in
+                zip(runs, [r[0] for r in runs[1:]] + [len(offs)])]
+    return {"tile": tile, "window": window, "span": span, "runs": runs,
+            "smem": 2 * cb * (window + BLOCK_PAD) * isz
+            + (28 * len(offs) if planned else 0)}
+
+
+def block_config(nd: int, b: int, n_pad: int, dtype,
+                 device=None) -> dict:
+    """The launch ``dia_block_matvec`` makes on the card for ``nd``
+    diagonals, ``b`` columns and ``n_pad`` rows of ``dtype`` (the kernel
+    library's own answer; it reads no offsets): ``tile``, ``window``,
+    ``smem``, ``blocks_per_sm``, ``grid``, ``planned``, ``cols``."""
+    lib = cuda_lib.load()
+    out = (ctypes.c_longlong * 7)()
+    with torch.cuda.device(device):
+        err = lib.atpt_dia_block_config(cuda_lib.dtype_code(dtype, dtype),
+                                        nd, b, n_pad, out)
+    cuda_lib.check(lib, err, "dia_block_config")
+    keys = ("tile", "window", "smem", "blocks_per_sm", "grid", "planned",
+            "cols")
+    return dict(zip(keys, (int(v) for v in out)))
 
 
 def dia_block_matvec_plain(offsets, dtab, X, n):

@@ -155,6 +155,8 @@ def load() -> ctypes.CDLL:
     lib.atpt_dia_block_matvec.argtypes = [i32, vp, i32, vp, i64, vp, i64,
                                           i32, i64, i64, vp, i64, vp]
     lib.atpt_dia_block_matvec.restype = i32
+    lib.atpt_dia_block_config.argtypes = [i32, i32, i32, i64, vp]
+    lib.atpt_dia_block_config.restype = i32
     lib.atpt_psell_matvec.argtypes = [i32, vp, vp, vp, vp, vp, i32, vp, i64,
                                       vp, vp]
     lib.atpt_psell_matvec.restype = i32

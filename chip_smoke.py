@@ -245,8 +245,11 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    apply; (e) the block DIA kernel against its twin on both tables, b in
    {1, 2, 4, 8}, float32 and float64, at n and n + 3, bit for bit (and
    each column against the single kernel), timed beside its bound, b
-   single launches and ``torch.sparse.mm`` (cuSPARSE SpMM); the phase
-   within P13_MAX_S;
+   single launches and ``torch.sparse.mm`` (cuSPARSE SpMM), each timed
+   shape's plan printed (runs, tile rows, shared bytes and blocks per SM),
+   then untimed the case list of ``tests/torch_dia_cases.py`` (both
+   dtypes, b = 1-9, 16, 17) under the same equalities; the phase within
+   P13_MAX_S;
 14. the file entry points (each path's launches counted from zero): (a)
    the main path: the flagship's Laplacian written as a MatrixMarket file
    (``io.matrix_market.write_matrix``, then read back: both seconds
@@ -3670,7 +3673,11 @@ def check_dia_block(torch, dev, gpu, nx=NX, n65=P13_N, timed=True):
     kernel, two calls to each other; timed at n (device-only, in
     alternation) beside its bound ``(nd + 2b) n_pad itemsize / 3.35 TB/s``,
     ``b`` launches of the single kernel and ``torch.sparse.mm`` of the CSR
-    with ``X^T``.  Returns (max abs err by dtype, timed rows)."""
+    with ``X^T``, with the launch's plan (runs, tile rows, shared bytes and
+    blocks per SM: ``cuda_dia.block_plan``, held to the library's
+    ``block_config``).  Then, untimed, the case list of
+    ``tests/torch_dia_cases.py`` in both dtypes at b = 1-9, 16, 17, under
+    the same equalities.  Returns (max abs err by dtype, timed rows)."""
     from arpack_ng_tpu_torch.config import pad_dim
     from arpack_ng_tpu_torch.models import laplacian_2d
     from arpack_ng_tpu_torch.ops import cuda_dia
@@ -3731,8 +3738,60 @@ def check_dia_block(torch, dev, gpu, nx=NX, n65=P13_N, timed=True):
                             cuda_dia.dia_matvec(offs, tab, X[c], n)
                             for c in range(b)]})
                     rows.append(row)
+                    if timed:
+                        _print_dia_plan(torch, cuda_dia, name, offsets, n,
+                                        n_pad, b, tdt)
             del csr
+    _dia_case_list(torch, dev, cuda_dia)
     return err, rows
+
+
+def _print_dia_plan(torch, cuda_dia, name, offsets, n, n_pad, b, tdt):
+    """13e: the block kernel's launch for a timed shape, the host's plan
+    held to the library's own sizes."""
+    plan = cuda_dia.block_plan(offsets, n, b, tdt)
+    cfg = cuda_dia.block_config(len(offsets), b, n_pad, tdt)
+    if (cfg["tile"], cfg["window"], cfg["smem"]) != (
+            plan["tile"], plan["window"], plan["smem"]):
+        raise AssertionError(f"13e {name} b={b}: block_plan {plan} differs "
+                             f"from the library's {cfg}")
+    spans = ", ".join(f"{hi - lo}" for _, _, lo, hi in plan["runs"])
+    print(f"  13e plan {name} {tdt} b={b}: {len(plan['runs'])} runs (spans "
+          f"{spans}; window span {plan['span']}), T = {cfg['tile']} rows, "
+          f"{cfg['smem']} shared bytes a block, {cfg['blocks_per_sm']} "
+          f"blocks per SM, grid {cfg['grid']}", flush=True)
+
+
+def _dia_case_list(torch, dev, cuda_dia):
+    """13e, untimed: the block kernel on ``tests/torch_dia_cases.py``'s
+    cases, bit for bit its twin and the single kernel per column."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_dia_cases as cases
+
+    count = 0
+    for name in cases.CASES:
+        for dtype in (np.float32, np.float64):
+            for b in cases.BLOCKS:
+                offs, tab, X, n = (torch.from_numpy(a).to(dev) if
+                                   isinstance(a, np.ndarray) else a
+                                   for a in cases.make(name, dtype, b))
+                Y = cuda_dia.dia_block_matvec(offs, tab, X, n)
+                if not (torch.equal(Y, cuda_dia.dia_block_matvec_plain(
+                        offs, tab, X, n)) and all(
+                        torch.equal(Y[c], cuda_dia.dia_matvec(offs, tab, X[c],
+                                                              n))
+                        for c in range(b)) and not Y[:, n:].any()):
+                    raise AssertionError(
+                        f"13e case {name} {dtype.__name__} b={b}: the block "
+                        "kernel is not bit-equal to its twin and the single "
+                        "kernel per column")
+                count += 1
+    print(f"13e case list (tests/torch_dia_cases.py): {count} products of "
+          f"{len(cases.CASES)} cases, float32 and float64, b = "
+          f"{', '.join(map(str, cases.BLOCKS))}: bit-equal to the twin and "
+          "to the single kernel per column", flush=True)
 
 
 def banded_block_paths(torch, dev, gpu, n=P13_N, mode2_n=P13_MODE2_N,

@@ -14,6 +14,7 @@ torch.set_num_threads(2)
 
 import numpy as np  # noqa: E402
 
+import torch_dia_cases as dia_cases  # noqa: E402
 from arpack_ng_tpu_torch.models import corpus  # noqa: E402
 from arpack_ng_tpu_torch.ops import (  # noqa: E402
     cuda_cgs, cuda_dia, cuda_gather, cuda_psell, cuda_rot, cuda_sel, psell)
@@ -1031,6 +1032,46 @@ def test_dia_block_kernel_matches_twin_on_card(dev, dtype, n):
                                                          n))
         assert not Y[:, n:].any()
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", list(dia_cases.CASES))
+def test_dia_block_kernel_on_the_case_list(dev, name, dtype):
+    # the plan's patterns of tests/torch_dia_cases.py (alternating offsets,
+    # runs wider than a window, |off| >= n, 129 and 600 diagonals, n_pad
+    # not a multiple of 4, non-finite table entries where terms are
+    # skipped) at b = 1-9, 16, 17: the kernel bit for bit its twin and the
+    # single kernel per column, one launch per call
+    for b in dia_cases.BLOCKS:
+        offs, dtab, X, n = (torch.from_numpy(a).to(dev) if
+                            isinstance(a, np.ndarray) else a
+                            for a in dia_cases.make(name, dtype, b))
+        before = cuda_dia.dia_block_matvec.launches
+        Y = cuda_dia.dia_block_matvec(offs, dtab, X, n)
+        assert cuda_dia.dia_block_matvec.launches - before == 1
+        assert torch.equal(Y, cuda_dia.dia_block_matvec_plain(offs, dtab,
+                                                              X, n)), b
+        for c in range(b):
+            assert torch.equal(Y[c], cuda_dia.dia_matvec(offs, dtab, X[c],
+                                                         n)), (b, c)
+        assert torch.isfinite(Y).all() and not Y[:, n:].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dia_block_plan_matches_the_library(dev, dtype, b):
+    # the host's mirror of the kernel's launch shape (block_plan) against
+    # the library's own answer (block_config), which reads no offsets
+    offsets = dia_cases.CASES["alternating"][0]
+    plan = cuda_dia.block_plan(offsets, 1 << 20, b, dtype)
+    cfg = cuda_dia.block_config(len(offsets), b, 1 << 20, dtype)
+    assert (cfg["tile"], cfg["window"], cfg["smem"], cfg["cols"]) == (
+        plan["tile"], plan["window"], plan["smem"], b)
+    assert cfg["planned"] == 1 and cfg["blocks_per_sm"] >= 1
+    assert 1 <= cfg["grid"] <= ((1 << 20) + plan["tile"] - 1) // plan["tile"]
 
 
 @pytest.mark.gpu
