@@ -155,19 +155,25 @@ class DeviceLanczos:
 
 class Extension:
     """``extend(state, k_end)`` and the pieces the device restart loop
-    drives: ``load`` (a state's device buffers), ``run`` (steps with no
+    drives: ``load`` (a state's device buffers), ``put_h`` (a host
+    projected matrix into those buffers, in place: what a restart reduced
+    on the host hands the next extension), ``run`` (steps with no
     device-to-host read), ``recover`` (the host's steps after a breakdown,
     a doubtful event or a failed dgks refinement) and ``static_counts``.
     ``stepwise``: for the dgks step, the extension step by step on the
     host, each decision read back (``recover``'s path and the twin the
-    read-free steps are held against)."""
+    read-free steps are held against).  ``selective``: the step is the
+    selective Lanczos step, whose buffers hold T's diagonals and no H."""
 
     def __init__(self, extend, load=None, run=None, recover=None,
-                 static_counts=None, stepwise=None):
+                 static_counts=None, stepwise=None, put_h=None,
+                 selective=False):
         self._extend = extend
         self.load, self.run, self.recover = load, run, recover
         self.static_counts = static_counts
         self.stepwise = stepwise
+        self.put_h = put_h
+        self.selective = selective
 
     @property
     def read_free(self) -> bool:
@@ -211,29 +217,41 @@ def rotate_basis_kev(Q: torch.Tensor, V: torch.Tensor, kev: int,
     return V, V[min(kev, R - 1)], R
 
 
+def restart_update(op: Operator, bnorm, V, resid, Q, sigmak, betak,
+                   kev: int):
+    """The device part of an implicit restart (dsapps / dnapps / znapps,
+    SRC/dsapps.f:445-501, SRC/dsaup2.f:764-808), with no device-to-host
+    read: the kev-row rotation of the basis ``V`` by ``Q`` in place (real,
+    also for a Hermitian basis; complex for the complex Arnoldi restart),
+    ``r <- sigma_k r + beta_k v_next`` (``sigmak``, ``betak``: host scalars
+    or 0-d device tensors), its B-product and B-norm.  Returns ``(resid,
+    b_resid, rnorm, rows)``: the norm a 0-d device tensor, ``rows`` the
+    rotated row count."""
+    V, v_next, rows = rotate_basis_kev(Q, V, kev)
+    resid = sigmak * resid + betak * v_next.to(resid.dtype)
+    b_resid = op.b_apply(resid) if op.bmat == "G" else resid
+    return resid, b_resid, bnorm(resid, b_resid), rows
+
+
 def restart_tail(op: Operator, cfg: IRAMConfig, bnorm, state, Q, H_new,
                  sigmak, betak, kev: int):
-    """The device side of an implicit restart (dsapps / dnapps / znapps,
-    SRC/dsapps.f:445-501, SRC/dsaup2.f:764-808): the kev-row rotation of
-    the basis by the host ``Q`` (real, also for a Hermitian basis; complex
-    for the complex Arnoldi restart), ``r <- sigma_k r + beta_k v_next``,
-    its B-product and B-norm (one read).  Returns the restarted state with
-    ``H_new`` as its H."""
+    """An implicit restart by the host ``Q``, ``sigmak`` and ``betak``:
+    :func:`restart_update`, then one read of the new residual's B-norm.
+    Returns the restarted state with ``H_new`` as its H."""
     tdt = _dt.torch_dtype(cfg.dtype)
     rdt = _dt.real_dtype(cfg.dtype)
     cplx_q = np.iscomplexobj(Q)
     Q_dev = torch.from_numpy(np.ascontiguousarray(Q)).to(
         device=op.device, dtype=tdt if cplx_q else _dt.torch_dtype(rdt))
-    V, v_next, rots = rotate_basis_kev(Q_dev, state.V, kev)
     scalar = complex if cplx_q else (lambda x: float(np.real(x)))
-    resid = scalar(sigmak) * state.resid + scalar(betak) * v_next.to(tdt)
-    is_g = op.bmat == "G"
-    b_resid = op.b_apply(resid) if is_g else resid
-    counts = state.counts.add(nbx=1 if is_g else 0, nrotr=rots)
-    rnorm = _host(bnorm(resid, b_resid), rdt)
-    return state.replace(V=V, H=np.asarray(H_new).astype(cfg.dtype),
-                         resid=resid, b_resid=b_resid, rnorm=rnorm, k=kev,
-                         nev_cur=kev, iter=state.iter + 1, counts=counts)
+    resid, b_resid, rn, rots = restart_update(
+        op, bnorm, state.V, state.resid, Q_dev, scalar(sigmak),
+        scalar(betak), kev)
+    counts = state.counts.add(nbx=1 if op.bmat == "G" else 0, nrotr=rots)
+    return state.replace(H=np.asarray(H_new).astype(cfg.dtype),
+                         resid=resid, b_resid=b_resid, rnorm=_host(rn, rdt),
+                         k=kev, nev_cur=kev, iter=state.iter + 1,
+                         counts=counts)
 
 
 def kev_rows(ncv: int, kev: int, need_next: bool = True) -> int:
@@ -623,16 +641,19 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
     redo_brk = torch.full((), REDO, dtype=torch.int32, device=device)
     live0 = torch.ones((), dtype=torch.bool, device=device)
 
+    def _diagonals(H):
+        """T's diagonal and subdiagonal of the host matrix ``H`` in the
+        real dtype, the subdiagonal padded with a zero to ncv."""
+        b = np.zeros(ncv, rdt)
+        b[:ncv - 1] = np.diagonal(H, offset=-1).real
+        return np.ascontiguousarray(np.diagonal(H).real.astype(rdt)), b
+
     def load(st: FactorizationState) -> DeviceLanczos:
         """The device buffers of an extension from a state: T's diagonals
         from ``st.H`` (and for dgks a copy of H), copies of the residual
         (the state is not changed), the basis itself (updated in place),
         room for the entry."""
-        a = torch.from_numpy(np.ascontiguousarray(
-            np.diagonal(st.H).real.astype(rdt))).to(device)
-        b = torch.zeros(ncv, dtype=rtd, device=device)
-        b[:ncv - 1] = torch.from_numpy(np.ascontiguousarray(
-            np.diagonal(st.H, offset=-1).real.astype(rdt)))
+        a, b = (torch.from_numpy(x).to(device) for x in _diagonals(st.H))
         resid = st.resid.clone()
         resid0 = torch.empty_like(resid)
         return DeviceLanczos(
@@ -648,6 +669,18 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
             cnt0=torch.empty(4, dtype=torch.int64, device=device),
             H=None if use_pro else torch.from_numpy(
                 np.array(st.H, dtype=dtype)).to(device))
+
+    def put_h(ds: DeviceLanczos, H, copy) -> None:
+        """The host matrix ``H`` into the buffers the next extension reads,
+        in place, as :func:`load` puts a state's: T's diagonals into ``a``
+        and ``b`` for the selective step, H itself for dgks.  ``copy(dst,
+        array)`` moves one host array into a device buffer."""
+        if use_pro:
+            a, b = _diagonals(H)
+            copy(ds.a, a)
+            copy(ds.b, b)
+        else:
+            copy(ds.H, np.asarray(H, dtype=dtype))
 
     def _save_entry(ds: DeviceLanczos) -> None:
         """The extension's entry, which ``REDO`` restores."""
@@ -825,7 +858,7 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
 
         return Extension(extend_dgks, load=load, run=run_dgks,
                          recover=recover_dgks, static_counts=static_counts,
-                         stepwise=stepwise)
+                         stepwise=stepwise, put_h=put_h)
 
     # ---- partial reorthogonalization (reorth='selective') --------------
     # Noise floor of an inner product: 8*log2(n)*eps under pairwise/tree
@@ -1154,4 +1187,4 @@ def make_extend(op: Operator, cfg: IRAMConfig) -> "Extension":
         return finish(ds, st, st.k, k_end)
 
     return Extension(extend, load=load, run=run, recover=recover,
-                     static_counts=static_counts)
+                     static_counts=static_counts, put_h=put_h, selective=True)

@@ -36,7 +36,18 @@ On the device:
   basis drifts that much per cycle (2e-4 after 300 cycles of the 2-D
   Laplacian at n = 65,536) and the Ritz values climb past the spectrum
   while their bounds stay small.  One read per cycle brings the wanted
-  Ritz values and bounds to the host for the convergence test.
+  Ritz values and bounds to the host for the convergence test;
+* the reference compiles the whole cycle (``hoisted_jit(cycle)``): here
+  ``eigh`` stays outside (it synchronizes) and the rest of the cycle (the
+  bounds, the thick restart, the new arrow H and the block steps back to
+  ncv) runs on buffers that live for the whole solve, H rebuilt in place;
+  on a CUDA card, for a capturable operator (and a mesh whose transport
+  is, NCCL), that work is one CUDA graph (``core/loop.CapturedGraph``),
+  captured in the second cycle after the first ran eagerly on the solve's
+  stream and replayed every cycle after, with the same kernels in the
+  same order as the eager cycle (``cholesky_ex`` and the triangular solve
+  of CholQR2 capture as they are).  The matvec count is a host count each
+  cycle adds to.
 
 The reference cached built solvers by ``id(op)`` to amortize XLA
 compiles; the port compiles nothing and keeps no such cache.
@@ -58,12 +69,33 @@ from ..ops.operator import Operator
 from ..parallel.sharding import mesh_operator
 from ..utils import dtypes as _dt
 from ..utils.precision import pin_full_precision
+from .loop import CapturedGraph
 
 
 class BlockState(NamedTuple):
     V: torch.Tensor    # (ncv + b, n_pad) basis rows, updated in place
-    H: torch.Tensor    # (ncv + b, ncv + b) symmetric projection
+    H: torch.Tensor    # (ncv + b, ncv + b) symmetric projection, in place
     nmv: int           # matvec counter
+    run: Optional["_BlockRun"] = None   # the solve's cycle buffers, graph
+
+
+class _BlockRun:
+    """What one solve's cycles share (made by ``init``): T's eigenpairs in
+    float64 (what ``eigh`` hands the restart), and on a CUDA card for a
+    capturable operator the restart and refill as one CUDA graph
+    (``core/loop.CapturedGraph``, captured in the second cycle, after the
+    first ran eagerly on the same stream as its warm-up) and that
+    stream."""
+
+    def __init__(self, ncv: int, device, capture: bool):
+        self.theta = torch.zeros(ncv, dtype=torch.float64, device=device)
+        self.S = torch.zeros((ncv, ncv), dtype=torch.float64, device=device)
+        self.capture = capture
+        self.graph = None
+        self.cycles = 0
+        if device.type == "cuda":
+            self.stream = torch.cuda.Stream(device=device)
+            self.pool = torch.cuda.graph_pool_handle()
 
 
 def _same(t):
@@ -164,14 +196,14 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
         W = W - c2.T @ Vs
         return W, c1 + c2
 
-    def _steps(V, H, s0, nmv):
+    def _steps(V, H, s0) -> int:
         """Extend: the current orthonormal block sits at rows [s0-b, s0);
         run block steps until ncv rows are filled, leaving the final
-        residual block (orthonormalized) at rows [ncv, ncv+b)."""
+        residual block (orthonormalized) at rows [ncv, ncv+b).  Returns the
+        matvecs."""
         s = s0
         while s + b <= ncv + b:
             AW = a_block(V[s - b:s])
-            nmv += b
             AW, coeff = _ortho_block(V, s, AW)
             Q, R = _qr_rows(AW, red)
             V[s:s + b] = Q
@@ -180,7 +212,11 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
             H[s:s + b, s - b:s] = R
             H[s - b:s, s:s + b] = R.T
             s += b
-        return V, H, nmv
+        return s - s0
+
+    # a mesh's collectives are captured where its transport allows
+    capture = (device.type == "cuda" and op.capturable
+               and (mesh is None or mesh.capturable))
 
     def init(gen: Optional[torch.Generator] = None, X0=None) -> BlockState:
         X = torch.zeros((b, n_pad), dtype=tdt)
@@ -197,20 +233,19 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
         V = torch.zeros((nrow, n_loc), dtype=tdt, device=device)
         V[:b] = Q
         H = torch.zeros((nrow, nrow), dtype=tdt, device=device)
-        V, H, nmv = _steps(V, H, b, 0)
-        return BlockState(V=V, H=H, nmv=nmv)
+        nmv = _steps(V, H, b)
+        return BlockState(V=V, H=H, nmv=nmv,
+                          run=_BlockRun(ncv, device, capture))
 
-    def cycle(st: BlockState):
-        """Ritz + thick restart + refill."""
-        V, H = st.V, st.H
-        T = H[:ncv, :ncv].double()
-        # in float64 whatever the problem dtype (the reference's float32
-        # eigh leaves S orthonormal to ~1e-6, and the restart below rotates
-        # V by it unchecked: the basis drifts that much every cycle)
-        theta, S = torch.linalg.eigh((T + T.T) / 2)
-        S = S.to(tdt)
-        # bounds: || B_p * S[last b rows, i] ||, B_p = H[ncv:ncv+b, ncv-b:ncv]
-        Bp = H[ncv:nrow, ncv - b:ncv]
+    def restart(V, H, run):
+        """The cycle after T's eigensolve (``run.theta``, ``run.S``), with
+        no device-to-host read (what the graph holds): the bounds, the
+        thick restart and the refill, V and H in place.  Returns the nev
+        wanted Ritz values and bounds, and the matvecs."""
+        theta, S = run.theta, run.S.to(tdt)
+        # bounds: || B_p * S[last b rows, i] ||, B_p = H[ncv:ncv+b,
+        # ncv-b:ncv] (a copy: H is rebuilt in place below)
+        Bp = H[ncv:nrow, ncv - b:ncv].clone()
         bounds = torch.linalg.norm(Bp @ S[ncv - b:ncv, :], dim=0)
         # wanted = largest algebraic (LA) at the top end of eigh order;
         # thick restart: V[:kev] = S_k^T V[:ncv]; residual block moves down
@@ -218,14 +253,48 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
         S_k = S[:, ncv - kev:].contiguous()
         rotate_rows(S_k, V[:ncv], kev)
         V[kev:kev + b] = V[ncv:nrow]
-        Hn = torch.zeros((nrow, nrow), dtype=tdt, device=device)
-        Hn.diagonal()[:kev] = theta_k.to(tdt)
+        H.zero_()
+        H.diagonal()[:kev] = theta_k.to(tdt)
         arrow = Bp @ S_k[ncv - b:ncv, :]                  # (b, kev)
-        Hn[kev:kev + b, :kev] = arrow
-        Hn[:kev, kev:kev + b] = arrow.T
-        V, Hn, nmv = _steps(V, Hn, kev + b, st.nmv)
-        return (BlockState(V=V, H=Hn, nmv=nmv),
-                theta[ncv - nev:], bounds[ncv - nev:].double())
+        H[kev:kev + b, :kev] = arrow
+        H[:kev, kev:kev + b] = arrow.T
+        mv = _steps(V, H, kev + b)
+        return theta[ncv - nev:], bounds[ncv - nev:].double(), mv
+
+    def _cycle(st: BlockState):
+        V, H, run = st.V, st.H, st.run
+        T = H[:ncv, :ncv].double()
+        # in float64 whatever the problem dtype (the reference's float32
+        # eigh leaves S orthonormal to ~1e-6, and the restart below rotates
+        # V by it unchecked: the basis drifts that much every cycle)
+        theta, S = torch.linalg.eigh((T + T.T) / 2)
+        run.theta.copy_(theta)
+        run.S.copy_(S)
+        run.cycles += 1
+        if not run.capture or run.cycles == 1:
+            theta_w, bounds_w, mv = restart(V, H, run)
+        else:
+            if run.graph is None:
+                run.graph = CapturedGraph(lambda: restart(V, H, run),
+                                          run.pool, mesh)
+            theta_w, bounds_w, mv = run.graph.replay()
+        return st._replace(nmv=st.nmv + mv), theta_w, bounds_w
+
+    def cycle(st: BlockState):
+        """Ritz + thick restart + refill: ``eigh`` of T (it synchronizes),
+        then :func:`restart`, replayed as one CUDA graph from the second
+        cycle on where the solve captures."""
+        if st.run is None:
+            st = st._replace(run=_BlockRun(ncv, device, capture))
+        if device.type != "cuda":
+            return _cycle(st)
+        cur = torch.cuda.current_stream(device)
+        st.run.stream.wait_stream(cur)
+        try:
+            with torch.cuda.stream(st.run.stream):
+                return _cycle(st)
+        finally:
+            cur.wait_stream(st.run.stream)
 
     def extract(st: BlockState):
         """Ritz pairs of the current factorization (host, float64)."""

@@ -30,7 +30,7 @@ iteration in real arithmetic.
 
 :class:`FusedRealNonsymSolver` runs the restart loop on the operator's
 device, the counterpart of the reference's ``make_realnonsym_multi_cycle``:
-the symmetric driver's loop (``core/device_sym._DeviceLoop``: per cycle the
+the shared device loop (``core/loop._DeviceLoop``: per cycle the
 previous restart's rotation and residual update and the read-free
 extension, one CUDA graph per start ``k`` on a capturable operator), then
 the reduced space above as one kernel launch
@@ -60,7 +60,7 @@ from ..utils.debug import debug, trace
 from . import reduced
 from .arnoldi import (FactorizationState, make_bnorm, make_extend,
                       restart_tail)
-from .device_sym import DeviceLoopSolver
+from .loop import DeviceLoopSolver
 
 
 def params(cfg: IRAMConfig) -> Params:
@@ -160,7 +160,7 @@ def make_realnonsym_tail(op: Operator, cfg: IRAMConfig):
 class FusedRealNonsymSolver(DeviceLoopSolver):
     """dnaupd-equivalent driver over the real non-symmetric cycle, with the
     name of the reference package's driver.  The restart loop runs on the
-    operator's device (:class:`~arpack_ng_tpu_torch.core.device_sym.
+    operator's device (:class:`~arpack_ng_tpu_torch.core.loop.
     DeviceLoopSolver`; the dgks extension is read-free): per cycle, the
     previous restart and the extension from ``k`` (a CUDA graph per ``k``
     on a capturable operator, eager otherwise), the reduced space as one

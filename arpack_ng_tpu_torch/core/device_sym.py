@@ -18,10 +18,11 @@ residual update of the previous cycle plus the Lanczos extension, with no
 device-to-host read (on a CUDA card, one CUDA graph per start ``k``), then
 the reduced space as one kernel (``ops/cuda_sym_cycle.py``), then one read
 of a small packet; the dgks loop (``reorth='dgks'``) is the same loop over
-the read-free CGS + DGKS extension.  The loop (:class:`DeviceLoopSolver`,
-:class:`_DeviceLoop`) is shared with the real non-symmetric driver
-(``core/device_realnonsym.py``), which gives it its own reduce step and
-exit.  ``make_sym_head`` / ``make_sym_tail``
+the read-free CGS + DGKS extension.  The loop (``core/loop``:
+:class:`DeviceLoopSolver`, ``_DeviceLoop``) is shared with the real
+non-symmetric driver (``core/device_realnonsym.py``) and the hybrid
+(``core/iram.py``), which give it their own reduce steps and exits.
+``make_sym_head`` / ``make_sym_tail``
 keep the host loop, its reduced space in numpy, which the mid-solve
 hand-over drives cycle by cycle, and so do the re-tridiagonalizing thick
 restart (``restart='thick'``, :func:`thick_restart`) and caller-supplied
@@ -29,34 +30,23 @@ shifts (``shift_fn``, the ido=3 protocol).
 """
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import IRAMConfig
-from ..ops import (cuda_cgs, cuda_dia, cuda_psell, cuda_rot, cuda_sel,
-                   cuda_sym_cycle)
-from ..ops.cuda_sym_cycle import (P_BRK, P_CNT, P_DONE, P_FORCE, P_HEAD,
-                                  P_INFO, P_NCONV, P_NEV, P_RNORM, Params,
-                                  head_of, head_plain, packet_size,
+from ..ops import cuda_sym_cycle
+from ..ops.cuda_sym_cycle import (P_CNT, P_DONE, P_HEAD, P_NCONV, P_RNORM,
+                                  Params, head_of, head_plain, packet_size,
                                   shifts_plain, sym_cycle, which_key)
 from ..ops.operator import Operator
 from ..utils import dtypes as _dt
 from ..utils.debug import debug, trace
-from ..utils.stats import Timers
 from . import reduced
-from .arnoldi import (FactorizationState, kev_rows, make_bnorm, make_extend,
+from .arnoldi import (FactorizationState, make_bnorm, make_extend,
                       restart_tail, rotate_basis_kev)
-from .iram import HostLoopSolver, IRAMResult
-
-#: the kernel wrappers whose launches a captured graph holds: on each
-#: replay the solver adds the launches its capture counted
-GRAPH_KERNELS = (cuda_sel.sel_proj, cuda_sel.sel_update,
-                 cuda_cgs.cgs_proj, cuda_cgs.cgs_update,
-                 cuda_rot.rotate_rows, cuda_dia.dia_matvec,
-                 cuda_psell.psell_matvec)
+from .loop import DeviceLoopSolver
 
 
 class CycleOut(NamedTuple):
@@ -306,114 +296,6 @@ def thick_restart(op: Operator, cfg: IRAMConfig, h: HeadOut
                          counts=state.counts.add(nrotr=rots))
 
 
-class DeviceLoopSolver(HostLoopSolver):
-    """A cycle driver whose restart loop runs on the operator's device
-    (:class:`_DeviceLoop`) where its extension is read-free and the driver
-    does not ask for the host loop (``_host_loop``).  The driver gives the
-    loop its reduce step: the packet's size (:meth:`_packet_size`), the
-    reduced-space kernel's launch (:meth:`_reduce`), the factorization's
-    host fields from a packet or from one read of the device buffers
-    (:meth:`_packet_fields`, :meth:`_read_fields`), the cycle output
-    (:meth:`_cycle_out`) and the per-cycle trace (:meth:`_trace_packet`);
-    its exit is :meth:`_exit`, as on the host loop.  The rest of the loop
-    is shared: the deferred restart (the kev-row rotation by
-    ``csrc/rot.cu``, the residual update from ``sk``, the B-norm), the CUDA
-    graph per start ``k`` on a capturable operator, the first cycle run
-    eagerly, the host's rerun after a breakdown or a failed refinement
-    (``Extension.recover``, then the kernel again) and the mesh's
-    collectives.
-
-    The reference runs up to ``cycles_per_dispatch`` cycles in one
-    ``lax.while_loop``; here the unit of dispatch is one cycle, because the
-    next extension's start ``k = nev_eff`` picks the graph to replay and is
-    known only from the cycle's packet.  :meth:`multi` bounds a run
-    instead: at most ``n_cycles`` cycles, then the state at the cycle
-    boundary, which ``io/checkpoint`` can dump and a fresh solver's
-    :meth:`solve` resumes.  The loop defers each cycle's restart (the
-    kev-row rotation and the residual update) to the start of the next
-    cycle; a boundary applies it first, so the state handed back is the one
-    the host loop holds there."""
-
-    _host_loop = True
-
-    def _packet_size(self) -> int:
-        raise NotImplementedError
-
-    def _reduce(self, ds, Q, sk, packet, is_last: bool) -> None:
-        raise NotImplementedError
-
-    def _packet_fields(self, pk):
-        """``(H, rnorm, counters)`` of the factorization from a packet."""
-        raise NotImplementedError
-
-    def _read_fields(self, ds):
-        """``(H, rnorm, counters)`` from one read of the device buffers."""
-        raise NotImplementedError
-
-    def _cycle_out(self, state: FactorizationState, pk):
-        """The cycle output with ``state``; ``pk`` None before any cycle
-        ended (no Ritz values)."""
-        raise NotImplementedError
-
-    def _trace_packet(self, pk, it: int) -> None:
-        pass
-
-    def _open(self, out) -> bool:
-        """Whether a run that handed back ``out`` stopped at a boundary
-        (the exit test has not fired, cycles and no error remain)."""
-        st = out.state
-        return not out.done and st.iter < self.cfg.max_iter and st.info == 0
-
-    def multi(self, state: FactorizationState, n_cycles: int):
-        """At most ``n_cycles`` restart cycles from ``state`` (reference
-        ``make_sym_multi_cycle``, ``make_realnonsym_multi_cycle``).  A run
-        that stops at the bound hands back the restarted state (``k =
-        nev_eff``; ``done`` False), which :meth:`solve` resumes here or in
-        a fresh solver; a run that exits hands back the exit's state as
-        :meth:`solve` does.  The state's basis is updated in place."""
-        out = self._start(state)
-        if n_cycles < 1 or not self._open(out):
-            return out
-        if not self._host_loop:
-            return _DeviceLoop(self, state).run(n_cycles)
-        for _ in range(n_cycles):
-            st = out.state
-            out = self._tail(self._head(st), st.iter + 1 >= self.cfg.max_iter)
-            if not self._open(out):
-                break
-        return out
-
-    def solve(self, gen=None, v0=None, state=None) -> IRAMResult:
-        if self._host_loop:
-            return super().solve(gen=gen, v0=v0, state=state)
-        timers = Timers()
-        self._c0 = None if self.mesh is None else self.mesh.snapshot()
-        t0 = time.perf_counter()
-        if state is None:
-            with timers.timed("tgetv0", self.op.device):
-                state = self.init_state(gen=gen, v0=v0)
-        if state.info < 0:
-            z = np.zeros(self.cfg.ncv)
-            return self._result(state, z, z, 0, state.info, 0, timers)
-        loop = _DeviceLoop(self, state)
-        out = loop.run()
-        timers.taupd = time.perf_counter() - t0
-        timers.taitr, timers.tapps = loop.times()
-        state = out.state
-        if state.info != 0:
-            z = np.zeros(self.cfg.ncv)
-            res = self._result(state, z, z, 0, -9999 if state.info > 0
-                               else state.info, state.iter, timers)
-        else:
-            ritz, bounds, info = self._exit(out)
-            res = self._result(state, ritz, bounds, out.nconv, info,
-                               state.iter, timers)
-        loop.record(res.stats)
-        if debug.maupd > 0:
-            print(res.stats.summary())
-        return res
-
-
 class FusedSymSolver(DeviceLoopSolver):
     """dsaupd-equivalent driver over the symmetric cycle, with the name of
     the reference package's driver.
@@ -527,224 +409,3 @@ class FusedSymSolver(DeviceLoopSolver):
                   " _sym_cycle: bounds {b}",
                   r=pk[P_HEAD + 2 * ncv:P_HEAD + 3 * ncv],
                   b=pk[P_HEAD + 3 * ncv:])
-
-
-class _DeviceLoop:
-    """One solve of the restart loop on the operator's device, over the
-    selective or the dgks extension, with the driver's reduce step (see
-    :class:`DeviceLoopSolver`): its buffers, graphs, stream and packet."""
-
-    def __init__(self, solver: DeviceLoopSolver, state: FactorizationState):
-        op, cfg = solver.op, solver.cfg
-        self.solver = solver
-        self.op, self.cfg, self.ext = op, cfg, solver._ext
-        self.state = state
-        self.ncv = ncv = cfg.ncv
-        dev = op.device
-        self.cuda = dev.type == "cuda"
-        rtd = _dt.torch_dtype(_dt.real_dtype(cfg.dtype))
-        self.tdt = _dt.torch_dtype(cfg.dtype)
-        self.is_g = op.bmat == "G"
-        self.bnorm = make_bnorm(op, cfg)
-        self.ds = self.ext.load(state)
-        self.Q = torch.zeros((ncv, ncv), dtype=rtd, device=dev)
-        self.sk = torch.zeros(2, dtype=rtd, device=dev)
-        self.packet = torch.zeros(solver._packet_size(), dtype=torch.float64,
-                                  device=dev)
-        self.mesh = op.mesh
-        # a mesh's collectives are captured where its transport allows
-        self.capture = self.cuda and op.capturable and (
-            self.mesh is None or self.mesh.capturable)
-        self.graphs = {}          # k -> (graph, launches, collectives)
-        self.replays = 0
-        self.packets = 0
-        self.events = []
-        if self.cuda:
-            self.stream = torch.cuda.Stream(device=dev)
-            self.pool = torch.cuda.graph_pool_handle()
-            self.pk_host = torch.empty(solver._packet_size(),
-                                       dtype=torch.float64, pin_memory=True)
-            self.done_evt = torch.cuda.Event()
-        self.t_ext = self.t_red = 0.0
-
-    # ---- one cycle's pieces --------------------------------------------
-    def _prefix(self, k: int) -> int:
-        """The previous cycle's restart: the kev-row rotation by Q and the
-        residual update from the device sigmak/betak (dsapps.f:445-481),
-        then its B-norm.  Returns the rotated row count."""
-        ds, tdt = self.ds, self.tdt
-        rows = kev_rows(self.ncv, k)
-        cuda_rot.rotate_rows(self.Q, ds.V, rows)
-        resid = self.sk[0] * ds.resid + self.sk[1] * ds.V[k].to(tdt)
-        ds.resid.copy_(resid)
-        if self.is_g:
-            ds.b_resid.copy_(self.op.b_apply(ds.resid))
-        ds.rnorm.copy_(self.bnorm(ds.resid, ds.b_resid))
-        return rows
-
-    def _cycle_body(self, k: int) -> None:
-        self._prefix(k)
-        self.ext.run(self.ds, k, self.ncv)
-
-    def _replay(self, k: int) -> None:
-        """The cycle's rotation and extension from ``k`` as a CUDA graph,
-        captured on first use.  A kernel wrapper counts its launch when the
-        capture records it, and a mesh its collectives; the capture's counts
-        are taken back and added again on every replay."""
-        mesh = self.mesh
-        entry = self.graphs.get(k)
-        if entry is None:
-            before = [f.launches for f in GRAPH_KERNELS]
-            c0 = None if mesh is None else mesh.snapshot()
-            g = torch.cuda.CUDAGraph()
-            g.capture_begin(pool=self.pool)
-            try:
-                self._cycle_body(k)
-            finally:
-                g.capture_end()
-            delta = [f.launches - b for f, b in zip(GRAPH_KERNELS, before)]
-            for f, d in zip(GRAPH_KERNELS, delta):
-                f.launches -= d
-            coll = None
-            if mesh is not None:
-                coll = mesh.snapshot()
-                coll.subtract(c0)
-                mesh.counts.subtract(coll)
-            entry = self.graphs[k] = (g, delta, coll)
-        g, delta, coll = entry
-        g.replay()
-        for f, d in zip(GRAPH_KERNELS, delta):
-            f.launches += d
-        if coll is not None:
-            mesh.counts.update(coll)
-        self.replays += 1
-
-    def _reduce(self, is_last: bool) -> np.ndarray:
-        """The cycle's reduced space and its packet, read once."""
-        self.packets += 1
-        self.solver._reduce(self.ds, self.Q, self.sk, self.packet, is_last)
-        if not self.cuda:
-            return self.packet.numpy().copy()
-        self.pk_host.copy_(self.packet, non_blocking=True)
-        self.done_evt.record()
-        self.done_evt.synchronize()
-        return self.pk_host.numpy().copy()
-
-    # ---- the loop ------------------------------------------------------
-    def run(self, n_cycles=None):
-        """The restart loop from the state, to its exit or, with
-        ``n_cycles``, to the boundary after that many cycles."""
-        if not self.cuda:
-            return self._loop(n_cycles)
-        cur = torch.cuda.current_stream(self.op.device)
-        self.stream.wait_stream(cur)
-        try:
-            with torch.cuda.stream(self.stream):
-                return self._loop(n_cycles)
-        finally:
-            cur.wait_stream(self.stream)
-
-    def _timed(self, fn, *args):
-        if not self.cuda:
-            t0 = time.perf_counter()
-            out = fn(*args)
-            return out, time.perf_counter() - t0
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        out = fn(*args)
-        e1.record()
-        self.events.append((e0, e1))
-        return out, None
-
-    def _loop(self, n_cycles=None):
-        cfg, ext, ncv = self.cfg, self.ext, self.ncv
-        st = self.state
-        counts, it, info, k = st.counts, st.iter, st.info, st.k
-        nev_cur = st.nev_cur
-        pk = None
-        first = True
-        ran = 0
-        while it < cfg.max_iter and info == 0:
-            if n_cycles is not None and ran == n_cycles:
-                return self._boundary(pk, counts, it, k)
-            ran += 1
-            is_last = it + 1 >= cfg.max_iter
-            k0 = k
-            if first:
-                _, dt = self._timed(ext.run, self.ds, k, ncv)
-                first = False
-            else:
-                counts = counts.add(nbx=int(self.is_g),
-                                    nrotr=kev_rows(ncv, k))
-                body = self._replay if self.capture else self._cycle_body
-                _, dt = self._timed(body, k)
-            self.t_ext += dt or 0.0
-            pk, dt = self._timed(self._reduce, is_last)
-            self.t_red += dt or 0.0
-            brk = int(pk[P_BRK])
-            if brk != -1:
-                counts, info, k = ext.recover(self.ds, brk, k0, ncv, st.gen,
-                                              counts, info, int(pk[P_FORCE]))
-                if info != 0:
-                    it += 1
-                    break
-                pk = self._reduce(is_last)
-            else:
-                counts = ext.static_counts(counts, ncv - k0)
-            self.solver._trace_packet(pk, it)
-            it += 1
-            if int(pk[P_INFO]) != 0:
-                info = int(pk[P_INFO])
-                break
-            if pk[P_DONE] or is_last:
-                k = ncv
-                break
-            k = nev_cur = int(pk[P_NEV])
-        return self._out(pk, counts, it, info, k, nev_cur)
-
-    def _boundary(self, pk, counts, it, k):
-        """The state between cycles: the restart the next cycle would begin
-        with (:meth:`_prefix`: the kev-row rotation, the residual update
-        and its norm; T is already the restarted one), applied now, then
-        the state from one read."""
-        counts = counts.add(nbx=int(self.is_g), nrotr=self._prefix(k))
-        return self._out(pk, counts, it, 0, k, k, read=True)
-
-    def _out(self, pk, counts, it, info, k, nev_cur, read=False):
-        """The state's host fields from the last packet (the factorization
-        before its shifts: every exit skips them), or, after a failed
-        restart vector or at a boundary (``read``), from one read."""
-        ds, cfg, solver = self.ds, self.cfg, self.solver
-        if pk is None or info > 0 or read:
-            H, rn, ev = solver._read_fields(ds)
-        else:
-            H, rn, ev = solver._packet_fields(pk)
-        ev = np.asarray(ev).astype(np.int64)
-        counts = counts.add(nrorth=ev[0], nitref=ev[1], nbx=ev[2],
-                            nrorthr=ev[3])
-        rdt = _dt.real_dtype(cfg.dtype)
-        state = self.state.replace(
-            V=ds.V, H=np.asarray(H).astype(cfg.dtype), resid=ds.resid,
-            b_resid=ds.b_resid, rnorm=rdt.type(rn), k=k, nev_cur=nev_cur,
-            iter=it, info=info, counts=counts)
-        return solver._cycle_out(state, None if pk is None or info > 0
-                                 else pk)
-
-    def times(self):
-        """Seconds of the extensions (with the restart rotations) and of
-        the reduced spaces: CUDA-event device time on a card."""
-        if self.cuda:
-            torch.cuda.synchronize(self.op.device)
-            ms = [e0.elapsed_time(e1) for e0, e1 in self.events]
-            self.t_ext = sum(ms[0::2]) / 1e3
-            self.t_red = sum(ms[1::2]) / 1e3
-        return self.t_ext, self.t_red
-
-    def record(self, stats) -> None:
-        """The dispatch counters in the solve's statistics."""
-        stats.packets = self.packets
-        stats.graphs_captured = len(self.graphs)
-        stats.graph_replays = self.replays
-        stats.replay_launches = {
-            k: {f.__name__: d for f, d in zip(GRAPH_KERNELS, delta) if d}
-            for k, (_, delta, _) in sorted(self.graphs.items())}

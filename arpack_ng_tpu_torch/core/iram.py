@@ -1,135 +1,41 @@
 """Implicitly-restarted Arnoldi/Lanczos driver (port of
-``arpack_ng_tpu/core/iram.py``): the output of the iteration phase
-(``IRAMResult``), the host restart loop the cycle drivers share
-(``HostLoopSolver``) and the hybrid driver ``IRAMSolver``, the
-dsaupd+dsaup2 / dnaupd+dnaup2 / znaupd+znaup2 equivalent.
+``arpack_ng_tpu/core/iram.py``): the hybrid driver ``IRAMSolver``, the
+dsaupd+dsaup2 / dnaupd+dnaup2 / znaupd+znaup2 equivalent.  The output of
+the iteration phase (``IRAMResult``) and the host restart loop the cycle
+drivers share (``HostLoopSolver``) live in ``core/loop`` and are
+importable here.
 
 The hybrid driver splits each cycle as the reference package's
 ``IRAMSolver.iterate`` does: the extension to ncv steps on the operator's
 device, then one read of the projected matrix and the residual norm, the
 reduced space on the host in float64 (complex128 for complex dtypes) with
-``core/reduced`` (Ritz values and bounds, shift selection, the
-convergence count, the zero-bound rule, the exit test, nev inflation, the
-shifted QR), then the device tail: the kev-row basis rotation, the
-residual update ``r <- sigma_k r + beta_k v_next`` and its B-norm.
+``core/reduced`` (:func:`make_iram_reduce`: Ritz values and bounds, shift
+selection, the convergence count, the zero-bound rule, the exit test, nev
+inflation, the shifted QR), then the device tail: the kev-row basis
+rotation, the residual update ``r <- sigma_k r + beta_k v_next`` and its
+B-norm.  :class:`IRAMSolver` runs these cycles on the device loop
+(``core/loop._DeviceLoop``): the tail and the next extension with no read
+(one CUDA graph per start ``k`` on a capturable operator), then one read
+of a packet (the breakdown word, rnorm, the event counters and H) for the
+host's reduce step, whose Q, ``(sigmak, betak)`` and restarted H go back
+into the loop's buffers through pinned staging.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..config import IRAMConfig
+from ..ops.cuda_sym_cycle import (P_BRK, P_CNT, P_DONE, P_FORCE, P_HEAD,
+                                  P_INFO, P_NCONV, P_NEV, P_NP, P_RNORM)
 from ..ops.operator import Operator
-from ..parallel.sharding import check_solver, mesh_operator
 from ..utils import dtypes as _dt
 from ..utils.debug import debug, trace
-from ..utils.stats import SolverStats, Timers
 from . import reduced
-from .arnoldi import (FactorizationState, make_bnorm, make_extend,
-                      make_init, restart_tail)
-
-
-@dataclasses.dataclass
-class IRAMResult:
-    """Output of the iteration phase (input to extraction, cf. dseupd)."""
-
-    ritz: np.ndarray        # (ncv,) exit-ordered Ritz values (conv. first)
-    bounds: np.ndarray      # (ncv,) matching Ritz estimates
-    nconv: int              # iparam(5)
-    info: int               # dsaupd info code (0, 1=maxiter, 2=no shifts,
-    #                         <0 errors; SRC/dsaupd.f:247-276)
-    n_iter: int             # iparam(3)
-    state: FactorizationState
-    stats: SolverStats
-
-
-class HostLoopSolver:
-    """The restart loop of a cycle driver, on the host: the start vector
-    (dgetv0), ``tail(head(state), is_last)`` until the exit test fires,
-    ``max_iter`` cycles have run or the state records an error, then the
-    result.  A driver gives the builders of ``head`` and ``tail``, the
-    loop's output before its first cycle (:meth:`_start`) and the exit
-    ordering and info code (:meth:`_exit`).  ``mesh``: the row mesh of a
-    distributed solve (``parallel/sharding``); the operator is lifted onto
-    it unless it was built for it."""
-
-    def __init__(self, op, cfg, make_head, make_tail, mesh=None):
-        op = mesh_operator(op, mesh)
-        check_solver(op, cfg)
-        self.op, self.cfg, self.mesh = op, cfg, op.mesh
-        self._c0 = None     # the mesh's counters when a solve began
-        self._init = make_init(op, cfg)
-        self._head = make_head(op, cfg)
-        self._tail = make_tail(op, cfg)
-
-    def _start(self, state: FactorizationState):
-        raise NotImplementedError
-
-    def _exit(self, out):
-        """``(ritz, bounds, info)`` of the last cycle's output ``out``."""
-        raise NotImplementedError
-
-    def init_state(self, gen: Optional[torch.Generator] = None, v0=None
-                   ) -> FactorizationState:
-        if v0 is None:
-            return self._init(gen, None)
-        v0 = np.asarray(v0)
-        if self.op.perm is not None and v0.shape[0] == self.cfg.n:
-            v0 = v0[np.asarray(self.op.perm)]
-        if v0.shape[0] == self.cfg.n and self.cfg.n_pad != self.cfg.n:
-            v0p = np.zeros((self.cfg.n_pad,), v0.dtype)
-            v0p[: self.cfg.n] = v0
-            v0 = v0p
-        return self._init(gen, v0.astype(self.cfg.dtype))
-
-    def solve(self, gen: Optional[torch.Generator] = None, v0=None,
-              state: Optional[FactorizationState] = None) -> IRAMResult:
-        cfg = self.cfg
-        ncv = cfg.ncv
-        dev = self.op.device
-        timers = Timers()
-        self._c0 = None if self.mesh is None else self.mesh.snapshot()
-        with timers.timed("taupd", dev):
-            if state is None:
-                with timers.timed("tgetv0", dev):
-                    state = self.init_state(gen=gen, v0=v0)
-            if state.info < 0:
-                z = np.zeros(ncv)
-                return self._result(state, z, z, 0, state.info, 0, timers)
-            out = self._start(state)
-            while (not out.done and out.state.iter < cfg.max_iter
-                   and out.state.info == 0):
-                is_last = out.state.iter + 1 >= cfg.max_iter
-                with timers.timed("taitr", dev):
-                    h = self._head(out.state)
-                with timers.timed("tapps", dev):
-                    out = self._tail(h, is_last)
-        state = out.state
-        it, info = self._n_iter(out), state.info
-        if info != 0:
-            z = np.zeros(ncv)
-            return self._result(state, z, z, 0,
-                                -9999 if info > 0 else info, it, timers)
-        ritz, bounds, info = self._exit(out)
-        return self._result(state, ritz, bounds, out.nconv, info, it, timers)
-
-    def _n_iter(self, out) -> int:
-        """The cycles run (iparam(3)) when the loop handed back ``out``."""
-        return out.state.iter
-
-    def _result(self, state, ritz, bounds, nconv, info, n_iter, timers
-                ) -> IRAMResult:
-        stats = SolverStats(n_iter=n_iter, n_conv=nconv, timers=timers)
-        stats.absorb_counts(state.counts)
-        if self._c0 is not None:
-            c = self.mesh.snapshot()
-            c.subtract(self._c0)
-            stats.collectives = dict(c)
-        return IRAMResult(ritz=ritz, bounds=bounds, nconv=nconv, info=info,
-                          n_iter=n_iter, state=state, stats=stats)
+from .arnoldi import FactorizationState, make_bnorm, make_extend, restart_tail
+from .loop import DeviceLoopSolver, HostLoopSolver, IRAMResult  # noqa: F401
 
 
 class IRAMCycleOut(NamedTuple):
@@ -144,6 +50,24 @@ class IRAMCycleOut(NamedTuple):
     info: int
 
 
+class IRAMReduced(NamedTuple):
+    """The host part of one hybrid cycle (:func:`make_iram_reduce`): the
+    exit's Ritz values, bounds and info code when ``done``, else the
+    restart: ``Q``, the shifted ``H_new``, ``sigmak``, ``betak`` and the
+    next length ``nev``."""
+
+    done: bool
+    nconv: int
+    ritz: Optional[np.ndarray] = None
+    bounds: Optional[np.ndarray] = None
+    info: int = 0
+    Q: Optional[np.ndarray] = None
+    H_new: Optional[np.ndarray] = None
+    sigmak: complex = 0.0
+    betak: complex = 0.0
+    nev: int = 0
+
+
 def make_iram_head(op: Operator, cfg: IRAMConfig):
     """``head(state)``: the extension to ncv steps (dsaitr / dnaitr) with
     the event kernels allowed, as the reference's unsharded hybrid builds
@@ -152,37 +76,26 @@ def make_iram_head(op: Operator, cfg: IRAMConfig):
     return lambda state: extend(state, cfg.ncv)
 
 
-def make_iram_tail(op: Operator, cfg: IRAMConfig, shift_fn=None):
-    """``tail(state, is_last) -> IRAMCycleOut``: the reduced space of one
-    cycle on the host and the device tail (reference
-    ``IRAMSolver.iterate``, ``arpack_ng_tpu/core/iram.py:167-306``, from
-    the read-back on).  With ``cfg.exact_shifts`` False the caller's
-    ``shift_fn(ritz, bounds)`` gives the shifts (the ido=3 protocol,
-    SRC/dsaup2.f:700-724): it gets the np unwanted Ritz values and bounds,
-    its leading np shifts are applied in the given order, and nev is not
-    inflated (dsaup2.f:673)."""
+def make_iram_reduce(cfg: IRAMConfig, shift_fn=None):
+    """``reduce(H, rnorm, cur_iter, is_last) -> IRAMReduced``: the reduced
+    space of one cycle on the host (reference ``IRAMSolver.iterate``,
+    ``arpack_ng_tpu/core/iram.py:209-306``), from the projected matrix
+    ``H`` (host, float64 or complex128) and the residual norm.  With
+    ``cfg.exact_shifts`` False the caller's ``shift_fn(ritz, bounds)``
+    gives the shifts (the ido=3 protocol, SRC/dsaup2.f:700-724): it gets
+    the np unwanted Ritz values and bounds, its leading np shifts are
+    applied in the given order, and nev is not inflated (dsaup2.f:673)."""
     kplusp, nev0 = cfg.ncv, cfg.nev
     np0 = kplusp - nev0
     sym = cfg.symmetric
     cplx = _dt.is_complex(cfg.dtype)
-    host = _dt.host_dtype(cfg.dtype)
     tol, eps23 = cfg.tol_effective, cfg.eps23
     eps_m = _dt.eps(np.float64)      # the host reduced space is float64
     smlnum = _dt.safmin(np.float64) * (kplusp / eps_m)
     real_pairs = (not sym) and (not cplx)
-    bnorm = make_bnorm(op, cfg)
-    zero = np.zeros(kplusp)
 
-    def tail(state: FactorizationState, is_last: bool) -> IRAMCycleOut:
-        cur_iter = state.iter + 1
-        if state.info != 0:
-            # no kplusp-step factorization even after random restarts: the
-            # reference maps this to -9999 (SRC/dsaup2.f:434-443)
-            return IRAMCycleOut(state, True, 0, zero, zero,
-                                -9999 if state.info > 0 else state.info)
-        H = np.asarray(state.H).astype(host)
-        rnorm = float(state.rnorm)
-
+    def reduce(H, rnorm: float, cur_iter: int, is_last: bool
+               ) -> IRAMReduced:
         # ---- Ritz values + bounds (dseigt / dneigh) ----
         if sym:
             alpha = np.diag(H).real.copy()
@@ -216,15 +129,15 @@ def make_iram_tail(op: Operator, cfg: IRAMConfig, shift_fn=None):
         nev += nz
 
         # ---- exit test (dsaup2.f:519-667) ----
-        if nconv >= nev0 or cur_iter >= cfg.max_iter or np_ == 0:
+        if nconv >= nev0 or is_last or np_ == 0:
             r_x, b_x = reduced.exit_sort(cfg.which, nev0, nconv, r_s.copy(),
                                          b_s.copy(), eps23, sym, real_pairs)
             info = 0
-            if cur_iter >= cfg.max_iter and nconv < nev0:
+            if is_last and nconv < nev0:
                 info = 1
             if np_ == 0 and nconv < nev0:
                 info = 2
-            return IRAMCycleOut(state, True, nconv, r_x, b_x, info)
+            return IRAMReduced(True, nconv, r_x, b_x, info)
 
         # ---- stagnation guard: inflate nev (dsaup2.f:673-693) ----
         if nconv < nev0 and cfg.exact_shifts:
@@ -258,21 +171,67 @@ def make_iram_tail(op: Operator, cfg: IRAMConfig, shift_fn=None):
             H_new, Q = reduced.nonsym_shift_q(H, shifts[:np_], eps_m,
                                               smlnum, real_pairs)
             betak = H_new[nev, nev - 1] if nev < kplusp else 0.0
-        sigmak = Q[kplusp - 1, nev - 1]
-        state = restart_tail(op, cfg, bnorm, state, Q, H_new, sigmak,
-                             betak, nev)
-        return IRAMCycleOut(state, False, nconv, zero, zero, 0)
+        return IRAMReduced(False, nconv, Q=Q, H_new=H_new,
+                           sigmak=Q[kplusp - 1, nev - 1], betak=betak,
+                           nev=nev)
+
+    return reduce
+
+
+def make_iram_tail(op: Operator, cfg: IRAMConfig, shift_fn=None):
+    """``tail(state, is_last) -> IRAMCycleOut``: the host loop's end of a
+    cycle (reference ``IRAMSolver.iterate``,
+    ``arpack_ng_tpu/core/iram.py:167-306``, from the read-back on): the
+    reduced space (:func:`make_iram_reduce`), then the device tail
+    (``arnoldi.restart_tail``, one read of the new rnorm)."""
+    host = _dt.host_dtype(cfg.dtype)
+    reduce = make_iram_reduce(cfg, shift_fn)
+    bnorm = make_bnorm(op, cfg)
+    zero = np.zeros(cfg.ncv)
+
+    def tail(state: FactorizationState, is_last: bool) -> IRAMCycleOut:
+        if state.info != 0:
+            # no kplusp-step factorization even after random restarts: the
+            # reference maps this to -9999 (SRC/dsaup2.f:434-443)
+            return IRAMCycleOut(state, True, 0, zero, zero,
+                                -9999 if state.info > 0 else state.info)
+        r = reduce(np.asarray(state.H).astype(host), float(state.rnorm),
+                   state.iter + 1, is_last)
+        if r.done:
+            return IRAMCycleOut(state, True, r.nconv, r.ritz, r.bounds,
+                                r.info)
+        state = restart_tail(op, cfg, bnorm, state, r.Q, r.H_new, r.sigmak,
+                             r.betak, r.nev)
+        return IRAMCycleOut(state, False, r.nconv, zero, zero, 0)
 
     return tail
 
 
-class IRAMSolver(HostLoopSolver):
-    """The hybrid driver (reference ``arpack_ng_tpu.core.iram.IRAMSolver``):
-    the host loop over :func:`make_iram_head` and :func:`make_iram_tail`,
-    for symmetric (Hermitian) and non-symmetric, real and complex problems.
-    :meth:`iterate` runs one cycle.  ``shift_fn``: the caller's shifts
-    (see :func:`make_iram_tail`), for a config with ``exact_shifts``
-    False.  ``mesh``: see :class:`HostLoopSolver`."""
+class IRAMSolver(DeviceLoopSolver):
+    """The hybrid driver (reference ``arpack_ng_tpu.core.iram.IRAMSolver``)
+    for symmetric (Hermitian) and non-symmetric, real and complex problems:
+    the device loop (``core/loop._DeviceLoop``; every extension
+    ``make_extend`` builds is read-free) with :func:`make_iram_reduce` as
+    its reduce step on the host.  Per cycle the device runs the previous
+    cycle's restart (the kev-row rotation by the host's Q: the rotation
+    kernel for a real Q, a GEMM with ``Q^T`` for the complex Arnoldi
+    restart) and the extension with no read, on a CUDA card for a
+    capturable operator as one graph per start ``k`` (eagerly otherwise:
+    a caller's matvec, an iterative solve, a C callback, a gloo mesh);
+    then one packet read (the breakdown word, the pair-rule flag, rnorm,
+    the event counters and H: T's diagonals for the selective step, the
+    whole Hessenberg for dgks) and the host's reduced space, whose Q,
+    ``(sigmak, betak)`` and restarted H go into the loop's buffers from
+    pinned staging before the next replay.  The same kernels run in the
+    same order as on the host loop (:meth:`iterate`, ``make_iram_head`` /
+    :func:`make_iram_tail`), which ``_host_loop = True`` runs instead.
+
+    :meth:`iterate` runs one cycle on the host loop; :meth:`multi` at most
+    n cycles on the device loop.  ``shift_fn``: the caller's shifts (see
+    :func:`make_iram_reduce`), for a config with ``exact_shifts`` False.
+    ``mesh``: see :class:`HostLoopSolver`."""
+
+    _exit_counts = False
 
     def __init__(self, op: Operator, cfg: IRAMConfig, shift_fn=None,
                  mesh=None):
@@ -289,6 +248,15 @@ class IRAMSolver(HostLoopSolver):
                              "only; restart='thick' needs strategy='fused'")
         super().__init__(op, cfg, make_iram_head,
                          lambda o, c: make_iram_tail(o, c, shift_fn), mesh)
+        self._ext = make_extend(self.op, cfg)
+        self._host_loop = not self._ext.read_free
+        self._host_reduce = make_iram_reduce(cfg, shift_fn)
+        self._cplx = _dt.is_complex(cfg.dtype)
+        # the selective step leaves T's diagonals, dgks whole columns of H
+        self._tridiagonal = self._ext.selective
+        # the complex Arnoldi restart's Q is complex; a Hermitian one real
+        self._q_np = (np.dtype(cfg.dtype) if self._cplx and not cfg.symmetric
+                      else _dt.real_dtype(cfg.dtype))
 
     def _start(self, state: FactorizationState) -> IRAMCycleOut:
         z = np.zeros(self.cfg.ncv)
@@ -308,11 +276,105 @@ class IRAMSolver(HostLoopSolver):
     def solve(self, gen: Optional[torch.Generator] = None, v0=None,
               state: Optional[FactorizationState] = None) -> IRAMResult:
         res = super().solve(gen=gen, v0=v0, state=state)
-        if debug.maupd > 0:
+        if self._host_loop and debug.maupd > 0:
             print(res.stats.summary())
         return res
 
     def iterate(self, state: FactorizationState) -> IRAMCycleOut:
-        """One major iteration (the dsaup2 1000-loop body)."""
+        """One major iteration (the dsaup2 1000-loop body) on the host
+        loop."""
         return self._tail(self._head(state),
                           state.iter + 1 >= self.cfg.max_iter)
+
+    # ---- the reduce step of the device loop: on the host ----------------
+    # The packet: the header of ``ops/cuda_sym_cycle`` (the device fills
+    # the breakdown word, the pair-rule flag, rnorm and the counters; the
+    # host step the exit flag, nconv, the next k and np_eff), then H: T's
+    # diagonal and subdiagonal, or the whole matrix (real and imaginary
+    # parts interleaved for a complex one).  The host step appends the
+    # exit's Ritz values (real and imaginary parts), bounds and info code.
+    def _h_size(self) -> int:
+        ncv = self.cfg.ncv
+        if self._tridiagonal:
+            return 2 * ncv
+        return ncv * ncv * (2 if self._cplx else 1)
+
+    def _packet_size(self) -> int:
+        return P_HEAD + self._h_size()
+
+    def _q_dtype(self) -> torch.dtype:
+        return _dt.torch_dtype(self._q_np)
+
+    def _reduce(self, ds, Q, sk, packet, is_last: bool) -> None:
+        ncv = self.cfg.ncv
+        packet[P_BRK].copy_(ds.brk)
+        packet[P_FORCE].copy_(ds.force)
+        packet[P_RNORM].copy_(ds.rnorm)
+        packet[P_CNT:P_CNT + 4].copy_(ds.cnt)
+        h = packet[P_HEAD:P_HEAD + self._h_size()]
+        if self._tridiagonal:
+            h[:ncv].copy_(ds.a)
+            h[ncv:].copy_(ds.b)
+        else:
+            h.view(ds.H.shape + ((2,) if self._cplx else ())).copy_(
+                torch.view_as_real(ds.H) if self._cplx else ds.H)
+
+    def _host_step(self, loop, pk, is_last: bool, it: int):
+        if pk[P_BRK] != -1:
+            return pk        # the host finishes the extension first
+        cfg, ncv = self.cfg, self.cfg.ncv
+        H, rnorm, _ = self._packet_fields(pk)
+        r = self._host_reduce(H.astype(_dt.host_dtype(cfg.dtype)),
+                              float(rnorm), it + 1, is_last)
+        pk[P_DONE], pk[P_NCONV], pk[P_INFO] = r.done, r.nconv, 0
+        ritz = bounds = np.zeros(ncv)
+        if r.done:
+            ritz, bounds = np.asarray(r.ritz), np.asarray(r.bounds)
+        else:
+            pk[P_NEV], pk[P_NP] = r.nev, ncv - r.nev
+            loop.stage(loop.Q, np.asarray(r.Q).astype(self._q_np))
+            loop.stage(loop.sk,
+                       np.array([r.sigmak, r.betak]).astype(self._q_np))
+            self._ext.put_h(loop.ds, np.asarray(r.H_new).astype(cfg.dtype),
+                            loop.stage)
+        return np.concatenate([pk, np.real(ritz), np.imag(ritz), bounds,
+                               [r.info]])
+
+    def _packet_fields(self, pk):
+        cfg, ncv = self.cfg, self.cfg.ncv
+        h = pk[P_HEAD:P_HEAD + self._h_size()]
+        if self._tridiagonal:
+            a, b = h[:ncv], h[ncv:2 * ncv - 1]
+            H = np.diag(a) + np.diag(b, 1) + np.diag(b, -1)
+        elif self._cplx:
+            H = h.reshape(ncv, ncv, 2).view(np.complex128)[..., 0]
+        else:
+            H = h.reshape(ncv, ncv)
+        return H.astype(cfg.dtype), pk[P_RNORM], pk[P_CNT:P_CNT + 4]
+
+    def _read_fields(self, ds):
+        packet = torch.zeros(self._packet_size(), dtype=torch.float64,
+                             device=ds.V.device)
+        self._reduce(ds, None, None, packet, False)
+        return self._packet_fields(packet.cpu().numpy())
+
+    def _cycle_out(self, state: FactorizationState, pk) -> IRAMCycleOut:
+        ncv = self.cfg.ncv
+        z = np.zeros(ncv)
+        if pk is None:
+            # no cycle ended, or a failed restart vector (-9999 as on the
+            # host loop, SRC/dsaup2.f:434-443)
+            return IRAMCycleOut(state, state.info != 0, 0, z, z,
+                                -9999 if state.info > 0 else state.info)
+        if not pk[P_DONE]:
+            return IRAMCycleOut(state, False, int(pk[P_NCONV]), z, z, 0)
+        x = P_HEAD + self._h_size()
+        re, im, bounds = pk[x:x + ncv], pk[x + ncv:x + 2 * ncv], \
+            pk[x + 2 * ncv:x + 3 * ncv]
+        if self.cfg.symmetric:
+            ritz = re.copy()
+        else:
+            ritz = np.empty(ncv, np.complex128)
+            ritz.real, ritz.imag = re, im
+        return IRAMCycleOut(state, True, int(pk[P_NCONV]), ritz,
+                            bounds.copy(), int(pk[x + 3 * ncv]))

@@ -129,9 +129,15 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    operator is strongly non-normal, and float32 pairs converged by
    residual may lie in its pseudospectrum;
 10. the hybrid driver and complex dtypes at full width, float32 /
-   complex64, k = 8, ncv = 32, tol = 1e-5: (a) the flagship through
-   ``eigsh(strategy='hybrid')`` (the reduced space on the host in float64,
-   the event and rotation kernels) under the phase-4 gates; (b)
+   complex64, k = 8, ncv = 32, tol = 1e-5; every hybrid solve runs the
+   device loop (``core/iram.IRAMSolver``: a CUDA graph per start k, one
+   packet a cycle and host rerun, the reduced space on the host), and
+   (a)-(c)'s again on the eager host loop (``_host_loop``), which must
+   give the same values and vectors bit for bit and equal cycles, nopx,
+   nrorth, nrorthr and launches (both walls and ms per step printed): (a)
+   the flagship through ``eigsh(strategy='hybrid')`` (the reduced space
+   on the host in float64, the event and rotation kernels) under the
+   phase-4 gates; (b)
    ``eigs(strategy='hybrid', cgs_kernel='pallas')`` on the conv-diff
    operator at nx = 1024, the cell phase 9b-c cuts to 512: every returned
    value's residual ``<= 1e-3`` and closed under conjugation, the value
@@ -144,7 +150,8 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    basis' real view) and 'hybrid': real values within 1e-4*|lambda| of the
    analytic spectrum, residuals ``<= 1e-3`` (complex128, host); (d)
    ``eigs`` on ``convection_diffusion_2d(512, complex64)`` under 'auto'
-   (the hybrid driver), cut to nx = 512 to compare with 9b: 8 values,
+   (the hybrid driver, its complex restart a GEMM), cut to nx = 512 to
+   compare with 9b: 8 values,
    residuals ``<= 1e-3``; how far its values lie from 9b's as sets is
    reported beside 9c's distance from 9b (both drivers' float32 values lie
    in the operator's pseudospectrum, above its real spectrum); 10c's
@@ -240,9 +247,12 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    phase 4's gates with the multiplet convention, and
    ``bench_block.py``'s dia65 (65 diagonals) at n = 2^20, tol = 1e-4: top
    value within ``1e-4 |lambda|`` of the scalar's, residuals ``<= 1e-3``
-   by the block DIA twin on the card in float64; wall, cycles, matvecs,
-   ms per cycle, the share of ``eigh`` of T in it and ms per block
-   apply; (e) the block DIA kernel against its twin on both tables, b in
+   by the block DIA twin on the card in float64; each cycle after the
+   first a replay of the solve's one CUDA graph, then the same solve with
+   the operator declared not capturable (every cycle eager): equal
+   cycles, matvecs and launches, values and vectors bit for bit; wall,
+   cycles, matvecs, ms per cycle on the graph and eager, the share of
+   ``eigh`` of T in it and ms per block apply; (e) the block DIA kernel against its twin on both tables, b in
    {1, 2, 4, 8}, float32 and float64, at n and n + 3, bit for bit (and
    each column against the single kernel), timed beside its bound, b
    single launches and ``torch.sparse.mm`` (cuSPARSE SpMM), each timed
@@ -256,13 +266,16 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    printed), then ``python -m arpack_ng_tpu_torch.cli --A lap.mtx --nbEV
    8 --nbCV 32 --mag LA --tol 1e-5 --simplePrec --json`` in its own
    process on the card, then the same in this process (the reference
-   CLI's reorthogonalization, dgks: the rotation and DIA kernels); gates:
-   rc 0, 8 values within 1e-4*|lambda| of the analytic spectrum, the CLI's
-   own residuals ``<= 1e-3``, the in-process run's cycles / nopx / nrorth
-   the host step's 299 / 6379 / 6372 (its wall printed beside the one
-   recorded while the step read back); (b) the run with ``--maxIt
-   P14_CUT --dump`` (rc 1), then ``--restart`` from the file: its cycles, nopx, nrorth, nrotr
-   and values must be the unbroken run's exactly; (c) the flagship on the
+   CLI's reorthogonalization, dgks, on the hybrid's device loop: the
+   rotation and DIA kernels); gates: rc 0, 8 values within 1e-4*|lambda|
+   of the analytic spectrum, the CLI's own residuals ``<= 1e-3``, the
+   in-process run's cycles / nopx / nrorth the host step's 299 / 6379 /
+   6372, a graph replayed every cycle after the first and a packet read
+   a cycle (its wall printed beside the one recorded on the host loop
+   while the step read back); (b) the run with ``--maxIt P14_CUT
+   --dump`` (rc 1), then ``--restart`` from the file, on graphs: its
+   cycles, nopx, nrorth, nrotr and values must be the unbroken run's
+   exactly; (c) the flagship on the
    device loop (``eigsh``'s config, CUDA graphs) stopped at the boundary
    after P14_CUT cycles (``FusedSymSolver.multi``), ``save_state``,
    ``load_state`` into a fresh solver, resumed: the totals must be
@@ -306,8 +319,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    kernels are not on this path); gates: rc 0, nconv >= 8, phase 4's
    value and residual gates, the rotation and DIA kernels launched, the
    bridge of this process ran the solve, and its cycles / nopx / nrorth
-   the host step's 299 / 6379 / 6372; ``atpu_stat_c``'s counters
-   and the wall printed beside 10a's; (b) ``atpu_eigsh_matvec_s`` with a C
+   the host step's 299 / 6379 / 6372, on the hybrid's device loop (a
+   graph replayed every cycle after the first, a packet a cycle);
+   ``atpu_stat_c``'s counters and the wall printed beside 10a's; (b) ``atpu_eigsh_matvec_s`` with a C
    callback (``csrc/stencil5.c``, the same 5-point stencil) **cut to nx =
    P16_MV_NX**: every OP*x crosses to the host and back; same gates, the
    rotation kernel launched; ms per round trip and ``tmvopx``'s share of
@@ -333,6 +347,7 @@ repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import io
 import json
@@ -2473,6 +2488,67 @@ def _convdiff_top(nx, rho=100.0) -> float:
     return 4.0 + (2.0 * np.sqrt(1.0 - c * c) + 2.0) * np.cos(np.pi * h)
 
 
+def _hybrid_host_loop():
+    """A context in which every ``IRAMSolver`` runs its host loop
+    (``_host_loop``: ``make_iram_head`` / ``make_iram_tail``, the eager
+    extension and ``restart_tail`` every cycle), the twin of its device
+    loop."""
+    from unittest import mock
+
+    from arpack_ng_tpu_torch.core import iram
+
+    real = iram.IRAMSolver.__init__
+
+    def init(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        self._host_loop = True
+
+    return mock.patch.object(iram.IRAMSolver, "__init__", init)
+
+
+def _step_ms(wall, st) -> float:
+    """Wall ms per Lanczos step (per OP*x)."""
+    return wall * 1e3 / st.nopx
+
+
+def _hybrid_line(wall, st) -> str:
+    """A hybrid solve's wall, ms per step and dispatch counters."""
+    return (f"wall {wall:.4f} s ({_step_ms(wall, st):.4f} ms per step, "
+            f"{wall * 1e3 / st.n_iter:.4f} ms per cycle); graphs captured "
+            f"{st.graphs_captured}, replays {st.graph_replays}, packets "
+            f"{st.packets} ({st.packets / st.n_iter:.3f} per cycle)")
+
+
+def _hybrid_twin(torch, dev, gpu, tag, fn, need, graph):
+    """The hybrid solve ``fn`` (``-> (vals, vecs, out)``) again on the
+    host loop (:func:`_hybrid_host_loop`), against ``graph = ((vals, vecs,
+    out), wall, launches)`` from the device loop: values and vectors bit
+    for bit, equal cycles, nopx, nrorth, nrorthr and kernel launches.  On a
+    card the graph run must have replayed a graph every cycle after the
+    first and read one packet a cycle and rerun.  Prints both walls."""
+    (vals, vecs, out), wall, counts = graph
+    st = out.stats
+    if dev.type == "cuda":
+        _loop_gate(st, tag)
+    with _hybrid_host_loop():
+        (v2, x2, o2), w2, c2 = _counted(torch, dev, need, fn)
+    s2 = o2.stats
+    keys = ("n_iter", "nopx", "nrorth", "nrorthr")
+    got = tuple(getattr(st, k) for k in keys)
+    want = tuple(getattr(s2, k) for k in keys)
+    same = np.array_equal(vals, v2) and np.array_equal(vecs, x2)
+    if got != want or not same or counts != c2 or s2.packets:
+        raise AssertionError(
+            f"{tag}: graphs {got}, launches {counts}; host loop {want}, "
+            f"launches {c2} (packets {s2.packets}); values and vectors "
+            f"bit-equal {same}")
+    print(f"  {tag} on graphs: {_hybrid_line(wall, st)}; on the eager host "
+          f"loop: wall {w2:.4f} s ({_step_ms(w2, s2):.4f} ms per step); "
+          f"{w2 / wall:.2f}x; values, vectors, cycles / nopx / nrorth / "
+          f"nrorthr {got} and launches equal; card {gpu}", flush=True)
+    return w2
+
+
 def new_paths(torch, dev, gpu, vals_9, nx=NX, eigs_nx=EIGS_NX,
               cd_nx=EIGS_SOLVE_NX):
     """Phase 10: the hybrid driver and complex dtypes at full width (see
@@ -2485,43 +2561,54 @@ def new_paths(torch, dev, gpu, vals_9, nx=NX, eigs_nx=EIGS_NX,
     paths = {}
     kw = dict(k=8, ncv=NCV, tol=1e-5, return_stats=True)
 
-    # (a) the flagship through the hybrid driver
+    # (a) the flagship through the hybrid driver (on graphs), then its
+    # host-loop twin
     op, a_sp = laplacian_2d(nx, np.float32, device=dev)
     tag = "10a eigsh(flagship, strategy='hybrid')"
-    (vals, vecs, out), wall, counts = _counted(
-        torch, dev, ("sel_proj", "sel_update", "rotate_rows"),
-        lambda: pt.eigsh(op, which="LA", strategy="hybrid", **kw))
+    need = ("sel_proj", "sel_update", "rotate_rows")
+    run = _counted(
+        torch, dev, need,
+        lambda: pt.eigsh(op, which="LA", strategy="hybrid", **kw), tag="10a")
+    (vals, vecs, out), wall, counts = run
     dmax, rmax = check_values(vals, vecs, a_sp, _analytic_spectrum(nx), tag)
     st = out.stats
-    print(f"{tag}: wall {wall:.4f} s ({wall * 1e3 / st.n_iter:.4f} ms per "
-          f"cycle), {_stats_line(st)}; max value dist {dmax:.2e}, max "
-          f"residual {rmax:.2e}; launches {counts}; card {gpu}", flush=True)
+    print(f"{tag}: {_hybrid_line(wall, st)}, {_stats_line(st)}; host reruns "
+          f"{RERUNS['10a']}; max value dist {dmax:.2e}, max residual "
+          f"{rmax:.2e}; launches {counts}; card {gpu}", flush=True)
     print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+    WALLS["10a host loop"] = _hybrid_twin(
+        torch, dev, gpu, "10a", lambda: pt.eigsh(
+            op, which="LA", strategy="hybrid", **kw), need, run)
     paths["10a"] = counts
     WALLS["10a"], STATS["10a"] = wall, st
-    del op, vecs
+    del op, vecs, run
 
     # (b) eigs on the conv-diff cell at nx = 1024, the hybrid driver
     op, a_sp = convection_diffusion_2d(eigs_nx, dtype=np.float32, device=dev)
     tag = (f"10b eigs(conv-diff nx={eigs_nx}, strategy='hybrid', "
            "cgs_kernel='pallas')")
-    (vals, vecs, out), wall, counts = _counted(
-        torch, dev, ("rotate_rows", "cgs_proj", "cgs_update"),
-        lambda: pt.eigs(op, which="LM", strategy="hybrid",
-                        cgs_kernel="pallas", maxiter=P10_MAX_RESTARTS, **kw),
-        tag="10b")
+    need = ("rotate_rows", "cgs_proj", "cgs_update")
+
+    def solve_b():
+        return pt.eigs(op, which="LM", strategy="hybrid", cgs_kernel="pallas",
+                       maxiter=P10_MAX_RESTARTS, **kw)
+
+    run = _counted(torch, dev, need, solve_b, tag="10b")
+    (vals, vecs, out), wall, counts = run
     st = out.stats
-    print(f"{tag}: wall {wall:.4f} s ({wall * 1e3 / st.n_iter:.4f} ms per "
-          f"cycle), {_stats_line(st)}; {len(vals)} values, extraction info "
-          f"{out.info}; host reruns {RERUNS['10b']}; launches {counts}; card "
-          f"{gpu}", flush=True)
+    print(f"{tag}: {_hybrid_line(wall, st)}, {_stats_line(st)}; "
+          f"{len(vals)} values, extraction info {out.info}; host reruns "
+          f"{RERUNS['10b']}; launches {counts}; card {gpu}", flush=True)
     print(f"  values {np.array2string(vals, precision=8)}", flush=True)
     rmax = check_nonsym(vals, vecs, a_sp, tag, counted=False)
     print(f"  max residual {rmax:.2e}; the fused real driver's float32 "
           f"reduced space returned 6 here (info -14); the hybrid's float64 "
           f"one returns {len(vals)} (info {out.info})", flush=True)
+    WALLS["10b host loop"] = _hybrid_twin(torch, dev, gpu, "10b", solve_b,
+                                          need, run)
     paths["10b"] = counts
-    del op, vecs
+    WALLS["10b"], STATS["10b"] = wall, st
+    del op, vecs, run
 
     # (c) a complex Hermitian operator through both drivers
     a_h, spectrum = _hermitian_operator(nx)
@@ -2533,20 +2620,28 @@ def new_paths(torch, dev, gpu, vals_9, nx=NX, eigs_nx=EIGS_NX,
     for strategy, need in (("auto", ("rotate_rows", "sym_cycle")),
                            ("hybrid", ("rotate_rows",))):
         tag = f"10c eigsh(Hermitian nx={nx} complex64, strategy={strategy!r})"
-        (vals, vecs, out), wall, counts = _counted(
-            torch, dev, need,
-            lambda: pt.eigsh(op, which="LA", strategy=strategy, **kw))
+
+        def solve_c():
+            return pt.eigsh(op, which="LA", strategy=strategy, **kw)
+
+        run = _counted(torch, dev, need, solve_c, tag=f"10c {strategy}")
+        (vals, vecs, out), wall, counts = run
         dmax, rmax = check_values(vals, vecs, a_h, spectrum, tag)
         st = out.stats
-        print(f"{tag}: wall {wall:.4f} s, {_stats_line(st)}; max value dist "
-              f"{dmax:.2e}, max residual {rmax:.2e}; launches {counts}; card "
-              f"{gpu}", flush=True)
+        print(f"{tag}: wall {wall:.4f} s ({_step_ms(wall, st):.4f} ms per "
+              f"step), {_stats_line(st)}; max value dist {dmax:.2e}, max "
+              f"residual {rmax:.2e}; launches {counts}; card {gpu}",
+              flush=True)
         if st.packets:
             print(f"  device loop: {_loop_line(st)}", flush=True)
         print(f"  values {np.array2string(vals, precision=7)}", flush=True)
+        if strategy == "hybrid":
+            WALLS["10c host loop"] = _hybrid_twin(
+                torch, dev, gpu, "10c hybrid", solve_c, need, run)
+            WALLS["10c"], STATS["10c"] = wall, st
         paths[f"10c {strategy}"] = counts
         found[strategy] = vals
-        del vecs
+        del vecs, run
     _hermitian_witness(torch, dev, gpu, op, a_h, spectrum, kw)
     del op, a_h
 
@@ -2556,11 +2651,14 @@ def new_paths(torch, dev, gpu, vals_9, nx=NX, eigs_nx=EIGS_NX,
     tag = f"10d eigs(conv-diff nx={cd_nx} complex64, strategy='auto')"
     (vals, vecs, out), wall, counts = _counted(
         torch, dev, (), lambda: pt.eigs(op, which="LM",
-                                        maxiter=P10_MAX_RESTARTS, **kw))
+                                        maxiter=P10_MAX_RESTARTS, **kw),
+        tag="10d")
     st = out.stats
-    print(f"{tag}: wall {wall:.4f} s ({wall * 1e3 / st.n_iter:.4f} ms per "
-          f"cycle), {_stats_line(st)}; {len(vals)} values, extraction info "
-          f"{out.info}; launches {counts}; card {gpu}", flush=True)
+    if dev.type == "cuda":
+        _loop_gate(st, "10d")
+    print(f"{tag}: {_hybrid_line(wall, st)}, {_stats_line(st)}; "
+          f"{len(vals)} values, extraction info {out.info}; launches "
+          f"{counts}; card {gpu}", flush=True)
     print(f"  values {np.array2string(vals, precision=8)}", flush=True)
     v = np.asarray(vecs, np.complex128)
     res = np.linalg.norm(a_sp @ v - v * vals[None, :], axis=0) / np.abs(vals)
@@ -3595,10 +3693,18 @@ def _block_solves(torch, dev, gpu, nx, n65, need):
         paths[f"13d{key} scalar"] = counts
         for b in P13_BLOCKS:
             tag = f"13d{key} {label} eigsh_block(b={b}, tol={tol})"
-            (vals, vecs, info), wall, counts = _counted(
-                torch, dev, need("dia_block_matvec", "rotate_rows"),
-                lambda: eigsh_block(A, block_size=b, maxiter=P13_BLOCK_MAXITER,
-                                    dtype=np.float32, **kw))
+            with _replays_counted() as replays:
+                (vals, vecs, info), wall, counts = _counted(
+                    torch, dev, need("dia_block_matvec", "rotate_rows"),
+                    lambda: eigsh_block(A, block_size=b,
+                                        maxiter=P13_BLOCK_MAXITER,
+                                        dtype=np.float32, **kw))
+            if dev.type == "cuda" and len(replays) != info["iters"] - 1:
+                raise AssertionError(f"{tag}: {len(replays)} graph replays "
+                                     f"for {info['iters']} cycles (want "
+                                     "every cycle after the first)")
+            eager = _block_eager(torch, dev, tag, A, b, kw, need,
+                                 (vals, vecs, info, wall, counts))
             if key == "(i)":
                 dmax, rmax = check_values(vals, vecs, a_sp, spectrum, tag)
                 note = (f"max value dist {dmax:.2e}, max residual "
@@ -3617,7 +3723,8 @@ def _block_solves(torch, dev, gpu, nx, n65, need):
             print(f"{tag}: wall {wall:.4f} s, cycles {info['iters']} (cap "
                   f"{P13_BLOCK_MAXITER}), {info['nconv']} of 8 converged by "
                   f"their bounds, matvecs {info['matvecs']}, {cyc_ms:.4f} ms "
-                  f"per cycle "
+                  f"per cycle on one graph ({len(replays)} replays; "
+                  f"{eager}) "
                   f"(eigh of T {eigh_ms:.4f} ms of it, "
                   f"{100 * eigh_ms / cyc_ms:.1f}%), block apply "
                   f"{_block_apply_ms(torch, dev, A, b)} ms device-only; "
@@ -3625,6 +3732,50 @@ def _block_solves(torch, dev, gpu, nx, n65, need):
             paths[f"13d{key} b={b}"] = counts
         del vecs
     return paths
+
+
+@contextlib.contextmanager
+def _replays_counted():
+    """Yields a list that gains an entry on every CUDA graph replay
+    (``core/loop.CapturedGraph.replay``) inside the context."""
+    from unittest import mock
+
+    from arpack_ng_tpu_torch.core import loop
+
+    seen, real = [], loop.CapturedGraph.replay
+
+    def replay(self):
+        seen.append(self)
+        return real(self)
+
+    with mock.patch.object(loop.CapturedGraph, "replay", replay):
+        yield seen
+
+
+def _block_eager(torch, dev, tag, A, b, kw, need, graph) -> str:
+    """13d's block solve again with ``A`` declared not capturable (every
+    cycle eager), against ``graph = (vals, vecs, info, wall, launches)``
+    from the solve on one CUDA graph per solve: equal cycles, matvecs and
+    launches, values and vectors bit for bit.  Returns the eager wall and
+    ms per cycle, to print."""
+    import dataclasses
+
+    from arpack_ng_tpu_torch.core.block import eigsh_block
+
+    vals, vecs, info, wall, counts = graph
+    (v2, x2, i2), w2, c2 = _counted(
+        torch, dev, need("dia_block_matvec", "rotate_rows"),
+        lambda: eigsh_block(dataclasses.replace(A, capturable=False),
+                            block_size=b, maxiter=P13_BLOCK_MAXITER,
+                            dtype=np.float32, **kw))
+    same = np.array_equal(vals, v2) and np.array_equal(vecs, x2)
+    if info != i2 or counts != c2 or not same:
+        raise AssertionError(f"{tag}: graph {info}, launches {counts}; eager "
+                             f"{i2}, launches {c2}; values and vectors "
+                             f"bit-equal {same}")
+    return (f"eager: wall {w2:.4f} s, {w2 * 1e3 / i2['iters']:.4f} ms per "
+            f"cycle, {w2 / wall:.2f}x; cycles, matvecs, launches, values "
+            f"and vectors equal")
 
 
 def _dia65_residual(torch, dev, offsets, diags, n, vals, vecs) -> float:
@@ -3928,11 +4079,13 @@ def _cli_main(torch, dev, gpu, tmp, nx, need):
     vals, dmax, rmax = _cli_gate(rc, out, spectrum, 1e-4, 1e-3,
                                  "14a cli.main", 8)
     st = res.stats
-    print(f"14a cli.main (in process): wall {wall:.2f} s (recorded while the "
-          f"dgks step read back every step: {RECORDED_WALLS['14a']}), "
-          f"{_stats_line(st)}; host reruns {RERUNS['14a']}; max value dist "
-          f"{dmax:.2e}, max residual {rmax:.2e}; launches {counts}; card "
-          f"{gpu}", flush=True)
+    if dev.type == "cuda":
+        _loop_gate(st, "14a")
+    print(f"14a cli.main (in process): {_hybrid_line(wall, st)} (recorded "
+          f"on the host loop while the dgks step read back every step: "
+          f"{RECORDED_WALLS['14a']}), {_stats_line(st)}; host reruns "
+          f"{RERUNS['14a']}; max value dist {dmax:.2e}, max residual "
+          f"{rmax:.2e}; launches {counts}; card {gpu}", flush=True)
     got = (st.n_iter, st.nopx, st.nrorth)
     if dev.type == "cuda" and nx == NX and got != HYBRID_DGKS_COUNTERS:
         raise AssertionError(f"14a cli.main: cycles/nopx/nrorth {got}, want "
@@ -3972,8 +4125,13 @@ def _cli_dump_restart(torch, dev, gpu, tmp, argv, full, cut, need):
                              f"/ nopx / nrorth / nrotr {got}, values "
                              f"{o2['values_real']}; the unbroken run {want}, "
                              f"{full_out['values_real']}")
+    if dev.type == "cuda" and not (r2.stats.graphs_captured
+                                   and r2.stats.graph_replays):
+        raise AssertionError("14b: the resumed run replayed no graph")
     print(f"14b --maxIt {cut} --dump: rc 1, wall {w1:.2f} s; --restart: "
-          f"rc 0, wall {w2:.2f} s, cycles / nopx / nrorth / nrotr {got}, "
+          f"rc 0, wall {w2:.2f} s (graphs captured "
+          f"{r2.stats.graphs_captured}, replays {r2.stats.graph_replays}, "
+          f"packets {r2.stats.packets}), cycles / nopx / nrorth / nrotr {got}, "
           f"values equal to the unbroken run's bit for bit; save_state "
           f"{saves[0]:.3f} s, load_state {loads[0]:.3f} s (host, to and "
           f"from the card), file {os.path.getsize(ck) / 2 ** 20:.1f} MiB "
@@ -4433,9 +4591,11 @@ def _capi_csr(torch, dev, gpu, lib, nx, need):
                   f"wall {WALLS['10a']:.4f} s, cycles {s10.n_iter}, nopx "
                   f"{s10.nopx}, nrorth {s10.nrorth}, nitref {s10.nitref}, "
                   f"nrstrt {s10.nrstrt}")
-    print(f"{tag}: rc {rc}, nconv {nconv.value}, wall {wall:.4f} s "
-          f"({wall * 1e3 / own.n_iter:.4f} ms per cycle; recorded while the "
-          f"dgks step read back every step: {RECORDED_WALLS['16a']}), cycles "
+    if dev.type == "cuda":
+        _loop_gate(own, "16a")
+    print(f"{tag}: rc {rc}, nconv {nconv.value}, {_hybrid_line(wall, own)} "
+          f"(recorded on the host loop while the dgks step read back every "
+          f"step: {RECORDED_WALLS['16a']}), cycles "
           f"{own.n_iter}; stat_c nopx {st[0]}, nbx {st[1]}, nrorth {st[2]}, "
           f"nitref {st[3]}, nrstrt {st[4]}, tsaupd {st[5]:.4f} s"
           f"{beside}; host reruns {RERUNS['16a']}; max value dist "

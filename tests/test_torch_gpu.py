@@ -1605,3 +1605,122 @@ def test_realnonsym_kernel_build_failure_raises_on_card(dev, tmp_path,
     monkeypatch.setattr(cuda_lib, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         cuda_lib.load()
+
+
+def _kernel_launches():
+    """Every graph-held kernel wrapper's launch count, set to 0 first by
+    :func:`_zero_launches`."""
+    from arpack_ng_tpu_torch.core.loop import GRAPH_KERNELS
+    return {f.__name__: f.launches for f in GRAPH_KERNELS}
+
+
+def _zero_launches():
+    from arpack_ng_tpu_torch.core.loop import GRAPH_KERNELS
+    for f in GRAPH_KERNELS:
+        f.launches = 0
+
+
+def _hybrid_case(dev, case):
+    """(operator, config) of a hybrid card case at a small width."""
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.config import IRAMConfig
+    from arpack_ng_tpu_torch.models import convection_diffusion_2d
+    if case in ("selective", "dgks"):
+        op = _flagship_small(dev)
+        kw = dict(which="LA", symmetric=True, reorth=case)
+    elif case == "hermitian":
+        import scipy.sparse as sp
+
+        from arpack_ng_tpu_torch.models import laplacian_2d
+        a = laplacian_2d(64, np.float64, device="cpu")[1]
+        h = (a + 0.5j * (sp.eye(a.shape[0], k=1)
+                         - sp.eye(a.shape[0], k=-1))).tocsr()
+        op = pt.from_scipy(h, dtype=np.complex64, hermitian=True,
+                           device=dev)
+        kw = dict(which="LA", symmetric=True, reorth="selective")
+    else:
+        op, _ = convection_diffusion_2d(64, dtype=np.complex64, device=dev)
+        kw = dict(which="LM", symmetric=False, reorth="dgks")
+    cfg = IRAMConfig(n=op.n, nev=8, ncv=32, dtype=np.dtype(op.dtype),
+                     n_pad=op.n_pad, tol=1e-5, max_iter=300, **kw)
+    return op, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["selective", "dgks", "hermitian",
+                                  "complex nonsym"])
+def test_hybrid_graphs_equal_host_loop_on_card(dev, case):
+    # the hybrid on the device loop (a CUDA graph per start k, one packet
+    # a cycle, the host's reduce step) gives its eager host loop bit for
+    # bit, and the replayed graphs' launch counts equal the host loop's
+    from arpack_ng_tpu_torch.core import arnoldi
+    from arpack_ng_tpu_torch.core.extract import extract
+    from arpack_ng_tpu_torch.core.iram import IRAMSolver
+    op, cfg = _hybrid_case(dev, case)
+    runs = []
+    for host_loop in (False, True):
+        solver = IRAMSolver(op, cfg)
+        solver._host_loop = host_loop
+        arnoldi.reruns.update(redo=0, breakdown=0)
+        _zero_launches()
+        res = solver.solve()
+        out = extract(op, cfg, res)
+        runs.append((res, out, _kernel_launches(),
+                     sum(arnoldi.reruns.values())))
+    (r1, o1, l1, rr), (r2, o2, l2, _) = runs
+    st = r1.stats
+    assert st.graphs_captured > 0 and st.graph_replays == r1.n_iter - 1
+    assert st.packets == r1.n_iter + rr and r2.stats.packets == 0
+    for f in ("n_iter", "nopx", "nbx", "nrorth", "nitref", "nrstrt", "nrotr",
+              "nrorthr"):
+        assert getattr(st, f) == getattr(r2.stats, f), f
+    # one rotation a restart, but the complex Arnoldi restart's GEMM
+    assert l1 == l2
+    assert l1["rotate_rows"] == (0 if case == "complex nonsym"
+                                 else r1.n_iter - 1)
+    np.testing.assert_array_equal(r1.ritz, r2.ritz)
+    assert torch.equal(r1.state.V, r2.state.V)
+    np.testing.assert_array_equal(o1.values, o2.values)
+    np.testing.assert_array_equal(o1.vectors, o2.vectors)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2, 4])
+def test_block_graph_equals_eager_on_card(dev, b):
+    # the block cycle's restart and refill on one CUDA graph per solve give
+    # the eager cycles bit for bit, with equal cycles, matvecs and
+    # launches (the replays add the capture's counts)
+    import dataclasses
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core import loop
+    from arpack_ng_tpu_torch.core.block import eigsh_block
+    from arpack_ng_tpu_torch.models import laplacian_2d
+    a = laplacian_2d(128, np.float32, device="cpu")[1]
+    A = pt.from_scipy(a, dtype=np.float32, hermitian=True, device=dev)
+    assert A.apply_block is not None and A.capturable
+    runs = []
+    replays = []
+    real = loop.CapturedGraph.replay
+
+    def counted(self):
+        replays.append(self)
+        return real(self)
+
+    for op in (A, dataclasses.replace(A, capturable=False)):
+        _zero_launches()
+        loop.CapturedGraph.replay = counted
+        try:
+            out = eigsh_block(op, k=8, ncv=32, tol=1e-5, block_size=b,
+                              maxiter=500, dtype=np.float32)
+        finally:
+            loop.CapturedGraph.replay = real
+        runs.append((out, _kernel_launches(), len(replays)))
+    ((v1, x1, i1), l1, n1), ((v2, x2, i2), l2, n2) = runs
+    assert n1 == i1["iters"] - 1 and n2 == n1     # no replay when eager
+    assert i1 == i2 and l1 == l2
+    assert l1["dia_block_matvec"] == i1["matvecs"] // b
+    np.testing.assert_array_equal(v1, v2)
+    np.testing.assert_array_equal(x1, x2)
+    torch.cuda.synchronize()
