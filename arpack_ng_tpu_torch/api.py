@@ -433,10 +433,10 @@ def eigs(
     float64 / complex128 reduced space of
     :mod:`~arpack_ng_tpu_torch.core.iram`, which real dtypes may ask for
     too).  ``'fused'`` runs the complex cycle of
-    :mod:`~arpack_ng_tpu_torch.core.device_nonsym` (its reduced space in
-    the problem's complex dtype); a real operator is complexified (two real
-    matvecs per complex one) and its values and vectors come back complex,
-    as the reference returns them.  ``'fused_real'`` on a complex dtype
+    :mod:`~arpack_ng_tpu_torch.core.device_nonsym` on the same device loop
+    (its reduced space one kernel launch per cycle, in complex128); a real
+    operator is complexified (two real matvecs per complex one) and its
+    values and vectors come back complex, as the reference returns them.  ``'fused_real'`` on a complex dtype
     raises ``ValueError``.
     ``reorth='auto'`` is ``'dgks'``: the semi-orthogonality argument behind
     ``'selective'`` is a Lanczos result.  Values come wanted first; for a

@@ -1,10 +1,10 @@
-"""Complex non-symmetric restart cycle driven from the host (port of
+"""Complex non-symmetric restart cycle (port of
 ``arpack_ng_tpu/core/device_nonsym.py``): the znaupd/znaup2 major
 iteration in complex arithmetic, and through :func:`complexify_operator`
 the same cycle for real non-symmetric problems (``eigs(strategy='fused')``).
 
 * Extension by the CGS + DGKS Arnoldi step of ``core/arnoldi.py`` on the
-  operator's device.
+  operator's device, with no device-to-host read (``Extension.run``).
 * **Schur form** of the (ncv, ncv) Hessenberg by a single-shift complex QR
   iteration with Wilkinson shifts (dlahqr's role, SRC/dneigh.f:194): each
   sweep takes one explicit QR of ``H - mu I`` (mu from the trailing active
@@ -21,32 +21,36 @@ the same cycle for real non-symmetric problems (``eigs(strategy='fused')``).
   after each; then the kev-row basis rotation (a complex torch GEMM) and
   the residual update.
 
-The reference package runs this cycle (``make_cplx_cycle``) inside one
-device computation in the problem dtype; here it is ``tail(head(state),
-is_last)``, its reduced-space steps in numpy in the same complex dtype
-(complex64 for float32 input) and the same order of operations, the O(n)
-work on the operator's device, and the restart loop on the host.
+:class:`FusedNonsymSolver` runs the restart loop on the operator's
+device, the counterpart of the reference's ``make_cplx_multi_cycle``: the
+shared device loop (``core/loop._DeviceLoop``: per cycle the previous
+restart's rotation and residual update and the read-free extension, one
+CUDA graph per start ``k`` on a capturable operator), then the reduced
+space above as one kernel launch (``ops/cuda_cplx_cycle.py``,
+``csrc/cplx_cycle.cu``; in complex128 whatever the problem dtype, with
+the problem dtype's thresholds), then one read of a small packet.
+``make_cplx_head`` / ``make_cplx_tail`` keep the host loop, the same
+reduced space in numpy (the kernel's plain twin's pieces), which
+``HostLoopSolver.solve(solver)`` still runs as a witness.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
-import scipy.linalg as sla
 import torch
 
 from ..config import IRAMConfig
+from ..ops.cuda_cplx_cycle import (  # noqa: F401
+    P_CNT, P_DONE, P_HEAD, P_NCONV, P_RNORM, Params, cplx_cycle, head_plain,
+    make_hessenberg_schur, make_last_components, packet_size, shifts_plain)
 from ..ops.operator import Operator
 from ..utils import dtypes as _dt
 from ..utils.debug import debug, trace
 from . import reduced
 from .arnoldi import (FactorizationState, make_bnorm, make_extend,
                       restart_tail)
-from .iram import HostLoopSolver
-
-#: QR-iteration sweep budget per cycle, in units of ncv (Wilkinson-shifted
-#: single-shift QR converges in ~2-3 sweeps per eigenvalue)
-_SWEEPS_PER_EV = 4
+from .loop import DeviceLoopSolver
 
 
 def split_complex(v: torch.Tensor) -> torch.Tensor:
@@ -98,102 +102,14 @@ def complexify_operator(op: Operator) -> Operator:
                     capturable=op.capturable, mesh=op.mesh)
 
 
-def _which_key_cplx(which: str, vals):
-    """Sort key on complex values; ascending puts the WANTED values last."""
-    if which == "LM":
-        return np.abs(vals)
-    if which == "SM":
-        return -np.abs(vals)
-    if which == "LR":
-        return vals.real
-    if which == "SR":
-        return -vals.real
-    if which == "LI":
-        return vals.imag
-    if which == "SI":
-        return -vals.imag
-    raise ValueError(f"bad which={which!r}")
-
-
-def _deflate(T, eps):
-    """Zero negligible subdiagonals; returns ``(T', keep)``, ``keep[i]``
-    for each subdiagonal that stays."""
-    sub = np.diag(T, -1)
-    d = np.diag(T)
-    big = np.abs(d[:-1]) + np.abs(d[1:])
-    big = np.where(big == 0, np.ones_like(big), big)
-    keep = np.abs(sub) > eps * big
-    sub2 = np.where(keep, sub, np.zeros_like(sub))
-    return np.triu(T, 0) + np.diag(sub2, -1), keep
-
-
-def make_hessenberg_schur(k: int, cdt, sweeps: int):
-    """Schur decomposition of a complex Hessenberg matrix:
-    ``schur(H) -> (T upper-triangular, Q unitary)``, ``H = Q T Q^H``."""
-    cdt = np.dtype(cdt)
-    rdt = _dt.real_dtype(cdt)
-    eps = rdt.type(_dt.eps(cdt))
-    eye = np.eye(k, dtype=cdt)
-    idx1 = np.arange(k - 1)
-
-    def schur(H):
-        T, Q = H.astype(cdt), eye
-        for _ in range(sweeps):
-            T, keep = _deflate(T, eps)
-            if not keep.any():
-                break
-            # the trailing active 2x2: the largest i with keep[i]
-            m = max(int(np.max(np.where(keep, idx1, -1))), 0)
-            a11, a12 = T[m, m], T[m, m + 1]
-            a21, a22 = T[m + 1, m], T[m + 1, m + 1]
-            tr = a11 + a22
-            det = a11 * a22 - a12 * a21
-            disc = np.sqrt(tr * tr / 4.0 - det)
-            mu1 = tr / 2.0 + disc
-            mu2 = tr / 2.0 - disc
-            mu = mu1 if np.abs(mu1 - a22) < np.abs(mu2 - a22) else mu2
-            q, _ = np.linalg.qr(T - mu * eye)
-            T = np.triu(q.conj().T @ T @ q, -1)     # re-Hessenberg
-            Q = Q @ q
-        T, _ = _deflate(T, eps)
-        return T, Q
-
-    return schur
-
-
-def make_last_components(k: int, cdt):
-    """``last_comps(T, Q)``: for every eigenvalue ``lambda_i = T[i, i]`` of
-    the Schur pair (T, Q) of H, the modulus of the LAST component of the
-    unit eigenvector of H, which dneigh feeds the Ritz bounds.
-
-    The eigenvector of T for lambda_i: ``z[:i]`` solves ``(T[:i, :i] -
-    lambda_i) u = -T[:i, i]``, ``z[i] = 1``, ``z[i+1:] = 0``; diagonal
-    entries of modulus below ``eps max(max|T|, 1)`` are clamped to it
-    (dtrevc's smallnum, for degenerate eigenvalues)."""
-    cdt = np.dtype(cdt)
-    rdt = _dt.real_dtype(cdt)
-    eps = rdt.type(_dt.eps(cdt))
-
-    def last_comps(T, Q):
-        tnorm = np.maximum(np.max(np.abs(T)), rdt.type(1))
-        small = eps * tnorm
-        lam = np.diag(T)
-        qlast = Q[k - 1, :]
-        out = np.zeros(k, rdt)
-        for i in range(k):
-            z = np.zeros(k, cdt)
-            z[i] = 1
-            if i > 0:
-                M = T[:i, :i] - lam[i] * np.eye(i, dtype=cdt)
-                d = np.diag(M)
-                dsafe = np.where(np.abs(d) < small, small.astype(cdt), d)
-                M[np.arange(i), np.arange(i)] = dsafe
-                z[:i] = sla.solve_triangular(M, -T[:i, i], lower=False)
-            znorm = np.sqrt(np.abs(np.vdot(z, z)))
-            out[i] = np.abs(qlast @ z) / znorm
-        return out
-
-    return last_comps
+def params(cfg: IRAMConfig) -> Params:
+    """The reduced space's parameters: the thresholds in the problem
+    dtype."""
+    rdt = _dt.real_dtype(cfg.dtype)
+    return Params(which=cfg.which, nev=cfg.nev,
+                  tol=float(rdt.type(cfg.tol_effective)),
+                  eps23=float(rdt.type(cfg.eps23)),
+                  eps_m=float(_dt.eps(cfg.dtype)))
 
 
 class CplxCycleOut(NamedTuple):
@@ -206,7 +122,7 @@ class CplxCycleOut(NamedTuple):
 
 class CplxHeadOut(NamedTuple):
     """What the restart tail needs from the first half of a cycle
-    (extension, dneigh, dngets, dnconv, nev inflation)."""
+    (extension, zneigh, zngets, znconv, nev inflation)."""
 
     state: FactorizationState
     r_s: np.ndarray
@@ -217,107 +133,75 @@ class CplxHeadOut(NamedTuple):
     np_eff: int
 
 
+def _trace_cycle(it, nconv, rnorm, r_s, b_s) -> None:
+    trace(debug.maup2, 0, "_cplx_cycle: iter {i}: nconv={nc} rnorm={rn}",
+          i=it, nc=nconv, rn=rnorm)
+    trace(debug.maup2, 1, "_cplx_cycle: ritz (wanted last) {r}\n"
+          " _cplx_cycle: bounds {b}", r=r_s, b=b_s)
+
+
 def make_cplx_head(op: Operator, cfg: IRAMConfig):
     """Build ``head(state) -> CplxHeadOut``: znaup2 from the extension
     through the shift count (znaitr, zneigh, zngets, znconv, the zero-bound
-    shift removal and nev inflation)."""
+    shift removal and nev inflation), the reduced space in numpy
+    (``head_plain``, complex128)."""
     if cfg.symmetric:
         raise ValueError("use device_sym for symmetric problems")
     if not _dt.is_complex(cfg.dtype):
         raise ValueError("complex dtype required (complexify the operator)")
-    ncv, nev0 = cfg.ncv, cfg.nev
-    np0 = ncv - nev0
-    cdt = np.dtype(cfg.dtype)
-    rdt = _dt.real_dtype(cdt)
-    tol = rdt.type(cfg.tol_effective)
-    eps23 = rdt.type(cfg.eps23)
     extend = make_extend(op, cfg)
-    schur = make_hessenberg_schur(ncv, cdt, sweeps=_SWEEPS_PER_EV * ncv)
-    last_comps = make_last_components(ncv, cdt)
+    p = params(cfg)
 
     def head(state: FactorizationState) -> CplxHeadOut:
-        state = extend(state, ncv)
-        # ---- zneigh: Schur + Ritz values + bounds ----
-        T, Qs = schur(state.H)
-        lam = np.diag(T)
-        bounds = (state.rnorm * last_comps(T, Qs)).astype(rdt)
-        # ---- zngets: wanted last ----
-        order = np.argsort(_which_key_cplx(cfg.which, lam), kind="stable")
-        r_s, b_s = lam[order], bounds[order]
-        # ---- znconv over the nev0 wanted ----
-        wanted, wb = r_s[np0:], b_s[np0:]
-        nconv = int(np.sum(wb <= tol * np.maximum(eps23, np.abs(wanted))))
-        nz = int(np.sum(b_s[:np0] == 0))
-        np_eff, nev_eff = np0 - nz, nev0 + nz
-        done = nconv >= nev0 or np_eff == 0
-        trace(debug.maup2, 0, "_cplx_cycle: iter {i}: nconv={nc} rnorm={rn}",
-              i=state.iter, nc=nconv, rn=state.rnorm)
-        trace(debug.maup2, 1, "_cplx_cycle: ritz (wanted last) {r}\n"
-              " _cplx_cycle: bounds {b}", r=r_s, b=b_s)
-        # ---- nev inflation (znaup2.f, as dsaup2.f:673-693) ----
-        nev_inf = nev_eff + min(nconv, np_eff // 2)
-        if nev_inf == 1 and ncv >= 6:
-            nev_inf = ncv // 2
-        elif nev_inf == 1 and ncv > 3:
-            nev_inf = 2
-        nev_eff = min(nev_inf, ncv - 1)
-        np_eff = ncv - nev_eff
-        return CplxHeadOut(state=state, r_s=r_s, b_s=b_s, nconv=nconv,
-                           done=done, nev_eff=nev_eff, np_eff=np_eff)
+        state = extend(state, cfg.ncv)
+        h = head_plain(state.H.astype(np.complex128),
+                       np.float64(state.rnorm), p)
+        _trace_cycle(state.iter, h.nconv, state.rnorm, h.r_s, h.b_s)
+        return CplxHeadOut(state=state, r_s=h.r_s, b_s=h.b_s, nconv=h.nconv,
+                           done=h.done, nev_eff=h.nev_eff, np_eff=h.np_eff)
 
     return head
 
 
 def make_cplx_tail(op: Operator, cfg: IRAMConfig):
     """Build the exact-shift restart tail ``tail(h, is_last) ->
-    CplxCycleOut`` (znapps with the shifts from zngets)."""
-    ncv, nev0 = cfg.ncv, cfg.nev
-    np0 = ncv - nev0
-    cdt = np.dtype(cfg.dtype)
-    rdt = _dt.real_dtype(cdt)
-    eps_m = rdt.type(_dt.eps(cdt))
-    iota = np.arange(ncv)
-    eyek = np.eye(ncv, dtype=cdt)
+    CplxCycleOut`` (znapps with the shifts from zngets, ``shifts_plain``,
+    complex128)."""
+    ncv = cfg.ncv
+    p = params(cfg)
     bnorm = make_bnorm(op, cfg)
-
-    def apply_shifts(h: CplxHeadOut) -> FactorizationState:
-        state, nev_eff, np_eff = h.state, h.nev_eff, h.np_eff
-        # the np_eff least-wanted values, largest bound first
-        active = (iota < np_eff)[:np0]
-        skey = np.where(active, -np.abs(h.b_s[:np0]), rdt.type(np.inf))
-        shifts = h.r_s[:np0][np.argsort(skey, kind="stable")]
-        Hc, Q = state.H.astype(cdt), eyek
-        for mu, act in zip(shifts, active):
-            if not act:
-                continue
-            q, _ = np.linalg.qr(Hc - mu * eyek)
-            # deflation after each shift (dnapps.f:328-336)
-            Hc, _ = _deflate(np.triu(q.conj().T @ Hc @ q, -1), eps_m)
-            Q = Q @ q
-        sigmak = Q[ncv - 1, nev_eff - 1]
-        betak = Hc[nev_eff, nev_eff - 1]
-        # znapps-parity kev-row update of the basis (rows 0..nev_eff of
-        # Q^T V survive the restart)
-        return restart_tail(op, cfg, bnorm, state, Q, Hc, sigmak, betak,
-                            nev_eff)
 
     def tail(h: CplxHeadOut, is_last: bool) -> CplxCycleOut:
         if h.done or is_last:
             # exit before znapps: keep the full factorization
             state = h.state.replace(iter=h.state.iter + 1)
         else:
-            state = apply_shifts(h)
+            Hc, Q = shifts_plain(h.state.H.astype(np.complex128), h, p)
+            k = h.nev_eff
+            # znapps-parity kev-row update of the basis (rows 0..nev_eff of
+            # Q^T V survive the restart)
+            state = restart_tail(op, cfg, bnorm, h.state, Q, Hc,
+                                 Q[ncv - 1, k - 1], Hc[k, k - 1], k)
         return CplxCycleOut(state=state, done=h.done, nconv=h.nconv,
                             ritz_s=h.r_s, bounds_s=h.b_s)
 
     return tail
 
 
-class FusedNonsymSolver(HostLoopSolver):
+class FusedNonsymSolver(DeviceLoopSolver):
     """znaupd-equivalent driver over the complex cycle, with the name of the
     reference package's driver; serves real non-symmetric problems through
-    :func:`complexify_operator`.  The restart loop runs on the host.
-    ``mesh``: see :class:`HostLoopSolver`."""
+    :func:`complexify_operator`.  The restart loop runs on the operator's
+    device (:class:`~arpack_ng_tpu_torch.core.loop.DeviceLoopSolver`; the
+    dgks extension is read-free): per cycle, the previous restart and the
+    extension from ``k`` (a CUDA graph per ``k`` on a capturable operator,
+    eager otherwise), the reduced space as one launch of
+    ``csrc/cplx_cycle.cu`` (the numpy twin on the CPU), one read of its
+    packet (one more after the host finished an extension).  :meth:`multi`
+    is the counterpart of the reference's ``make_cplx_multi_cycle``.
+    ``mesh``: see :class:`~arpack_ng_tpu_torch.core.iram.HostLoopSolver`;
+    the loop runs on each rank's rows, the reduced space on every rank
+    alike."""
 
     def __init__(self, op: Operator, cfg: IRAMConfig, mesh=None):
         if not _dt.is_complex(cfg.dtype):
@@ -327,6 +211,9 @@ class FusedNonsymSolver(HostLoopSolver):
         if not cfg.exact_shifts:
             raise ValueError("fused path requires exact shifts")
         super().__init__(op, cfg, make_cplx_head, make_cplx_tail, mesh)
+        self._ext = make_extend(self.op, cfg)
+        self._host_loop = not self._ext.read_free
+        self._p = params(cfg)
 
     def _start(self, state: FactorizationState) -> CplxCycleOut:
         cdt = np.dtype(self.cfg.dtype)
@@ -345,3 +232,48 @@ class FusedNonsymSolver(HostLoopSolver):
         info = 1 if (out.state.iter >= cfg.max_iter
                      and out.nconv < cfg.nev) else 0
         return r_x, b_x, info
+
+    # ---- the reduce step of the device loop ------------------------------
+    def _packet_size(self) -> int:
+        return packet_size(self.cfg.ncv)
+
+    def _q_dtype(self) -> torch.dtype:
+        return _dt.torch_dtype(self.cfg.dtype)
+
+    def _reduce(self, ds, Q, sk, packet, is_last: bool) -> None:
+        cplx_cycle(ds.H, ds.rnorm, ds.brk, ds.force, ds.cnt, Q, sk, packet,
+                   self._p, is_last)
+
+    def _packet_fields(self, pk):
+        ncv = self.cfg.ncv
+        H = np.ascontiguousarray(pk[P_HEAD + 3 * ncv:]).reshape(ncv, ncv, 2)
+        return (H.view(np.complex128)[..., 0], pk[P_RNORM],
+                pk[P_CNT:P_CNT + 4])
+
+    def _read_fields(self, ds):
+        ncv = self.cfg.ncv
+        back = torch.cat([ds.rnorm.double().reshape(1), ds.cnt.double(),
+                          torch.view_as_real(ds.H).double().reshape(-1)]
+                         ).cpu().numpy()
+        H = back[5:].reshape(ncv, ncv, 2).view(np.complex128)[..., 0]
+        return H, back[0], back[1:5]
+
+    def _cycle_out(self, state: FactorizationState, pk) -> CplxCycleOut:
+        if pk is None:
+            return self._start(state)
+        ncv = self.cfg.ncv
+        ritz = np.empty(ncv, np.complex128)
+        ritz.real = pk[P_HEAD:P_HEAD + ncv]
+        ritz.imag = pk[P_HEAD + ncv:P_HEAD + 2 * ncv]
+        return CplxCycleOut(state=state, done=bool(pk[P_DONE]),
+                            nconv=int(pk[P_NCONV]), ritz_s=ritz,
+                            bounds_s=pk[P_HEAD + 2 * ncv:
+                                        P_HEAD + 3 * ncv].copy())
+
+    def _trace_packet(self, pk, it: int) -> None:
+        if debug.maup2 > 0:
+            ncv = self.cfg.ncv
+            r_s = pk[P_HEAD:P_HEAD + ncv] + 1j * pk[P_HEAD + ncv:
+                                                     P_HEAD + 2 * ncv]
+            _trace_cycle(it, int(pk[P_NCONV]), pk[P_RNORM], r_s,
+                         pk[P_HEAD + 2 * ncv:P_HEAD + 3 * ncv])

@@ -92,4 +92,55 @@ __device__ __forceinline__ int warp_poll(const int* p, int seen, int lane) {
   return seen;
 }
 
+// ---- helpers of the reduced-space kernels (realnonsym_cycle.cu, cplx_cycle.cu)
+
+// The SM's clock, read once a shared word is read (ptxas moves a bare
+// clock read, which has no inputs, above the barrier before it; a read
+// predicated on a loaded value waits for the load, which stays after the
+// barrier).
+__device__ __forceinline__ long long clock_after(const int* word) {
+  long long t;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.s32 p, %1, -1;\n\t@p mov.u64 %0, %%clock64;\n\t"
+      "@!p mov.u64 %0, 0;\n\t}"
+      : "=l"(t)
+      : "r"(ld_relaxed(word))
+      : "memory");
+  return t;
+}
+
+// The largest v over the block (every thread passes its partial; all return
+// the maximum).  `red`: 33 doubles of shared memory.
+__device__ inline double block_max(double v, double* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmax(v, __shfl_down_sync(0xffffffffu, v, off));
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double m = red[0];
+    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) m = fmax(m, red[w]);
+    red[32] = m;
+  }
+  __syncthreads();
+  const double out = red[32];
+  __syncthreads();
+  return out;
+}
+
+// Does key j come before key i in the stable ascending order (NaN last)?
+__device__ __forceinline__ bool before(double kj, int j, double ki, int i) {
+  const bool nj = isnan(kj), ni = isnan(ki);
+  if (nj != ni) return ni;
+  if (nj) return j < i;
+  return kj < ki || (kj == ki && j < i);
+}
+
+__device__ __forceinline__ int stable_rank(const double* key, int n, int i) {
+  const double ki = key[i];
+  int r = 0;
+  for (int j = 0; j < n; ++j) r += before(key[j], j, ki, i);
+  return r;
+}
+
 }  // namespace atpt

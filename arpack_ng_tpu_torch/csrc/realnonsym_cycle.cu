@@ -121,21 +121,6 @@ struct RnArgs {
   long long* clk;  // NULL, or RN_CLOCK_SLOTS stamps and counts
 };
 
-// The SM's clock, read once a shared word is read (ptxas moves a bare
-// clock read, which has no inputs, above the barrier before it; a read
-// predicated on a loaded value waits for the load, which stays after the
-// barrier).
-__device__ __forceinline__ long long clock_after(const int* word) {
-  long long t;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.s32 p, %1, -1;\n\t@p mov.u64 %0, %%clock64;\n\t"
-      "@!p mov.u64 %0, 0;\n\t}"
-      : "=l"(t)
-      : "r"(ld_relaxed(word))
-      : "memory");
-  return t;
-}
-
 // Thread 0 adds the cycles since `mark` to laps[slot - A_SHIFT] (registers:
 // a global read here would stall the warp that runs the QR) and moves the
 // mark; `word`: a shared word to order the clock read after.
@@ -151,25 +136,6 @@ __device__ __forceinline__ void lap(const long long* clk, int slot, long long* l
 __host__ __device__ inline long long work_bytes(int n) {
   return (static_cast<long long>(RN_MATRICES) * n * n + static_cast<long long>(RN_VECTORS) * n) *
          8;
-}
-
-// The largest |v| over the block (every thread passes its partial; all return
-// the maximum).  `red`: 33 doubles of shared memory.
-__device__ double block_max(double v, double* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmax(v, __shfl_down_sync(RN_FULL, v, off));
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double m = red[0];
-    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) m = fmax(m, red[w]);
-    red[32] = m;
-  }
-  __syncthreads();
-  const double out = red[32];
-  __syncthreads();
-  return out;
 }
 
 // C = A B, or A^T B with `ta` (n x n, row-major); C is neither A nor B.
@@ -650,21 +616,6 @@ __device__ void implicit_q(const double* H, double* M, double* q, int n, double 
     }
     __syncthreads();
   }
-}
-
-// Does key j come before key i in the stable ascending order (NaN last)?
-__device__ __forceinline__ bool before(double kj, int j, double ki, int i) {
-  const bool nj = isnan(kj), ni = isnan(ki);
-  if (nj != ni) return ni;
-  if (nj) return j < i;
-  return kj < ki || (kj == ki && j < i);
-}
-
-__device__ __forceinline__ int stable_rank(const double* key, int n, int i) {
-  const double ki = key[i];
-  int r = 0;
-  for (int j = 0; j < n; ++j) r += before(key[j], j, ki, i);
-  return r;
 }
 
 __device__ __forceinline__ double which_key(int which, double wr, double wi) {

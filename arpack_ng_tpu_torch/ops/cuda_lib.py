@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sel.cu", "rot.cu", "cgs.cu", "dia.cu", "psell.cu", "gather.cu",
-           "sym_cycle.cu", "realnonsym_cycle.cu")
+           "sym_cycle.cu", "realnonsym_cycle.cu", "cplx_cycle.cu")
 HEADERS = ("common.cuh", "passes.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -140,6 +140,8 @@ def load() -> ctypes.CDLL:
     lib.atpt_sym_cycle.restype = i32
     lib.atpt_realnonsym_cycle.argtypes = [i32] * 6 + [f64] * 4 + [vp] * 11
     lib.atpt_realnonsym_cycle.restype = i32
+    lib.atpt_cplx_cycle.argtypes = [i32] * 6 + [f64] * 3 + [vp] * 11
+    lib.atpt_cplx_cycle.restype = i32
     lib.atpt_rotate_rows.argtypes = [i32, i32, i32, i32, vp, i32, i32, i32,
                                      vp, i64, i64, vp]
     lib.atpt_rotate_rows.restype = i32

@@ -53,18 +53,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import cuda_lib
-from .cuda_sym_cycle import (MAX_SMEM, P_BRK, P_CNT, P_DONE,  # noqa: F401
-                             P_FORCE, P_INFO, P_NCONV, P_NEV, P_NP, P_RNORM)
+from . import cuda_lib, reduced_space
+from .cuda_sym_cycle import (P_BRK, P_CNT, P_DONE, P_FORCE,  # noqa: F401
+                             P_INFO, P_NCONV, P_NEV, P_NP, P_RNORM)
+from .reduced_space import SWEEPS_PER_EV, WHICH  # noqa: F401
 
 #: packet offsets past the shared header: the implicit-chase flag, then the
 #: sorted real parts, imaginary parts and bounds (ncv each), then H
 P_IMPL = 12
 P_HEAD = 13
-WHICH = {"LM": 0, "SM": 1, "LR": 2, "SR": 3, "LI": 4, "SI": 5}
-#: QR sweeps of the real Schur form per Ritz value (a double shift retires
-#: a whole conjugate pair, so this is generous)
-SWEEPS_PER_EV = 4
 #: the kernel's workspace (csrc/realnonsym_cycle.cu), in doubles: six ncv x
 #: ncv matrices (H0, the working T or Hc, Q, the QR's M, its q, a product)
 #: and VECTORS ncv-length vectors
@@ -95,7 +92,7 @@ def packet_size(ncv: int) -> int:
 
 def clock_size(ncv: int) -> int:
     """Length of the kernel's optional stamp buffer (any ncv)."""
-    return len(CLOCKS) + len(LAPS) + len(COUNTS)
+    return reduced_space.clock_size(CLOCKS, LAPS, COUNTS)
 
 
 def work_bytes(ncv: int) -> int:
@@ -105,15 +102,12 @@ def work_bytes(ncv: int) -> int:
 
 def fits_shared(ncv: int) -> bool:
     """Whether the workspace fits in one block's shared memory."""
-    return work_bytes(ncv) <= MAX_SMEM
+    return reduced_space.fits_shared(work_bytes, ncv)
 
 
 def max_shared_ncv() -> int:
     """The largest ncv whose workspace fits in shared memory (68)."""
-    n = 2
-    while fits_shared(n + 1):
-        n += 1
-    return n
+    return reduced_space.max_shared_ncv(work_bytes)
 
 
 # ---- the host loop's numpy reduced space --------------------------------
@@ -520,31 +514,11 @@ def shifts_plain(H0, h: Head, p: Params):
 
 
 def _check(H, rnorm, brk, force, cnt, Q, sk, packet):
-    ncv = H.shape[0]
-    if H.shape != (ncv, ncv) or not H.is_contiguous():
-        raise ValueError("H must be a contiguous square matrix")
-    if H.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"no reduced-space kernel for {H.dtype}")
-    if ncv < 3:
-        raise ValueError("the real reduced space needs ncv >= 3")
-    if rnorm.shape != () or rnorm.dtype != H.dtype:
-        raise ValueError("rnorm must be a 0-d tensor of H's dtype")
-    if brk.shape != () or force.shape != () or brk.dtype != torch.int32 \
-            or force.dtype != torch.int32:
-        raise ValueError("brk and force must be 0-d int32 tensors")
-    if cnt.shape != (4,) or cnt.dtype != torch.int64:
-        raise ValueError("cnt must be an int64 (4,) tensor")
-    if Q.shape != (ncv, ncv) or Q.dtype != H.dtype or not Q.is_contiguous():
-        raise ValueError(f"Q must be a contiguous ({ncv}, {ncv}) matrix")
-    if sk.shape != (2,) or sk.dtype != H.dtype:
-        raise ValueError("sk must be a (2,) vector of H's dtype")
-    if packet.shape != (packet_size(ncv),) or packet.dtype != torch.float64 \
-            or not packet.is_contiguous():
-        raise ValueError(f"packet must be a contiguous float64 vector of "
-                         f"{packet_size(ncv)}")
-    devs = {t.device for t in (H, rnorm, brk, force, cnt, Q, sk, packet)}
-    if len(devs) != 1:
-        raise ValueError("every tensor must be on one device")
+    reduced_space.check_buffers(
+        H, rnorm, brk, force, cnt, Q, sk, packet,
+        dtypes=(torch.float32, torch.float64), rnorm_dtype=H.dtype,
+        min_ncv=3, packet_size=packet_size(H.shape[0] if H.dim() else 0),
+        what="real reduced-space")
 
 
 def realnonsym_cycle_plain(H, rnorm, brk, force, cnt, Q, sk, packet,
@@ -580,14 +554,8 @@ def realnonsym_cycle(H, rnorm, brk, force, cnt, Q, sk, packet, p: Params,
     """One cycle's reduced space (see the module note); on a CUDA device
     one kernel launch on the current stream, nothing read back."""
     _check(H, rnorm, brk, force, cnt, Q, sk, packet)
-    if p.which not in WHICH:
-        raise ValueError(f"bad which={p.which!r}")
     ncv = H.shape[0]
-    if clocks is not None and (clocks.shape != (clock_size(ncv),)
-                               or clocks.dtype != torch.int64
-                               or clocks.device != H.device):
-        raise ValueError(f"clocks must be an int64 ({clock_size(ncv)},) "
-                         "tensor on H's device")
+    reduced_space.check_call(H, p.which, clocks, clock_size(ncv))
     if H.device.type == "cpu":
         return realnonsym_cycle_plain(H, rnorm, brk, force, cnt, Q, sk,
                                       packet, p, is_last)

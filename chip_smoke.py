@@ -158,17 +158,33 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    'auto' solve again with the reduced space on the host (a witness, not
    counted); the phase within P10_MAX_S;
 11. the rest of mode 1 at full width, float32 / complex64, k = 8,
-   ncv = 32, tol = 1e-5: (a) ``eigs(A_csr, strategy='fused')`` on the
+   ncv = 32, tol = 1e-5: first the complex reduced-space kernel
+   (``csrc/cplx_cycle.cu``, row 13) against its numpy twin on complex
+   Arnoldi Hessenbergs (a complex matrix, the convection-diffusion matrix
+   from a complex and from a real start, a normal matrix; complex64 and
+   complex128; ncv in ``CX_NCVS``, 3 to 100, past the shared-memory
+   limit at 58; every which at ncv = 32), the counts equal, the chase's
+   shift count np_eff, the kept block's values the packet's kept values,
+   every gap within ``CX_LIMITS`` (the cases whose conditioning exempts a
+   check named, the normal matrix's none), two launches bit-equal, a done, a last and a breakdown cycle leaving
+   H, Q and sk, then timed at ncv = 32 beside the twin's host wall, the
+   library form's wall (``torch.linalg.eig`` and the shifts' QR on the
+   card, synced) and its bound (outside the phase's clock); then (a)
+   ``eigs(A_csr, strategy='fused')`` on the
    conv-diff operator at nx = 1024 imported as DIA (complexified: two DIA
    launches per complex matvec; the copy that gives the kernel contiguous
    real and imaginary parts timed beside the two launches) and (b)
    ``eigs(strategy='fused')`` on ``convection_diffusion_2d(1024,
-   complex64)``: every residual ``<= 1e-3``, (a)'s values closed under
+   complex64)``, both on the device loop (``FusedNonsymSolver``: a CUDA
+   graph per start k, one packet and one row-13 launch per cycle and host
+   rerun): every residual ``<= 1e-3``, (a)'s values closed under
    conjugation within 1e-3 relative but for the last (a complex driver
-   may cut a pair at k), count, info, cycles and ms per cycle reported; a
-   count below 8 there (the float32 reduced space's shortfall against the
-   float64 re-test, as the fused real driver shows at 1024) is reported
-   and the count gated (8) at nx = P11_CUT_NX; (c) the flagship through
+   may cut a pair at k), count, info, cycles, ms per cycle, packets,
+   graphs and launches reported; each again with the reduced space on
+   the host (the twin patched in, the witness) and on the host loop
+   (``HostLoopSolver.solve``), which must agree in cycles, nopx and
+   nrorth, their ms per cycle beside the kernel's; 8 values and info 0
+   at nx = 1024; (c) the flagship through
    ``eigsh(restart='thick')`` under the phase-4 gates, then with
    ``select=`` (Ritz values 0, 2 and 5 of the exit order: those three of
    (c)'s values exactly, their vectors under the gates); (d) the flagship
@@ -454,6 +470,8 @@ EIGS_NX = 1024
 EIGS_SOLVE_NX = 512
 EIGS_MAX_RESTARTS = 300
 EIGS_MAX_S = 150.0
+#: the kernel every 11a-b solve on the device loop must launch
+P11_PATH = ("cplx_cycle",)
 #: the kernels the real eigs loop must launch (9a-c), and the gate on 9b's
 #: and 9c's cycles: the span of 9b's and 9c's cycles over start-vector
 #: seeds 0-4 on the card, with the real reduced-space kernel (40-48) and
@@ -476,6 +494,28 @@ RN_LIMITS = {
                           H=1e-9),
     "torch.float32": dict(values=1e-12, bounds=1e-10, Q=1e-5, sigmak=1e-5,
                           H=1e-5)}
+#: row 13, the complex reduced-space kernel against its twin (phase 11 and
+#: tests/test_torch_gpu.py): the largest gap each check allows, in the units
+#: of ``_cx_gaps`` (the sorted values over max |lambda| and the bounds over
+#: their max, each against the twin's at its place or one either side; how
+#: far the packet's which-keys fall from ascending, over max |lambda|; the
+#: values of the shifted Hc's kept block against the packet's kept values,
+#: over max |lambda|; the kept columns' space; where the sorted order is the
+#: twin's, Q's kept columns, sigmak and Hc's kept block over max |H0|, entry
+#: by entry; the restart's Arnoldi relation over max |H0|); the outputs are
+#: rounded to complex64 in phase 11's dtype.  Its cases: the sizes (ncv = 3
+#: to past ``max_shared_ncv``, 58) and the sources of ``_cx_hessenberg``;
+#: the 'normal' source is conditioned well enough at every size that no
+#: check is exempt there
+CX_LIMITS = {
+    "torch.complex128": dict(values=1e-12, bounds=1e-10, sorted=1e-12,
+                             kept=1e-11, space=1e-9, Q=1e-9, sigmak=1e-9,
+                             H=1e-9, relation=1e-12),
+    "torch.complex64": dict(values=1e-12, bounds=1e-10, sorted=1e-12,
+                            kept=1e-5, space=1e-5, Q=1e-5, sigmak=1e-5,
+                            H=1e-5, relation=1e-4)}
+CX_NCVS = (3, 8, NCV, 59, 100)
+CX_SOURCES = ("complex", "convdiff", "realified", "normal")
 #: phase 10c: the imaginary part of the Hermitian tridiagonal's
 #: off-diagonal; phase 10's restart cap (10b, 10d) and wall limit, seconds
 #: (about three times the 42 s it takes on an H100 at 700 W, PERF.md
@@ -485,8 +525,7 @@ P10_MAX_RESTARTS = 1000
 P10_MAX_S = 120.0
 #: phase 11: the restart cap of its solves (11d, caller's shifts without
 #: nev inflation, took 861 cycles on an H100, PERF.md section 6), its wall
-#: limit (seconds; 63 s there) and the grid of 11e and of 11a-b's count
-#: gate where the float32 reduced space falls short at nx = 1024
+#: limit (seconds; 63-76 s there) and the grid of 11e
 P11_MAX_RESTARTS = 2000
 P11_MAX_S = 240.0
 P11_CUT_NX = 512
@@ -1472,15 +1511,502 @@ def check_realnonsym_cycle(torch, dev, gpu):
 
 
 def _rn_clocks(crc, c):
-    """The real reduced-space kernel's stamp buffer as named numbers: each
-    phase's SM cycles (the difference of consecutive stamps), the QR
-    steps' parts summed over the Schur sweeps and the chase's shifts, and
-    the counts of both."""
+    """A reduced-space kernel's stamp buffer (rows 12 and 13) as named
+    numbers: each phase's SM cycles (the difference of consecutive
+    stamps), the QR steps' parts summed over the Schur sweeps and the
+    chase's shifts, and the counts of both."""
     nc, nl = len(crc.CLOCKS), len(crc.LAPS)
     out = dict(zip(crc.CLOCKS[1:], np.diff(c[:nc]).tolist()))
     out.update(zip(crc.LAPS, c[nc:nc + nl].tolist()))
     out.update(zip(crc.COUNTS, c[nc + nl:].tolist()))
     return out
+
+
+def _cx_arnoldi_on(a, ncv, seed, cplx=True):
+    """H and rnorm of ncv complex Arnoldi steps (two CGS passes) on the
+    matrix ``a`` from a start drawn from ``seed``: complex, or with
+    ``cplx`` False real (a real ``a`` then gives a real-valued H, as the
+    complexified real operator does)."""
+    rng = np.random.default_rng(seed)
+    n = a.shape[0]
+    V = np.zeros((ncv + 1, n), np.complex128)
+    H = np.zeros((ncv, ncv), np.complex128)
+    v = rng.uniform(-1, 1, n) + (1j * rng.uniform(-1, 1, n) if cplx else 0)
+    V[0] = v / np.linalg.norm(v)
+    for j in range(ncv):
+        w = a @ V[j]
+        for _ in range(2):
+            h = V[:j + 1].conj() @ w
+            w = w - V[:j + 1].T @ h
+            H[:j + 1, j] += h
+        rn = np.linalg.norm(w)
+        if j + 1 < ncv:
+            H[j + 1, j] = rn
+        V[j + 1] = w / rn
+    return H, rn
+
+
+def _cx_hessenberg(ncv, seed, source, nx=24, rho=50.0):
+    """Row 13's inputs: the Hessenberg the complex cycle hands its reduced
+    space, from ``source``: 'complex' (the convection-diffusion matrix
+    plus a seeded imaginary diagonal in [0, 1): no conjugate pairs, so no
+    ties), 'convdiff' (the real matrix from a complex start, as 11b's
+    complex64 stencil runs), 'realified' (the real matrix from a real
+    start, as 11a's complexified operator runs: a real-valued H) or
+    'normal' (a seeded normal matrix of order 8 ncv, values of modulus in
+    [0.2, 1) at seeded angles, from a complex start: Ritz values of
+    condition near 1 and a chase whose Q moves less than 1e-10 under a
+    rounding of H at every ncv, where the others' grow with ncv)."""
+    import scipy.sparse as sp
+
+    from arpack_ng_tpu_torch.models import convection_diffusion_2d
+
+    if source == "normal":
+        rng = np.random.default_rng(200 + seed)
+        n = 8 * ncv
+        lam = rng.uniform(0.2, 1, n) * np.exp(2j * np.pi * rng.uniform(0, 1,
+                                                                       n))
+        u, _ = np.linalg.qr(rng.standard_normal((n, n))
+                            + 1j * rng.standard_normal((n, n)))
+        return _cx_arnoldi_on((u * lam) @ u.conj().T, ncv, seed)
+    a = convection_diffusion_2d(nx, rho=rho, dtype=np.float64,
+                                device="cpu")[1].astype(np.complex128)
+    if source == "complex":
+        d = np.random.default_rng(100 + seed).uniform(0, 1, a.shape[0])
+        a = (a + sp.diags(1j * d)).tocsr()
+    return _cx_arnoldi_on(a, ncv, seed, cplx=source != "realified")
+
+
+def _cx_params(ccc, dt, which, nev, tol=None):
+    f = np.finfo(np.float32 if dt == "torch.complex64" else np.float64)
+    R = f.dtype.type
+    if tol is None:
+        tol = 1e-5 if dt == "torch.complex64" else 1e-10
+    return ccc.Params(which=which, nev=nev, tol=float(R(tol)),
+                      eps23=float(R(f.eps ** (2 / 3))), eps_m=float(f.eps))
+
+
+def _cx_buffers(torch, ccc, H, rnorm, dt, where, brk=-1):
+    ncv = H.shape[0]
+    t = dict(dtype=dt, device=where)
+    rdt = torch.float32 if dt == torch.complex64 else torch.float64
+    return [torch.tensor(H, **t), torch.tensor(rnorm, dtype=rdt, device=where),
+            torch.tensor(brk, dtype=torch.int32, device=where),
+            torch.tensor(0, dtype=torch.int32, device=where),
+            torch.tensor([3, 1, 2, 0], dtype=torch.int64, device=where),
+            torch.zeros(ncv, ncv, **t), torch.zeros(2, **t),
+            torch.zeros(ccc.packet_size(ncv), dtype=torch.float64,
+                        device=where)]
+
+
+def _cx_run(torch, ccc, H, rnorm, dt, where, p, is_last=False, brk=-1,
+            shifts=False):
+    """One complex reduced space on ``where``: ``(H, Q, sk, packet)`` as
+    it leaves them, in complex128 and float64; with ``shifts`` (a CUDA
+    ``where``) the kernel's count of the shifts its chase applied (its
+    stamp buffer's last word) after them."""
+    bufs = _cx_buffers(torch, ccc, H, rnorm, dt, where, brk)
+    clk = None
+    if shifts:
+        clk = torch.zeros(ccc.clock_size(H.shape[0]), dtype=torch.int64,
+                          device=where)
+    ccc.cplx_cycle(*bufs, p, is_last, clocks=clk)
+    out = [x.to(torch.complex128).cpu().numpy() for x in
+           (bufs[0], bufs[5], bufs[6])] + [bufs[7].cpu().numpy()]
+    return out + [int(clk[-1])] if shifts else out
+
+
+def _cx_cond(H):
+    """eps times the largest eigenvalue condition number of H times
+    ||H||_2 over max |lambda|: the relative error a backward-stable
+    eigensolve may leave in H's values, and the scale of what two of them
+    may disagree by."""
+    import scipy.linalg as sla
+
+    w, vl, vr = sla.eig(H, left=True, right=True)
+    kappa = 1.0 / np.abs(np.sum(vl.conj() * vr, axis=0))
+    return float(np.finfo(np.float64).eps * kappa.max()
+                 * np.linalg.norm(H, 2) / np.abs(w).max())
+
+
+def _near(a, b):
+    """Each entry of ``a`` against ``b``'s at its place or one place
+    either side (two members of a conjugate pair tie on a which-key up to
+    rounding, so their sorted order follows the last bits): the largest
+    such distance."""
+    n = len(a)
+    d = np.abs(a[:, None] - b[None, :])
+    idx = np.arange(n)
+    band = np.abs(idx[:, None] - idx[None, :]) <= 1
+    return float(np.max(np.min(np.where(band, d, np.inf), axis=1)))
+
+
+def _cx_shifts(ccc, pk, ncv, nev):
+    """The shifts a packet's head gives the chase, in order."""
+    P = ccc.P_HEAD
+    h = ccc.Head(r_s=pk[P:P + ncv] + 1j * pk[P + ncv:P + 2 * ncv],
+                 b_s=pk[P + 2 * ncv:P + 3 * ncv], nconv=0, done=False,
+                 nev_eff=int(pk[ccc.P_NEV]), np_eff=int(pk[ccc.P_NP]))
+    return np.array(ccc.shift_pool(h, nev))
+
+
+def _cx_kept(ccc, H, pk):
+    """The values of a shifted Hc's kept block ``Hc[:k, :k]`` against the
+    packet's kept (unshifted) values ``r_s[np_eff:]``, as sets: the larger
+    of the two one-sided distances.  Exact shifts leave the kept values as
+    the block's values; a shift skipped, added or taken from the wrong
+    values does not."""
+    ncv, P, k = H.shape[0], ccc.P_HEAD, int(pk[ccc.P_NEV])
+    kept = pk[P + ncv - k:P + ncv] + 1j * pk[P + 2 * ncv - k:P + 2 * ncv]
+    e = np.linalg.eigvals(H[:k, :k])
+    d = np.abs(e[:, None] - kept[None, :])
+    return float(max(d.min(axis=1).max(), d.min(axis=0).max()))
+
+
+def _cx_gaps(ccc, twin, other, H0, p):
+    """How far one complex reduced-space result lies from the twin's, in
+    the units of ``CX_LIMITS``: the sorted values (over max |lambda|) and
+    bounds (over their max), each against the twin's at its place or one
+    either side; how far the other's which-keys fall from ascending
+    (``sorted``); whether the packet's counts (done, nconv, nev_eff,
+    np_eff, info) are equal and the chase took the twin's shifts in the
+    twin's order (``same_order``: a conjugate pair's members tie on the
+    which-key and on their bounds up to rounding); where shifts were
+    applied, the other's kept block against its packet's kept values
+    (:func:`_cx_kept`) and the twin's own (``twin_kept``); the other's
+    restart relation ``|H0 Q_k - Q_{k+1} Hc[:k+1, :k]|`` over max |H0| and
+    the twin's (``twin_relation``); where the chase took the twin's
+    shifts in any order, the kept columns' spaces, ``|Q_k Q_k^H - Q'_k
+    Q'_k^H|`` (where a pair straddles the cut, either member may be the
+    one shifted, and each choice keeps its own space); and, where the
+    shifts and their order are the twin's, Q's kept columns, sigmak and
+    Hc's kept block entry by entry (over max |H0|)."""
+    (tH, tQ, tsk, tpk), (kH, kQ, ksk, kpk) = twin[:4], other[:4]
+    ncv, P = H0.shape[0], ccc.P_HEAD
+    tr = tpk[P:P + ncv] + 1j * tpk[P + ncv:P + 2 * ncv]
+    kr = kpk[P:P + ncv] + 1j * kpk[P + ncv:P + 2 * ncv]
+    tb, kb = tpk[P + 2 * ncv:P + 3 * ncv], kpk[P + 2 * ncv:P + 3 * ncv]
+    lam = np.abs(tr).max()
+    counts = all(kpk[i] == tpk[i] for i in (
+        ccc.P_DONE, ccc.P_NCONV, ccc.P_NEV, ccc.P_NP, ccc.P_INFO))
+    ts, ks = (_cx_shifts(ccc, x, ncv, p.nev) for x in (tpk, kpk))
+    key = ccc.which_key(p.which, kr)
+    out = {"values": _near(kr, tr) / lam,
+           "bounds": _near(kb, tb) / max(tb.max(), 1e-300),
+           "sorted": float(max(np.max(key[:-1] - key[1:]), 0.0)) / lam,
+           "counts_equal": counts,
+           "same_order": bool(counts and ts.shape == ks.shape and np.all(
+               np.abs(ks - ts) <= 1e-6 * lam))}
+    same_set = counts and ts.shape == ks.shape and (not len(ts) or max(
+        np.abs(ks[:, None] - ts[None, :]).min(axis=1).max(),
+        np.abs(ts[:, None] - ks[None, :]).min(axis=1).max()) <= 1e-6 * lam)
+    if not tpk[ccc.P_DONE]:
+        k = int(tpk[ccc.P_NEV])
+        scale = np.abs(H0).max()
+
+        def relation(H, Q):
+            return float(np.abs(H0 @ Q[:, :k] - Q[:, :k + 1]
+                                @ H[:k + 1, :k]).max() / scale)
+
+        out["relation"] = relation(kH, kQ)
+        out["twin_relation"] = relation(tH, tQ)
+        if tQ.any():
+            out["kept"] = _cx_kept(ccc, kH, kpk) / lam
+            out["twin_kept"] = _cx_kept(ccc, tH, tpk) / lam
+        if same_set:
+            out["space"] = float(np.abs(kQ[:, :k] @ kQ[:, :k].conj().T
+                                        - tQ[:, :k] @ tQ[:, :k].conj().T
+                                        ).max())
+        if out["same_order"]:
+            out.update(
+                Q=float(np.abs(kQ[:, :k] - tQ[:, :k]).max()),
+                sigmak=float(abs(ksk[0] - tsk[0])),
+                H=float(np.abs(kH[:k + 1, :k] - tH[:k + 1, :k]).max()
+                        / scale))
+    return out
+
+
+def _cx_faults(g, lim, cond):
+    """The gaps of :func:`_cx_gaps` past their limits, and the limit each
+    was held to (None: exempt).  Values, bounds and the keys' order within
+    ``CX_LIMITS`` or 100 times the input's eigenvalue condition
+    (``_cx_cond``), whichever is larger.  Where that condition exceeds the
+    value limit (``ill``), Q, its space, sigmak and Hc are exempt (their
+    differences grow with it) and held by the Arnoldi relation, within its
+    limit or 10 times the twin's own.  The kept block's values within their
+    limit, or, where the twin's own kept block misses its limit (the
+    explicit chase is forward unstable on an ill-conditioned H), within 10
+    times the twin's.  Returns ``(faults, used, exempt)``, ``exempt`` the
+    names of the checks an input's conditioning exempted."""
+    ill = 100 * cond > lim["values"]
+    used = {k: max(lim[k], 100 * cond)
+            for k in ("values", "bounds", "sorted")}
+    exempt = []
+    if "relation" in g:
+        used["relation"] = max(lim["relation"], 10 * g["twin_relation"])
+    if "kept" in g:
+        used["kept"] = lim["kept"]
+        if g["twin_kept"] > lim["kept"]:
+            used["kept"] = 10 * g["twin_kept"]
+            exempt.append("kept")
+    for k in ("space", "Q", "sigmak", "H"):
+        if k in g:
+            used[k] = None if ill else lim[k]
+            if ill:
+                exempt.append(k)
+    bad = [(k, g[k], v) for k, v in used.items()
+           if v is not None and g[k] > v]
+    return bad, used, exempt
+
+
+def _cx_library(torch, H, rnorm, shifts):
+    """The library form of one cycle's complex reduced space on the card
+    (the yardstick, used nowhere in the port): ``torch.linalg.eig``
+    (values and the vectors the bounds need; it syncs), the bounds, then
+    one ``torch.linalg.qr`` per shift with Q accumulated, as the host
+    loop's numpy chase runs them."""
+    w, X = torch.linalg.eig(H)
+    bounds = rnorm * torch.abs(X[-1]) / torch.linalg.vector_norm(X, dim=0)
+    eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+    Hc, Q = H, eye
+    for mu in shifts:
+        q, _ = torch.linalg.qr(Hc - complex(mu) * eye)
+        Hc = torch.triu(q.conj().T @ Hc @ q, -1)
+        Q = Q @ q
+    torch.cuda.synchronize()
+    return bounds, Q
+
+
+def _cx_ops(ccc, H, rnorm, p):
+    """The operations this input needs: the QR sweeps of its Schur form and
+    the shifts of its chase as the twin takes them (counted on its
+    ``np.linalg.qr`` calls): each reflector of order 2 (one per nonzero
+    subdiagonal entry of the shifted matrix, in complex arithmetic, 4 real
+    operations to a complex one) applied to the Hessenberg T from both
+    sides over the rows and columns it reaches, to Q's last row in the
+    Schur sweeps (the bounds need no more of it) and to all of Q in the
+    chase; dtrevc's back-substitution over the rows each eigenvector
+    solves with its last component and norm.  Returns ``(flops, detail,
+    head)``, the head the twin's."""
+    from unittest import mock
+
+    n = H.shape[0]
+    real_qr = np.linalg.qr
+    tally = {"schur": [0, 0], "chase": [0, 0]}
+    where = ["schur"]
+
+    def qr(M, *args, **kwargs):
+        js = np.nonzero(np.diag(M, -1) != 0)[0]
+        t = tally[where[0]]
+        t[0] += 1
+        t[1] += 4 * _reflector_flops(n, js, 2,
+                                     1 if where[0] == "schur" else n)
+        return real_qr(M, *args, **kwargs)
+
+    with mock.patch.object(np.linalg, "qr", qr):
+        h = ccc.head_plain(H, rnorm, p)
+        where[0] = "chase"
+        if not h.done:
+            ccc.shifts_plain(H, h, p)
+    (s, fs), (c, fc) = tally["schur"], tally["chase"]
+    trevc = 4 * ((n - 1) * n * (n + 1) // 3 + 2 * n * (n + 1))
+    return fs + fc + trevc, f"{s} Schur sweeps, {c} shifts", h
+
+
+def _cx_case_faults(ccc, twin, kern, H, p, lim, cond, what, worst,
+                    order_apart, exempt):
+    """One case of row 13's check (:func:`check_cplx_cycle`, and
+    tests/test_torch_gpu.py): the packet's counts equal, the chase's shift
+    count (the kernel's stamp, ``kern[4]``) np_eff where the twin applied
+    shifts and 0 where it did not, every gap of :func:`_cx_gaps` within
+    the limit :func:`_cx_faults` holds it to.  Records each gap's largest
+    share of its limit in ``worst`` (key -> (gap, limit)), the case in
+    ``order_apart`` where its sorted order is not the twin's, and its
+    exempt checks in ``exempt``.  Returns the faults."""
+    bad = []
+    g = _cx_gaps(ccc, twin, kern, H, p)
+    if not g.pop("counts_equal"):
+        bad.append((what, "counts", kern[3][:ccc.P_HEAD],
+                    twin[3][:ccc.P_HEAD]))
+    if not g.pop("same_order"):
+        order_apart.append(what[11:])
+    want = int(twin[3][ccc.P_NP]) if twin[1].any() else 0
+    if kern[4] != want:
+        bad.append((what, "shifts applied", kern[4], "want", want))
+    faults, used, ex = _cx_faults(g, lim, cond)
+    bad += [(what,) + f for f in faults]
+    if ex:
+        exempt[what[11:]] = ex
+    for k, u in used.items():
+        share = g[k] / u if u else -1.0
+        if k not in worst or share > worst[k][2]:
+            worst[k] = (g[k], u, share)
+    return bad
+
+
+def check_cplx_cycle(torch, dev, gpu):
+    """Row 13, the complex reduced-space kernel (``csrc/cplx_cycle.cu``)
+    against its numpy twin on complex Arnoldi Hessenbergs
+    (``_cx_hessenberg``: a complex matrix, the convection-diffusion matrix
+    from a complex start and from a real one, a normal matrix), complex64
+    (phase 11's) and complex128, ncv in ``CX_NCVS`` (3 to 100, past
+    ``max_shared_ncv``; every which at ncv = 32, LM and LI at the others)
+    under :func:`_cx_case_faults`: the packet's counts equal, np_eff
+    shifts applied, every gap within the limit :func:`_cx_faults` holds it
+    to (the limits used and the exempt cases printed; the normal source
+    may take no exemption), two launches equal bit for bit; a done cycle, a last cycle and a breakdown
+    leave H, Q and sk as they were; then timed at ncv = 32, 'LM',
+    complex64 on the convection-diffusion source: the kernel device-only
+    (each call after a copy restoring H, in alternation with an empty
+    call), the twin's host wall per call and the library form's wall per
+    call (``torch.linalg.eig`` + the shifts' QR loop on the card,
+    synced).  Returns ``(err, row)``: the complex64 largest value gap at
+    ncv = 32, the timed row of the kernels line."""
+    from arpack_ng_tpu_torch.ops import cuda_cplx_cycle as ccc
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    err = {}
+    bad = []
+    order_apart = []
+    exempt = {}
+    for dt in (torch.complex64, torch.complex128):
+        lim = CX_LIMITS[str(dt)]
+        cdt = np.complex64 if dt == torch.complex64 else np.complex128
+        for m in CX_NCVS:
+            worst = {}
+            for source in CX_SOURCES:
+                H, rn = _cx_hessenberg(m, m, source)
+                H = H.astype(cdt).astype(np.complex128)
+                cond = _cx_cond(H)
+                for which in (ccc.WHICH if m == NCV else ("LM", "LI")):
+                    p = _cx_params(ccc, str(dt), which, max(1, m // 4))
+                    kern = _cx_run(torch, ccc, H, rn, dt, dev, p, shifts=True)
+                    twin = _cx_run(torch, ccc, H, rn, dt, cpu, p)
+                    what = f"cplx_cycle {str(dt)[6:]} ncv {m} {source} {which}"
+                    bad += _cx_case_faults(ccc, twin, kern, H, p, lim, cond,
+                                           what, worst, order_apart, exempt)
+                    if m == NCV and which == "LM" and source == "convdiff":
+                        again = _cx_run(torch, ccc, H, rn, dt, dev, p,
+                                        shifts=True)
+                        if not all(np.array_equal(a, b)
+                                   for a, b in zip(kern, again)):
+                            bad.append((what, "two launches differ"))
+                        err[str(dt)] = _cx_gaps(ccc, twin, kern, H,
+                                                p)["values"]
+            print(f"  cplx_cycle vs twin {dt} ncv={m} "
+                  f"({'shared' if ccc.fits_shared(m) else 'global'} "
+                  f"workspace), each gap at its largest share of the limit "
+                  f"it was held to: " + ", ".join(
+                      f"{k} {v:.3e}" + (" (exempt)" if u is None
+                                        else f" of {u:.1e}")
+                      for k, (v, u, _) in worst.items()), flush=True)
+        # the exits: done (a tolerance every value meets), last, breakdown
+        H, rn = _cx_hessenberg(20, 1, "convdiff")
+        H = H.astype(cdt).astype(np.complex128)
+        for case, p, is_last, brk in (
+                ("done", _cx_params(ccc, str(dt), "LM", 4, tol=0.5), False,
+                 -1),
+                ("last", _cx_params(ccc, str(dt), "SR", 4), True, -1),
+                ("breakdown", _cx_params(ccc, str(dt), "LM", 4), False, 7)):
+            kern = _cx_run(torch, ccc, H, rn, dt, dev, p, is_last, brk,
+                           shifts=True)
+            twin = _cx_run(torch, ccc, H, rn, dt, cpu, p, is_last, brk)
+            what = f"cplx_cycle {str(dt)[6:]} {case}"
+            if not (np.array_equal(kern[0], H) and not kern[1].any()
+                    and not kern[2].any()):
+                bad.append((what, "H, Q or sk changed"))
+            if case == "breakdown":
+                if not np.array_equal(kern[3], twin[3]):
+                    bad.append((what, "packet differs from the twin's"))
+                continue
+            if case == "done" and not kern[3][ccc.P_DONE]:
+                bad.append((what, "not done"))
+            bad += _cx_case_faults(ccc, twin, kern, H, p, lim, _cx_cond(H),
+                                   what, {}, [], exempt)
+            if not np.array_equal(kern[3][ccc.P_HEAD + 3 * 20:],
+                                  twin[3][ccc.P_HEAD + 3 * 20:]):
+                bad.append((what, "packet H is not the input's"))
+    print(f"  cplx_cycle: sorted orders apart from the twin's (conjugate "
+          f"pairs tied up to rounding; held by the invariant gaps): "
+          f"{order_apart}", flush=True)
+    print(f"  cplx_cycle: checks the input's conditioning exempted, by case "
+          f"(Q, space, sigmak, H: eigenvalue condition past the value "
+          f"limit; kept: the twin's own kept block past its limit): "
+          f"{exempt}", flush=True)
+    loose = sorted(w for w in exempt if " normal " in w)
+    if loose:
+        bad.append(("the normal source took exemptions", loose))
+    if bad:
+        raise AssertionError(f"cplx_cycle: kernel and twin differ: {bad}")
+    # the timed row: ncv = 32, 'LM', complex64, the conv-diff source
+    dt = torch.complex64
+    p = _cx_params(ccc, str(dt), "LM", 8)
+    H, rn = _cx_hessenberg(NCV, 0, "convdiff")
+    H = H.astype(np.complex64).astype(np.complex128)
+    bufs = _cx_buffers(torch, ccc, H, rn, dt, dev)
+    H0 = bufs[0].clone()
+
+    def kernel():
+        bufs[0].copy_(H0)
+        ccc.cplx_cycle(*bufs, p, False)
+
+    cbufs = _cx_buffers(torch, ccc, H, rn, dt, cpu)
+    H0c = cbufs[0].clone()
+
+    def twin():
+        cbufs[0].copy_(H0c)
+        ccc.cplx_cycle_plain(*cbufs, p, False)
+
+    flops, detail, h = _cx_ops(ccc, H, np.float64(np.float32(rn)), p)
+    shifts = ccc.shift_pool(h, p.nev)
+    Hd = torch.tensor(H, dtype=torch.complex128, device=dev)
+    walls = {}
+    for name, fn in (("plain_ms", twin), ("library_ms", lambda: _cx_library(
+            torch, Hd, float(np.float32(rn)), shifts))):
+        fn()
+        ts = []
+        for _ in range(timing.REPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        walls[name] = float(np.median(ts))
+    ms = timing.alternating_ms([kernel], timing.flush_buffer(dev))[0]
+    clk = torch.zeros(ccc.clock_size(NCV), dtype=torch.int64, device=dev)
+    bufs[0].copy_(H0)
+    ccc.cplx_cycle(*bufs, p, False, clocks=clk)
+    clocks = _rn_clocks(ccc, clk.cpu().numpy())
+    bound = flops / (PEAK_FLOPS["torch.float64"] / SMS) * 1e3
+    row = {"name": "cplx_cycle", "dtype": "torch.complex64",
+           "shape": NCV, "ms": ms, "plain_ms": walls["plain_ms"],
+           "library_ms": walls["library_ms"], "bound_ms": bound,
+           "bound_by": "operations", "bytes": 0, "flops": flops,
+           "bound_note": "operations this input needs (the complex "
+                         "Householder reflectors of its Schur sweeps and "
+                         "shifts over the Hessenberg rows and columns they "
+                         "reach, dtrevc's rows) over one SM's float64 rate "
+                         "(the kernel is one block and computes in "
+                         "complex128), not the card's roofline",
+           "np_eff": h.np_eff, "clocks": clocks}
+    print(f"  cplx_cycle ncv={NCV} complex64 ({detail}): kernel {ms:.4f} ms "
+          f"device-only, twin {walls['plain_ms']:.4f} ms host, library "
+          f"(eig + {len(shifts)} QR on the card, with syncs) "
+          f"{walls['library_ms']:.4f} ms; bound {bound:.6f} ms ({flops} "
+          f"flops over one SM's float64 rate, {100 * bound / ms:.2f}% of "
+          f"it); check and timing {time.perf_counter() - t0:.1f} s; card "
+          f"{gpu}", flush=True)
+    print("  cplx_cycle phase clocks (SM cycles, one launch; the QR steps' "
+          "parts summed over its sweeps and shifts): " + ", ".join(
+              f"{k} {v}" for k, v in clocks.items()), flush=True)
+    return err, row
+
+
+def _host_cplx_cycle(*args):
+    """The complex reduced space on the host (:func:`_on_host`)."""
+    from arpack_ng_tpu_torch.ops import cuda_cplx_cycle as ccc
+
+    _on_host(ccc.cplx_cycle_plain, args, (0, 5, 6, 7))  # H, Q, sk, pk
 
 
 def _cgs_cases(torch, cuda_cgs, V, w, bf16, what, err):
@@ -1899,28 +2425,30 @@ def flagship(torch, dev, gpu, nx=NX):
     return launches
 
 
+def _on_host(plain, args, outs):
+    """A reduced space as the host loop computes it: the kernel's buffers
+    (all of ``args`` but the last two, ``p`` and ``is_last``) copied to
+    the host, its numpy twin ``plain``, the buffers ``outs`` copied
+    back."""
+    bufs = args[:-2]
+    cpu = [t.cpu() for t in bufs]
+    plain(*cpu, *args[-2:])
+    for i in outs:
+        bufs[i].copy_(cpu[i])
+
+
 def _host_sym_cycle(*args):
-    """The reduced space as the host loop computed it: the kernel's
-    buffers copied to the host, its numpy twin, the results copied back."""
+    """The symmetric reduced space on the host (:func:`_on_host`)."""
     from arpack_ng_tpu_torch.ops import cuda_sym_cycle as csc
 
-    bufs, (p, is_last) = args[:9], args[9:]
-    cpu = [t.cpu() for t in bufs]
-    csc.sym_cycle_plain(*cpu, p, is_last)
-    for i in (0, 1, 6, 7, 8):  # a, b, Q, sk, packet
-        bufs[i].copy_(cpu[i])
+    _on_host(csc.sym_cycle_plain, args, (0, 1, 6, 7, 8))  # a, b, Q, sk, pk
 
 
 def _host_realnonsym_cycle(*args):
-    """The real reduced space as the host loop computed it: the kernel's
-    buffers copied to the host, its numpy twin, the results copied back."""
+    """The real reduced space on the host (:func:`_on_host`)."""
     from arpack_ng_tpu_torch.ops import cuda_realnonsym_cycle as crc
 
-    bufs, (p, is_last) = args[:8], args[8:]
-    cpu = [t.cpu() for t in bufs]
-    crc.realnonsym_cycle_plain(*cpu, p, is_last)
-    for i in (0, 5, 6, 7):  # H, Q, sk, packet
-        bufs[i].copy_(cpu[i])
+    _on_host(crc.realnonsym_cycle_plain, args, (0, 5, 6, 7))  # H, Q, sk, pk
 
 
 def _reduced_witness(torch, dev, gpu, what, want, solve, check):
@@ -2009,16 +2537,18 @@ def _counted(torch, dev, need, fn, tag=None):
     With ``tag``, the host's reruns of read-free extensions in ``fn`` go
     into ``RERUNS[tag]``.  Returns ``(fn(), wall seconds, counts)``."""
     from arpack_ng_tpu_torch.core import arnoldi
-    from arpack_ng_tpu_torch.ops import (cuda_cgs, cuda_dia, cuda_gather,
-                                         cuda_psell, cuda_realnonsym_cycle,
-                                         cuda_rot, cuda_sel, cuda_sym_cycle)
+    from arpack_ng_tpu_torch.ops import (cuda_cgs, cuda_cplx_cycle, cuda_dia,
+                                         cuda_gather, cuda_psell,
+                                         cuda_realnonsym_cycle, cuda_rot,
+                                         cuda_sel, cuda_sym_cycle)
 
     every = (cuda_sel.sel_proj, cuda_sel.sel_update, cuda_rot.rotate_rows,
              cuda_cgs.cgs_proj, cuda_cgs.cgs_update, cuda_dia.dia_matvec,
              cuda_dia.dia_block_matvec, cuda_psell.psell_matvec,
              cuda_gather.take_flat, cuda_gather.take_lanes,
              cuda_sym_cycle.sym_cycle,
-             cuda_realnonsym_cycle.realnonsym_cycle)
+             cuda_realnonsym_cycle.realnonsym_cycle,
+             cuda_cplx_cycle.cplx_cycle)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     for k in every:
         k.launches = 0
@@ -2719,40 +3249,86 @@ def _complex_residuals(vals, vecs, a_sp, what, closed=False) -> float:
     return float(res.max())
 
 
-def _fused_eigs(torch, dev, gpu, tag, make, need, closed, nx, cut_nx):
-    """11a-b: one ``eigs(strategy='fused')`` solve at ``nx`` under
-    :func:`_complex_residuals`; with fewer than 8 values there, the same at
-    ``cut_nx`` gated on 8.  ``make(nx) -> (A, a_sp)``.  Returns the
-    launches at ``nx``."""
+def _cx_loop_gates(st, counts, what, cuda=True):
+    """The complex loop's dispatch: on a card graphs captured, every cycle
+    after the first replayed (:func:`_loop_gate`), one packet per cycle
+    and host rerun, and one reduced-space launch per packet."""
+    if cuda:
+        _loop_gate(st, what)
+        if counts["cplx_cycle"] != st.packets:
+            raise AssertionError(f"{what}: {counts['cplx_cycle']} "
+                                 f"reduced-space launches for {st.packets} "
+                                 "packets")
+    elif st.packets != st.n_iter + sum(RERUNS[what].values()):
+        raise AssertionError(f"{what}: {st.packets} packets for "
+                             f"{st.n_iter} cycles")
+
+
+def _fused_eigs(torch, dev, gpu, tag, make, need, closed, nx):
+    """11a-b: one ``eigs(strategy='fused')`` solve at ``nx`` on the device
+    loop (``cplx_cycle`` the kernel on the card) under
+    :func:`_complex_residuals` and :func:`_cx_loop_gates`, gated on 8
+    values and info 0; the same solve again as two witnesses: the device
+    loop with the reduced space on the host (``cplx_cycle`` patched to its
+    twin on host copies) and the host loop (``HostLoopSolver.solve``),
+    which must agree in cycles, nopx and nrorth.  ``make(nx) -> (A,
+    a_sp)``.  Returns the kernel solve's launches."""
+    from unittest import mock
+
     import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.core import device_nonsym as dn
+    from arpack_ng_tpu_torch.core.iram import HostLoopSolver
 
     kw = dict(k=8, ncv=NCV, tol=1e-5, which="LM", strategy="fused",
               maxiter=P11_MAX_RESTARTS, return_stats=True, device=dev)
-    launches = None
-    for grid in (nx, cut_nx):
-        A, a_sp = make(grid)
-        what = f"{tag} nx={grid}"
-        (vals, vecs, out), wall, counts = _counted(
-            torch, dev, need, lambda: pt.eigs(A, **kw))
-        st = out.stats
-        print(f"{what}: wall {wall:.4f} s ({wall * 1e3 / st.n_iter:.4f} ms "
-              f"per cycle), {_stats_line(st)}; {len(vals)} values, "
-              f"extraction info {out.info}; launches {counts}; card {gpu}",
+    A, a_sp = make(nx)
+    what = f"{tag} nx={nx}"
+    (vals, vecs, out), wall, counts = _counted(
+        torch, dev, need + P11_PATH, lambda: pt.eigs(A, **kw), tag=what)
+    st = out.stats
+    print(f"{what}: wall {wall:.4f} s ({wall * 1e3 / st.n_iter:.4f} ms "
+          f"per cycle), {_stats_line(st)}; {len(vals)} values, "
+          f"extraction info {out.info}; host reruns {RERUNS[what]}; "
+          f"{_loop_line(st)}; launches {counts}; card {gpu}", flush=True)
+    print(f"  values {np.array2string(vals, precision=8)}", flush=True)
+    rmax = _complex_residuals(vals, vecs, a_sp, what, closed)
+    print(f"  max residual {rmax:.2e}", flush=True)
+    _cx_loop_gates(st, counts, what, dev.type == "cuda")
+    if len(vals) != 8 or out.info != 0:
+        raise AssertionError(f"{what}: {len(vals)} values, info "
+                             f"{out.info}, want 8 and 0")
+    del vecs
+    walls = {"device loop, row 13": wall / st.n_iter}
+    wit = {}
+    for name, patch in (
+            ("witness, reduced space on the host", mock.patch.object(
+                dn, "cplx_cycle", _host_cplx_cycle)),
+            ("host loop", mock.patch.object(
+                dn.FusedNonsymSolver, "solve", HostLoopSolver.solve))):
+        wtag = f"{what} {name}"
+        with patch:
+            (wv, wx, wo), ww, wc = _counted(
+                torch, dev, (), lambda: pt.eigs(A, **kw), tag=wtag)
+        ws = wo.stats
+        wit[name] = (ws.n_iter, ws.nopx, ws.nrorth)
+        walls[name] = ww / ws.n_iter
+        wr = _complex_residuals(wv, wx, a_sp, wtag, closed)
+        print(f"  {name}: wall {ww:.4f} s ({ww * 1e3 / ws.n_iter:.4f} ms per "
+              f"cycle), {_stats_line(ws)}; {len(wv)} values, info "
+              f"{wo.info}; host reruns {RERUNS[wtag]}; packets "
+              f"{ws.packets}, graphs captured {ws.graphs_captured}, "
+              f"replayed {ws.graph_replays}; max residual {wr:.2e}; "
+              f"cplx_cycle launches {wc['cplx_cycle']}; card {gpu}",
               flush=True)
-        print(f"  values {np.array2string(vals, precision=8)}", flush=True)
-        rmax = _complex_residuals(vals, vecs, a_sp, what, closed)
-        print(f"  max residual {rmax:.2e}", flush=True)
-        launches = launches or counts
-        del A, vecs
-        if len(vals) == 8:
-            return launches
-        if grid == cut_nx:
-            raise AssertionError(f"{what}: {len(vals)} values, want 8")
-        print(f"  {len(vals)} of 8 at nx={grid}: the complex64 reduced "
-              f"space counts converged values the float64 re-test of the "
-              f"extraction does not (info {out.info}), as the reference's "
-              f"does; the count is gated at nx={cut_nx}", flush=True)
-    return launches
+        del wx
+    if len(set(wit.values())) != 1:
+        raise AssertionError(f"{what}: the host-reduced witness and the "
+                             f"host loop disagree: {wit}")
+    print(f"  {tag}: ms per cycle " + ", ".join(
+        f"{k} {1e3 * v:.4f}" for k, v in walls.items())
+        + f"; the witnesses' cycles / nopx / nrorth {wit['host loop']} "
+        f"equal", flush=True)
+    return counts
 
 
 def _complexify_cost(torch, dev, gpu, A, a_sp):
@@ -2812,7 +3388,7 @@ def mode1_paths(torch, dev, gpu, nx=NX, eigs_nx=EIGS_NX,
 
     paths["11a"] = _fused_eigs(
         torch, dev, gpu, "11a eigs(conv-diff A_csr, strategy='fused')",
-        csr, ("dia_matvec",), True, eigs_nx, cut_nx)
+        csr, ("dia_matvec",), True, eigs_nx)
     _complexify_cost(torch, dev, gpu, *csr(eigs_nx))
 
     # (b) the complex conv-diff stencil through the fused complex driver
@@ -2821,7 +3397,7 @@ def mode1_paths(torch, dev, gpu, nx=NX, eigs_nx=EIGS_NX,
 
     paths["11b"] = _fused_eigs(
         torch, dev, gpu, "11b eigs(conv-diff complex64, strategy='fused')",
-        stencil, (), False, eigs_nx, cut_nx)
+        stencil, (), False, eigs_nx)
 
     # (c)-(d) the flagship: thick restart (and select=), caller's shifts
     op, a_sp = laplacian_2d(nx, np.float32, device=dev)
@@ -4865,7 +5441,8 @@ def profile_cycles(torch, dev, gpu, nx=NX, warm=3, steady=20, profiled=5):
 
 def kernel_entries(rows, launches, errs, phases):
     """The ``kernels`` JSON entries: each kernel at the float32 shape its
-    solve runs most (the update of the dgks path carries the fused norm),
+    solve runs most (the complex reduced space at complex64; the update of
+    the dgks path carries the fused norm),
     with the launches of the path that exercises it and, in
     ``launches_phase10`` to ``launches_phase16``, those of each path of
     phases 10-16 (``phases``: phase -> path -> counts)."""
@@ -4900,12 +5477,16 @@ def kernel_entries(rows, launches, errs, phases):
            "realnonsym_cycle": ("realnonsym_cycle.cu",
                                 "arpack_ng_tpu/core/device_realnonsym.py:346",
                                 "realnonsym_cycle", None, "realnonsym_cycle"),
+           "cplx_cycle": ("cplx_cycle.cu",
+                          "arpack_ng_tpu/core/device_nonsym.py:202",
+                          "cplx_cycle", None, "cplx_cycle"),
            "dia_block": ("dia.cu", ops + "sparse.py:118", "dia_block",
                          P13_JSON_B, "dia_block_matvec")}
     entries = []
     for kname, (source, replaces, timed, shape, counter) in src.items():
         r = next(r for r in rows if r["name"] == timed
-                 and r["dtype"] == "torch.float32"
+                 and r["dtype"] == ("torch.complex64" if kname == "cplx_cycle"
+                                    else "torch.float32")
                  and (shape is None or r["shape"] == shape))
         entries.append({
             "name": kname, "route": "cuda",
@@ -4917,7 +5498,7 @@ def kernel_entries(rows, launches, errs, phases):
             "library_ms": r["library_ms"], "lib_ms": r["library_ms"],
             "host_us": r.get("host_us"),
             "library_host_us": r.get("library_host_us"),
-            "shape": f"{timed} shape={r['shape']} float32",
+            "shape": f"{timed} shape={r['shape']} {r['dtype'][6:]}",
             **{f"launches_phase{ph}": {p: c[counter]
                                        for p, c in paths.items()}
                for ph, paths in phases.items()},
@@ -5053,9 +5634,14 @@ def main() -> int:
     if elapsed > EIGS_MAX_S:
         raise AssertionError(f"eigs phase took {elapsed:.1f} s")
 
-    phases = {10: new_paths(torch, dev, gpu, vals_9),
-              11: mode1_paths(torch, dev, gpu),
-              12: transform_paths(torch, dev, gpu)}
+    phases = {10: new_paths(torch, dev, gpu, vals_9)}
+    err_cx, row_cx = check_cplx_cycle(torch, dev, gpu)
+    rows.append(row_cx)
+    errs["cplx_cycle"] = err_cx["torch.complex64"]
+    phases[11] = mode1_paths(torch, dev, gpu)
+    # the complex reduced space's main path: 11a, eigs(A_csr, 'fused')
+    launches["cplx_cycle"] = phases[11]["11a"]["cplx_cycle"]
+    phases[12] = transform_paths(torch, dev, gpu)
     phases[13], err_blk, rows_blk = banded_block_paths(torch, dev, gpu)
     phases[14] = cli_paths(torch, dev, gpu)
     phases[15] = mesh_paths(torch, dev, gpu)

@@ -1724,3 +1724,132 @@ def test_block_graph_equals_eager_on_card(dev, b):
     np.testing.assert_array_equal(v1, v2)
     np.testing.assert_array_equal(x1, x2)
     torch.cuda.synchronize()
+
+
+# ---- the complex reduced space (csrc/cplx_cycle.cu, row 13) ---------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+@pytest.mark.parametrize("ncv", [3, 12, 32, 58, 59, 100])
+def test_cplx_cycle_kernel_matches_twin_on_card(dev, dtype, ncv):
+    # one cycle's complex reduced space, the kernel against its numpy twin
+    # on complex Arnoldi Hessenbergs of every source of chip_smoke.
+    # _cx_hessenberg (the workspace in shared memory up to ncv 58, in
+    # global memory past it), every which, under chip_smoke.py's
+    # _cx_case_faults: the packet's counts equal, np_eff shifts applied
+    # (none in a last cycle), the shifted kept block's values the packet's
+    # kept values, every gap within CX_LIMITS (the values and bounds
+    # loosened by the input's eigenvalue condition; Q and Hc exempt where
+    # that condition is past the value limit, and the kept block where the
+    # twin's own misses its limit), the normal source exempt from nothing,
+    # a last cycle leaving H
+    from arpack_ng_tpu_torch.ops import cuda_cplx_cycle as ccc
+    smoke = _smoke()
+    dt = getattr(torch, dtype)
+    lim = smoke.CX_LIMITS[str(dt)]
+    assert ccc.fits_shared(ncv) == (ncv <= 58)
+    bad, exempt = [], {}
+    for source in smoke.CX_SOURCES:
+        H, rn = smoke._cx_hessenberg(ncv, ncv, source)
+        H = H.astype(dtype).astype(np.complex128)
+        cond = smoke._cx_cond(H)
+        for which in ccc.WHICH:
+            p = smoke._cx_params(ccc, str(dt), which, max(1, ncv // 4))
+            for is_last in (False, True):
+                kern = smoke._cx_run(torch, ccc, H, rn, dt, dev, p, is_last,
+                                     shifts=True)
+                twin = smoke._cx_run(torch, ccc, H, rn, dt,
+                                     torch.device("cpu"), p, is_last)
+                what = f"cplx_cycle {source} {which} last={is_last}"
+                bad += smoke._cx_case_faults(ccc, twin, kern, H, p, lim,
+                                             cond, what, {}, [], exempt)
+                if is_last and not np.array_equal(kern[0], H):
+                    bad.append((what, "H changed"))
+    assert not [w for w in exempt if w.startswith("normal ")], exempt
+    assert not bad, bad
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_cplx_cycle_repeats_and_leaves_exits_on_card(dev, dtype):
+    # one block, no atomics: two launches on the same input agree bit for
+    # bit; a done cycle, a last cycle and a breakdown leave H, Q and sk as
+    # they were, the breakdown's packet the twin's (its header alone)
+    from arpack_ng_tpu_torch.ops import cuda_cplx_cycle as ccc
+    smoke = _smoke()
+    dt = getattr(torch, dtype)
+    H, rn = smoke._cx_hessenberg(32, 1, "convdiff")
+    H = H.astype(dtype).astype(np.complex128)
+    p = smoke._cx_params(ccc, str(dt), "LM", 8)
+    a = smoke._cx_run(torch, ccc, H, rn, dt, dev, p)
+    b = smoke._cx_run(torch, ccc, H, rn, dt, dev, p)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    # the stamps: phase ends in order, the laps and counts of this input
+    bufs = smoke._cx_buffers(torch, ccc, H, rn, dt, dev)
+    clk = torch.zeros(ccc.clock_size(32), dtype=torch.int64, device=dev)
+    ccc.cplx_cycle(*bufs, p, False, clocks=clk)
+    c = clk.cpu().numpy()
+    nc, nl = len(ccc.CLOCKS), len(ccc.LAPS)
+    assert np.all(np.diff(c[:nc]) >= 0) and np.all(c[nc:nc + nl] > 0)
+    assert c[-2] >= 1 and c[-1] == int(a[3][ccc.P_NP])
+    np.testing.assert_array_equal(bufs[7].cpu().numpy(), a[3])
+    for p, is_last, brk in ((smoke._cx_params(ccc, str(dt), "LM", 8,
+                                              tol=0.5), False, -1),
+                            (p, True, -1), (p, False, 7)):
+        kern = smoke._cx_run(torch, ccc, H, rn, dt, dev, p, is_last, brk)
+        np.testing.assert_array_equal(kern[0], H)
+        assert not kern[1].any() and not kern[2].any()
+        if brk != -1:
+            twin = smoke._cx_run(torch, ccc, H, rn, dt, torch.device("cpu"),
+                                 p, is_last, brk)
+            np.testing.assert_array_equal(kern[3], twin[3])
+        elif not is_last:
+            assert kern[3][ccc.P_DONE] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("problem", ["realified", "stencil"])
+def test_cplx_device_loop_equals_host_loop_on_card(dev, problem):
+    # conv-diff nx = 64, complex64 (float32 input complexified, or the
+    # complex64 stencil): the host loop over the numpy head and tail
+    # (HostLoopSolver.solve) and the device loop with the reduced space
+    # patched to its host twin (the host-reduced witness) agree bit for
+    # bit; with the kernel, a graph per start k, one packet and one
+    # launch a cycle, 8 converged values and residuals under 1e-3
+    from unittest import mock
+
+    from arpack_ng_tpu_torch.config import IRAMConfig
+    from arpack_ng_tpu_torch.core import device_nonsym as dn
+    from arpack_ng_tpu_torch.core.extract import extract
+    from arpack_ng_tpu_torch.core.iram import HostLoopSolver
+    from arpack_ng_tpu_torch.models import convection_diffusion_2d
+    from arpack_ng_tpu_torch.ops import cuda_cplx_cycle as ccc
+    if problem == "realified":
+        op, a = convection_diffusion_2d(64, dtype=np.float32, device=dev)
+        op = dn.complexify_operator(op)
+    else:
+        op, a = convection_diffusion_2d(64, dtype=np.complex64, device=dev)
+    cfg = IRAMConfig(n=op.n, nev=8, ncv=32, which="LM", symmetric=False,
+                     dtype=np.dtype(np.complex64), n_pad=op.n_pad, tol=1e-5,
+                     max_iter=300)
+    host = HostLoopSolver.solve(dn.FusedNonsymSolver(op, cfg))
+    with mock.patch.object(dn, "cplx_cycle", _smoke()._host_cplx_cycle):
+        witness = dn.FusedNonsymSolver(op, cfg).solve()
+    ccc.cplx_cycle.launches = 0
+    kernel = dn.FusedNonsymSolver(op, cfg).solve()
+    for f in ("n_iter", "nopx", "nbx", "nrorth", "nitref", "nrstrt",
+              "nrotr"):
+        assert getattr(witness.stats, f) == getattr(host.stats, f), f
+    np.testing.assert_array_equal(witness.ritz, host.ritz)
+    assert torch.equal(witness.state.V, host.state.V)
+    st = kernel.stats
+    assert st.packets == ccc.cplx_cycle.launches >= kernel.n_iter
+    assert st.graphs_captured > 0
+    assert kernel.nconv >= 8
+    out = extract(op, cfg, kernel)
+    v = np.asarray(out.vectors, np.complex128)
+    res = np.linalg.norm(a @ v - v * out.values, axis=0) / np.abs(out.values)
+    assert res.max() < 1e-3
+    torch.cuda.synchronize()
