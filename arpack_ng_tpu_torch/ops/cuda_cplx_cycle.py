@@ -62,17 +62,23 @@ from .reduced_space import SWEEPS_PER_EV, WHICH  # noqa: F401
 #: packet offsets past the shared header: the sorted real parts, imaginary
 #: parts and bounds (ncv each), then H's (re, im) pairs
 P_HEAD = 12
-#: the kernel's workspace (csrc/cplx_cycle.cu), in doubles: four complex
-#: ncv x ncv matrices (the working T or Hc, the QR's q, a product, the
-#: chase's Q) and VECTORS doubles per row
-MATRICES = 4
+#: the kernel's workspace (csrc/cplx_cycle.cu), in doubles: five complex
+#: ncv x ncv matrices (the working T or Hc, the QR step's new T, its q, the
+#: chase's Q and Q q; rows ncv | 1 entries apart, an odd stride) and VECTORS
+#: doubles per row (the reflectors, the Schur vectors' last row and its
+#: product, the shifts, the chain's row past its registers, and the product
+#: warps' columns of X, which the phases after the QR steps reuse)
+MATRICES = 5
 VECTORS = 24
 #: the kernel's phase stamps (a cycle that exits early stamps its exit in
-#: every later one), its QR steps' parts summed over the sweeps and shifts
-#: (the shift choice, the reflector chain, q's columns, the products and
-#: deflation behind them), and its counts of Schur sweeps and chase shifts
+#: every later one); warp 0's SM cycles summed over the Schur sweeps and the
+#: chase's shifts: the shift choice (the deflation and the Wilkinson shift;
+#: in the chase the deflation after each shift), the reflector chain (a QR
+#: step's start to its last reflector) and the tail (the chain's end to the
+#: step's block barrier: q's last columns and the products behind them);
+#: and its counts of Schur sweeps and chase shifts
 CLOCKS = ("entry", "schur", "trevc", "gets", "chase", "exit")
-LAPS = ("shift", "qr", "form", "products")
+LAPS = ("shift", "chain", "tail")
 COUNTS = ("sweeps", "shifts")
 
 
@@ -95,7 +101,7 @@ def clock_size(ncv: int) -> int:
 
 def work_bytes(ncv: int) -> int:
     """The kernel's whole workspace, in bytes."""
-    return (MATRICES * 2 * ncv * ncv + VECTORS * ncv) * 8
+    return (MATRICES * 2 * ncv * (ncv | 1) + VECTORS * ncv) * 8
 
 
 def fits_shared(ncv: int) -> bool:
@@ -104,7 +110,7 @@ def fits_shared(ncv: int) -> bool:
 
 
 def max_shared_ncv() -> int:
-    """The largest ncv whose workspace fits in shared memory (58)."""
+    """The largest ncv whose workspace fits in shared memory (52)."""
     return reduced_space.max_shared_ncv(work_bytes)
 
 

@@ -163,13 +163,15 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    Arnoldi Hessenbergs (a complex matrix, the convection-diffusion matrix
    from a complex and from a real start, a normal matrix; complex64 and
    complex128; ncv in ``CX_NCVS``, 3 to 100, past the shared-memory
-   limit at 58; every which at ncv = 32), the counts equal, the chase's
+   limit at 52; every which at ncv = 32), the counts equal, the chase's
    shift count np_eff, the kept block's values the packet's kept values,
    every gap within ``CX_LIMITS`` (the cases whose conditioning exempts a
    check named, the normal matrix's none), two launches bit-equal, a done, a last and a breakdown cycle leaving
    H, Q and sk, then timed at ncv = 32 beside the twin's host wall, the
    library form's wall (``torch.linalg.eig`` and the shifts' QR on the
-   card, synced) and its bound (outside the phase's clock); then (a)
+   card, synced), its bound and the first design's time (``CX_FIRST_MS``),
+   with its stamps (the shift choice, the reflector chain, the tail behind
+   it; outside the phase's clock); then (a)
    ``eigs(A_csr, strategy='fused')`` on the
    conv-diff operator at nx = 1024 imported as DIA (complexified: two DIA
    launches per complex matvec; the copy that gives the kernel contiguous
@@ -504,7 +506,7 @@ RN_LIMITS = {
 #: twin's, Q's kept columns, sigmak and Hc's kept block over max |H0|, entry
 #: by entry; the restart's Arnoldi relation over max |H0|); the outputs are
 #: rounded to complex64 in phase 11's dtype.  Its cases: the sizes (ncv = 3
-#: to past ``max_shared_ncv``, 58) and the sources of ``_cx_hessenberg``;
+#: to past ``max_shared_ncv``, 52) and the sources of ``_cx_hessenberg``;
 #: the 'normal' source is conditioned well enough at every size that no
 #: check is exempt there
 CX_LIMITS = {
@@ -514,7 +516,11 @@ CX_LIMITS = {
     "torch.complex64": dict(values=1e-12, bounds=1e-10, sorted=1e-12,
                             kept=1e-5, space=1e-5, Q=1e-5, sigmak=1e-5,
                             H=1e-5, relation=1e-4)}
-CX_NCVS = (3, 8, NCV, 59, 100)
+CX_NCVS = (3, 8, NCV, 53, 100)
+#: row 13's first design at ncv = 32, complex64, 'LM' on the same input, ms
+#: device-only on an H100 at 700 W (PERF.md section 6), printed beside this
+#: run's time
+CX_FIRST_MS = 3.1940
 CX_SOURCES = ("complex", "convdiff", "realified", "normal")
 #: phase 10c: the imaginary part of the Hermitian tridiagonal's
 #: off-diagonal; phase 10's restart cap (10b, 10d) and wall limit, seconds
@@ -1990,15 +1996,23 @@ def check_cplx_cycle(torch, dev, gpu):
                          "complex128), not the card's roofline",
            "np_eff": h.np_eff, "clocks": clocks}
     print(f"  cplx_cycle ncv={NCV} complex64 ({detail}): kernel {ms:.4f} ms "
-          f"device-only, twin {walls['plain_ms']:.4f} ms host, library "
+          f"device-only (the first design {CX_FIRST_MS:.4f} ms, "
+          f"{CX_FIRST_MS / ms:.2f}x), twin {walls['plain_ms']:.4f} ms host, "
+          f"library "
           f"(eig + {len(shifts)} QR on the card, with syncs) "
           f"{walls['library_ms']:.4f} ms; bound {bound:.6f} ms ({flops} "
           f"flops over one SM's float64 rate, {100 * bound / ms:.2f}% of "
           f"it); check and timing {time.perf_counter() - t0:.1f} s; card "
           f"{gpu}", flush=True)
+    steps = max(clocks["sweeps"] + clocks["shifts"], 1)
     print("  cplx_cycle phase clocks (SM cycles, one launch; the QR steps' "
-          "parts summed over its sweeps and shifts): " + ", ".join(
-              f"{k} {v}" for k, v in clocks.items()), flush=True)
+          "shift choice, reflector chain and the tail behind it summed over "
+          "its sweeps and shifts): " + ", ".join(
+              f"{k} {v}" for k, v in clocks.items())
+          + f"; a QR step: chain {clocks['chain'] / steps:.0f} "
+          f"({clocks['chain'] / steps / NCV:.0f} a reflector), tail "
+          f"{clocks['tail'] / steps:.0f}, shift {clocks['shift'] / steps:.0f}",
+          flush=True)
     return err, row
 
 

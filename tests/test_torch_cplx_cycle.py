@@ -534,13 +534,14 @@ def test_redo_and_breakdown_equal_host_loop():
 def test_packet_layout_and_shared_memory_rule():
     # the packet: the symmetric header, the sorted values' real and
     # imaginary parts and bounds, then H's (re, im) pairs; the workspace
-    # of four complex ncv x ncv matrices and 24 doubles per row fits one
-    # block's shared memory to ncv 58
+    # of five complex ncv x ncv matrices, their rows ncv | 1 entries apart,
+    # and 24 doubles per row fits one block's shared memory to ncv 52
     assert ccc.P_HEAD == 12
     assert ccc.packet_size(32) == 12 + 96 + 2048
-    assert ccc.work_bytes(32) == (8 * 32 * 32 + 24 * 32) * 8
-    assert ccc.max_shared_ncv() == 58
-    assert ccc.fits_shared(58) and not ccc.fits_shared(59)
+    assert ccc.work_bytes(32) == (10 * 32 * 33 + 24 * 32) * 8
+    assert ccc.work_bytes(53) == (10 * 53 * 53 + 24 * 53) * 8
+    assert ccc.max_shared_ncv() == 52
+    assert ccc.fits_shared(52) and not ccc.fits_shared(53)
     assert ccc.WHICH == {"LM": 0, "SM": 1, "LR": 2, "SR": 3, "LI": 4,
                          "SI": 5}
 
@@ -584,7 +585,8 @@ def test_clocks_argument_checked_and_ignored_by_the_twin():
     H, rn = chip_smoke._cx_hessenberg(12, 0, "convdiff", nx=10)
     p = _params("LM", 3, 1e-10)
     size = ccc.clock_size(12)
-    assert size == len(ccc.CLOCKS) + len(ccc.LAPS) + len(ccc.COUNTS) == 12
+    assert size == len(ccc.CLOCKS) + len(ccc.LAPS) + len(ccc.COUNTS) == 11
+    assert ccc.LAPS == ("shift", "chain", "tail")
 
     def bufs():
         return chip_smoke._cx_buffers(torch, ccc, H, rn, torch.complex128,
@@ -602,3 +604,28 @@ def test_clocks_argument_checked_and_ignored_by_the_twin():
     for a, b in zip(plain, stamped):
         assert torch.equal(a, b)
     assert torch.equal(clk, torch.full((size,), 7, dtype=torch.int64))
+
+
+def test_compare_tool_cases_straddle_the_shared_memory_rule():
+    # tools/cplx_cycle_compare.py holds the kernel at the last ncv whose
+    # workspace fits one block's shared memory and the first past it, as
+    # work_bytes gives them, beside 3, 8, 32, 48 and 100; every which, both
+    # dtypes, every source of chip_smoke._cx_hessenberg, each early exit,
+    # tiny complex128 inputs (the library's square root) and ncv 130 (past
+    # the chain's registers)
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import cplx_cycle_compare as tool
+    m = max(n for n in range(2, 200)
+            if ccc.work_bytes(n) <= ccc.reduced_space.MAX_SMEM)
+    assert m == ccc.max_shared_ncv()
+    assert tool.sizes() == tuple(sorted({3, 8, 32, 48, m, m + 1, 100}))
+    assert {m, m + 1, 32} <= set(tool.timed())
+    cases = tool._cases(tool.sizes())
+    assert len({c[0] for c in cases}) == len(cases)
+    assert {c[2] for c in cases} == {"complex64", "complex128"}
+    assert {c[3] for c in cases} == set(ccc.WHICH)
+    kinds = {c[0].rsplit("_", 1)[1] for c in cases if not c[0][-1].isdigit()}
+    assert kinds == {"brk", "done", "last", "sweeps", "tiny", "wide"}
+    assert {c[2] for c in cases if c[0].endswith("_tiny")} == {"complex128"}
+    assert {c[1].rstrip("0123456789_") for c in cases} == set(
+        chip_smoke.CX_SOURCES)

@@ -1730,11 +1730,11 @@ def test_block_graph_equals_eager_on_card(dev, b):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["complex64", "complex128"])
-@pytest.mark.parametrize("ncv", [3, 12, 32, 58, 59, 100])
+@pytest.mark.parametrize("ncv", [3, 12, 32, 52, 53, 100])
 def test_cplx_cycle_kernel_matches_twin_on_card(dev, dtype, ncv):
     # one cycle's complex reduced space, the kernel against its numpy twin
     # on complex Arnoldi Hessenbergs of every source of chip_smoke.
-    # _cx_hessenberg (the workspace in shared memory up to ncv 58, in
+    # _cx_hessenberg (the workspace in shared memory up to ncv 52, in
     # global memory past it), every which, under chip_smoke.py's
     # _cx_case_faults: the packet's counts equal, np_eff shifts applied
     # (none in a last cycle), the shifted kept block's values the packet's
@@ -1747,7 +1747,7 @@ def test_cplx_cycle_kernel_matches_twin_on_card(dev, dtype, ncv):
     smoke = _smoke()
     dt = getattr(torch, dtype)
     lim = smoke.CX_LIMITS[str(dt)]
-    assert ccc.fits_shared(ncv) == (ncv <= 58)
+    assert ccc.fits_shared(ncv) == (ncv <= 52)
     bad, exempt = [], {}
     for source in smoke.CX_SOURCES:
         H, rn = smoke._cx_hessenberg(ncv, ncv, source)
@@ -1807,6 +1807,59 @@ def test_cplx_cycle_repeats_and_leaves_exits_on_card(dev, dtype):
             np.testing.assert_array_equal(kern[3], twin[3])
         elif not is_last:
             assert kern[3][ccc.P_DONE] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ncv", [32, 53])
+@pytest.mark.parametrize("source", ["convdiff", "normal"])
+def test_cplx_cycle_stamps_on_card(dev, source, ncv):
+    # the stamps of a cycle that sweeps and shifts: its Schur sweeps and the
+    # chase's shifts as the twin takes them (its np.linalg.qr calls in the
+    # Schur form and the chase), the phase ends in order, the laps (the
+    # shift choice, the reflector chain, the tail behind it) non-negative
+    # and within the Schur sweeps and the chase, and the outputs bit for bit
+    # those of a launch without the buffer
+    from unittest import mock
+
+    from arpack_ng_tpu_torch.ops import cuda_cplx_cycle as ccc
+    smoke = _smoke()
+    dt = torch.complex64
+    H, rn = smoke._cx_hessenberg(ncv, 0, source)
+    H = H.astype(np.complex64).astype(np.complex128)
+    p = smoke._cx_params(ccc, str(dt), "LM", max(1, ncv // 4))
+    outs = []
+    clk = torch.zeros(ccc.clock_size(ncv), dtype=torch.int64, device=dev)
+    for clocks in (None, clk):
+        bufs = smoke._cx_buffers(torch, ccc, H, rn, dt, dev)
+        ccc.cplx_cycle(*bufs, p, False, clocks=clocks)
+        outs.append([x.cpu().numpy() for x in bufs])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    calls = {"schur": 0, "chase": 0}
+    where = ["schur"]
+    real_qr = np.linalg.qr
+
+    def qr(M, *args, **kwargs):
+        calls[where[0]] += 1
+        return real_qr(M, *args, **kwargs)
+
+    with mock.patch.object(np.linalg, "qr", qr):
+        h = ccc.head_plain(H, np.float64(np.float32(rn)), p)
+        where[0] = "chase"
+        if not (h.done):
+            ccc.shifts_plain(H, h, p)
+    c = clk.cpu().numpy()
+    nc, nl = len(ccc.CLOCKS), len(ccc.LAPS)
+    assert ccc.LAPS == ("shift", "chain", "tail")
+    assert np.all(np.diff(c[:nc]) >= 0) and c[nc - 1] > c[0]
+    assert np.all(c[nc:nc + nl] >= 0) and c[nc + 1] > 0
+    sweeps, shifts = c[nc + nl:]
+    assert (sweeps, shifts) == (calls["schur"], calls["chase"])
+    assert shifts == int(outs[1][7][ccc.P_NP]) > 0
+    schur, chase = (c[ccc.CLOCKS.index(k)] - c[ccc.CLOCKS.index(k) - 1]
+                    for k in ("schur", "chase"))
+    assert c[nc:nc + nl].sum() <= schur + chase
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
