@@ -12,10 +12,13 @@ base, this, this, base, and builds its own kernels: ``chip_smoke.py``
 as DIA) with ``ilu0_preconditioner(symmetric=True, sweeps=3)`` (IC(0):
 the DIA kernel for the product and both triangles), on the same seeded
 right-hand side. Each process times ``its`` iterations with the loop
-test's device read (``solvers._cg`` at tol 0) and without it
-(``cg_start`` and ``its`` times ``cg_step``), in turns (read, free, free,
-read, read, free), and prints the median ms per iteration of each. The
-last line is a JSON object with every run.
+test's device read (``solvers._cg`` at tol 0), without it (``cg_start``
+and ``its`` times ``cg_step``) and, where the checkout has them, as one
+CUDA-graph WHILE node (``make_iterative_solve``'s solve captured once
+and replayed; ``graph_ms`` null in a checkout without), in turns (read,
+free, graph, graph, free, read, read, free, graph), and prints the
+median ms per iteration of each. The last line is a JSON object with
+every run.
 """
 from __future__ import annotations
 
@@ -54,16 +57,40 @@ def read_free():
     for _ in range(its):
         c = solvers.cg_step(op.a_apply, c, pc)
 
-with_reads(); read_free()
-times = ([], [])
-for i in (0, 1, 1, 0, 0, 1):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    (with_reads, read_free)[i]()
-    torch.cuda.synchronize()
-    times[i].append((time.perf_counter() - t0) * 1e3 / its)
+forms = [with_reads, read_free]
+if hasattr(solvers, "IterativeSolve"):
+    from arpack_ng_tpu_torch.core.loop import CapturedGraph
+    solve = solvers.make_iterative_solve(op.a_apply, symmetric=True,
+                                         tol=0.0, maxiter=its, precond=pc)
+    solve.bind(dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph = CapturedGraph(lambda: solve(b),
+                              torch.cuda.graph_pool_handle())
+
+    def on_graph():
+        with torch.cuda.stream(stream):
+            graph.replay()
+
+    forms.append(on_graph)
+for f in forms:
+    f()
+times = [[] for _ in forms]
+for i in (0, 1, 2, 2, 1, 0, 0, 1, 2):
+    if i < len(forms):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forms[i]()
+        torch.cuda.synchronize()
+        times[i].append((time.perf_counter() - t0) * 1e3 / its)
+if len(forms) == 3:
+    if solve.iterations != [its] * 4:
+        raise AssertionError(f"graph solves ran {{solve.iterations}}")
 print(json.dumps({{"read_ms": float(np.median(times[0])),
-                  "free_ms": float(np.median(times[1]))}}))
+                  "free_ms": float(np.median(times[1])),
+                  "graph_ms": (float(np.median(times[2]))
+                               if len(forms) == 3 else None)}}))
 '''
 
 
@@ -84,8 +111,11 @@ def main() -> int:
             return 1
         res = json.loads(out.stdout.strip().splitlines()[-1])
         runs.append({"tree": name, **res})
+        graph = res.get("graph_ms")
+        graph = "none" if graph is None else f"{graph:.4f}"
         print(f"{name}: {res['read_ms']:.4f} ms per CG iteration with the "
-              f"loop test's read, {res['free_ms']:.4f} without", flush=True)
+              f"loop test's read, {res['free_ms']:.4f} without, {graph} as "
+              f"a WHILE node", flush=True)
     print(json.dumps({"nx": args.nx, "its": args.its, "runs": runs}))
     return 0
 

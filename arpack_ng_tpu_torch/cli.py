@@ -194,14 +194,19 @@ def _mode_operator(args, a_sp, b_sp, sigma, sym, dtype, dev):
                 maxiter=args.slvMaxIt, precond=_precond_for(shifted_mat))
         else:
             solve = _direct_solve(shifted_mat)
+        # the products and preconditioners here all capture: an iterative
+        # solve runs as one CUDA-graph while loop in the restart's graphs
         return transforms.shift_invert_operator(
             n, dtype, solve, sigma=sigma, mode=3, n_pad=n_pad,
-            hermitian=sym, a_apply=a_mv, m_apply=m_mv, device=dev)
+            hermitian=sym, a_apply=a_mv, m_apply=m_mv, device=dev,
+            capturable=iterative)
     # mode 2: OP = inv(M) A (M SPD: CG / LLT are natural here)
     if iterative:
         solve_m = slv_mod.make_iterative_solve(
             m_mv, symmetric=(slv == "CG"), tol=args.slvTol,
             maxiter=args.slvMaxIt, precond=_precond_for(b_sp))
+        if dev.type == "cuda":
+            solve_m.bind(dev)
     else:
         solve_m = _direct_solve(b_sp)
 
@@ -211,7 +216,8 @@ def _mode_operator(args, a_sp, b_sp, sigma, sym, dtype, dev):
 
     return Operator(n=n, dtype=np.dtype(dtype), apply=apply, bmat="G",
                     mode=2, b_apply=m_mv, a_apply=a_mv, m_apply=m_mv,
-                    n_pad=n_pad, hermitian=sym, device=dev)
+                    n_pad=n_pad, hermitian=sym, device=dev,
+                    capturable=iterative, while_loops=iterative)
 
 
 def main(argv=None) -> int:

@@ -64,6 +64,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import cuda_krylov_loop
 from ..ops.cuda_rot import rotate_rows
 from ..ops.operator import Operator
 from ..parallel.sharding import mesh_operator
@@ -268,6 +269,7 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
         # eigh leaves S orthonormal to ~1e-6, and the restart below rotates
         # V by it unchecked: the basis drifts that much every cycle)
         theta, S = torch.linalg.eigh((T + T.T) / 2)
+        cuda_krylov_loop.settle_pending()   # eigh synchronised
         run.theta.copy_(theta)
         run.S.copy_(S)
         run.cycles += 1
@@ -299,6 +301,7 @@ def make_block_solver(op: Operator, b: int, nev: int, ncv: int,
     def extract(st: BlockState):
         """Ritz pairs of the current factorization (host, float64)."""
         H = st.H[:ncv, :ncv].cpu().numpy().astype(np.float64)
+        cuda_krylov_loop.settle_pending()
         H = (H + H.T) / 2
         theta, S = np.linalg.eigh(H)
         V = st.V[:ncv].cpu().numpy()

@@ -5,7 +5,8 @@ the symmetric (``core/device_sym``), real non-symmetric
 (``core/device_realnonsym``) and hybrid (``core/iram``) drivers run with
 their own reduce steps.  ``CapturedGraph``: one CUDA graph with the kernel
 launches and collectives its capture counted, added again on every
-replay (the device loop's per start ``k``, the block Lanczos cycle's).
+replay (the device loop's per start ``k``, the block Lanczos cycle's),
+and those of its inner solves' while loops, read back after a sync.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops import cuda_cgs, cuda_dia, cuda_psell, cuda_rot, cuda_sel
+from ..ops import (cuda_cgs, cuda_dia, cuda_krylov_loop, cuda_psell,
+                   cuda_rot, cuda_sel)
 from ..ops.cuda_sym_cycle import P_BRK, P_DONE, P_FORCE, P_INFO, P_NEV
 from ..parallel.sharding import check_solver, mesh_operator
 from ..utils import dtypes as _dt
@@ -26,11 +28,13 @@ from .arnoldi import (FactorizationState, kev_rows, make_bnorm, make_init,
                       restart_update)
 
 #: the kernel wrappers whose launches a captured graph holds: on each
-#: replay the solver adds the launches its capture counted
+#: replay the solver adds the launches its capture counted (those of a
+#: while loop's body when its log is read, times its iterations)
 GRAPH_KERNELS = (cuda_sel.sel_proj, cuda_sel.sel_update,
                  cuda_cgs.cgs_proj, cuda_cgs.cgs_update,
                  cuda_rot.rotate_rows, cuda_dia.dia_matvec,
-                 cuda_dia.dia_block_matvec, cuda_psell.psell_matvec)
+                 cuda_dia.dia_block_matvec, cuda_psell.psell_matvec,
+                 cuda_krylov_loop.krylov_test)
 
 
 class CapturedGraph:
@@ -38,19 +42,28 @@ class CapturedGraph:
     must not be the default one), in the memory pool ``pool``.  A kernel
     wrapper counts its launch when the capture records it, and a mesh its
     collectives; the capture's counts are taken back and added again on
-    every :meth:`replay`, so they stay counts of real launches.  ``out``:
-    what ``fn`` returned, tensors the replays write.  A capture that fails
-    raises."""
+    every :meth:`replay`, so they stay counts of real launches.  The
+    inner solves' WHILE nodes (``ops/cuda_krylov_loop.run_while``) run
+    their bodies a number of times the device decides: a replay marks
+    their solvers pending, and ``cuda_krylov_loop.settle_pending``, after
+    a synchronisation, reads their iterations and adds their bodies'
+    launches.  ``out``: what ``fn`` returned, tensors the replays write.
+    A capture that fails raises."""
 
     def __init__(self, fn, pool, mesh=None):
         before = [f.launches for f in GRAPH_KERNELS]
         c0 = None if mesh is None else mesh.snapshot()
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.capture_begin(pool=pool)
-        try:
-            self.out = fn()
-        finally:
-            self.graph.capture_end()
+        with cuda_krylov_loop.capture_scope() as self.solves:
+            self.graph.capture_begin(pool=pool)
+            try:
+                self.out = fn()
+            finally:
+                try:
+                    self.graph.capture_end()
+                except Exception:
+                    _stop_routing(pool)
+                    raise
         self.delta = [f.launches - b for f, b in zip(GRAPH_KERNELS, before)]
         for f, d in zip(GRAPH_KERNELS, self.delta):
             f.launches -= d
@@ -66,12 +79,26 @@ class CapturedGraph:
             f.launches += d
         if self.coll is not None:
             self.mesh.counts.update(self.coll)
+        cuda_krylov_loop.pend(self.solves)
         return self.out
 
     def launches(self) -> dict:
-        """Each kernel's launches per replay (those it launches)."""
+        """Each kernel's launches per replay (those it launches), those
+        of while-loop bodies left out."""
         return {f.__name__: d for f, d in zip(GRAPH_KERNELS, self.delta)
                 if d}
+
+
+def _stop_routing(pool) -> None:
+    """After a failed ``capture_end``: torch ends the capture before it
+    stops routing allocations to the graph's pool, so a failed end leaves
+    the allocator believing a capture is under way, and every later pool
+    it frees (a ``torch.cuda.MemPool`` going away) then aborts the
+    process.  Stop the routing to ``pool`` (a no-op where torch did)."""
+    try:
+        torch._C._cuda_endAllocateToPool(torch.cuda.current_device(), pool)
+    except RuntimeError:
+        pass
 
 
 @dataclasses.dataclass
@@ -397,6 +424,7 @@ class _DeviceLoop:
             self.done_evt.record()
             self.done_evt.synchronize()
             pk = self.pk_host.numpy().copy()
+            cuda_krylov_loop.settle_pending()
         return self.solver._host_step(self, pk, is_last, it)
 
     # ---- the loop ------------------------------------------------------

@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sel.cu", "rot.cu", "cgs.cu", "dia.cu", "psell.cu", "gather.cu",
-           "sym_cycle.cu", "realnonsym_cycle.cu", "cplx_cycle.cu")
+           "sym_cycle.cu", "realnonsym_cycle.cu", "cplx_cycle.cu",
+           "krylov_loop.cu")
 HEADERS = ("common.cuh", "passes.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

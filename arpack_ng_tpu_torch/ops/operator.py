@@ -64,6 +64,9 @@ class Operator:
     #   operators carry one)
     mesh: object = None             # the row mesh whose local rows apply
     #   maps (parallel/sharding), None for whole vectors
+    while_loops: bool = False       # apply runs inner solves that a
+    #   capture turns into CUDA-graph while loops (ops/cuda_krylov_loop);
+    #   a mesh lifts such an operator uncaptured
 
     def __post_init__(self):
         if self.n_pad == 0:

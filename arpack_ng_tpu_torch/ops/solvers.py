@@ -7,12 +7,17 @@ apply ``inv(A - sigma*B)`` inside the RCI loop (arpackmm.cpp:445-476
 ``--slv CG|BiCG|LU|QR...``).
 
 * :func:`cg` and :func:`bicgstab`: the reference's ``lax.while_loop``
-  Krylov iterations as a host loop over device tensors, with the same
-  update order and the same test before each iteration
-  (``|r.r| > (tol*||b||)^2`` and ``it < maxiter``; BiCGSTAB also restarts
-  where the reference would divide by a zero ``rho``).  The test reads
-  the device once per iteration, so an operator built on them is not
-  capturable by a CUDA graph;
+  Krylov iterations, with the same update order and the same test before
+  each iteration (``|r.r| > (tol*||b||)^2`` and ``it < maxiter``;
+  BiCGSTAB also restarts where the reference would divide by a zero
+  ``rho``).  One iteration is :func:`cg_step` / :func:`bicgstab_step`,
+  with no device read.  :func:`cg`, :func:`bicgstab` and an unbound
+  solve of :func:`make_iterative_solve` run a host loop that reads the
+  test back once per iteration (the plain version); a solve bound to a
+  card runs each call as one conditional WHILE node of a CUDA graph (the
+  capturing one, or one of its own), whose body is that step and whose
+  test is a kernel (:mod:`~arpack_ng_tpu_torch.ops.cuda_krylov_loop`), bit
+  for bit the host loop, so an operator built on it is capturable;
 * :func:`jacobi_preconditioner` (the reference's ``Diag`` option) and
   :func:`ilu0_preconditioner` (its ``ILU`` option): the incomplete
   factorization runs once on the host (SuperLU, natural ordering, zero
@@ -26,7 +31,6 @@ apply ``inv(A - sigma*B)`` inside the RCI loop (arpackmm.cpp:445-476
 from __future__ import annotations
 
 import warnings
-from functools import partial
 from typing import Callable, Optional
 
 import numpy as np
@@ -35,7 +39,9 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
-from ..utils.device import DEFAULT, require
+from ..utils.device import DEFAULT, normalized, require
+from . import cuda_krylov_loop
+from .cuda_krylov_loop import run_while
 
 
 def _vdot(a, b):
@@ -84,42 +90,57 @@ def cg(matvec: Callable, b: torch.Tensor, *, x0=None, tol: float = 1e-8,
     return _cg(matvec, b, x0, tol, maxiter, precond)[0]
 
 
-def _bicgstab(matvec, b, x0, tol, maxiter, precond):
+def bicgstab_start(matvec: Callable, b: torch.Tensor, x0=None,
+                   tol: float = 1e-8):
+    """BiCGSTAB's state ``(x, r, rhat, rho, alpha, omega, v, p)`` before
+    the first iteration, and the squared absolute tolerance."""
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
-    rhat = r
-    rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
-    v = p = torch.zeros_like(b)
-    one, zero = rho, v
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    zero = torch.zeros_like(b)
     bnorm = torch.sqrt(torch.abs(_vdot(b, b)))
-    atol2 = (tol * bnorm) ** 2
+    return (x, r, r, one, one, one, zero, zero), (tol * bnorm) ** 2
+
+
+def bicgstab_step(matvec: Callable, c, precond: Optional[Callable] = None,
+                  brk: Optional[torch.Tensor] = None):
+    """One BiCGSTAB iteration on the state of :func:`bicgstab_start`, no
+    device read.  Where the last step's ``rho`` came out exactly 0 (``r``
+    orthogonal to the shadow residual; ``brk``, 0-d bool, or ``rho == 0``
+    when not given) the next ``beta`` would divide by it and turn the
+    solve to nan: the iteration restarts from the current residual
+    (``rhat = r``, ``rho = alpha = omega = 1``, ``v = p = 0``), by selects
+    that keep every value's bits."""
+    x, r, rhat, rho, alpha, omega, v, p = c
+    if brk is None:
+        brk = rho == 0
+    rhat = torch.where(brk, r, rhat)
+    rho, alpha, omega = (torch.where(brk, 1.0, s) for s in (rho, alpha,
+                                                             omega))
+    v, p = torch.where(brk, 0.0, v), torch.where(brk, 0.0, p)
+    rho_new = _vdot(rhat, r)
+    beta = (rho_new / rho) * (alpha / omega)
+    p = r + beta * (p - omega * v)
+    ph = precond(p) if precond is not None else p
+    v = matvec(ph)
+    alpha = rho_new / _vdot(rhat, v)
+    s = r - alpha * v
+    sh = precond(s) if precond is not None else s
+    t = matvec(sh)
+    omega = _vdot(t, s) / _vdot(t, t)
+    x = x + alpha * ph + omega * sh
+    r = s - omega * t
+    return (x, r, rhat, rho_new, alpha, omega, v, p)
+
+
+def _bicgstab(matvec, b, x0, tol, maxiter, precond):
+    c, atol2 = bicgstab_start(matvec, b, x0, tol)
     it = 0
-    while it < maxiter:
-        # the loop test and a zero rho, in one read
-        go, brk = torch.stack([torch.abs(_vdot(r, r)) > atol2,
-                               rho == 0]).tolist()
-        if not go:
-            break
-        if brk:
-            # the last step's rho_new was exactly 0 (r orthogonal to the
-            # shadow residual): the next beta would divide by it and turn
-            # the solve to nan.  Restart from the current residual.
-            rhat, rho, alpha, omega, v, p = r, one, one, one, zero, zero
-        rho_new = _vdot(rhat, r)
-        beta = (rho_new / rho) * (alpha / omega)
-        p = r + beta * (p - omega * v)
-        ph = precond(p) if precond is not None else p
-        v = matvec(ph)
-        alpha = rho_new / _vdot(rhat, v)
-        s = r - alpha * v
-        sh = precond(s) if precond is not None else s
-        t = matvec(sh)
-        omega = _vdot(t, s) / _vdot(t, t)
-        x = x + alpha * ph + omega * sh
-        r = s - omega * t
-        rho = rho_new
+    # the reference's loop test, one device read
+    while it < maxiter and bool(torch.abs(_vdot(c[1], c[1])) > atol2):
+        c = bicgstab_step(matvec, c, precond)
         it += 1
-    return x, it
+    return c[0], it
 
 
 def bicgstab(matvec: Callable, b: torch.Tensor, *, x0=None,
@@ -374,21 +395,147 @@ def ilu0_preconditioner(a_sp, *, sweeps: int = 3, dtype=None,
     return precond
 
 
-def make_iterative_solve(matvec: Callable, *, symmetric: bool,
-                         tol: float = 1e-10, maxiter: int = 1000,
-                         precond: Optional[Callable] = None) -> Callable:
-    """Wrap a shifted matvec ``v -> (A - sigma M) v`` into ``solve(b)`` for
-    :func:`~arpack_ng_tpu_torch.ops.transforms.shift_invert_operator`: CG
-    (``symmetric``) or BiCGSTAB.  ``solve.iterations`` lists each call's
-    iteration count."""
-    inner = _cg if symmetric else _bicgstab
-    run = partial(inner, matvec, x0=None, tol=tol, maxiter=maxiter,
-                  precond=precond)
+def _distinct(c):
+    """The state ``c`` with every tensor in storage of its own: the loop's
+    buffers, which its iterations update in place."""
+    seen, out = set(), []
+    for t in c:
+        if t.data_ptr() in seen:
+            t = t.clone()
+        seen.add(t.data_ptr())
+        out.append(t)
+    return out
 
-    def solve(b):
-        x, it = run(b)
-        solve.iterations.append(it)
+
+def _loop(start, step, b, tol, maxiter, log, brk_flag, pool=None):
+    """One solve as :func:`~arpack_ng_tpu_torch.ops.cuda_krylov_loop.
+    run_while`: ``start`` and then ``step`` on the loop's buffers until the
+    reference's test stops it (a WHILE node inside a capture, the node's
+    CPU form on CPU tensors).  Returns ``x``."""
+    c, atol2 = start(b, tol)
+    carry = _distinct(c)
+    it = torch.zeros((), dtype=torch.int32, device=b.device)
+    brk = None
+    if brk_flag:
+        brk = torch.zeros((), dtype=torch.bool, device=b.device)
+
+    def body():
+        for dst, src in zip(carry, step(tuple(carry), brk)):
+            dst.copy_(src)
+        return torch.abs(_vdot(carry[1], carry[1]))
+
+    run_while(torch.abs(_vdot(carry[1], carry[1])), atol2, it, maxiter,
+              body, log=log, pool=pool, rho=carry[3] if brk_flag else None,
+              brk=brk)
+    return carry[0]
+
+
+class IterativeSolve:
+    """``solve(b)`` of :func:`make_iterative_solve`.  ``iterations``: each
+    call's iteration count, in call order; ``on_graph``: whether the call
+    ran as a WHILE node.  A solve bound to a card (:meth:`bind`) runs
+    every call there as one WHILE node (:func:`_loop`): inside a CUDA-graph
+    capture as a node of that graph, elsewhere as a graph of its own,
+    captured and replayed once (:meth:`_once`); its counts are read after
+    the next synchronisation (the device loop's packet, or
+    ``iterations``), never per iteration.  An unbound solve runs the host
+    loop, the plain version: on the CPU, and on a card where the caller
+    did not declare the operator capturable."""
+
+    def __init__(self, matvec, symmetric, tol, maxiter, precond):
+        self.matvec, self.symmetric = matvec, symmetric
+        self.tol, self.maxiter, self.precond = tol, maxiter, precond
+        self.on_graph = []        # per call: whether it ran as a node
+        self._its = []
+        self._log = None
+        self._held = []           # graphs of their own, until read
+
+    def bind(self, device) -> None:
+        """Make ready to run on the CUDA ``device`` as WHILE nodes: raise
+        where its graphs cannot hold them (CUDA < 12.4); build the kernels,
+        the iteration log, the body stream and the pools, outside any
+        capture.  ``shift_invert_operator(capturable=True)`` calls it."""
+        device = torch.device(*normalized(device))
+        if self._log is not None and self._log.device == device:
+            return
+        cuda_krylov_loop.require(device)
+        cuda_krylov_loop.body_stream(device)
+        self._log = cuda_krylov_loop.IterationLog(device)
+        self._stream = torch.cuda.Stream(device=device)
+        # pools that live as long as the solve (made and freed outside any
+        # capture): its graphs of their own, which come and go, and its
+        # loops' bodies in every graph
+        self._pools = (torch.cuda.MemPool(), torch.cuda.MemPool())
+
+    def _start(self, b, tol):
+        if self.symmetric:
+            return cg_start(self.matvec, b, None, tol, self.precond)
+        return bicgstab_start(self.matvec, b, None, tol)
+
+    def _step(self, c, brk):
+        if self.symmetric:
+            return cg_step(self.matvec, c, self.precond)
+        return bicgstab_step(self.matvec, c, self.precond, brk)
+
+    def settle(self) -> None:
+        """After a synchronisation with the graphs that hold this solve's
+        loops: their iteration counts, read from the log."""
+        its = self._log.drain()
+        self._its.extend(its)
+        self.on_graph.extend([True] * len(its))
+        self._held.clear()
+
+    @property
+    def iterations(self) -> list:
+        log = self._log
+        if log is not None and log.nodes:
+            if log.device.type == "cuda":
+                torch.cuda.synchronize(log.device)
+            self.settle()
+        return self._its
+
+    def _once(self, b):
+        """The solve outside a capture: a graph of its own, captured on the
+        solve's stream in its pools and replayed once, kept until its
+        count is read."""
+        from ..core.loop import CapturedGraph
+
+        cur = torch.cuda.current_stream(b.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            graph = CapturedGraph(lambda: self(b), self._pools[0].id)
+            x = graph.replay()
+        cur.wait_stream(self._stream)
+        self._held.append(graph)
         return x
 
-    solve.iterations = []
-    return solve
+    def __call__(self, b):
+        if b.is_cuda and self._log is not None:
+            if not torch.cuda.is_current_stream_capturing():
+                return self._once(b)
+            self.bind(b.device)
+            cuda_krylov_loop.note(self)
+            return _loop(self._start, self._step, b, self.tol, self.maxiter,
+                         self._log, not self.symmetric, self._pools[1])
+        if b.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "an iterative solve is captured only once bound to the card "
+                "(shift_invert_operator(capturable=True) binds it)")
+        inner = _cg if self.symmetric else _bicgstab
+        x, it = inner(self.matvec, b, None, self.tol, self.maxiter,
+                      self.precond)
+        self._its.append(it)
+        self.on_graph.append(False)
+        return x
+
+
+def make_iterative_solve(matvec: Callable, *, symmetric: bool,
+                         tol: float = 1e-10, maxiter: int = 1000,
+                         precond: Optional[Callable] = None
+                         ) -> IterativeSolve:
+    """Wrap a shifted matvec ``v -> (A - sigma M) v`` into ``solve(b)`` for
+    :func:`~arpack_ng_tpu_torch.ops.transforms.shift_invert_operator`: CG
+    (``symmetric``) or BiCGSTAB, a host loop or, bound to a card, one
+    CUDA-graph WHILE node per call (:class:`IterativeSolve`).
+    ``solve.iterations`` lists each call's iteration count."""
+    return IterativeSolve(matvec, symmetric, tol, maxiter, precond)

@@ -25,8 +25,11 @@ The linear solve comes in three flavours:
   :func:`build_nonsym_operator`; capturable);
 * a caller's ``solve`` callable (:func:`shift_invert_operator`);
 * the iterative Krylov solves of :mod:`~arpack_ng_tpu_torch.ops.solvers`
-  (CG/BiCGSTAB) for the matrix-free case, which read the device once per
-  iteration and so are not capturable.
+  (CG/BiCGSTAB) for the matrix-free case: a host loop with one device read
+  per iteration where nothing is captured, and, in an operator declared
+  ``capturable`` on a card, one CUDA-graph WHILE node per solve
+  (:mod:`~arpack_ng_tpu_torch.ops.cuda_krylov_loop`), so that the restart
+  loop's graphs hold whole inner solves.
 """
 from __future__ import annotations
 
@@ -88,9 +91,21 @@ def shift_invert_operator(
     ``a_apply`` in buckling mode.  ``capturable``: the caller declares that
     ``solve``, ``a_apply`` and ``m_apply`` are torch ops and kernels with
     no host read or sync (see :class:`~arpack_ng_tpu_torch.ops.operator.
-    Operator`); an iterative solve is not."""
+    Operator`).  An iterative solve of :func:`~arpack_ng_tpu_torch.ops.
+    solvers.make_iterative_solve` is, on a CUDA device (CUDA 12.4 or later:
+    it raises here otherwise), where its matvec and preconditioner are:
+    the DIA, CSR and stencil products, Jacobi, and ILU(0) / IC(0) over
+    the DIA kernel; each solve is then one WHILE node of a CUDA graph (the
+    capturing one, or one of its own).  Such an operator lifted onto a
+    mesh (``parallel/sharding.mesh_operator``) runs uncaptured: NCCL
+    beside a conditional body is unverified."""
+    from .solvers import IterativeSolve
+
     n_pad = n_pad or n
     dtype = np.dtype(dtype)
+    loops = isinstance(solve, IterativeSolve)
+    if capturable and loops and torch.device(device).type == "cuda":
+        solve.bind(device)
     if bmat is None:
         bmat = "I" if m_apply is None else "G"
 
@@ -131,7 +146,7 @@ def shift_invert_operator(
     return Operator(n=n, dtype=dtype, apply=apply, bmat=bmat, mode=mode,
                     b_apply=b_ap, a_apply=a_apply, m_apply=m_apply,
                     n_pad=n_pad, sigma=sigma, hermitian=hermitian,
-                    device=device, capturable=capturable)
+                    device=device, capturable=capturable, while_loops=loops)
 
 
 def _product(mat: np.ndarray, device) -> Callable:

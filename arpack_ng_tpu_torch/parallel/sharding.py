@@ -289,7 +289,9 @@ def mesh_operator(op: Operator, mesh: Optional[RowMesh]) -> Operator:
         a_apply=lift(op.a_apply), m_apply=lift(op.m_apply),
         apply_block=(None if block is None
                      else (lambda V: block(gather(V))[:, lo:hi])),
-        mesh=mesh)
+        mesh=mesh,
+        # NCCL beside a conditional node's body is unverified
+        capturable=op.capturable and not op.while_loops)
 
 
 def check_solver(op: Operator, cfg) -> None:

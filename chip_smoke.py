@@ -205,11 +205,22 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    ``ilu0_preconditioner(symmetric=True, sweeps=3)``: the shifted product
    (``from_scipy(format='dia')``) and both IC(0) triangles run the DIA
    kernel (first checked bit-equal to its twin on the triangles' tables);
+   the operator declared ``capturable``: after the first, eager cycle
+   each solve is one CUDA-graph WHILE node of the device loop's graphs
+   (``ops/cuda_krylov_loop``; before 12a, the loop-test kernel against the
+   host's test on edge inputs, alone and as a node's condition, timed);
    gates: every value within 1e-6*|lambda| of the analytic spectrum, every
-   residual ``||Av - lambda v|| / max(1, |lambda|) <= 1e-6``, the DIA kernel
-   launched; reported: cycles, nopx, CG iterations per solve, ms per CG
-   iteration and the share of its loop test's device read (the same
-   iterations with and without it, in turns), host set-up apart; (b)
+   residual ``||Av - lambda v|| / max(1, |lambda|) <= 1e-6``, no solve at
+   its cap, exactly 7 DIA launches per CG iteration and 7 before each
+   solve, one loop-test launch per iteration and one before each node,
+   graphs captured and replayed, one packet a cycle; the witness, the same
+   solve at the same width through the host loop (``capturable=False``),
+   bit for bit in values, vectors, each solve's iterations, cycles, nopx,
+   nrorth, nrorthr and launches; reported: cycles, nopx, CG iterations
+   per solve, the solves on the graphs, ms per CG iteration (the solve's
+   wall over its iterations), and one iteration with the loop test's
+   read, without it and as a WHILE node (in turns), beside its bytes as
+   written and its least bytes over 3.35 TB/s, host set-up apart; (b)
    dsdrv3-6's pencil ``K = tridiag(-1, 2, -1)/h``, ``M = tridiag(1, 4,
    1)h/6`` through ``eigsh(K, M=M, sigma=P12_SIGMA, mode=...)`` (the host
    factorization's explicit inverse, capturable: the device loop's graphs)
@@ -224,7 +235,8 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    part, Rayleigh-quotient values, dndrv5), mode 4 (``part='imag'``, M =
    I, dndrv6) and complex128 with a complex shift (zndrv2); then
    matrix-free BiCGSTAB with ``ilu0_preconditioner`` (sigma = 0, nx =
-   P12_BICG_NX, the DIA kernel for the product and both triangles): at
+   P12_BICG_NX, the DIA kernel for the product and both triangles; on the
+   graphs, its solves WHILE nodes, graphs captured): at
    least 6 values, each within 1e-8*|lambda| of scipy's shift-invert
    values, residuals ``/ max(1, |lambda|) <= 1e-8`` (BiCGSTAB: 1e-6); (d)
    ``svds`` of a float32 ``A`` (P12_SVD_SHAPE, 1 GiB) made on the card
@@ -301,7 +313,8 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    (d) the ``--slv`` menu: CG with the IC(0) preconditioner for
    shift-invert at sigma = 0 on the Laplacian at nx = P14_SI_NX, float64
    (values within 1e-6*|lambda| of the analytic spectrum, residuals ``/
-   max(1, |lambda|) <= 1e-6``), and LU for dsdrv3-6's pencil at n =
+   max(1, |lambda|) <= 1e-6``; the hybrid's graphs, its solves WHILE
+   nodes), and LU for dsdrv3-6's pencil at n =
    P14_PENCIL_N (1e-8); (e) the seven examples of
    ``arpack_ng_tpu_torch.examples`` once each, residuals under
    P14_EXAMPLE_RES, the event, rotation, PSELL and reduced-space kernels
@@ -622,6 +635,8 @@ P16_MAX_S = 90.0
 #: their own
 WALLS = {}
 STATS = {}
+#: 12a's CG pace (ms per iteration: read, free, graph) and bytes
+CG_PACE = {}
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s outside
 #: the tensor cores by accumulation dtype; its SMs (one block of the
 #: reduced-space kernel runs on one)
@@ -2552,9 +2567,9 @@ def _counted(torch, dev, need, fn, tag=None):
     into ``RERUNS[tag]``.  Returns ``(fn(), wall seconds, counts)``."""
     from arpack_ng_tpu_torch.core import arnoldi
     from arpack_ng_tpu_torch.ops import (cuda_cgs, cuda_cplx_cycle, cuda_dia,
-                                         cuda_gather, cuda_psell,
-                                         cuda_realnonsym_cycle, cuda_rot,
-                                         cuda_sel, cuda_sym_cycle)
+                                         cuda_gather, cuda_krylov_loop,
+                                         cuda_psell, cuda_realnonsym_cycle,
+                                         cuda_rot, cuda_sel, cuda_sym_cycle)
 
     every = (cuda_sel.sel_proj, cuda_sel.sel_update, cuda_rot.rotate_rows,
              cuda_cgs.cgs_proj, cuda_cgs.cgs_update, cuda_dia.dia_matvec,
@@ -2562,7 +2577,7 @@ def _counted(torch, dev, need, fn, tag=None):
              cuda_gather.take_flat, cuda_gather.take_lanes,
              cuda_sym_cycle.sym_cycle,
              cuda_realnonsym_cycle.realnonsym_cycle,
-             cuda_cplx_cycle.cplx_cycle)
+             cuda_cplx_cycle.cplx_cycle, cuda_krylov_loop.krylov_test)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     for k in every:
         k.launches = 0
@@ -3530,11 +3545,110 @@ def _iters(its) -> str:
             f"/ {np.median(its):g} / {its.max()} (total {its.sum()})")
 
 
+def check_krylov_test(torch, dev, gpu):
+    """Phase 12's loop test (``csrc/krylov_loop.cu``, row 14) against the
+    host loop's test, ``it < maxiter and |r.r| > atol2``, on the card's
+    values, in float32 and float64, on the edge inputs: ``|r.r|`` equal to
+    ``atol2`` and one ulp either side, nan, ``it = maxiter - 1``,
+    ``maxiter = 0`` and ``b = 0`` (``atol2 = |r.r| = 0``): launched alone
+    (its decision written out), and as the condition of a WHILE node whose
+    body is the test alone, so that the loop runs while the test holds
+    (the count it logs must be where the host's loop would stop); then
+    BiCGSTAB's ``rho == 0`` flag on 1, 0, -0 and a complex 0.  Timed
+    beside the plain PyTorch test on the card.  Returns (0.0: every
+    decision equal, or it raises; the timed row)."""
+    from arpack_ng_tpu_torch.core.loop import CapturedGraph
+    from arpack_ng_tpu_torch.ops import cuda_krylov_loop as kl
+
+    def t(x, dt):
+        return torch.tensor(x, dtype=dt, device=dev)
+
+    bad, lines = [], []
+    stream = pool = None
+    if dev.type == "cuda":
+        stream = torch.cuda.Stream(device=dev)
+        pool = torch.cuda.MemPool()
+        kl.body_stream(dev)
+    for dt in (torch.float32, torch.float64):
+        npd = np.float32 if dt == torch.float32 else np.float64
+        one = npd(1.0)
+        cases = (("|r.r| = atol2", one, one, 0, 5),
+                 ("one ulp above", np.nextafter(one, npd(2)), one, 0, 5),
+                 ("one ulp below", np.nextafter(one, npd(0)), one, 0, 5),
+                 ("nan", np.nan, one, 0, 5),
+                 ("it = maxiter - 1", 2.0, one, 4, 5),
+                 ("maxiter = 0", 2.0, one, 0, 0),
+                 ("b = 0", 0.0, 0.0, 0, 5))
+        for name, rr, a2, it0, maxiter in cases:
+            rr_d, a2_d = t(rr, dt), t(a2, dt)
+            host = it0 < maxiter and bool(torch.abs(rr_d) > a2_d)
+            stop = maxiter if host else it0
+            it = t(it0, torch.int32)
+            go = t(0, torch.int32)
+            kl.krylov_test(rr_d, a2_d, it, maxiter, bump=0, go=go)
+            alone = bool(go.item())
+            log = kl.IterationLog(dev)
+            if dev.type == "cuda":
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(stream):
+                    graph = CapturedGraph(
+                        lambda: kl.run_while(rr_d, a2_d, it.fill_(it0),
+                                             maxiter, lambda: rr_d, log=log,
+                                             pool=pool),
+                        torch.cuda.graph_pool_handle())
+                    graph.replay()
+                torch.cuda.synchronize(dev)
+            else:
+                kl.run_while(rr_d, a2_d, it.fill_(it0), maxiter,
+                             lambda: rr_d, log=log)
+            logged = log.drain()
+            lines.append(f"{str(dt)[6:]} {name}: host {host}, kernel "
+                         f"{alone}, node stops at {logged}")
+            if alone != host or logged != [stop]:
+                bad.append(lines[-1])
+        for rho in (1.0, 0.0, -0.0, 0j):
+            cdt = (torch.complex64 if dt == torch.float32
+                   else torch.complex128) if isinstance(rho, complex) else dt
+            rho_d = t(rho, cdt)
+            brk = t(False, torch.bool)
+            kl.krylov_test(t(2.0, dt), t(1.0, dt), t(0, torch.int32), 5,
+                           bump=0, rho=rho_d, brk=brk)
+            if bool(brk.item()) != bool(rho_d == 0):
+                bad.append(f"{str(dt)[6:]} rho {rho}: flag {bool(brk)}")
+    print(f"12 loop test (kernel vs the host test, alone and as a WHILE "
+          f"node's condition): " + "; ".join(lines), flush=True)
+    if bad:
+        raise AssertionError(f"loop test differs from the host's: {bad}")
+    if dev.type != "cuda":
+        return 0.0, None
+    flush = timing.flush_buffer(dev)
+    rr, a2 = t(2.0, torch.float64), t(1.0, torch.float64)
+    it = t(0, torch.int32)
+    maxiter = 1 << 30
+    row = _timed_row(
+        torch, flush, "krylov_test", "torch.float64", 1, 8 + 8 + 4 + 4, 2,
+        "torch.float64",
+        lambda: kl.krylov_test(rr, a2, it, maxiter, bump=1),
+        lambda: torch.logical_and(it.add_(1) < maxiter, rr > a2))
+    row["bound_note"] = ("|r.r|, atol2 and the counter read, the counter "
+                         "written: 24 bytes; the launch's own latency is "
+                         "what it costs (floor_ms)")
+    from arpack_ng_tpu_torch.ops import cuda_gather
+    row["floor_ms"] = timing.alternating_ms(
+        [lambda: cuda_gather.noop(dev)], flush)[0]
+    _print_rows([row])
+    return 0.0, row
+
+
 def _cg_read_share(torch, dev, matvec, pc, b, its=P12_READ_ITS):
     """ms per CG iteration with the loop test's read (``solvers._cg`` at
-    tol 0) and without it (``cg_start`` and ``its`` times ``cg_step``, one
-    sync at the end), in turns (read, free, free, read, read, free), on
-    the same right-hand side: the read's share is ``1 - free / read``."""
+    tol 0), without it (``cg_start`` and ``its`` times ``cg_step``, one
+    sync at the end) and as one CUDA-graph WHILE node (the solve of
+    ``make_iterative_solve`` captured once, then replayed: the test kernel
+    decides on the card), in turns (read, free, graph, graph, free, read,
+    read, free, graph), on the same right-hand side.  The graph's solves
+    must each run ``its`` iterations."""
+    from arpack_ng_tpu_torch.core.loop import CapturedGraph
     from arpack_ng_tpu_torch.ops import solvers
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -3548,14 +3662,56 @@ def _cg_read_share(torch, dev, matvec, pc, b, its=P12_READ_ITS):
         for _ in range(its):
             c = solvers.cg_step(matvec, c, pc)
 
-    times = ([], [])
-    for i in (0, 1, 1, 0, 0, 1):
+    forms = [with_reads, read_free]
+    if dev.type == "cuda":
+        solve = solvers.make_iterative_solve(matvec, symmetric=True,
+                                             tol=0.0, maxiter=its,
+                                             precond=pc)
+        solve.bind(dev)
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            graph = CapturedGraph(lambda: solve(b),
+                                  torch.cuda.graph_pool_handle())
+
+        def on_graph():
+            with torch.cuda.stream(stream):
+                graph.replay()
+
+        forms.append(on_graph)
+    times = [[] for _ in forms]
+    for i in (0, 1, 2, 2, 1, 0, 0, 1, 2):
+        if i >= len(forms):
+            continue
         sync()
         t0 = time.perf_counter()
-        (with_reads, read_free)[i]()
+        forms[i]()
         sync()
         times[i].append(time.perf_counter() - t0)
-    return [float(np.median(t)) * 1e3 / its for t in times]
+    if dev.type == "cuda":
+        if solve.iterations != [its] * 3 or not all(solve.on_graph):
+            raise AssertionError(f"the graph's CG solves ran "
+                                 f"{solve.iterations}, not {its} each")
+    return [float(np.median(t)) * 1e3 / its for t in times] + \
+        [None] * (3 - len(forms))
+
+
+def _cg_bytes(n_pad, nd_a, nd_l, nd_lt, sweeps=3, graph=False):
+    """Bytes one IC(0)-preconditioned CG iteration moves as the code is
+    written (``solvers.cg_step``; each torch op and DIA launch reads its
+    inputs once and writes its output once, 8-byte values), with the
+    loop test's dot, and on the graph the copies into the loop's four
+    vector buffers; and the least any code could move: each input
+    vector and table read once, each output vector written once."""
+    def dia(nd):
+        return nd + 2
+    w = dia(nd_a) + 2 + 5 + 5                         # Ap, p.Ap, x, r
+    w += sweeps * (dia(nd_l) + 3) + 3 + sweeps * (dia(nd_lt) + 3)
+    w += 2 + 5 + 2                                   # r.z, p, the test
+    if graph:
+        w += 4 * 2
+    least = 3 + nd_a + nd_l + nd_lt + 1 + 4          # x r p, tables; x r z p
+    return 8 * n_pad * w, 8 * n_pad * least
 
 
 def _shift_invert_main(torch, dev, gpu, nx, need):
@@ -3597,40 +3753,100 @@ def _shift_invert_main(torch, dev, gpu, nx, need):
                            cuda_dia.dia_matvec_plain(offs, tab, x, n)):
             raise AssertionError("12a: the DIA kernel differs from its twin "
                                  f"on a strict triangle {offs.tolist()}")
-    solve = solvers.make_iterative_solve(
-        op_s.a_apply, symmetric=True, tol=1e-10, maxiter=P12_CG_MAXITER,
-        precond=pc)
-    op = transforms.shift_invert_operator(
-        n, np.float64, solve, sigma=sigma, mode=3, n_pad=op_s.n_pad,
-        hermitian=True, a_apply=op_s.a_apply, device=dev)
+    cuda = dev.type == "cuda"
+
+    def run(capturable):
+        solve = solvers.make_iterative_solve(
+            op_s.a_apply, symmetric=True, tol=1e-10,
+            maxiter=P12_CG_MAXITER, precond=pc)
+        op = transforms.shift_invert_operator(
+            n, np.float64, solve, sigma=sigma, mode=3, n_pad=op_s.n_pad,
+            hermitian=True, a_apply=op_s.a_apply, device=dev,
+            capturable=capturable)
+        kernels = ("dia_matvec", "sym_cycle") + (("krylov_test",)
+                                                 if capturable else ())
+        res = _counted(torch, dev, need(*kernels),
+                       lambda: pt.eigsh(op, k=8, which="LM", ncv=NCV,
+                                        tol=1e-8, return_stats=True))
+        return res, solve
+
     tag = f"12a eigsh(shift-invert sigma=0, CG + IC(0), nx={nx})"
-    (vals, vecs, out), wall, counts = _counted(
-        torch, dev, need("dia_matvec", "sym_cycle"),
-        lambda: pt.eigsh(op, k=8, which="LM", ncv=NCV, tol=1e-8,
-                         return_stats=True))
+    ((vals, vecs, out), wall, counts), solve = run(True)
     its = np.asarray(solve.iterations)
+    on_graph = np.asarray(solve.on_graph)
     if its.max() >= P12_CG_MAXITER:
         raise AssertionError(f"{tag}: a CG solve ran to its cap")
     dmax, rmax = _gate_pairs(vals, vecs, a_sp, _analytic_spectrum(nx)[:256],
                              1e-6, 1e-6, tag, count=8)
-    del vecs
     st = out.stats
+    # 7 DIA products per CG iteration (the product and 6 triangle sweeps),
+    # and as many before each solve's first
+    n_dia = 7 * (its.sum() + len(its))
+    n_test = (its[on_graph] + 1).sum()
+    if cuda and (counts["dia_matvec"] != n_dia
+                 or counts["krylov_test"] != n_test
+                 or not on_graph.all() or not st.graphs_captured
+                 or not st.graph_replays or st.packets != st.n_iter):
+        raise AssertionError(
+            f"{tag}: launches {counts} (want {n_dia} DIA, {n_test} loop "
+            f"tests), {on_graph.sum()} solves on the graphs, graphs "
+            f"{st.graphs_captured}, replays {st.graph_replays}, packets "
+            f"{st.packets} for {st.n_iter} cycles")
+    g_its = its[on_graph].sum()
     print(f"{tag}: wall {wall:.4f} s (host, not in it: from_scipy "
           f"{t_dia:.2f} s, ilu0_preconditioner {t_ilu:.2f} s); "
-          f"{_stats_line(st)}; CG: {_iters(its)}, "
-          f"{wall * 1e3 / its.sum():.4f} ms per CG iteration (the solve's "
-          f"wall over its CG iterations); max value dist {dmax:.2e}, max "
-          f"residual {rmax:.2e}; launches {counts} "
-          f"({counts['dia_matvec'] / its.sum():.2f} DIA per CG iteration); "
-          f"card {gpu}", flush=True)
+          f"{_stats_line(st)}; graphs captured {st.graphs_captured}, "
+          f"replayed {st.graph_replays}, packets read {st.packets} (one a "
+          f"cycle); CG: {_iters(its)}, {on_graph.sum()} solves ({g_its} "
+          f"iterations) as WHILE nodes (the first, eager cycle's each in a "
+          f"graph of its own, the rest in the device loop's graphs); "
+          f"{wall * 1e3 / its.sum():.4f} ms per CG "
+          f"iteration (the solve's wall over its CG iterations); max value "
+          f"dist {dmax:.2e}, max residual {rmax:.2e}; launches {counts} "
+          f"({counts['dia_matvec'] / its.sum():.2f} DIA per CG iteration, "
+          f"7 per iteration and 7 before each solve); card {gpu}",
+          flush=True)
     print(f"  values {np.array2string(vals, precision=10)}", flush=True)
+    # the witness: the same solve through the host loop, bit for bit
+    ((w_vals, w_vecs, w_out), w_wall, w_counts), w_solve = run(False)
+    ws = w_out.stats
+    same = (np.array_equal(vals, w_vals), np.array_equal(vecs, w_vecs),
+            w_solve.iterations == list(its),
+            (st.n_iter, st.nopx, st.nrorth, st.nrorthr)
+            == (ws.n_iter, ws.nopx, ws.nrorth, ws.nrorthr),
+            all(w_counts[k] == counts[k] for k in counts
+                if k != "krylov_test"))
+    del vecs, w_vecs
+    print(f"  witness through the host loop (capturable=False, the same "
+          f"full width nx={nx}): wall {w_wall:.4f} s, "
+          f"{_stats_line(ws)}, graphs {ws.graphs_captured}; "
+          f"{w_wall * 1e3 / its.sum():.4f} ms per CG iteration; bit for "
+          f"bit (values, vectors, iterations, counters, launches): "
+          f"{same}", flush=True)
+    if not all(same):
+        raise AssertionError(f"{tag}: the graphs and the host loop differ "
+                             f"{same}")
     b = torch.zeros(op_s.n_pad, dtype=torch.float64, device=dev)
     b[:n] = x
-    ms_read, ms_free = _cg_read_share(torch, dev, op_s.a_apply, pc, b)
+    ms_read, ms_free, ms_graph = _cg_read_share(torch, dev, op_s.a_apply,
+                                                pc, b)
+    nd_a = shifted.todia().offsets.size
+    nd_l = sp.tril(shifted, -1).todia().offsets.size
+    code_b, least_b = _cg_bytes(op_s.n_pad, nd_a, nd_l, nd_l, graph=True)
+    graph_ms = "not measured" if ms_graph is None else f"{ms_graph:.4f} ms"
     print(f"  CG iteration: {ms_read:.4f} ms with the loop test's read, "
-          f"{ms_free:.4f} ms without (median of 3 runs of {P12_READ_ITS} "
-          f"iterations in turns): the read's share "
-          f"{100 * (1 - ms_free / ms_read):.1f}%; card {gpu}", flush=True)
+          f"{ms_free:.4f} ms without (eager), {graph_ms} as a WHILE node "
+          f"of a graph (median of 3 runs of {P12_READ_ITS} iterations in "
+          f"turns): the read's share of the eager iteration "
+          f"{100 * (1 - ms_free / ms_read):.1f}%; bytes per iteration as "
+          f"written {code_b / 1e6:.1f} MB "
+          f"({code_b / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s), at "
+          f"least {least_b / 1e6:.1f} MB "
+          f"({least_b / HBM_BYTES_PER_S * 1e3:.4f} ms); card {gpu}",
+          flush=True)
+    CG_PACE.update(read=ms_read, free=ms_free, graph=ms_graph,
+                   code_bytes=code_b, least_bytes=least_b,
+                   its=int(its.sum()), graph_its=int(g_its))
     return counts
 
 
@@ -3763,19 +3979,31 @@ def _eigs_transforms(torch, dev, gpu, nx, bicg_nx, need):
         precond=pc)
     op = transforms.shift_invert_operator(
         n, np.float64, solve, sigma=0.0, mode=3, n_pad=op_s.n_pad,
-        a_apply=op_s.a_apply, device=dev)
+        a_apply=op_s.a_apply, device=dev, capturable=True)
     tag = f"12c eigs(shift-invert sigma=0, BiCGSTAB + ILU(0), nx={bicg_nx})"
     (vals, vecs, out), wall, counts = _counted(
-        torch, dev, need("dia_matvec"), lambda: pt.eigs(op, **kw))
+        torch, dev, need("dia_matvec", "krylov_test"),
+        lambda: pt.eigs(op, **kw))
     its = np.asarray(solve.iterations)
     if its.max() >= P12_BICG_MAXITER:
         raise AssertionError(f"{tag}: a BiCGSTAB solve ran to its cap")
+    st = out.stats
+    on_graph = np.asarray(solve.on_graph)
+    if dev.type == "cuda" and (not on_graph.all()
+                               or counts["krylov_test"]
+                               != (its[on_graph] + 1).sum()):
+        raise AssertionError(f"{tag}: graphs {st.graphs_captured}, "
+                             f"{on_graph.sum()} solves on them, launches "
+                             f"{counts}")
     ref = spla.eigs(a.tocsc(), k=24, sigma=0.0, return_eigenvectors=False)
     dmax, rmax = _gate_pairs(vals, vecs, a, ref, 1e-8, 1e-6, tag, count=6)
     del vecs
     print(f"{tag}: wall {wall:.4f} s (host, not in it: from_scipy and "
           f"ilu0_preconditioner {t_host:.2f} s); {len(vals)} values; "
-          f"{_stats_line(out.stats)}; BiCGSTAB: {_iters(its)}, "
+          f"{_stats_line(st)}; graphs captured {st.graphs_captured}, "
+          f"replayed {st.graph_replays}, packets {st.packets}; BiCGSTAB: "
+          f"{_iters(its)}, {on_graph.sum()} solves as WHILE nodes (in "
+          f"graphs of their own in an eager cycle, else the loop's); "
           f"{wall * 1e3 / its.sum():.4f} ms per iteration; max value dist "
           f"{dmax:.2e} (scipy's 24 nearest), max residual {rmax:.2e}; "
           f"launches {counts}; card {gpu}", flush=True)
@@ -4817,13 +5045,21 @@ def _cli_solvers(torch, dev, gpu, tmp, si_nx, pencil_n, need):
              ["--A", kf, "--B", mf, "--genPb", "--shiftReal",
               str(P14_SIGMA), "--invert", "--slv", "LU", "--nbEV", "4",
               "--tol", "1e-10"], closed, 1e-8, 4)):
+        cg = "CG" in argv
         (rc, out, res), wall, counts = _counted(
-            torch, dev, need("dia_matvec"), lambda: _cli_inproc(argv + cpu))
+            torch, dev, need("dia_matvec", *(("krylov_test",) if cg else ())),
+            lambda: _cli_inproc(argv + cpu))
         vals, dmax, rmax = _cli_gate(rc, out, spectrum, rel, rel,
                                      f"14d {tag}", count)
-        print(f"14d --slv {tag}: wall {wall:.2f} s, {_stats_line(res.stats)};"
-              f" max value dist {dmax:.2e}, max residual {rmax:.2e}; "
-              f"launches {counts}; card {gpu}", flush=True)
+        st = res.stats
+        if cg and dev.type == "cuda" and not (st.graphs_captured
+                                              and st.graph_replays):
+            raise AssertionError(f"14d {tag}: no graphs ({st.graphs_captured}"
+                                 f" captured, {st.graph_replays} replays)")
+        print(f"14d --slv {tag}: wall {wall:.2f} s, {_stats_line(st)}; "
+              f"graphs captured {st.graphs_captured}, replayed "
+              f"{st.graph_replays}; max value dist {dmax:.2e}, max residual "
+              f"{rmax:.2e}; launches {counts}; card {gpu}", flush=True)
         print(f"  values {np.array2string(vals, precision=10)}", flush=True)
         paths[f"14d {tag.split(',')[0]}"] = counts
     return paths
@@ -5495,12 +5731,15 @@ def kernel_entries(rows, launches, errs, phases):
                           "arpack_ng_tpu/core/device_nonsym.py:202",
                           "cplx_cycle", None, "cplx_cycle"),
            "dia_block": ("dia.cu", ops + "sparse.py:118", "dia_block",
-                         P13_JSON_B, "dia_block_matvec")}
+                         P13_JSON_B, "dia_block_matvec"),
+           "krylov_test": ("krylov_loop.cu", ops + "solvers.py:58",
+                           "krylov_test", None, "krylov_test")}
     entries = []
     for kname, (source, replaces, timed, shape, counter) in src.items():
         r = next(r for r in rows if r["name"] == timed
-                 and r["dtype"] == ("torch.complex64" if kname == "cplx_cycle"
-                                    else "torch.float32")
+                 and r["dtype"] == {"cplx_cycle": "torch.complex64",
+                                    "krylov_test": "torch.float64"}.get(
+                                        kname, "torch.float32")
                  and (shape is None or r["shape"] == shape))
         entries.append({
             "name": kname, "route": "cuda",
@@ -5655,7 +5894,12 @@ def main() -> int:
     phases[11] = mode1_paths(torch, dev, gpu)
     # the complex reduced space's main path: 11a, eigs(A_csr, 'fused')
     launches["cplx_cycle"] = phases[11]["11a"]["cplx_cycle"]
+    err_kt, row_kt = check_krylov_test(torch, dev, gpu)
+    rows.append(row_kt)
+    errs["krylov_test"] = err_kt
     phases[12] = transform_paths(torch, dev, gpu)
+    # the loop test's main path: 12a, CG shift-invert on the graphs
+    launches["krylov_test"] = phases[12]["12a"]["krylov_test"]
     phases[13], err_blk, rows_blk = banded_block_paths(torch, dev, gpu)
     phases[14] = cli_paths(torch, dev, gpu)
     phases[15] = mesh_paths(torch, dev, gpu)

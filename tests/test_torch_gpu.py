@@ -1906,3 +1906,155 @@ def test_cplx_device_loop_equals_host_loop_on_card(dev, problem):
     res = np.linalg.norm(a @ v - v * out.values, axis=0) / np.abs(out.values)
     assert res.max() < 1e-3
     torch.cuda.synchronize()
+
+
+def _lap_dia(dev, nx):
+    """The 2-D Laplacian imported as DIA on ``dev``, its IC(0) and ILU(0)
+    preconditioners (the DIA kernel for the triangles), a seeded rhs."""
+    import scipy.sparse as sp
+
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.ops import solvers
+    eye = sp.eye(nx)
+    t = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    a = (sp.kron(eye, t) + sp.kron(t, eye)).tocsr()
+    op = pt.from_scipy(a, format="dia", device=dev)
+    pcs = {sym: solvers.ilu0_preconditioner(a, symmetric=sym,
+                                            n_pad=op.n_pad, device=dev)
+           for sym in (True, False)}
+    b = torch.zeros(op.n_pad, dtype=torch.float64)
+    b[: nx * nx] = torch.from_numpy(
+        np.random.default_rng(7).standard_normal(nx * nx))
+    return a, op, pcs, b.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_krylov_test_kernel_edge_inputs_on_card(dev, dtype):
+    # the loop test's decision, launched alone, equals the host loop's
+    # comparison on the card's values: |r.r| = atol2 and one ulp either
+    # side, nan, it = maxiter - 1, maxiter = 0, b = 0; the rho == 0 flag
+    from arpack_ng_tpu_torch.ops import cuda_krylov_loop as kl
+    npd = np.float32 if dtype == torch.float32 else np.float64
+    one = npd(1.0)
+    for rr, a2, it0, maxiter in (
+            (one, one, 0, 5), (np.nextafter(one, npd(2)), one, 0, 5),
+            (np.nextafter(one, npd(0)), one, 0, 5), (np.nan, one, 0, 5),
+            (2.0, one, 4, 5), (2.0, one, 5, 5), (2.0, one, 0, 0),
+            (0.0, 0.0, 0, 5)):
+        rr_d = torch.tensor(rr, dtype=dtype, device=dev)
+        a2_d = torch.tensor(a2, dtype=dtype, device=dev)
+        go = torch.zeros((), dtype=torch.int32, device=dev)
+        it = torch.tensor(it0, dtype=torch.int32, device=dev)
+        kl.krylov_test(rr_d, a2_d, it, maxiter, bump=0, go=go)
+        host = it0 < maxiter and bool(rr_d > a2_d)
+        assert bool(go.item()) is host, (rr, a2, it0, maxiter)
+    for rho in (1.0, -0.0, 0.0):
+        brk = torch.zeros((), dtype=torch.bool, device=dev)
+        kl.krylov_test(torch.tensor(2.0, dtype=dtype, device=dev),
+                       torch.tensor(1.0, dtype=dtype, device=dev),
+                       torch.zeros((), dtype=torch.int32, device=dev), 5,
+                       bump=0, rho=torch.tensor(rho, dtype=dtype,
+                                                device=dev), brk=brk)
+        assert bool(brk.item()) is (rho == 0)
+    assert min(kl.versions().values()) >= kl.MIN_CUDA
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_while_node_solve_equals_host_loop_on_card(dev, symmetric):
+    # one CG / BiCGSTAB solve captured as a WHILE node and replayed three
+    # times gives the host loop's solution bit for bit and its iteration
+    # count each time; the body's launches counted per iteration
+    from arpack_ng_tpu_torch.core.loop import CapturedGraph
+    from arpack_ng_tpu_torch.ops import cuda_krylov_loop as kl
+    from arpack_ng_tpu_torch.ops import solvers
+    _, op, pcs, b = _lap_dia(dev, 64)
+    kw = dict(symmetric=symmetric, tol=1e-10, maxiter=2000,
+              precond=pcs[symmetric])
+    host = solvers.make_iterative_solve(op.a_apply, **kw)
+    x_host = host(b)
+    node = solvers.make_iterative_solve(op.a_apply, **kw)
+    node.bind(dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    d0, t0 = cuda_dia.dia_matvec.launches, kl.krylov_test.launches
+    with torch.cuda.stream(stream):
+        graph = CapturedGraph(lambda: node(b), torch.cuda.graph_pool_handle())
+        for _ in range(3):
+            x_node = graph.replay()
+    its = host.iterations[0]
+    assert node.iterations == [its] * 3 and all(node.on_graph)
+    assert torch.equal(x_node, x_host)
+    per = 7 if symmetric else 14     # products and triangle sweeps
+    before = 7 if symmetric else 1
+    assert cuda_dia.dia_matvec.launches - d0 == 3 * (per * its + before)
+    assert kl.krylov_test.launches - t0 == 3 * (its + 1)
+    # outside a capture the bound solve is a graph of its own
+    assert torch.equal(node(b), x_host)
+    assert node.iterations[-1] == its and node.on_graph[-1]
+    assert kl.krylov_test.launches - t0 == 4 * (its + 1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_shift_invert_graphs_equal_host_loop_on_card(dev, symmetric):
+    # eigsh (CG + IC(0)) / eigs (BiCGSTAB + ILU(0)) shift-invert declared
+    # capturable: every solve a WHILE node (the device loop's graphs
+    # captured and replayed where the solve restarts), one packet a
+    # cycle, and bit for bit the undeclared operator's host loop (values,
+    # vectors, each solve's iterations, counters)
+    import arpack_ng_tpu_torch as pt
+    from arpack_ng_tpu_torch.ops import solvers, transforms
+    a, op_s, pcs, _ = _lap_dia(dev, 48)
+    runs = []
+    for capt in (True, False):
+        solve = solvers.make_iterative_solve(
+            op_s.a_apply, symmetric=symmetric, tol=1e-11, maxiter=3000,
+            precond=pcs[symmetric])
+        op = transforms.shift_invert_operator(
+            a.shape[0], np.float64, solve, sigma=0.0, mode=3,
+            n_pad=op_s.n_pad, hermitian=symmetric, a_apply=op_s.a_apply,
+            device=dev, capturable=capt)
+        fn = pt.eigsh if symmetric else pt.eigs
+        vals, vecs, out = fn(op, k=6, which="LM", ncv=24, tol=1e-9,
+                             return_stats=True)
+        runs.append((vals, vecs, out.stats, solve.iterations,
+                     solve.on_graph))
+    (v1, x1, s1, i1, g1), (v0, x0, s0, i0, g0) = runs
+    assert all(g1) and not any(g0) and s1.packets == s1.n_iter
+    assert s1.n_iter == 1 or (s1.graphs_captured > 0
+                              and s1.graph_replays > 0)
+    np.testing.assert_array_equal(v1, v0)
+    np.testing.assert_array_equal(x1, x0)
+    assert i1 == i0
+    for f in ("n_iter", "nopx", "nrorth", "nrorthr"):
+        assert getattr(s1, f) == getattr(s0, f), f
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_failed_while_capture_raises_on_card(dev):
+    # a solve whose product reads back cannot be a WHILE node's body: the
+    # capture raises, nothing runs the host loop in its place
+    from arpack_ng_tpu_torch.core.loop import CapturedGraph
+    from arpack_ng_tpu_torch.ops import solvers
+    _, op, pcs, b = _lap_dia(dev, 32)
+
+    def reading(v):
+        y = op.a_apply(v)
+        _ = float(y[0])
+        return y
+
+    solve = solvers.make_iterative_solve(reading, symmetric=True, tol=1e-8,
+                                         maxiter=100)
+    solve.bind(dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with pytest.raises(RuntimeError):
+        with torch.cuda.stream(stream):
+            CapturedGraph(lambda: solve(b), torch.cuda.graph_pool_handle())
+    assert solve.iterations == []
+    torch.cuda.synchronize()
