@@ -12,8 +12,10 @@ base, this, this, base, and builds its own kernels: ``chip_smoke.py``
 as DIA) with ``ilu0_preconditioner(symmetric=True, sweeps=3)`` (IC(0):
 the DIA kernel for the product and both triangles), on the same seeded
 right-hand side. Each process times ``its`` iterations with the loop
-test's device read (``solvers._cg`` at tol 0), without it (``cg_start``
-and ``its`` times ``cg_step``) and, where the checkout has them, as one
+test's device read (``solvers._cg`` at tol 0), without it (``its``
+in-place iterations, ``solvers._cg_iteration``, the fused update kernels;
+in a checkout without them ``its`` times ``cg_step``) and, where the
+checkout has them, as one
 CUDA-graph WHILE node (``make_iterative_solve``'s solve captured once
 and replayed; ``graph_ms`` null in a checkout without), in turns (read,
 free, graph, graph, free, read, read, free, graph), and prints the
@@ -54,6 +56,11 @@ def with_reads():
 
 def read_free():
     c, _ = solvers.cg_start(op.a_apply, b, None, 0.0, pc)
+    if hasattr(solvers, "_cg_iteration"):
+        carry = solvers._cg_carry(c, pc)
+        for _ in range(its):
+            solvers._cg_iteration(op.a_apply, carry, pc)
+        return
     for _ in range(its):
         c = solvers.cg_step(op.a_apply, c, pc)
 

@@ -33,8 +33,9 @@ from .arnoldi import (FactorizationState, kev_rows, make_bnorm, make_init,
 GRAPH_KERNELS = (cuda_sel.sel_proj, cuda_sel.sel_update,
                  cuda_cgs.cgs_proj, cuda_cgs.cgs_update,
                  cuda_rot.rotate_rows, cuda_dia.dia_matvec,
-                 cuda_dia.dia_block_matvec, cuda_psell.psell_matvec,
-                 cuda_krylov_loop.krylov_test)
+                 cuda_dia.dia_matvec_sub, cuda_dia.dia_block_matvec,
+                 cuda_psell.psell_matvec, cuda_krylov_loop.krylov_test,
+                 *cuda_krylov_loop.UPDATES)
 
 
 class CapturedGraph:

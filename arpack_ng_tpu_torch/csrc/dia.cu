@@ -6,7 +6,9 @@
 //   y[i] = sum_k dtab[k, i] * x[i + off_k]   for i < n, x read as zero
 //          outside [0, n);  y[n:n_pad] = 0.
 // It is the matvec of every operator that from_scipy imports as DIA
-// (banded matrices, stencils, RCM-banded meshes).
+// (banded matrices, stencils, RCM-banded meshes).  Its epilogue forms
+// (atpt_dia_matvec_sub) fold the subtraction and scaling of each IC(0) /
+// ILU(0) Neumann sweep into the same launch (see dia_kernel).
 //
 // Bound: device-memory bandwidth.  The table of nd diagonals (nd x n_pad
 // values) is read once and dominates; x and y are one vector each.  One
@@ -65,10 +67,25 @@ namespace {
 
 constexpr int DIA_BLOCK = 256;
 
-template <typename A>
+// The product's epilogue: what row i writes from its sum acc.  DIA_PLAIN is
+// the product; the other forms are the Neumann sweeps of the IC(0) / ILU(0)
+// preconditioners (ops/solvers.ilu0_preconditioner), each the pair of torch
+// ops it replaces, the difference and the scaling rounded on their own:
+//   DIA_SUB         out = e - A x            (rn - L z)
+//   DIA_SCALE_SUB   out = d * (e - A x)      (dinv * (rn - L z), the last L sweep)
+//   DIA_SUB_SCALED  out = e - d * (A x)      (y0 - dinv * (U y), ILU(0)'s U sweeps)
+// A sweep's pair of ops moved 2 + nd vectors for the product and 3 (4 with
+// the scaling) for the rest; the epilogue form moves 2 + nd + 1 (+1 for d).
+constexpr int DIA_PLAIN = -1;
+constexpr int DIA_SUB = 0;
+constexpr int DIA_SCALE_SUB = 1;
+constexpr int DIA_SUB_SCALED = 2;
+
+template <typename A, int FORM>
 __global__ void __launch_bounds__(DIA_BLOCK)
 dia_kernel(const long long* __restrict__ offsets, int nd, const A* __restrict__ dtab,
-           int64_t ld, const A* __restrict__ x, int64_t n, int64_t n_pad, A* __restrict__ y) {
+           int64_t ld, const A* __restrict__ x, int64_t n, int64_t n_pad, A* __restrict__ y,
+           const A* e, const A* d) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * DIA_BLOCK + threadIdx.x;
   if (i >= n_pad) return;
   A acc = A(0);
@@ -78,18 +95,44 @@ dia_kernel(const long long* __restrict__ offsets, int nd, const A* __restrict__ 
       if (j >= 0 && j < n) acc = acc + mul_rn(dtab[static_cast<int64_t>(k) * ld + i], x[j]);
     }
   }
-  y[i] = acc;
+  if constexpr (FORM == DIA_PLAIN)
+    y[i] = acc;
+  else if constexpr (FORM == DIA_SUB)
+    y[i] = sub_rn(e[i], acc);
+  else if constexpr (FORM == DIA_SCALE_SUB)
+    y[i] = mul_rn(d[i], sub_rn(e[i], acc));
+  else
+    y[i] = sub_rn(e[i], mul_rn(d[i], acc));
+}
+
+template <typename A, int FORM>
+int launch_dia(const void* offsets, int nd, const void* dtab, int64_t ld, const void* x,
+               int64_t n, int64_t n_pad, void* y, const void* e, const void* d, cudaStream_t st) {
+  if (nd < 1 || n < 0 || n > n_pad || ld < n_pad) return static_cast<int>(cudaErrorInvalidValue);
+  if (FORM != DIA_PLAIN && (e == nullptr || (FORM != DIA_SUB && d == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t nblk = (n_pad + DIA_BLOCK - 1) / DIA_BLOCK;
+  dia_kernel<A, FORM><<<static_cast<unsigned>(nblk), DIA_BLOCK, 0, st>>>(
+      static_cast<const long long*>(offsets), nd, static_cast<const A*>(dtab), ld,
+      static_cast<const A*>(x), n, n_pad, static_cast<A*>(y), static_cast<const A*>(e),
+      static_cast<const A*>(d));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename A>
-int launch_dia(const void* offsets, int nd, const void* dtab, int64_t ld, const void* x,
-               int64_t n, int64_t n_pad, void* y, cudaStream_t st) {
-  if (nd < 1 || n < 0 || n > n_pad || ld < n_pad) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t nblk = (n_pad + DIA_BLOCK - 1) / DIA_BLOCK;
-  dia_kernel<A><<<static_cast<unsigned>(nblk), DIA_BLOCK, 0, st>>>(
-      static_cast<const long long*>(offsets), nd, static_cast<const A*>(dtab), ld,
-      static_cast<const A*>(x), n, n_pad, static_cast<A*>(y));
-  return static_cast<int>(cudaGetLastError());
+int launch_dia_form(int form, const void* offsets, int nd, const void* dtab, int64_t ld,
+                    const void* x, int64_t n, int64_t n_pad, void* y, const void* e,
+                    const void* d, cudaStream_t st) {
+  switch (form) {
+    case DIA_PLAIN:
+      return launch_dia<A, DIA_PLAIN>(offsets, nd, dtab, ld, x, n, n_pad, y, e, d, st);
+    case DIA_SUB: return launch_dia<A, DIA_SUB>(offsets, nd, dtab, ld, x, n, n_pad, y, e, d, st);
+    case DIA_SCALE_SUB:
+      return launch_dia<A, DIA_SCALE_SUB>(offsets, nd, dtab, ld, x, n, n_pad, y, e, d, st);
+    case DIA_SUB_SCALED:
+      return launch_dia<A, DIA_SUB_SCALED>(offsets, nd, dtab, ld, x, n, n_pad, y, e, d, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 constexpr int DIA_COLS = 8;          // columns of one chunk (one item)
@@ -440,21 +483,27 @@ int launch_dia_block(const void* offsets, int nd, const void* dtab, int64_t ld, 
 
 extern "C" {
 
-// y = DIA(offsets, dtab) x.  offsets: nd int64 on the device; dtab: (nd, ld)
-// row-aligned diagonals (dtab[k, i] = A[i, i + offsets[k]]); x, y: n_pad.
-int atpt_dia_matvec(int code, const void* offsets, int nd, const void* dtab, long long ld,
-                    const void* x, long long n, long long n_pad, void* y, void* stream) {
+// y = DIA(offsets, dtab) x with an epilogue: form -1 y = A x, 0 y = e - A
+// x, 1 y = d (e - A x), 2 y = e - d (A x).  offsets: nd int64 on the
+// device; dtab: (nd, ld) row-aligned diagonals (dtab[k, i] = A[i, i +
+// offsets[k]]); x, y, e, d: n_pad values (e unused by form -1, d by forms
+// -1 and 0).  y must not overlap x.
+int atpt_dia_matvec_sub(int code, int form, const void* offsets, int nd, const void* dtab,
+                        long long ld, const void* x, const void* e, const void* d, long long n,
+                        long long n_pad, void* y, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (code) {
-    case 0: return atpt::launch_dia<float>(offsets, nd, dtab, ld, x, n, n_pad, y, st);
-    case 2: return atpt::launch_dia<double>(offsets, nd, dtab, ld, x, n, n_pad, y, st);
+    case 0:
+      return atpt::launch_dia_form<float>(form, offsets, nd, dtab, ld, x, n, n_pad, y, e, d, st);
+    case 2:
+      return atpt::launch_dia_form<double>(form, offsets, nd, dtab, ld, x, n, n_pad, y, e, d, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // Y = DIA(offsets, dtab) X for a block of b vectors.  X: (b, ldx) and
 // Y: (b, ldy) row-major, the first n_pad values of each row used; offsets
-// and dtab as atpt_dia_matvec's.
+// and dtab as atpt_dia_matvec_sub's.
 int atpt_dia_block_matvec(int code, const void* offsets, int nd, const void* dtab, long long ld,
                           const void* x, long long ldx, int b, long long n, long long n_pad,
                           void* y, long long ldy, void* stream) {

@@ -18,11 +18,18 @@ offsets lie close together (:func:`block_plan` gives the runs and the
 launch's shape), and column ``c`` of ``Y`` equals ``dia_matvec(offsets,
 dtab, X[c], n)`` bit for bit.
 
+:func:`dia_matvec_sub` is the product with an epilogue, the Neumann
+sweeps of ``ops/solvers.ilu0_preconditioner`` in one launch each: ``out =
+y - A x`` (:data:`SUB`), ``d * (y - A x)`` (:data:`SCALE_SUB`) or ``y - d
+* (A x)`` (:data:`SUB_SCALED`), each row's sum exactly :func:`dia_matvec`'s
+and the rest rounded as the torch ops it replaces
+(:func:`dia_matvec_sub_plain`).
+
 Each wrapper runs its plain twin (:func:`dia_matvec_plain`, the
-shift-multiply of ``arpack_ng_tpu/ops/sparse.py:100-113``, and
-:func:`dia_block_matvec_plain`) for tensors on the CPU and launches its
-CUDA kernel for tensors on a CUDA device; ``launches`` counts the kernel
-launches.
+shift-multiply of ``arpack_ng_tpu/ops/sparse.py:100-113``,
+:func:`dia_matvec_sub_plain` and :func:`dia_block_matvec_plain`) for
+tensors on the CPU and launches its CUDA kernel for tensors on a CUDA
+device; ``launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -44,6 +51,58 @@ def dia_matvec(offsets: torch.Tensor, dtab: torch.Tensor, x: torch.Tensor,
                n: int) -> torch.Tensor:
     """``y = A x`` for the DIA matrix ``(offsets, dtab)`` of logical size
     ``n``; ``x`` and the returned ``y`` have length ``dtab.shape[1]``."""
+    y = _product(offsets, dtab, x, n, None, None, PLAIN, None)
+    if y.device.type == "cuda":
+        dia_matvec.launches += 1
+    return y
+
+
+dia_matvec.launches = 0
+
+#: the forms of ``csrc/dia.cu``'s kernel: the product (:func:`dia_matvec`)
+#: and the epilogues of :func:`dia_matvec_sub`
+PLAIN, SUB, SCALE_SUB, SUB_SCALED = -1, 0, 1, 2
+
+
+def sub_epilogue(ax, y, d, form):
+    """The torch ops of an epilogue ``form`` on a product ``ax`` (the pair
+    of ops each Neumann sweep ran)."""
+    if form == SUB:
+        return y - ax
+    if form == SCALE_SUB:
+        return d * (y - ax)
+    return y - d * ax
+
+
+def dia_matvec_sub_plain(offsets, dtab, x, n, y, d=None, form=SUB):
+    """Plain twin of :func:`dia_matvec_sub`: the product's twin, then
+    :func:`sub_epilogue`."""
+    return sub_epilogue(dia_matvec_plain(offsets, dtab, x, n), y, d, form)
+
+
+def dia_matvec_sub(offsets: torch.Tensor, dtab: torch.Tensor,
+                   x: torch.Tensor, n: int, y: torch.Tensor, d=None,
+                   form: int = SUB, out=None) -> torch.Tensor:
+    """``y - A x`` (``form`` :data:`SUB`), ``d * (y - A x)``
+    (:data:`SCALE_SUB`) or ``y - d * (A x)`` (:data:`SUB_SCALED`) for the
+    DIA matrix of :func:`dia_matvec`; ``y``, ``d`` and the result have
+    ``x``'s length and dtype.  ``out``: the vector to write (must not
+    overlap ``x``); returns it, or a new vector."""
+    if form not in (SUB, SCALE_SUB, SUB_SCALED):
+        raise ValueError(f"unknown form {form}")
+    res = _product(offsets, dtab, x, n, y, d, form, out)
+    if res.device.type == "cuda":
+        dia_matvec_sub.launches += 1
+    return res
+
+
+dia_matvec_sub.launches = 0
+
+
+def _product(offsets, dtab, x, n, y, d, form, out):
+    """The checks and the launch (the twin on the CPU) of
+    :func:`dia_matvec` (``form`` :data:`PLAIN`, no ``y``, ``d``, ``out``)
+    and :func:`dia_matvec_sub`."""
     if dtab.dim() != 2 or not dtab.is_contiguous():
         raise ValueError("dtab must be a contiguous (nd, n_pad) table")
     nd, n_pad = dtab.shape
@@ -51,29 +110,39 @@ def dia_matvec(offsets: torch.Tensor, dtab: torch.Tensor, x: torch.Tensor,
             or not offsets.is_contiguous():
         raise ValueError(f"offsets must be a contiguous int64 tensor of "
                          f"{nd} offsets")
-    if x.shape != (n_pad,) or x.dtype != dtab.dtype or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous {dtab.dtype} vector of "
-                         f"length {n_pad}")
+    vecs = [x] + ([y] if form != PLAIN else []) \
+        + ([d] if form in (SCALE_SUB, SUB_SCALED) else []) \
+        + ([out] if out is not None else [])
+    if any(v is None or v.shape != (n_pad,) or v.dtype != dtab.dtype
+           or not v.is_contiguous() for v in vecs):
+        raise ValueError(f"x, y, d and out must be contiguous {dtab.dtype} "
+                         f"vectors of length {n_pad}")
     if not 0 <= n <= n_pad or nd < 1:
         raise ValueError(f"n={n} outside [0, {n_pad}] or no diagonal")
-    if not (offsets.device == dtab.device == x.device):
-        raise ValueError("offsets, dtab and x must share one device")
+    if any(v.device != x.device for v in vecs + [dtab, offsets]):
+        raise ValueError("offsets, dtab and the vectors must share one "
+                         "device")
+    if out is not None and out.data_ptr() < x.data_ptr() + x.nbytes \
+            and x.data_ptr() < out.data_ptr() + out.nbytes:
+        raise ValueError("out must not overlap x")
     if x.device.type == "cpu":
-        return dia_matvec_plain(offsets, dtab, x, n)
+        res = dia_matvec_plain(offsets, dtab, x, n) if form == PLAIN \
+            else dia_matvec_sub_plain(offsets, dtab, x, n, y, d, form)
+        return res if out is None else out.copy_(res)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     code = cuda_lib.dtype_code(x.dtype, x.dtype)
     lib = cuda_lib.load()
-    y = torch.empty_like(x)
-    err = lib.atpt_dia_matvec(code, offsets.data_ptr(), nd, dtab.data_ptr(),
-                              dtab.stride(0), x.data_ptr(), n, n_pad,
-                              y.data_ptr(), cuda_lib.stream_handle(x.device))
-    cuda_lib.check(lib, err, "dia_matvec")
-    dia_matvec.launches += 1
-    return y
-
-
-dia_matvec.launches = 0
+    if out is None:
+        out = torch.empty_like(x)
+    err = lib.atpt_dia_matvec_sub(
+        code, form, offsets.data_ptr(), nd, dtab.data_ptr(), dtab.stride(0),
+        x.data_ptr(), None if y is None else y.data_ptr(),
+        None if d is None else d.data_ptr(), n, n_pad, out.data_ptr(),
+        cuda_lib.stream_handle(x.device))
+    cuda_lib.check(lib, err,
+                   "dia_matvec" if form == PLAIN else "dia_matvec_sub")
+    return out
 
 
 #: the block kernel's shape (``csrc/dia.cu``): threads per block, columns

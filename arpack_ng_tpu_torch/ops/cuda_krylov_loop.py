@@ -1,6 +1,6 @@
 """The inner Krylov solves as CUDA-graph while loops (port of the
 reference's ``lax.while_loop`` around ``cg`` and ``bicgstab``,
-``arpack_ng_tpu/ops/solvers.py:58-60, 74, 90-92, 110``; kernel and capture
+``arpack_ng_tpu/ops/solvers.py:58-60, 74, 90-92, 110``; kernels and capture
 helpers in ``csrc/krylov_loop.cu``).
 
 :func:`run_while` runs one solve's loop, ``while test(): body()``, where
@@ -9,27 +9,38 @@ before every iteration):
 
 * on a CUDA stream that is capturing a graph, as one conditional WHILE
   node: the test kernel (:func:`krylov_test`) sets the node's condition
-  once before the node and once at the end of the body, which the helpers
-  capture into the node's body graph on a stream of their own
+  once before the node, and the body's last kernel, one of the fused
+  update kernels below, at the end of each iteration; the helpers capture
+  the body into the node's body graph on a stream of their own
   (:func:`body_stream`), its allocations routed to a memory pool that the
   caller keeps as long as the graph (a ``torch.cuda.MemPool`` made outside
   any capture: torch's allocator may not free a pool while a capture is
   under way).  No host read per iteration or per solve;
-* on CPU tensors, as a Python loop over the same body and the test
-  kernel's plain twin (:func:`krylov_test_plain`): the CPU form of the
-  node, which the tests hold against the host loop bit for bit.
+* on CPU tensors, as a Python loop over the same body, the kernels' plain
+  twins deciding: the CPU form of the node, which the tests hold against
+  the host loop bit for bit.
 
 A CUDA tensor outside a capture raises: there the solver runs its host
-loop (``ops/solvers._cg``, ``_bicgstab``), the plain version.
+loop (``ops/solvers._cg``, ``_bicgstab``), which reads each decision back.
+
+The fused update kernels (row 14 of ``PERF.md``'s kernel table since its
+redesign) are the vector passes of an iteration between its dot products,
+each updating the loop's buffers in place and rounding as the torch ops
+it replaces (its plain twin, ``*_plain``, is those ops):
+:func:`cg_xr` and :func:`cg_p_test` for CG, :func:`bicg_p`,
+:func:`bicg_s`, :func:`bicg_r` and :func:`bicg_x_test` for BiCGSTAB.  A
+``*_test`` kernel ends the iteration with the loop test (a
+:class:`LoopTest`).  They take float32, float64, complex64 and complex128
+tensors; a CUDA tensor of another dtype raises.
 
 Each solve's iteration count goes to an :class:`IterationLog`, in mapped
-host memory on a card, which the test kernel appends to when it ends a
-loop and the host reads after a synchronisation it makes anyway (the
-device loop's packet, or the solve's ``iterations``).  A graph adds the
-kernel launches its capture counted on every replay
-(``core/loop.CapturedGraph``); a body's run once per iteration, so
-:func:`run_while` takes the body's launches out of the capture's count
-and the log adds them back, times the iterations, when it is read.
+host memory on a card, which the test appends to when it ends a loop and
+the host reads after a synchronisation it makes anyway (the device loop's
+packet, or the solve's ``iterations``).  A graph adds the kernel launches
+its capture counted on every replay (``core/loop.CapturedGraph``); a body
+runs once per iteration, so :func:`run_while` takes the body's launches
+out of the capture's count and the log adds them back, times the
+iterations, when it is read.
 
 Needs CUDA 12.4 or later, runtime and driver (:func:`require`).
 """
@@ -37,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -56,16 +68,34 @@ _unfreed = []               # logs dropped during a capture, freed later
 _pending = []               # solvers whose logs may hold unread counts
 
 
+class LoopTestArgs(ctypes.Structure):
+    """``atpt::LoopTestArgs`` of ``csrc/krylov_loop.cu``, field for field."""
+    _fields_ = [("handle", ctypes.c_ulonglong), ("set_cond", ctypes.c_int),
+                ("maxiter", ctypes.c_int), ("atol2", ctypes.c_void_p),
+                ("it", ctypes.c_void_p), ("log", ctypes.c_void_p),
+                ("cap", ctypes.c_int), ("node", ctypes.c_int),
+                ("go", ctypes.c_void_p)]
+
+
 def _bind(lib) -> None:
     global _bound
     if _bound:
         return
-    vp, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+    vp, i32, u64, i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong,
+                         ctypes.c_longlong)
+    args = ctypes.POINTER(LoopTestArgs)
     lib.atpt_krylov_versions.argtypes = [ctypes.POINTER(i32)] * 3
     lib.atpt_krylov_versions.restype = i32
-    lib.atpt_krylov_test.argtypes = [i32, u64, i32, vp, vp, vp, i32, i32, vp,
-                                     i32, vp, vp, i32, i32, vp, vp]
+    lib.atpt_krylov_test.argtypes = [i32, args, vp, i32, vp, i32, vp, vp]
     lib.atpt_krylov_test.restype = i32
+    for name, n_ptr, test in (("cg_xr", 7, False), ("cg_p_test", 6, True),
+                              ("bicg_p", 8, False), ("bicg_s", 8, False),
+                              ("bicg_r", 6, False),
+                              ("bicg_x_test", 10, True)):
+        fn = getattr(lib, f"atpt_{name}")
+        fn.argtypes = [i32, i64] + [vp] * n_ptr + ([args] if test else []) \
+            + [vp]
+        fn.restype = i32
     lib.atpt_krylov_log_alloc.argtypes = [ctypes.c_longlong,
                                           ctypes.POINTER(vp),
                                           ctypes.POINTER(vp)]
@@ -172,6 +202,33 @@ class IterationLog:
         return out
 
 
+@dataclasses.dataclass
+class LoopTest:
+    """The loop test one iteration ends with (a ``*_test`` update kernel):
+    ``atol2`` 0-d of the problem's real dtype, ``it`` the 0-d int32
+    iteration counter, which the test bumps; ``log``/``node``: where a loop
+    that ends appends its count; ``handle``: the WHILE node the decision
+    goes to (0: none); ``go``: a 0-d int32 the decision is written to (the
+    host loop on a card reads it)."""
+    atol2: torch.Tensor
+    it: torch.Tensor
+    maxiter: int
+    log: Optional["IterationLog"] = None
+    node: int = 0
+    handle: int = 0
+    go: Optional[torch.Tensor] = None
+
+    def args(self) -> LoopTestArgs:
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        log = self.log
+        return LoopTestArgs(self.handle, int(self.handle != 0),
+                            self.maxiter, self.atol2.data_ptr(),
+                            self.it.data_ptr(),
+                            log.ptr if log is not None else None,
+                            log.cap if log is not None else 0, self.node,
+                            ptr(self.go))
+
+
 def krylov_test_plain(rr, atol2, it, maxiter: int, bump: int, rho=None,
                       brk=None, log: Optional[IterationLog] = None,
                       node: int = 0) -> bool:
@@ -189,6 +246,16 @@ def krylov_test_plain(rr, atol2, it, maxiter: int, bump: int, rho=None,
     return go
 
 
+def _test_plain(rr, test: LoopTest) -> bool:
+    """The end-of-body test of a ``*_test`` kernel's twin: ``|rr|`` (the
+    raw dot, torch's ``abs``) against ``test``, the counter bumped."""
+    go = krylov_test_plain(torch.abs(rr), test.atol2, test.it, test.maxiter,
+                           1, log=test.log, node=test.node)
+    if test.go is not None:
+        test.go.fill_(int(go))
+    return go
+
+
 def krylov_test(rr: torch.Tensor, atol2: torch.Tensor, it: torch.Tensor,
                 maxiter: int, *, bump: int, handle: int = 0, rho=None,
                 brk=None, log: Optional[IterationLog] = None, node: int = 0,
@@ -200,7 +267,8 @@ def krylov_test(rr: torch.Tensor, atol2: torch.Tensor, it: torch.Tensor,
     that ends appends ``(node, it')`` to ``log``.  On a card the kernel
     gives the decision to the WHILE node ``handle`` (0: none) and, with
     ``go`` (0-d int32), writes it there; returns None.  On CPU tensors the
-    plain twin returns it."""
+    plain twin returns it.  The loop runs it once, before the node; each
+    iteration's test is its last update kernel's."""
     real = (torch.float32, torch.float64)
     if rr.shape != () or atol2.shape != () or rr.dtype not in real \
             or atol2.dtype != rr.dtype:
@@ -230,12 +298,11 @@ def krylov_test(rr: torch.Tensor, atol2: torch.Tensor, it: torch.Tensor,
     if go is not None and (go.shape != () or go.dtype != torch.int32):
         raise ValueError("go must be a 0-d int32 tensor")
     lib = _lib()
-    ptr = (lambda t: None if t is None else t.data_ptr())
+    args = LoopTest(atol2, it, maxiter, log, node, handle, go).args()
     err = lib.atpt_krylov_test(
-        cuda_lib.dtype_code(rr.dtype, rr.dtype), handle, int(handle != 0),
-        rr.data_ptr(), atol2.data_ptr(), it.data_ptr(), maxiter, bump,
-        ptr(rho), parts, ptr(brk), log.ptr if log is not None else None,
-        log.cap if log is not None else 0, node, ptr(go),
+        cuda_lib.dtype_code(rr.dtype, rr.dtype), ctypes.byref(args),
+        rr.data_ptr(), bump, None if rho is None else rho.data_ptr(), parts,
+        None if brk is None else brk.data_ptr(),
         cuda_lib.stream_handle(rr.device))
     cuda_lib.check(lib, err, "krylov_test")
     krylov_test.launches += 1
@@ -243,6 +310,244 @@ def krylov_test(rr: torch.Tensor, atol2: torch.Tensor, it: torch.Tensor,
 
 
 krylov_test.launches = 0
+
+#: the update kernels' dtype codes (``ATPT_UPDATE_DISPATCH``)
+UPDATE_CODES = {torch.float32: 0, torch.float64: 2, torch.complex64: 3,
+                torch.complex128: 4}
+
+
+def _checked(name, vectors, scalars, test=None, rr=None):
+    """The update kernels' checks: ``vectors`` contiguous 1-d of one length
+    and dtype, ``scalars`` 0-d of that dtype, one device; with ``test``,
+    ``rr`` 0-d of the dtype and the test's tensors on that device.
+    Returns ``(device, code or None, n)``: no code on the CPU."""
+    v0 = vectors[0]
+    dt, dev, n = v0.dtype, v0.device, v0.shape[0] if v0.dim() == 1 else -1
+    for v in vectors:
+        if v.dim() != 1 or v.shape[0] != n or v.dtype != dt \
+                or not v.is_contiguous():
+            raise ValueError(f"{name}: vectors must be contiguous 1-d "
+                             f"{dt} of one length")
+    for s in scalars + ([rr] if test is not None else []):
+        if s is None or s.shape != () or s.dtype != dt:
+            raise ValueError(f"{name}: scalars must be 0-d {dt}")
+    if test is not None:
+        rdt = torch.empty((), dtype=dt).real.dtype
+        if test.atol2.shape != () or test.atol2.dtype != rdt \
+                or test.it.shape != () or test.it.dtype != torch.int32:
+            raise ValueError(f"{name}: the test takes a 0-d {rdt} atol2 and "
+                             "a 0-d int32 counter")
+        if test.go is not None and (test.go.shape != ()
+                                    or test.go.dtype != torch.int32):
+            raise ValueError(f"{name}: go must be a 0-d int32 tensor")
+    tensors = vectors + scalars
+    if test is not None:
+        tensors += [t for t in (rr, test.atol2, test.it, test.go)
+                    if t is not None]
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: the tensors must share one device")
+    if dev.type == "cpu":
+        return dev, None, n
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if dt not in UPDATE_CODES:
+        raise TypeError(f"{name}: no CUDA kernel for {dt}; supported: "
+                        f"{sorted(map(str, UPDATE_CODES))}")
+    return dev, UPDATE_CODES[dt], n
+
+
+def _launch(fn, code, n, ptrs, dev, *extra) -> None:
+    """Launch ``atpt_<fn>`` on the current stream of ``dev``: ``ptrs``
+    the tensors (None: a null pointer), ``extra`` the test's argument
+    block where the kernel takes one."""
+    lib = _lib()
+    err = getattr(lib, f"atpt_{fn.__name__}")(
+        code, n, *(None if t is None else t.data_ptr() for t in ptrs),
+        *extra, cuda_lib.stream_handle(dev))
+    cuda_lib.check(lib, err, fn.__name__)
+    fn.launches += 1
+
+
+def _test_arg(test: Optional[LoopTest]):
+    return None if test is None else ctypes.byref(test.args())
+
+
+def cg_xr_plain(rz, pap, x, r, p, ap):
+    """Plain twin of :func:`cg_xr`: ``(x + alpha p, r - alpha ap)`` with
+    ``alpha = rz / pap``, new tensors (``solvers.cg_step``'s torch ops)."""
+    alpha = rz / pap
+    return x + alpha * p, r - alpha * ap
+
+
+def cg_xr_inplace_plain(rz, pap, x, r, p, ap, rz_prev) -> None:
+    """:func:`cg_xr` by its twin's torch ops, in place (the CPU's path)."""
+    xn, rn = cg_xr_plain(rz, pap, x, r, p, ap)
+    x.copy_(xn)
+    r.copy_(rn)
+    rz_prev.copy_(rz)
+
+
+def cg_xr(rz, pap, x, r, p, ap, rz_prev) -> None:
+    """CG's first update, in place: ``alpha = rz / pap`` (``pap`` the dot
+    ``p.Ap``), ``x += alpha p``, ``r -= alpha ap``, and ``rz_prev = rz``
+    (:func:`cg_p_test`'s divisor: that kernel overwrites ``rz``)."""
+    dev, code, n = _checked("cg_xr", [x, r, p, ap], [rz, pap, rz_prev])
+    if code is None:
+        cg_xr_inplace_plain(rz, pap, x, r, p, ap, rz_prev)
+        return
+    _launch(cg_xr, code, n, (rz, pap, x, r, p, ap, rz_prev), dev)
+
+
+cg_xr.launches = 0
+
+
+def cg_p_plain(rzn, rz, z, p):
+    """Plain twin of :func:`cg_p_test`'s update: ``z + (rzn / rz) p``."""
+    beta = rzn / rz
+    return z + beta * p
+
+
+def cg_p_inplace_plain(rzn, rz_prev, z, p, rz) -> None:
+    """:func:`cg_p_test`'s update by its twin's torch ops, in place (the
+    CPU's path, without the test)."""
+    p.copy_(cg_p_plain(rzn, rz_prev, z, p))
+    rz.copy_(rzn)
+
+
+def cg_p_test(rzn, rz_prev, z, p, rz, *, rr=None,
+              test: Optional[LoopTest] = None):
+    """CG's last update, in place: ``beta = rzn / rz_prev`` (``rzn`` the
+    dot ``r.z``), ``p = z + beta p``, ``rz = rzn``; with ``test``, the loop
+    test on ``|rr|`` (``rr`` the dot ``r.r``).  ``z`` may be ``r`` itself.
+    Returns the decision on CPU tensors (None without a test), else
+    None."""
+    dev, code, n = _checked("cg_p_test", [z, p], [rzn, rz_prev, rz],
+                            test, rr)
+    if code is None:
+        cg_p_inplace_plain(rzn, rz_prev, z, p, rz)
+        return None if test is None else _test_plain(rr, test)
+    _launch(cg_p_test, code, n, (rzn, rz_prev, z, p, rz, rr), dev,
+            _test_arg(test))
+    return None
+
+
+cg_p_test.launches = 0
+
+
+def bicg_p_plain(brk, rho_new, rho, alpha, omega, r, p, v):
+    """Plain twin of :func:`bicg_p`: the restart's selects where ``brk``,
+    then ``r + beta (p - omega v)``, ``beta = (rho_new / rho) (alpha /
+    omega)`` (``solvers.bicgstab_step``'s torch ops)."""
+    rho, alpha, omega = (torch.where(brk, 1.0, s) for s in (rho, alpha,
+                                                             omega))
+    v, p = torch.where(brk, 0.0, v), torch.where(brk, 0.0, p)
+    beta = (rho_new / rho) * (alpha / omega)
+    return r + beta * (p - omega * v)
+
+
+def bicg_p(brk, rho_new, rho, alpha, omega, r, p, v) -> None:
+    """BiCGSTAB's first update, in place on ``p``: where ``brk`` (0-d
+    bool: the last iteration's ``rho`` came out 0) the restart's ``rho =
+    alpha = omega = 1``, ``p = v = 0``; then ``p = r + beta (p - omega
+    v)``, ``beta = (rho_new / rho) (alpha / omega)``."""
+    dev, code, n = _checked("bicg_p", [r, p, v],
+                            [rho_new, rho, alpha, omega])
+    if brk.shape != () or brk.dtype != torch.bool or brk.device != dev:
+        raise ValueError("bicg_p: brk must be a 0-d bool on the vectors' "
+                         "device")
+    if code is None:
+        p.copy_(bicg_p_plain(brk, rho_new, rho, alpha, omega, r, p, v))
+        return
+    _launch(bicg_p, code, n, (brk, rho_new, rho, alpha, omega, r, p, v),
+            dev)
+
+
+bicg_p.launches = 0
+
+
+def bicg_s_plain(rho_new, rv, r, v):
+    """Plain twin of :func:`bicg_s`: ``(alpha, r - alpha v)``, ``alpha =
+    rho_new / rv``."""
+    alpha = rho_new / rv
+    return alpha, r - alpha * v
+
+
+def bicg_s(rho_new, rv, r, vn, v, rho, alpha) -> torch.Tensor:
+    """BiCGSTAB's second update: ``alpha = rho_new / rv`` (``rv`` the dot
+    ``rhat.vn``, ``vn = A ph``), returns ``s = r - alpha vn`` (a new
+    vector) and writes the state: ``v = vn``, ``alpha``, ``rho =
+    rho_new``."""
+    dev, code, n = _checked("bicg_s", [r, vn, v],
+                            [rho_new, rv, rho, alpha])
+    if code is None:
+        al, s = bicg_s_plain(rho_new, rv, r, vn)
+        v.copy_(vn)
+        alpha.copy_(al)
+        rho.copy_(rho_new)
+        return s
+    s = torch.empty_like(r)
+    _launch(bicg_s, code, n, (rho_new, rv, r, vn, s, v, rho, alpha), dev)
+    return s
+
+
+bicg_s.launches = 0
+
+
+def bicg_r_plain(ts, tt, s, t):
+    """Plain twin of :func:`bicg_r`: ``(omega, s - omega t)``, ``omega =
+    ts / tt``."""
+    omega = ts / tt
+    return omega, s - omega * t
+
+
+def bicg_r(ts, tt, s, t, r, omega) -> None:
+    """BiCGSTAB's third update, in place: ``omega = ts / tt`` (the dots
+    ``t.s``, ``t.t``), ``r = s - omega t``, the state's ``omega``."""
+    dev, code, n = _checked("bicg_r", [s, t, r], [ts, tt, omega])
+    if code is None:
+        om, rn = bicg_r_plain(ts, tt, s, t)
+        r.copy_(rn)
+        omega.copy_(om)
+        return
+    _launch(bicg_r, code, n, (ts, tt, s, t, r, omega), dev)
+
+
+bicg_r.launches = 0
+
+
+def bicg_x_plain(alpha, omega, x, ph, sh):
+    """Plain twin of :func:`bicg_x_test`'s update: ``x + alpha ph + omega
+    sh``."""
+    return x + alpha * ph + omega * sh
+
+
+def bicg_x_test(alpha, omega, x, ph, sh, rho, rhat, r, brk, *, rr=None,
+                test: Optional[LoopTest] = None):
+    """BiCGSTAB's last update, in place: ``x = x + alpha ph + omega sh``;
+    ``brk = (rho == 0)`` (``rho`` this iteration's) and, where it holds,
+    ``rhat = r`` (the next iteration's restart; :func:`bicg_p` takes the
+    rest); with ``test``, the loop test on ``|rr|``.  Returns the decision
+    on CPU tensors (None without a test), else None."""
+    dev, code, n = _checked("bicg_x_test", [x, ph, sh, rhat, r],
+                            [alpha, omega, rho], test, rr)
+    if brk.shape != () or brk.dtype != torch.bool or brk.device != dev:
+        raise ValueError("bicg_x_test: brk must be a 0-d bool on the "
+                         "vectors' device")
+    if code is None:
+        x.copy_(bicg_x_plain(alpha, omega, x, ph, sh))
+        brk.copy_(rho == 0)
+        rhat.copy_(torch.where(brk, r, rhat))
+        return None if test is None else _test_plain(rr, test)
+    _launch(bicg_x_test, code, n,
+            (alpha, omega, x, ph, sh, rho, rhat, r, brk, rr), dev,
+            _test_arg(test))
+    return None
+
+
+bicg_x_test.launches = 0
+
+#: the update kernels' wrappers
+UPDATES = (cg_xr, cg_p_test, bicg_p, bicg_s, bicg_r, bicg_x_test)
 
 
 def body_stream(device: torch.device) -> torch.cuda.Stream:
@@ -306,24 +611,26 @@ def capture_scope():
 
 
 def run_while(rr: torch.Tensor, atol2: torch.Tensor, it: torch.Tensor,
-              maxiter: int, body: Callable[[], torch.Tensor], *,
+              maxiter: int, body: Callable[[LoopTest], Optional[bool]], *,
               log: IterationLog, pool=None, rho=None, brk=None) -> None:
-    """``while test(rr): rr = body()`` for one solve (see the module
+    """``while test(): body(test)`` for one solve (see the module
     docstring): ``rr`` the test's ``|r.r|`` before the first iteration,
-    ``body`` one iteration, updating the loop's state in place and
-    returning the new ``|r.r|``; ``rho``/``brk`` BiCGSTAB's (read after
-    each test, by the next iteration).  The count goes to ``log``.  On a
-    card, ``pool``: the ``torch.cuda.MemPool`` the body allocates from,
-    kept by the caller as long as the graph (graphs that share it must
-    replay one after another, as the device loop's do)."""
+    ``body`` one iteration, updating the loop's state in place and ending
+    with a kernel that runs ``test`` (a :class:`LoopTest`: a ``*_test``
+    update kernel, or :func:`krylov_test` with ``bump=1``), which returns
+    the decision on CPU tensors; ``rho``/``brk`` BiCGSTAB's, for the test
+    before the node.  The count goes to ``log``.  On a card, ``pool``: the
+    ``torch.cuda.MemPool`` the body allocates from, kept by the caller as
+    long as the graph (graphs that share it must replay one after another,
+    as the device loop's do)."""
     if rr.device.type == "cpu":
         if not log.nodes:
             log.add_node([])        # node 0: no kernel launches
         go = krylov_test(rr, atol2, it, maxiter, bump=0, rho=rho, brk=brk,
                          log=log)
+        test = LoopTest(atol2, it, maxiter, log)
         while go:
-            go = krylov_test(body(), atol2, it, maxiter, bump=1, rho=rho,
-                             brk=brk, log=log)
+            go = body(test)
         return
     if not torch.cuda.is_current_stream_capturing():
         raise RuntimeError("run_while on a card runs inside a graph capture "
@@ -348,8 +655,7 @@ def run_while(rr: torch.Tensor, atol2: torch.Tensor, it: torch.Tensor,
                    "while_open")
     try:
         with torch.cuda.stream(side), torch.cuda.use_mem_pool(pool, dev):
-            krylov_test(body(), atol2, it, maxiter, bump=1, handle=h.value,
-                        rho=rho, brk=brk, log=log, node=node)
+            body(LoopTest(atol2, it, maxiter, log, node, h.value))
     finally:
         err = lib.atpt_while_close(side.cuda_stream)
     cuda_lib.check(lib, err, "while_close")

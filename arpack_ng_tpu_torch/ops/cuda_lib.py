@@ -152,9 +152,9 @@ def load() -> ctypes.CDLL:
     lib.atpt_cgs_update.argtypes = [i32, i32, i32, i32, vp, i32, vp, i64, vp,
                                     vp, i64, vp, vp, vp, vp]
     lib.atpt_cgs_update.restype = i32
-    lib.atpt_dia_matvec.argtypes = [i32, vp, i32, vp, i64, vp, i64, i64, vp,
-                                    vp]
-    lib.atpt_dia_matvec.restype = i32
+    lib.atpt_dia_matvec_sub.argtypes = [i32, i32, vp, i32, vp, i64, vp, vp,
+                                        vp, i64, i64, vp, vp]
+    lib.atpt_dia_matvec_sub.restype = i32
     lib.atpt_dia_block_matvec.argtypes = [i32, vp, i32, vp, i64, vp, i64,
                                           i32, i64, i64, vp, i64, vp]
     lib.atpt_dia_block_matvec.restype = i32

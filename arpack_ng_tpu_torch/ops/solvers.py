@@ -10,21 +10,26 @@ apply ``inv(A - sigma*B)`` inside the RCI loop (arpackmm.cpp:445-476
   Krylov iterations, with the same update order and the same test before
   each iteration (``|r.r| > (tol*||b||)^2`` and ``it < maxiter``;
   BiCGSTAB also restarts where the reference would divide by a zero
-  ``rho``).  One iteration is :func:`cg_step` / :func:`bicgstab_step`,
-  with no device read.  :func:`cg`, :func:`bicgstab` and an unbound
-  solve of :func:`make_iterative_solve` run a host loop that reads the
-  test back once per iteration (the plain version); a solve bound to a
-  card runs each call as one conditional WHILE node of a CUDA graph (the
-  capturing one, or one of its own), whose body is that step and whose
-  test is a kernel (:mod:`~arpack_ng_tpu_torch.ops.cuda_krylov_loop`), bit
-  for bit the host loop, so an operator built on it is capturable;
+  ``rho``).  One iteration is :func:`cg_step` / :func:`bicgstab_step`
+  (torch ops, no device read: the plain version, which runs on the CPU);
+  on a card an iteration updates the loop's buffers in place, its products
+  and dots as in those steps and every vector pass between the dots a
+  fused update kernel of :mod:`~arpack_ng_tpu_torch.ops.cuda_krylov_loop`,
+  bit for bit the steps' torch ops.  :func:`cg`, :func:`bicgstab` and an
+  unbound solve of :func:`make_iterative_solve` run a host loop that reads
+  the test back once per iteration; a solve bound to a card runs each call
+  as one conditional WHILE node of a CUDA graph (the capturing one, or one
+  of its own), the test in the body's last update kernel, bit for bit the
+  host loop, so an operator built on it is capturable;
 * :func:`jacobi_preconditioner` (the reference's ``Diag`` option) and
   :func:`ilu0_preconditioner` (its ``ILU`` option): the incomplete
   factorization runs once on the host (SuperLU, natural ordering, zero
   fill) and each application replaces the two triangular solves by
   fixed-sweep truncated Neumann series over the strict triangles in DIA
-  form (:func:`~arpack_ng_tpu_torch.ops.sparse.dia_matvec_fn`: the DIA
-  kernel on the card);
+  form, each sweep one product with its subtraction (and scaling) fused
+  (:func:`~arpack_ng_tpu_torch.ops.sparse.dia_sub_fn`: the DIA kernel's
+  epilogue form on the card).  Both write into a given ``out``, the loop's
+  ``z``;
 * :func:`make_direct_inverse`: a host factorization turned into an
   explicit identity-padded inverse, applied on the device as one product.
 """
@@ -40,8 +45,8 @@ import scipy.sparse.linalg as spla
 import torch
 
 from ..utils.device import DEFAULT, normalized, require
-from . import cuda_krylov_loop
-from .cuda_krylov_loop import run_while
+from . import cuda_krylov_loop as kl
+from .cuda_dia import SCALE_SUB, SUB, SUB_SCALED
 
 
 def _vdot(a, b):
@@ -60,21 +65,81 @@ def cg_start(matvec: Callable, b: torch.Tensor, x0=None, tol: float = 1e-8,
 
 
 def cg_step(matvec: Callable, c, precond: Optional[Callable] = None):
-    """One CG iteration on the state of :func:`cg_start`, no device read."""
+    """One CG iteration on the state of :func:`cg_start`, no device read:
+    the update kernels' plain twins (torch ops), new tensors."""
     x, r, z, p, rz = c
     ap = matvec(p)
-    alpha = rz / _vdot(p, ap)
-    x = x + alpha * p
-    r = r - alpha * ap
+    x, r = kl.cg_xr_plain(rz, _vdot(p, ap), x, r, p, ap)
     z = precond(r) if precond is not None else r
     rz_new = _vdot(r, z)
-    beta = rz_new / rz
-    p = z + beta * p
+    p = kl.cg_p_plain(rz_new, rz, z, p)
     return (x, r, z, p, rz_new)
+
+
+def _cg_carry(c, precond, own_x=False):
+    """CG's state as the loop's buffers ``[x, r, z, p, rz, rz_prev]``,
+    which :func:`_cg_iteration` updates in place: ``z`` is ``r`` itself
+    without a preconditioner, ``p`` a copy of ``z``, ``rz_prev`` the
+    update kernels' copy of ``rz``; ``own_x``: copy ``x`` (a caller's
+    ``x0``)."""
+    x, r, z, p, rz = c
+    if precond is None:
+        z = r
+    return [x.clone() if own_x else x, r, z, p.clone(), rz,
+            torch.empty_like(rz)]
+
+
+def _precond_into(precond, r, out) -> None:
+    """``out = precond(r)``: written in place by a preconditioner that
+    takes ``out`` (``writes_out``), copied from any other."""
+    if getattr(precond, "writes_out", False):
+        precond(r, out=out)
+    else:
+        out.copy_(precond(r))
+
+
+def _cg_iteration(matvec, s, precond, test=None):
+    """One CG iteration on the loop's buffers ``s`` (:func:`_cg_carry`),
+    in place: the product and the dots, then :func:`~arpack_ng_tpu_torch.
+    ops.cuda_krylov_loop.cg_xr`, the preconditioner into ``z`` and
+    ``cg_p_test``, bit for bit :func:`cg_step`; with ``test`` (a
+    ``LoopTest``) the last kernel runs the loop test on ``|r.r|`` and the
+    decision is returned on the CPU (None on a card or without a test)."""
+    x, r, z, p, rz, rz_prev = s
+    ap = matvec(p)
+    kl.cg_xr(rz, _vdot(p, ap), x, r, p, ap, rz_prev)
+    if precond is not None:
+        _precond_into(precond, r, z)
+    rzn = _vdot(r, z)
+    rr = _vdot(r, r) if test is not None else None
+    return kl.cg_p_test(rzn, rz_prev, z, p, rz, rr=rr, test=test)
+
+
+def _read_loop(r, atol2, maxiter, step) -> int:
+    """The host loop on a card: the reference's test before the first
+    iteration read back, then ``step(test)`` (an iteration in place whose
+    last kernel writes the decision into ``test.go``) and one read of the
+    decision per iteration.  Returns the iteration count."""
+    dev = r.device
+    test = kl.LoopTest(atol2, torch.zeros((), dtype=torch.int32, device=dev),
+                       maxiter,
+                       go=torch.zeros((), dtype=torch.int32, device=dev))
+    it = 0
+    go = it < maxiter and bool(torch.abs(_vdot(r, r)) > atol2)
+    while go:
+        step(test)
+        it += 1
+        go = bool(test.go.item())
+    return it
 
 
 def _cg(matvec, b, x0, tol, maxiter, precond):
     c, atol2 = cg_start(matvec, b, x0, tol, precond)
+    if b.is_cuda:
+        s = _cg_carry(c, precond, own_x=x0 is not None)
+        it = _read_loop(s[1], atol2, maxiter,
+                        lambda t: _cg_iteration(matvec, s, precond, t))
+        return s[0], it
     it = 0
     # the reference's loop test, one device read
     while it < maxiter and bool(torch.abs(_vdot(c[1], c[1])) > atol2):
@@ -105,36 +170,69 @@ def bicgstab_start(matvec: Callable, b: torch.Tensor, x0=None,
 def bicgstab_step(matvec: Callable, c, precond: Optional[Callable] = None,
                   brk: Optional[torch.Tensor] = None):
     """One BiCGSTAB iteration on the state of :func:`bicgstab_start`, no
-    device read.  Where the last step's ``rho`` came out exactly 0 (``r``
-    orthogonal to the shadow residual; ``brk``, 0-d bool, or ``rho == 0``
-    when not given) the next ``beta`` would divide by it and turn the
-    solve to nan: the iteration restarts from the current residual
-    (``rhat = r``, ``rho = alpha = omega = 1``, ``v = p = 0``), by selects
-    that keep every value's bits."""
+    device read: the update kernels' plain twins (torch ops), new tensors.
+    Where the last step's ``rho`` came out exactly 0 (``r`` orthogonal to
+    the shadow residual; ``brk``, 0-d bool, or ``rho == 0`` when not
+    given) the next ``beta`` would divide by it and turn the solve to nan:
+    the iteration restarts from the current residual (``rhat = r``, ``rho
+    = alpha = omega = 1``, ``v = p = 0``), by selects that keep every
+    value's bits."""
     x, r, rhat, rho, alpha, omega, v, p = c
     if brk is None:
         brk = rho == 0
     rhat = torch.where(brk, r, rhat)
-    rho, alpha, omega = (torch.where(brk, 1.0, s) for s in (rho, alpha,
-                                                             omega))
-    v, p = torch.where(brk, 0.0, v), torch.where(brk, 0.0, p)
     rho_new = _vdot(rhat, r)
-    beta = (rho_new / rho) * (alpha / omega)
-    p = r + beta * (p - omega * v)
+    p = kl.bicg_p_plain(brk, rho_new, rho, alpha, omega, r, p, v)
     ph = precond(p) if precond is not None else p
     v = matvec(ph)
-    alpha = rho_new / _vdot(rhat, v)
-    s = r - alpha * v
+    alpha, s = kl.bicg_s_plain(rho_new, _vdot(rhat, v), r, v)
     sh = precond(s) if precond is not None else s
     t = matvec(sh)
-    omega = _vdot(t, s) / _vdot(t, t)
-    x = x + alpha * ph + omega * sh
-    r = s - omega * t
+    omega, r = kl.bicg_r_plain(_vdot(t, s), _vdot(t, t), s, t)
+    x = kl.bicg_x_plain(alpha, omega, x, ph, sh)
     return (x, r, rhat, rho_new, alpha, omega, v, p)
+
+
+def _bicg_carry(c, own_x=False):
+    """BiCGSTAB's state as the loop's buffers ``[x, r, rhat, rho, alpha,
+    omega, v, p, brk]``, each in storage of its own, which
+    :func:`_bicg_iteration` updates in place; ``brk``: the restart flag
+    (0-d bool, False)."""
+    carry = _distinct(c)
+    if own_x:
+        carry[0] = carry[0].clone()
+    return carry + [torch.zeros((), dtype=torch.bool, device=c[1].device)]
+
+
+def _bicg_iteration(matvec, s, precond, test=None):
+    """One BiCGSTAB iteration on the loop's buffers ``s``
+    (:func:`_bicg_carry`), in place: the products, the preconditioner and
+    the dots, the vector passes between them the update kernels
+    (``bicg_p``, ``bicg_s``, ``bicg_r``, ``bicg_x_test``), bit for bit
+    :func:`bicgstab_step`; with ``test`` the last kernel runs the loop test
+    and the decision is returned on the CPU (None on a card or without a
+    test)."""
+    x, r, rhat, rho, alpha, omega, v, p, brk = s
+    rho_new = _vdot(rhat, r)
+    kl.bicg_p(brk, rho_new, rho, alpha, omega, r, p, v)
+    ph = precond(p) if precond is not None else p
+    vn = matvec(ph)
+    sv = kl.bicg_s(rho_new, _vdot(rhat, vn), r, vn, v, rho, alpha)
+    sh = precond(sv) if precond is not None else sv
+    t = matvec(sh)
+    kl.bicg_r(_vdot(t, sv), _vdot(t, t), sv, t, r, omega)
+    rr = _vdot(r, r) if test is not None else None
+    return kl.bicg_x_test(alpha, omega, x, ph, sh, rho, rhat, r, brk, rr=rr,
+                          test=test)
 
 
 def _bicgstab(matvec, b, x0, tol, maxiter, precond):
     c, atol2 = bicgstab_start(matvec, b, x0, tol)
+    if b.is_cuda:
+        s = _bicg_carry(c, own_x=x0 is not None)
+        it = _read_loop(s[1], atol2, maxiter,
+                        lambda t: _bicg_iteration(matvec, s, precond, t))
+        return s[0], it
     it = 0
     # the reference's loop test, one device read
     while it < maxiter and bool(torch.abs(_vdot(c[1], c[1])) > atol2):
@@ -159,9 +257,10 @@ def jacobi_preconditioner(diag: torch.Tensor) -> Callable:
     safe = torch.where(diag == 0, torch.ones_like(diag), diag)
     inv = 1.0 / safe
 
-    def precond(r):
-        return inv * r
+    def precond(r, out=None):
+        return torch.mul(inv, r, out=out)
 
+    precond.writes_out = True
     return precond
 
 
@@ -268,16 +367,19 @@ def ilu0_preconditioner(a_sp, *, sweeps: int = 3, dtype=None,
         inv(L) r  ~= sum_k (-Ls)^k r          (L unit lower)
         inv(U) y  ~= sum_k (inv(D)(-Us))^k inv(D) y
 
-    over the strict triangles ``Ls``/``Us`` as DIA products.
+    over the strict triangles ``Ls``/``Us`` as DIA products, each sweep
+    one launch with its subtraction (the DIA kernel's epilogue form on the
+    card), bit for bit the product and the torch ops it fuses.
     ``symmetric=True`` builds the IC(0)-class form ``p(L)^T D^-1 p(L)``
-    that CG needs (symmetric positive semidefinite by construction).
+    that CG needs (symmetric positive semidefinite by construction).  The
+    returned ``precond(r, out=None)`` writes ``out`` where given.
 
     Falls back to Jacobi, with a warning, where the factorization fails,
     where SuperLU had to permute (a structurally zero diagonal), where the
     exact factor does not contract a random residual (an indefinite
     matrix), and where the strict lower triangle spreads over more than
     128 diagonals."""
-    from .sparse import _to_dia, dia_matvec_fn
+    from .sparse import _to_dia, dia_sub_fn
 
     device = require(device)
     n = a_sp.shape[0]
@@ -347,51 +449,50 @@ def ilu0_preconditioner(a_sp, *, sweeps: int = 3, dtype=None,
     d_u = np.asarray(U.diagonal())
     d_u = np.where(d_u == 0, 1.0, d_u)
 
-    def dia_of(tri):
+    def sweep_of(tri):
         off, diags = _to_dia(tri)
-        return dia_matvec_fn(off, [d.astype(out_dtype) for d in diags], n,
-                             n, device=device)
+        return dia_sub_fn(off, [d.astype(out_dtype) for d in diags], n, n,
+                          device=device)
 
-    lmv = dia_of(ls)
+    lsub = sweep_of(ls)
     dinv = torch.from_numpy((1.0 / d_u).astype(out_dtype)).to(device)
-
-    def padded(r, y):
-        if r.shape[0] == n:
-            return y
-        out = torch.zeros(r.shape, dtype=y.dtype, device=y.device)
-        out[:n] = y
-        return out
-
     if symmetric:
         # IC(0)-class: M^-1 = p(L)^T D^-1 p(L), SPD for CG
-        ltmv = dia_of(ls.T.tocsr())
+        tsub, form, dt = sweep_of(ls.T.tocsr()), SUB, None
+    else:
+        tsub, form, dt = sweep_of(sp.triu(U, 1).tocsr()), SUB_SCALED, dinv
 
-        def precond(r):
-            rn = r[:n].contiguous()
-            z = rn
-            for _ in range(sweeps):       # z ~= inv(L) r
-                z = rn - lmv(z)
-            v = dinv * z
-            y = v
-            for _ in range(sweeps):       # y ~= inv(L^T) v
-                y = v - ltmv(y)
-            return padded(r, y)
-
-        return precond
-
-    umv = dia_of(sp.triu(U, 1).tocsr())
-
-    def precond(r):
+    def precond(r, out=None):
+        """``z ~= M^-1 r``, into ``out`` (r's shape, not ``r``) or a new
+        vector: each sweep one DIA launch with its subtraction, the last L
+        sweep scaled by ``D^-1`` (as ``dinv * z`` after it), ILU(0)'s U
+        sweeps ``y0 - D^-1 (U y)``; the sweeps' outputs ping-pong between
+        two buffers, ``v = D^-1 z`` in a third, the last into ``out``."""
         rn = r[:n].contiguous()
+        dt_out = torch.promote_types(r.dtype, dinv.dtype)
+        full = torch.empty(r.shape, dtype=dt_out, device=r.device) \
+            if out is None else out
+        dst = full[:n]
+        buf = [torch.empty(n, dtype=dt_out, device=r.device)
+               for _ in range(3)]
         z = rn
-        for _ in range(sweeps):           # L z = r, unit diagonal
-            z = rn - lmv(z)
-        y0 = dinv * z
-        y = y0
-        for _ in range(sweeps):           # U y = z
-            y = y0 - dinv * umv(y)
-        return padded(r, y)
+        for k in range(sweeps):           # z ~= inv(L) r, unit diagonal
+            last = k == sweeps - 1
+            z = lsub(z, rn, dinv if last else None,
+                     SCALE_SUB if last else SUB,
+                     out=buf[0] if last else buf[1 + k % 2])
+        v = z if sweeps else dinv * rn
+        y = v
+        for k in range(sweeps):           # y ~= inv(L^T) v, or inv(U) v
+            y = tsub(y, v, dt, form,
+                     out=dst if k == sweeps - 1 else buf[1 + k % 2])
+        if not sweeps:
+            dst.copy_(v)
+        if full.shape[0] > n:
+            full[n:].zero_()
+        return full
 
+    precond.writes_out = True
     return precond
 
 
@@ -409,24 +510,18 @@ def _distinct(c):
 
 def _loop(start, step, b, tol, maxiter, log, brk_flag, pool=None):
     """One solve as :func:`~arpack_ng_tpu_torch.ops.cuda_krylov_loop.
-    run_while`: ``start`` and then ``step`` on the loop's buffers until the
-    reference's test stops it (a WHILE node inside a capture, the node's
-    CPU form on CPU tensors).  Returns ``x``."""
-    c, atol2 = start(b, tol)
-    carry = _distinct(c)
+    run_while`: ``start(b, tol)`` gives the loop's buffers and ``atol2``,
+    ``step(carry, test)`` runs one iteration on them in place, ending with
+    the loop test, until the reference's test stops it (a WHILE node
+    inside a capture, the node's CPU form on CPU tensors); ``brk_flag``:
+    BiCGSTAB's buffers, whose restart flag the test before the node sets.
+    Returns ``x``."""
+    carry, atol2 = start(b, tol)
     it = torch.zeros((), dtype=torch.int32, device=b.device)
-    brk = None
-    if brk_flag:
-        brk = torch.zeros((), dtype=torch.bool, device=b.device)
-
-    def body():
-        for dst, src in zip(carry, step(tuple(carry), brk)):
-            dst.copy_(src)
-        return torch.abs(_vdot(carry[1], carry[1]))
-
-    run_while(torch.abs(_vdot(carry[1], carry[1])), atol2, it, maxiter,
-              body, log=log, pool=pool, rho=carry[3] if brk_flag else None,
-              brk=brk)
+    kl.run_while(torch.abs(_vdot(carry[1], carry[1])), atol2, it, maxiter,
+                 lambda test: step(carry, test), log=log, pool=pool,
+                 rho=carry[3] if brk_flag else None,
+                 brk=carry[8] if brk_flag else None)
     return carry[0]
 
 
@@ -458,9 +553,9 @@ class IterativeSolve:
         device = torch.device(*normalized(device))
         if self._log is not None and self._log.device == device:
             return
-        cuda_krylov_loop.require(device)
-        cuda_krylov_loop.body_stream(device)
-        self._log = cuda_krylov_loop.IterationLog(device)
+        kl.require(device)
+        kl.body_stream(device)
+        self._log = kl.IterationLog(device)
         self._stream = torch.cuda.Stream(device=device)
         # pools that live as long as the solve (made and freed outside any
         # capture): its graphs of their own, which come and go, and its
@@ -468,14 +563,17 @@ class IterativeSolve:
         self._pools = (torch.cuda.MemPool(), torch.cuda.MemPool())
 
     def _start(self, b, tol):
+        """The loop's buffers and ``atol2`` (:func:`_loop`)."""
         if self.symmetric:
-            return cg_start(self.matvec, b, None, tol, self.precond)
-        return bicgstab_start(self.matvec, b, None, tol)
+            c, atol2 = cg_start(self.matvec, b, None, tol, self.precond)
+            return _cg_carry(c, self.precond), atol2
+        c, atol2 = bicgstab_start(self.matvec, b, None, tol)
+        return _bicg_carry(c), atol2
 
-    def _step(self, c, brk):
+    def _step(self, carry, test):
         if self.symmetric:
-            return cg_step(self.matvec, c, self.precond)
-        return bicgstab_step(self.matvec, c, self.precond, brk)
+            return _cg_iteration(self.matvec, carry, self.precond, test)
+        return _bicg_iteration(self.matvec, carry, self.precond, test)
 
     def settle(self) -> None:
         """After a synchronisation with the graphs that hold this solve's
@@ -514,7 +612,7 @@ class IterativeSolve:
             if not torch.cuda.is_current_stream_capturing():
                 return self._once(b)
             self.bind(b.device)
-            cuda_krylov_loop.note(self)
+            kl.note(self)
             return _loop(self._start, self._step, b, self.tol, self.maxiter,
                          self._log, not self.symmetric, self._pools[1])
         if b.is_cuda and torch.cuda.is_current_stream_capturing():

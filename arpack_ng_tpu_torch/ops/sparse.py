@@ -37,8 +37,9 @@ from ..config import pad_dim
 from ..utils import dtypes as _dt
 from ..utils.device import DEFAULT, require
 from . import psell as ps
-from .cuda_dia import (dia_block_matvec, dia_block_matvec_plain, dia_matvec,
-                       dia_matvec_plain)
+from .cuda_dia import (SUB, dia_block_matvec, dia_block_matvec_plain,
+                       dia_matvec, dia_matvec_plain, dia_matvec_sub,
+                       dia_matvec_sub_plain, sub_epilogue)
 from .cuda_psell import psell_matvec, psell_tiles
 from .operator import Operator, from_dense
 
@@ -130,12 +131,17 @@ def dia_table(a: sp.spmatrix, n_pad: int):
 
 
 def _dia_products(offsets, diags, n: int, n_pad: int, device):
-    """``(matvec, apply_block)`` over one device copy of the table: the
-    products of :func:`dia_matvec_fn` and :func:`dia_block_matvec_fn`."""
+    """``(matvec, apply_block, sub)`` over one device copy of the table:
+    the products of :func:`dia_matvec_fn`, :func:`dia_block_matvec_fn` and
+    :func:`dia_sub_fn`."""
     device = require(device)
     dtype = np.result_type(*diags) if len(diags) else np.float64
     if not len(offsets):
-        return torch.zeros_like, torch.zeros_like
+        def sub(x, y, d=None, form=SUB, out=None):
+            res = sub_epilogue(torch.zeros_like(x), y, d, form)
+            return res if out is None else out.copy_(res)
+
+        return torch.zeros_like, torch.zeros_like, sub
     dtab_d = torch.from_numpy(_dia_tab(diags, n, n_pad, dtype)).to(device)
     offs = torch.from_numpy(np.asarray(offsets, np.int64))
     if _dt.is_complex(dtype):
@@ -146,6 +152,10 @@ def _dia_products(offsets, diags, n: int, n_pad: int, device):
 
         def apply_block(X):
             return dia_block_matvec_plain(offs, dtab_d, X, n)
+
+        def sub(x, y, d=None, form=SUB, out=None):
+            res = dia_matvec_sub_plain(offs, dtab_d, x, n, y, d, form)
+            return res if out is None else out.copy_(res)
     else:
         offs_d = offs.to(device)
 
@@ -155,7 +165,10 @@ def _dia_products(offsets, diags, n: int, n_pad: int, device):
         def apply_block(X):
             return dia_block_matvec(offs_d, dtab_d, X, n)
 
-    return matvec, apply_block
+        def sub(x, y, d=None, form=SUB, out=None):
+            return dia_matvec_sub(offs_d, dtab_d, x, n, y, d, form, out)
+
+    return matvec, apply_block, sub
 
 
 def dia_matvec_fn(offsets, diags, n: int, n_pad: int, device=DEFAULT):
@@ -169,6 +182,18 @@ def dia_matvec_fn(offsets, diags, n: int, n_pad: int, device=DEFAULT):
     card, its twin on the CPU); a complex one the twin with host offsets,
     as ``from_scipy`` does; no diagonal at all gives zero."""
     return _dia_products(offsets, diags, n, n_pad, device)[0]
+
+
+def dia_sub_fn(offsets, diags, n: int, n_pad: int, device=DEFAULT):
+    """The DIA product with an epilogue, ``(x, y, d=None, form=SUB,
+    out=None) -> y - A x`` (``form`` ``cuda_dia.SUB``), ``d * (y - A x)``
+    (``SCALE_SUB``) or ``y - d * (A x)`` (``SUB_SCALED``), over the table
+    of :func:`dia_matvec_fn`: a real table runs
+    :func:`~arpack_ng_tpu_torch.ops.cuda_dia.dia_matvec_sub` (one launch on
+    the card, its twin on the CPU), a complex one the twin with host
+    offsets; each rounds as :func:`dia_matvec_fn`'s product and the torch
+    ops of the epilogue.  ``out``: where to write (not ``x``)."""
+    return _dia_products(offsets, diags, n, n_pad, device)[2]
 
 
 def dia_block_matvec_fn(offsets, diags, n: int, n_pad: int, device=DEFAULT):
@@ -281,7 +306,7 @@ def from_scipy(a: sp.spmatrix, dtype=None, *, hermitian: bool = False,
 
     blk = None
     if format == "dia":
-        matvec, blk = _dia_products(*_to_dia(a), n, n_pad, device)
+        matvec, blk, _ = _dia_products(*_to_dia(a), n, n_pad, device)
         if n_pad % 128:
             blk = None
     elif format in ("ell", "hyb"):

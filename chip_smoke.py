@@ -203,24 +203,35 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    sigma=0)`` of the 2-D Laplacian at nx = P12_NX (n = 1,048,576), each
    inner solve ``make_iterative_solve`` (CG, tol = 1e-10) with
    ``ilu0_preconditioner(symmetric=True, sweeps=3)``: the shifted product
-   (``from_scipy(format='dia')``) and both IC(0) triangles run the DIA
-   kernel (first checked bit-equal to its twin on the triangles' tables);
-   the operator declared ``capturable``: after the first, eager cycle
-   each solve is one CUDA-graph WHILE node of the device loop's graphs
-   (``ops/cuda_krylov_loop``; before 12a, the loop-test kernel against the
-   host's test on edge inputs, alone and as a node's condition, timed);
-   gates: every value within 1e-6*|lambda| of the analytic spectrum, every
-   residual ``||Av - lambda v|| / max(1, |lambda|) <= 1e-6``, no solve at
-   its cap, exactly 7 DIA launches per CG iteration and 7 before each
-   solve, one loop-test launch per iteration and one before each node,
-   graphs captured and replayed, one packet a cycle; the witness, the same
+   (``from_scipy(format='dia')``) runs the DIA kernel, each of the six
+   IC(0) triangle sweeps one launch of its epilogue form
+   (``dia_matvec_sub``; first held bit for bit against its twins on the
+   triangles' tables in its three forms and timed at these float64 shapes
+   beside ``dia_kernel`` and ``torch.addmv``), every other vector pass a
+   fused update kernel (``cg_xr``, ``cg_p_test``; first held bit for bit
+   against the twins' ``cg_step`` over five iterations on the operator's
+   own vectors); the operator declared ``capturable``: each solve one
+   CUDA-graph WHILE node (``ops/cuda_krylov_loop``; before 12a, the
+   loop-test kernel against the host's test on edge inputs, alone and
+   before a node whose body ends with ``cg_p_test``, and the update
+   kernels against their twins in every dtype on edge inputs, the test
+   they end with against the host's, each timed); gates: every value
+   within 1e-6*|lambda| of the analytic spectrum, every residual ``||Av -
+   lambda v|| / max(1, |lambda|) <= 1e-6``, no solve at its cap, per CG
+   iteration exactly one DIA product, six sweeps, one ``cg_xr`` and one
+   ``cg_p_test`` and no loop-test launch, before each solve one product
+   and six sweeps, one loop-test launch before each node, graphs
+   captured and replayed, one packet a cycle; the witnesses, the same
    solve at the same width through the host loop (``capturable=False``),
    bit for bit in values, vectors, each solve's iterations, cycles, nopx,
-   nrorth, nrorthr and launches; reported: cycles, nopx, CG iterations
-   per solve, the solves on the graphs, ms per CG iteration (the solve's
-   wall over its iterations), and one iteration with the loop test's
-   read, without it and as a WHILE node (in turns), beside its bytes as
-   written and its least bytes over 3.35 TB/s, host set-up apart; (b)
+   nrorth, nrorthr and launches, and on the graphs with the update
+   kernels' twins patched in (torch ops, the test kernel ending each
+   body), bit for bit in values, vectors, iterations and counters;
+   reported: cycles, nopx, CG iterations per solve, the solves on the
+   graphs, ms per CG iteration (the solve's wall over its iterations), and
+   one iteration with the loop test's read, without it and as a WHILE
+   node (in turns), beside its bytes as written and its least bytes over
+   3.35 TB/s, host set-up apart; (b)
    dsdrv3-6's pencil ``K = tridiag(-1, 2, -1)/h``, ``M = tridiag(1, 4,
    1)h/6`` through ``eigsh(K, M=M, sigma=P12_SIGMA, mode=...)`` (the host
    factorization's explicit inverse, capturable: the device loop's graphs)
@@ -235,8 +246,12 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    part, Rayleigh-quotient values, dndrv5), mode 4 (``part='imag'``, M =
    I, dndrv6) and complex128 with a complex shift (zndrv2); then
    matrix-free BiCGSTAB with ``ilu0_preconditioner`` (sigma = 0, nx =
-   P12_BICG_NX, the DIA kernel for the product and both triangles; on the
-   graphs, its solves WHILE nodes, graphs captured): at
+   P12_BICG_NX, the DIA kernel for the products, its epilogue form for
+   the triangle sweeps, the update kernels ``bicg_p``, ``bicg_s``,
+   ``bicg_r``, ``bicg_x_test``, first held bit for bit against the twins'
+   ``bicgstab_step`` over five iterations on the operator's vectors; on
+   the graphs, its solves WHILE nodes, graphs captured, the launches per
+   iteration exact): at
    least 6 values, each within 1e-8*|lambda| of scipy's shift-invert
    values, residuals ``/ max(1, |lambda|) <= 1e-8`` (BiCGSTAB: 1e-6); (d)
    ``svds`` of a float32 ``A`` (P12_SVD_SHAPE, 1 GiB) made on the card
@@ -2573,11 +2588,12 @@ def _counted(torch, dev, need, fn, tag=None):
 
     every = (cuda_sel.sel_proj, cuda_sel.sel_update, cuda_rot.rotate_rows,
              cuda_cgs.cgs_proj, cuda_cgs.cgs_update, cuda_dia.dia_matvec,
-             cuda_dia.dia_block_matvec, cuda_psell.psell_matvec,
-             cuda_gather.take_flat, cuda_gather.take_lanes,
-             cuda_sym_cycle.sym_cycle,
+             cuda_dia.dia_matvec_sub, cuda_dia.dia_block_matvec,
+             cuda_psell.psell_matvec, cuda_gather.take_flat,
+             cuda_gather.take_lanes, cuda_sym_cycle.sym_cycle,
              cuda_realnonsym_cycle.realnonsym_cycle,
-             cuda_cplx_cycle.cplx_cycle, cuda_krylov_loop.krylov_test)
+             cuda_cplx_cycle.cplx_cycle, cuda_krylov_loop.krylov_test,
+             *cuda_krylov_loop.UPDATES)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     for k in every:
         k.launches = 0
@@ -3551,11 +3567,12 @@ def check_krylov_test(torch, dev, gpu):
     values, in float32 and float64, on the edge inputs: ``|r.r|`` equal to
     ``atol2`` and one ulp either side, nan, ``it = maxiter - 1``,
     ``maxiter = 0`` and ``b = 0`` (``atol2 = |r.r| = 0``): launched alone
-    (its decision written out), and as the condition of a WHILE node whose
-    body is the test alone, so that the loop runs while the test holds
-    (the count it logs must be where the host's loop would stop); then
-    BiCGSTAB's ``rho == 0`` flag on 1, 0, -0 and a complex 0.  Timed
-    beside the plain PyTorch test on the card.  Returns (0.0: every
+    (its decision written out), and before a WHILE node whose body is
+    ``cg_p_test`` (the body's last kernel, which runs the test at the end
+    of each iteration) on a fixed ``|r.r|``, so that the loop runs while
+    the test holds (the count it logs must be where the host's loop would
+    stop); then BiCGSTAB's ``rho == 0`` flag on 1, 0, -0 and a complex 0.
+    Timed beside the plain PyTorch test on the card.  Returns (0.0: every
     decision equal, or it raises; the timed row)."""
     from arpack_ng_tpu_torch.core.loop import CapturedGraph
     from arpack_ng_tpu_torch.ops import cuda_krylov_loop as kl
@@ -3588,19 +3605,25 @@ def check_krylov_test(torch, dev, gpu):
             kl.krylov_test(rr_d, a2_d, it, maxiter, bump=0, go=go)
             alone = bool(go.item())
             log = kl.IterationLog(dev)
+            st = _upd_state(torch, dev, dt, 64, 7, False)
+
+            def body(test):
+                return kl.cg_p_test(st["rzn"], st["rz"], st["z"], st["p"],
+                                    st["pap"], rr=rr_d, test=test)
+
             if dev.type == "cuda":
                 stream.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(stream):
                     graph = CapturedGraph(
                         lambda: kl.run_while(rr_d, a2_d, it.fill_(it0),
-                                             maxiter, lambda: rr_d, log=log,
+                                             maxiter, body, log=log,
                                              pool=pool),
                         torch.cuda.graph_pool_handle())
                     graph.replay()
                 torch.cuda.synchronize(dev)
             else:
-                kl.run_while(rr_d, a2_d, it.fill_(it0), maxiter,
-                             lambda: rr_d, log=log)
+                kl.run_while(rr_d, a2_d, it.fill_(it0), maxiter, body,
+                             log=log)
             logged = log.drain()
             lines.append(f"{str(dt)[6:]} {name}: host {host}, kernel "
                          f"{alone}, node stops at {logged}")
@@ -3615,8 +3638,8 @@ def check_krylov_test(torch, dev, gpu):
                            bump=0, rho=rho_d, brk=brk)
             if bool(brk.item()) != bool(rho_d == 0):
                 bad.append(f"{str(dt)[6:]} rho {rho}: flag {bool(brk)}")
-    print(f"12 loop test (kernel vs the host test, alone and as a WHILE "
-          f"node's condition): " + "; ".join(lines), flush=True)
+    print(f"12 loop test (kernel vs the host test, alone and before a WHILE "
+          f"node whose body ends with it): " + "; ".join(lines), flush=True)
     if bad:
         raise AssertionError(f"loop test differs from the host's: {bad}")
     if dev.type != "cuda":
@@ -3640,10 +3663,274 @@ def check_krylov_test(torch, dev, gpu):
     return 0.0, row
 
 
+def _bit_faults(torch, got, want) -> int:
+    """Entries of ``got`` whose bits differ from ``want``'s (a nan where
+    ``want`` has a nan counts as equal: the card's nans are canonical)."""
+    g, w = (torch.view_as_real(t) if t.is_complex() else t
+            for t in (got, want))
+    g, w = g.reshape(-1), w.reshape(-1)
+    if g.shape != w.shape or g.dtype != w.dtype:
+        return max(g.numel(), w.numel(), 1)
+    gn, wn = torch.isnan(g), torch.isnan(w)
+    ib = {2: torch.int16, 4: torch.int32, 8: torch.int64}[g.element_size()]
+    same = (g.view(ib) == w.view(ib)) | (gn & wn)
+    return int((~same).sum())
+
+
+def _max_err(torch, got, want) -> float:
+    """The largest ``|got - want|`` over entries finite in both."""
+    d = (got - want).abs()
+    d = d[torch.isfinite(d)]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _upd_state(torch, dev, dtype, n, seed, edge):
+    """Seeded vectors and 0-d scalars for the update kernels; ``edge``
+    puts a nan, an infinity, signed zeros and (complex) a nan imaginary
+    part into the vectors."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def vec():
+        v = torch.randn(n, generator=g, device=dev, dtype=dtype)
+        if edge:
+            v[0] = float("nan")
+            v[1] = float("inf")
+            v[2] = -0.0
+            v[3] = 0.0
+            if dtype.is_complex:
+                v[4] = complex(1.5, float("nan"))
+                v[5] = complex(-0.0, 2.0)
+        return v
+
+    def sca():
+        return torch.randn((), generator=g, device=dev, dtype=dtype) + 0.5
+
+    names = ("x", "r", "p", "ap", "z", "v", "vn", "s", "t", "ph", "sh",
+             "rhat")
+    st = {k: vec() for k in names}
+    st.update({k: sca() for k in ("rz", "pap", "rzn", "rho_new", "rho",
+                                  "alpha", "omega", "rv", "ts", "tt")})
+    return st
+
+
+def krylov_update_faults(torch, dev, dtype, n, seed=25, edge=True):
+    """Each fused update kernel of ``ops/cuda_krylov_loop`` against its
+    plain twin (torch ops) on the card, bit for bit, on seeded vectors of
+    length ``n`` (with ``edge``: the values of :func:`_upd_state`), the
+    restart's selects both ways, the ``rho == 0`` flag both ways, ``z``
+    aliasing ``r``.  Returns ``(faults, err)``: a list of the differing
+    outputs, and per kernel its largest finite difference."""
+    from arpack_ng_tpu_torch.ops import cuda_krylov_loop as kl
+
+    faults, err = [], {f.__name__: 0.0 for f in kl.UPDATES}
+    tag = f"{str(dtype)[6:]} n={n}"
+
+    def hold(name, what, got, want):
+        err[name] = max(err[name], _max_err(torch, got, want))
+        bad = _bit_faults(torch, got, want)
+        if bad:
+            faults.append(f"{name} {what} ({tag}): {bad} entries differ")
+
+    st = _upd_state(torch, dev, dtype, n, seed, edge)
+    c = {k: v.clone() for k, v in st.items()}
+    rz_prev = torch.zeros_like(st["rz"])
+    kl.cg_xr(c["rz"], c["pap"], c["x"], c["r"], c["p"], c["ap"], rz_prev)
+    xn, rn = kl.cg_xr_plain(st["rz"], st["pap"], st["x"], st["r"], st["p"],
+                            st["ap"])
+    hold("cg_xr", "x", c["x"], xn)
+    hold("cg_xr", "r", c["r"], rn)
+    hold("cg_xr", "rz_prev", rz_prev, st["rz"])
+    for alias in (False, True):
+        c = {k: v.clone() for k, v in st.items()}
+        z = c["r"] if alias else c["z"]
+        kl.cg_p_test(c["rzn"], st["rz"], z, c["p"], c["rz"])
+        want = kl.cg_p_plain(st["rzn"], st["rz"], st["r"] if alias
+                             else st["z"], st["p"])
+        hold("cg_p_test", f"p{' (z is r)' if alias else ''}", c["p"], want)
+        hold("cg_p_test", "rz", c["rz"], st["rzn"])
+    for restart in (False, True):
+        brk = torch.tensor(restart, device=dev)
+        c = {k: v.clone() for k, v in st.items()}
+        kl.bicg_p(brk, c["rho_new"], c["rho"], c["alpha"], c["omega"],
+                  c["r"], c["p"], c["v"])
+        want = kl.bicg_p_plain(brk, st["rho_new"], st["rho"], st["alpha"],
+                               st["omega"], st["r"], st["p"], st["v"])
+        hold("bicg_p", f"p (restart {restart})", c["p"], want)
+    c = {k: v.clone() for k, v in st.items()}
+    s_out = kl.bicg_s(c["rho_new"], c["rv"], c["r"], c["vn"], c["v"],
+                      c["rho"], c["alpha"])
+    al, s_want = kl.bicg_s_plain(st["rho_new"], st["rv"], st["r"], st["vn"])
+    hold("bicg_s", "s", s_out, s_want)
+    hold("bicg_s", "v", c["v"], st["vn"])
+    hold("bicg_s", "alpha", c["alpha"], al)
+    hold("bicg_s", "rho", c["rho"], st["rho_new"])
+    c = {k: v.clone() for k, v in st.items()}
+    kl.bicg_r(c["ts"], c["tt"], c["s"], c["t"], c["r"], c["omega"])
+    om, r_want = kl.bicg_r_plain(st["ts"], st["tt"], st["s"], st["t"])
+    hold("bicg_r", "r", c["r"], r_want)
+    hold("bicg_r", "omega", c["omega"], om)
+    for zero in (False, True):
+        c = {k: v.clone() for k, v in st.items()}
+        rho = torch.zeros_like(st["rho"]) if zero else st["rho"]
+        brk = torch.tensor(not zero, device=dev)
+        kl.bicg_x_test(c["alpha"], c["omega"], c["x"], c["ph"], c["sh"], rho,
+                       c["rhat"], c["r"], brk)
+        want = kl.bicg_x_plain(st["alpha"], st["omega"], st["x"], st["ph"],
+                               st["sh"])
+        hold("bicg_x_test", f"x (rho = 0: {zero})", c["x"], want)
+        hold("bicg_x_test", f"rhat (rho = 0: {zero})", c["rhat"],
+             st["r"] if zero else st["rhat"])
+        if bool(brk.item()) is not zero:
+            faults.append(f"bicg_x_test brk ({tag}): {bool(brk)}, want "
+                          f"{zero}")
+    return faults, err
+
+
+def fused_test_faults(torch, dev):
+    """The loop test as the body's last kernel runs it (``cg_p_test`` and
+    ``bicg_x_test`` with a ``LoopTest``) against the host loop's test,
+    ``it + 1 < maxiter and |rr| > atol2``, on the card's values in every
+    dtype: ``|rr|`` equal to ``atol2`` and one ulp either side, nan, a
+    complex ``rr`` off the real axis, ``it = maxiter - 2`` and ``maxiter -
+    1``, ``maxiter = 0``; the decision written out, the counter bumped, a
+    loop that ends logged.  Returns the list of differing cases."""
+    from arpack_ng_tpu_torch.ops import cuda_krylov_loop as kl
+
+    bad = []
+    for dtype in kl.UPDATE_CODES:
+        rdt = torch.empty((), dtype=dtype).real.dtype
+        npd = np.float32 if rdt == torch.float32 else np.float64
+        one = npd(1.0)
+        cases = [(one, 0, 5), (np.nextafter(one, npd(2)), 0, 5),
+                 (np.nextafter(one, npd(0)), 0, 5), (np.nan, 0, 5),
+                 (2.0, 3, 5), (2.0, 4, 5), (2.0, 0, 0)]
+        if dtype.is_complex:
+            cases.append((complex(0.6, 0.8), 0, 5))
+            cases.append((complex(0.6, 0.81), 0, 5))
+        st = _upd_state(torch, dev, dtype, 64, 7, False)
+        for rr, it0, maxiter in cases:
+            rr_d = torch.tensor(rr, dtype=dtype, device=dev)
+            atol2 = torch.tensor(1.0, dtype=rdt, device=dev)
+            host = it0 + 1 < maxiter and bool(torch.abs(rr_d) > atol2)
+            for name in ("cg_p_test", "bicg_x_test"):
+                log = kl.IterationLog(dev)
+                log.add_node([])
+                test = kl.LoopTest(
+                    atol2, torch.tensor(it0, dtype=torch.int32, device=dev),
+                    maxiter, log, 0,
+                    go=torch.zeros((), dtype=torch.int32, device=dev))
+                c = {k: v.clone() for k, v in st.items()}
+                if name == "cg_p_test":
+                    kl.cg_p_test(c["rzn"], c["rz"], c["z"], c["p"], c["pap"],
+                                 rr=rr_d, test=test)
+                else:
+                    kl.bicg_x_test(c["alpha"], c["omega"], c["x"], c["ph"],
+                                   c["sh"], c["rho"], c["rhat"], c["r"],
+                                   torch.zeros((), dtype=torch.bool,
+                                               device=dev), rr=rr_d,
+                                   test=test)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                got = bool(test.go.item())
+                logged = log.drain()
+                want_log = [] if host else [it0 + 1]
+                if got is not host or int(test.it.item()) != it0 + 1 \
+                        or logged != want_log:
+                    bad.append(f"{name} {str(dtype)[6:]} rr={rr} it={it0} "
+                               f"maxiter={maxiter}: go {got} (host {host}), "
+                               f"it {int(test.it.item())}, log {logged}")
+    return bad
+
+
+def _timed_updates(torch, dev, flush, n, kernels):
+    """The update kernels ``kernels`` timed beside their twins at ``n``
+    float64 (the shape their main path gives them), each beside its bound
+    (the vectors it reads and writes once; a few flops a value)."""
+    from arpack_ng_tpu_torch.ops import cuda_krylov_loop as kl
+
+    st = _upd_state(torch, dev, torch.float64, n, 11, False)
+    rz_prev = st["rz"].clone()
+    brk = torch.zeros((), dtype=torch.bool, device=dev)
+    # name -> (vectors moved, flops a value, kernel, twin)
+    spec = {
+        "cg_xr": (6, 4, lambda: kl.cg_xr(
+            st["rz"], st["pap"], st["x"], st["r"], st["p"], st["ap"],
+            rz_prev), lambda: kl.cg_xr_plain(
+            st["rz"], st["pap"], st["x"], st["r"], st["p"], st["ap"])),
+        "cg_p_test": (3, 2, lambda: kl.cg_p_test(
+            st["rzn"], rz_prev, st["z"], st["p"], st["rz"]),
+            lambda: kl.cg_p_plain(st["rzn"], rz_prev, st["z"], st["p"])),
+        "bicg_p": (4, 4, lambda: kl.bicg_p(
+            brk, st["rho_new"], st["rho"], st["alpha"], st["omega"],
+            st["r"], st["p"], st["v"]), lambda: kl.bicg_p_plain(
+            brk, st["rho_new"], st["rho"], st["alpha"], st["omega"],
+            st["r"], st["p"], st["v"])),
+        "bicg_s": (4, 2, lambda: kl.bicg_s(
+            st["rho_new"], st["rv"], st["r"], st["vn"], st["v"], st["rho"],
+            st["alpha"]), lambda: kl.bicg_s_plain(
+            st["rho_new"], st["rv"], st["r"], st["vn"])),
+        "bicg_r": (3, 2, lambda: kl.bicg_r(
+            st["ts"], st["tt"], st["s"], st["t"], st["r"], st["omega"]),
+            lambda: kl.bicg_r_plain(st["ts"], st["tt"], st["s"], st["t"])),
+        "bicg_x_test": (4, 4, lambda: kl.bicg_x_test(
+            st["alpha"], st["omega"], st["x"], st["ph"], st["sh"], st["rho"],
+            st["rhat"], st["r"], brk), lambda: kl.bicg_x_plain(
+            st["alpha"], st["omega"], st["x"], st["ph"], st["sh"]))}
+    rows = []
+    for name in kernels:
+        vecs, flops, kern, plain = spec[name]
+        rows.append(_timed_row(torch, flush, name, "torch.float64", n,
+                               vecs * n * 8, flops * n, "torch.float64",
+                               kern, plain))
+    return rows
+
+
+def check_krylov_updates(torch, dev, gpu, cg_n, bicg_n):
+    """Phase 12's fused update kernels (``csrc/krylov_loop.cu``, row 14
+    redesigned) against their twins, bit for bit, on edge inputs in
+    float32, float64, complex64 and complex128 (an odd length, a nan, an
+    infinity, signed zeros, a complex nan part) and on seeded vectors at
+    the main paths' lengths (12a's ``cg_n``, 12c's ``bicg_n``, float64);
+    the loop test they end with against the host's (:func:`
+    fused_test_faults`); each timed at its main path's length beside its
+    twin and bound.  Returns ``(err: kernel -> max abs err, rows)``."""
+    from arpack_ng_tpu_torch.ops import cuda_krylov_loop as kl
+
+    err = {f.__name__: 0.0 for f in kl.UPDATES}
+    faults = []
+    runs = [(dt, 65_536 + 3, True) for dt in kl.UPDATE_CODES] + \
+        [(torch.float64, cg_n, False), (torch.float64, bicg_n, False)]
+    for dt, n, edge in runs:
+        f, e = krylov_update_faults(torch, dev, dt, n, edge=edge)
+        faults += f
+        err = {k: max(err[k], e[k]) for k in err}
+    faults += fused_test_faults(torch, dev)
+    print(f"12 fused update kernels vs twins (bit for bit, every dtype, edge "
+          f"inputs at n = 65539, seeded float64 at n = {cg_n} and {bicg_n}; "
+          f"the loop test they end with vs the host's): "
+          f"{'all equal' if not faults else faults}; max abs err {err}",
+          flush=True)
+    if faults:
+        raise AssertionError(f"update kernels differ from their twins: "
+                             f"{faults}")
+    if dev.type != "cuda":
+        return err, []
+    flush = timing.flush_buffer(dev)
+    rows = _timed_updates(torch, dev, flush, cg_n, ("cg_xr", "cg_p_test")) \
+        + _timed_updates(torch, dev, flush, bicg_n,
+                         ("bicg_p", "bicg_s", "bicg_r", "bicg_x_test"))
+    print(f"12 fused update kernels (float64, device-only median of "
+          f"{timing.REPS} in alternation, L2 flushed by a read; card {gpu}):",
+          flush=True)
+    _print_rows(rows)
+    return err, rows
+
+
 def _cg_read_share(torch, dev, matvec, pc, b, its=P12_READ_ITS):
     """ms per CG iteration with the loop test's read (``solvers._cg`` at
-    tol 0), without it (``cg_start`` and ``its`` times ``cg_step``, one
-    sync at the end) and as one CUDA-graph WHILE node (the solve of
+    tol 0: the update kernels, the last writing the decision, read back),
+    without it (``its`` in-place iterations, ``solvers._cg_iteration``,
+    one sync at the end) and as one CUDA-graph WHILE node (the solve of
     ``make_iterative_solve`` captured once, then replayed: the test kernel
     decides on the card), in turns (read, free, graph, graph, free, read,
     read, free, graph), on the same right-hand side.  The graph's solves
@@ -3659,8 +3946,9 @@ def _cg_read_share(torch, dev, matvec, pc, b, its=P12_READ_ITS):
 
     def read_free():
         c, _ = solvers.cg_start(matvec, b, None, 0.0, pc)
+        carry = solvers._cg_carry(c, pc)
         for _ in range(its):
-            c = solvers.cg_step(matvec, c, pc)
+            solvers._cg_iteration(matvec, carry, pc)
 
     forms = [with_reads, read_free]
     if dev.type == "cuda":
@@ -3696,37 +3984,144 @@ def _cg_read_share(torch, dev, matvec, pc, b, its=P12_READ_ITS):
         [None] * (3 - len(forms))
 
 
-def _cg_bytes(n_pad, nd_a, nd_l, nd_lt, sweeps=3, graph=False):
+def _cg_bytes(n_pad, nd_a, nd_l, nd_lt, sweeps=3):
     """Bytes one IC(0)-preconditioned CG iteration moves as the code is
-    written (``solvers.cg_step``; each torch op and DIA launch reads its
-    inputs once and writes its output once, 8-byte values), with the
-    loop test's dot, and on the graph the copies into the loop's four
-    vector buffers; and the least any code could move: each input
-    vector and table read once, each output vector written once."""
-    def dia(nd):
-        return nd + 2
-    w = dia(nd_a) + 2 + 5 + 5                         # Ap, p.Ap, x, r
-    w += sweeps * (dia(nd_l) + 3) + 3 + sweeps * (dia(nd_lt) + 3)
-    w += 2 + 5 + 2                                   # r.z, p, the test
-    if graph:
-        w += 4 * 2
+    written (``solvers._cg_iteration``: each DIA launch, dot and update
+    kernel reads its inputs once and writes its output once, 8-byte
+    values): Ap (the table, p, Ap), p.Ap, ``cg_xr`` (x, r, p, Ap read; x,
+    r written), the L sweeps (the table, z, rn, the output; the last also
+    dinv), the L^T sweeps, r.z and r.r, ``cg_p_test`` (z, p read; p
+    written); and the least any code could move: each input vector and
+    table read once, each output vector written once."""
+    def sweep(nd):
+        return nd + 3
+    w = (nd_a + 2) + 2 + 6
+    w += sweeps * sweep(nd_l) + 1 + sweeps * sweep(nd_lt)
+    w += 2 + 2 + 3
     least = 3 + nd_a + nd_l + nd_lt + 1 + 4          # x r p, tables; x r z p
     return 8 * n_pad * w, 8 * n_pad * least
+
+
+def _twin_cg_p_test(rzn, rz_prev, z, p, rz, *, rr=None, test=None):
+    """``cuda_krylov_loop.cg_p_test`` by its twin's torch ops on the card,
+    the loop test by the test kernel (a graph cannot hold the twin's
+    host read)."""
+    from arpack_ng_tpu_torch.ops import cuda_krylov_loop as kl
+
+    kl.cg_p_inplace_plain(rzn, rz_prev, z, p, rz)
+    if test is not None:
+        return kl.krylov_test(rr.abs(), test.atol2, test.it,
+                              test.maxiter, bump=1, handle=test.handle,
+                              log=test.log, node=test.node, go=test.go)
+    return None
+
+
+def _lockstep(torch, what, step_fn, twin_fn, carry, c, fields, its=5):
+    """``its`` iterations of the in-place kernel form (``step_fn(carry)``,
+    ``carry`` a copy of ``c``'s tensors) beside the twins' step (``c =
+    twin_fn(c)``) from one state, on a main
+    path's real operator and vectors: after each, the buffers ``fields``
+    (index in ``carry``, index in ``c``) equal bit for bit.  Returns the
+    faults."""
+    faults = []
+    for k in range(its):
+        step_fn(carry)
+        c = twin_fn(c)
+        for i, j in fields:
+            bad = _bit_faults(torch, carry[i], c[j])
+            if bad:
+                faults.append(f"{what} iteration {k + 1}, buffer {i}: {bad} "
+                              "entries differ")
+    return faults
+
+
+def _dia_f64_rows(torch, dev, gpu, shifted, n, flush):
+    """Row 7 at 12a's float64 shapes: ``dia_kernel`` on the shifted
+    Laplacian (5 diagonals) and on the IC(0) strict triangles (2
+    diagonals), and its epilogue forms on the lower triangle, each beside
+    its twin, its bound and the library call (``torch.mv`` of the CSR
+    matrix; for ``y - A z`` ``torch.addmv(y, A_csr, z, alpha=-1)``,
+    cuSPARSE).  The forms are first held bit for bit against their twins.
+    Returns the rows."""
+    import scipy.sparse as sp
+
+    from arpack_ng_tpu_torch.ops import cuda_dia
+    from arpack_ng_tpu_torch.ops.sparse import dia_table
+
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def vec():
+        return torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+
+    x, y, d = vec(), vec(), vec().abs() + 0.25
+    rows, faults = [], []
+    for name, mat in (("shifted", shifted), ("lower", sp.tril(shifted, -1)),
+                      ("upper", sp.triu(shifted, 1))):
+        mat = mat.tocsr()
+        offs, tab = (torch.from_numpy(a).to(dev) for a in dia_table(mat, n))
+        nd = tab.shape[0]
+        for form in (cuda_dia.SUB, cuda_dia.SCALE_SUB, cuda_dia.SUB_SCALED):
+            got = cuda_dia.dia_matvec_sub(offs, tab, x, n, y, d, form)
+            want = cuda_dia.dia_matvec_sub_plain(offs, tab, x, n, y, d, form)
+            bad = _bit_faults(torch, got, want)
+            if bad:
+                faults.append(f"{name} form {form}: {bad}")
+        csr = _csr_on(torch, mat, dev)
+        rows.append(_timed_row(
+            torch, flush, "dia_matvec", "torch.float64", nd,
+            (nd + 2) * n * 8 + 8 * nd, 2 * mat.nnz, "torch.float64",
+            lambda: cuda_dia.dia_matvec(offs, tab, x, n),
+            lambda: cuda_dia.dia_matvec_plain(offs, tab, x, n),
+            lambda: torch.mv(csr, x)))
+        rows[-1]["table"] = name
+        if name != "lower":
+            continue
+        for form, label in ((cuda_dia.SUB, "y - Az"),
+                            (cuda_dia.SCALE_SUB, "d(y - Az)"),
+                            (cuda_dia.SUB_SCALED, "y - d(Az)")):
+            extra = 0 if form == cuda_dia.SUB else 1
+            rows.append(_timed_row(
+                torch, flush, "dia_matvec_sub", "torch.float64", nd,
+                (nd + 3 + extra) * n * 8 + 8 * nd,
+                2 * mat.nnz + (1 + extra) * n, "torch.float64",
+                lambda f=form: cuda_dia.dia_matvec_sub(offs, tab, x, n, y, d,
+                                                       f),
+                lambda f=form: cuda_dia.dia_matvec_sub_plain(
+                    offs, tab, x, n, y, d, f),
+                (lambda: torch.addmv(y, csr, x, alpha=-1))
+                if form == cuda_dia.SUB else None))
+            rows[-1]["table"], rows[-1]["form"] = name, label
+    print(f"12a row 7 at float64 (n = {n}): the epilogue forms vs their "
+          f"twins on the shifted product and both IC(0) triangles: "
+          f"{'bit for bit' if not faults else faults}; timed (device-only "
+          f"median of {timing.REPS} in alternation, L2 flushed by a read; "
+          f"library torch.mv / torch.addmv of the CSR matrix, cuSPARSE; "
+          f"card {gpu}):", flush=True)
+    if faults:
+        raise AssertionError(f"dia_matvec_sub differs from its twin: "
+                             f"{faults}")
+    for r in rows:
+        print(f"   [{r['table']}{', ' + r['form'] if 'form' in r else ''}]",
+              flush=True)
+        _print_rows([r])
+    return rows
 
 
 def _shift_invert_main(torch, dev, gpu, nx, need):
     """12a, the main path: ``eigsh`` on ``shift_invert_operator`` (mode 3,
     sigma = 0) of the 2-D Laplacian, each inner solve CG with the IC(0)
-    preconditioner, the shifted product and both triangles DIA products.
-    Returns the kernel launches."""
+    preconditioner, the shifted product a DIA launch and each of the six
+    triangle sweeps a launch of its epilogue form, the vector passes the
+    fused update kernels.  Returns ``(launches, row 7's float64 rows)``."""
     import warnings
+    from unittest import mock
 
     import scipy.sparse as sp
 
     import arpack_ng_tpu_torch as pt
     from arpack_ng_tpu_torch.models import laplacian_2d
-    from arpack_ng_tpu_torch.ops import cuda_dia, solvers, transforms
-    from arpack_ng_tpu_torch.ops.sparse import dia_table
+    from arpack_ng_tpu_torch.ops import cuda_krylov_loop as kl
+    from arpack_ng_tpu_torch.ops import solvers, transforms
 
     sigma, n = 0.0, nx * nx
     a_sp = laplacian_2d(nx, np.float64, device="cpu")[1]
@@ -3741,21 +4136,31 @@ def _shift_invert_main(torch, dev, gpu, nx, need):
         pc = solvers.ilu0_preconditioner(shifted, symmetric=True, sweeps=3,
                                          n_pad=op_s.n_pad, device=dev)
     t_ilu = time.perf_counter() - t0
-    # the kernel on the preconditioner's table shapes (one sign of offset
-    # each), bit-equal to its twin; not counted
+    cuda = dev.type == "cuda"
+    # row 7 at these float64 shapes, its epilogue forms bit for bit their
+    # twins on the preconditioner's tables; not counted
+    dia_rows = _dia_f64_rows(torch, dev, gpu, shifted, n,
+                             timing.flush_buffer(dev)) if cuda else []
     g = torch.Generator(device=dev).manual_seed(12)
     x = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
-    for tri in (sp.tril(shifted, -1), sp.triu(shifted, 1)):
-        offs, tab = dia_table(tri.tocsr(), n)
-        offs, tab = torch.from_numpy(offs).to(dev), torch.from_numpy(tab).to(
-            dev)
-        if not torch.equal(cuda_dia.dia_matvec(offs, tab, x, n),
-                           cuda_dia.dia_matvec_plain(offs, tab, x, n)):
-            raise AssertionError("12a: the DIA kernel differs from its twin "
-                                 f"on a strict triangle {offs.tolist()}")
-    cuda = dev.type == "cuda"
+    b = torch.zeros(op_s.n_pad, dtype=torch.float64, device=dev)
+    b[:n] = x
+    # the update kernels on this operator's real vectors: five in-place
+    # iterations beside the twins' cg_step, bit for bit; not counted
+    c, _ = solvers.cg_start(op_s.a_apply, b, None, 1e-10, pc)
+    faults = _lockstep(
+        torch, "12a CG", lambda s: solvers._cg_iteration(op_s.a_apply, s, pc),
+        lambda c: solvers.cg_step(op_s.a_apply, c, pc),
+        solvers._cg_carry([t.clone() for t in c], pc), c,
+        ((0, 0), (1, 1), (2, 2), (3, 3), (4, 4)))
+    print(f"12a update kernels on the operator's vectors (5 iterations "
+          f"beside cg_step, the twins): "
+          f"{'bit for bit' if not faults else faults}", flush=True)
+    if faults:
+        raise AssertionError(f"12a: the update kernels differ from the "
+                             f"twins: {faults}")
 
-    def run(capturable):
+    def run(capturable, twins=False):
         solve = solvers.make_iterative_solve(
             op_s.a_apply, symmetric=True, tol=1e-10,
             maxiter=P12_CG_MAXITER, precond=pc)
@@ -3763,8 +4168,9 @@ def _shift_invert_main(torch, dev, gpu, nx, need):
             n, np.float64, solve, sigma=sigma, mode=3, n_pad=op_s.n_pad,
             hermitian=True, a_apply=op_s.a_apply, device=dev,
             capturable=capturable)
-        kernels = ("dia_matvec", "sym_cycle") + (("krylov_test",)
-                                                 if capturable else ())
+        kernels = ("dia_matvec", "dia_matvec_sub", "sym_cycle") \
+            + (() if twins else ("cg_xr", "cg_p_test")) \
+            + (("krylov_test",) if capturable else ())
         res = _counted(torch, dev, need(*kernels),
                        lambda: pt.eigsh(op, k=8, which="LM", ncv=NCV,
                                         tol=1e-8, return_stats=True))
@@ -3779,19 +4185,21 @@ def _shift_invert_main(torch, dev, gpu, nx, need):
     dmax, rmax = _gate_pairs(vals, vecs, a_sp, _analytic_spectrum(nx)[:256],
                              1e-6, 1e-6, tag, count=8)
     st = out.stats
-    # 7 DIA products per CG iteration (the product and 6 triangle sweeps),
-    # and as many before each solve's first
-    n_dia = 7 * (its.sum() + len(its))
-    n_test = (its[on_graph] + 1).sum()
-    if cuda and (counts["dia_matvec"] != n_dia
-                 or counts["krylov_test"] != n_test
+    # per CG iteration: the product, 6 sweeps (the epilogue form), cg_xr and
+    # cg_p_test (the loop test in it); before each solve the product and
+    # the sweeps of r = b - A x, z = M^-1 r, and one test before each node
+    want = {"dia_matvec": its.sum() + len(its),
+            "dia_matvec_sub": 6 * (its.sum() + len(its)),
+            "cg_xr": its.sum(), "cg_p_test": its.sum(),
+            "krylov_test": on_graph.sum()}
+    if cuda and (any(counts[k] != v for k, v in want.items())
                  or not on_graph.all() or not st.graphs_captured
                  or not st.graph_replays or st.packets != st.n_iter):
         raise AssertionError(
-            f"{tag}: launches {counts} (want {n_dia} DIA, {n_test} loop "
-            f"tests), {on_graph.sum()} solves on the graphs, graphs "
-            f"{st.graphs_captured}, replays {st.graph_replays}, packets "
-            f"{st.packets} for {st.n_iter} cycles")
+            f"{tag}: launches {counts} (want {want}), {on_graph.sum()} "
+            f"solves on the graphs, graphs {st.graphs_captured}, replays "
+            f"{st.graph_replays}, packets {st.packets} for {st.n_iter} "
+            f"cycles")
     g_its = its[on_graph].sum()
     print(f"{tag}: wall {wall:.4f} s (host, not in it: from_scipy "
           f"{t_dia:.2f} s, ilu0_preconditioner {t_ilu:.2f} s); "
@@ -3803,36 +4211,54 @@ def _shift_invert_main(torch, dev, gpu, nx, need):
           f"{wall * 1e3 / its.sum():.4f} ms per CG "
           f"iteration (the solve's wall over its CG iterations); max value "
           f"dist {dmax:.2e}, max residual {rmax:.2e}; launches {counts} "
-          f"({counts['dia_matvec'] / its.sum():.2f} DIA per CG iteration, "
-          f"7 per iteration and 7 before each solve); card {gpu}",
+          f"(per CG iteration 1 DIA product, 6 sweeps, cg_xr and cg_p_test, "
+          f"no separate loop test; one test before each node); card {gpu}",
           flush=True)
     print(f"  values {np.array2string(vals, precision=10)}", flush=True)
-    # the witness: the same solve through the host loop, bit for bit
+    key = (st.n_iter, st.nopx, st.nrorth, st.nrorthr)
+    # the witnesses: the same solve through the host loop, and on the
+    # graphs with the update kernels' twins (torch ops, the test kernel
+    # ending the body), each bit for bit
     ((w_vals, w_vecs, w_out), w_wall, w_counts), w_solve = run(False)
     ws = w_out.stats
     same = (np.array_equal(vals, w_vals), np.array_equal(vecs, w_vecs),
             w_solve.iterations == list(its),
-            (st.n_iter, st.nopx, st.nrorth, st.nrorthr)
-            == (ws.n_iter, ws.nopx, ws.nrorth, ws.nrorthr),
+            (ws.n_iter, ws.nopx, ws.nrorth, ws.nrorthr) == key,
             all(w_counts[k] == counts[k] for k in counts
                 if k != "krylov_test"))
-    del vecs, w_vecs
+    del w_vecs
     print(f"  witness through the host loop (capturable=False, the same "
-          f"full width nx={nx}): wall {w_wall:.4f} s, "
-          f"{_stats_line(ws)}, graphs {ws.graphs_captured}; "
-          f"{w_wall * 1e3 / its.sum():.4f} ms per CG iteration; bit for "
-          f"bit (values, vectors, iterations, counters, launches): "
-          f"{same}", flush=True)
+          f"full width nx={nx}; the update kernels, the decision read back "
+          f"each iteration): wall {w_wall:.4f} s, {_stats_line(ws)}, graphs "
+          f"{ws.graphs_captured}; {w_wall * 1e3 / its.sum():.4f} ms per CG "
+          f"iteration; bit for bit (values, vectors, iterations, counters, "
+          f"launches): {same}", flush=True)
     if not all(same):
         raise AssertionError(f"{tag}: the graphs and the host loop differ "
                              f"{same}")
-    b = torch.zeros(op_s.n_pad, dtype=torch.float64, device=dev)
-    b[:n] = x
+    with mock.patch.object(kl, "cg_xr", kl.cg_xr_inplace_plain), \
+            mock.patch.object(kl, "cg_p_test", _twin_cg_p_test):
+        ((t_vals, t_vecs, t_out), t_wall, t_counts), t_solve = run(
+            True, twins=True)
+    ts = t_out.stats
+    same = (np.array_equal(vals, t_vals), np.array_equal(vecs, t_vecs),
+            t_solve.iterations == list(its),
+            (ts.n_iter, ts.nopx, ts.nrorth, ts.nrorthr) == key)
+    del vecs, t_vecs
+    print(f"  witness with the update kernels' twins (torch ops on the card, "
+          f"the test kernel ending each body; on the graphs, full width): "
+          f"wall {t_wall:.4f} s, {_stats_line(ts)}, graphs "
+          f"{ts.graphs_captured}; {t_wall * 1e3 / its.sum():.4f} ms per CG "
+          f"iteration; loop tests {t_counts['krylov_test']}; bit for bit "
+          f"(values, vectors, iterations, counters): {same}", flush=True)
+    if not all(same):
+        raise AssertionError(f"{tag}: the kernels and their twins differ "
+                             f"{same}")
     ms_read, ms_free, ms_graph = _cg_read_share(torch, dev, op_s.a_apply,
                                                 pc, b)
     nd_a = shifted.todia().offsets.size
     nd_l = sp.tril(shifted, -1).todia().offsets.size
-    code_b, least_b = _cg_bytes(op_s.n_pad, nd_a, nd_l, nd_l, graph=True)
+    code_b, least_b = _cg_bytes(op_s.n_pad, nd_a, nd_l, nd_l)
     graph_ms = "not measured" if ms_graph is None else f"{ms_graph:.4f} ms"
     print(f"  CG iteration: {ms_read:.4f} ms with the loop test's read, "
           f"{ms_free:.4f} ms without (eager), {graph_ms} as a WHILE node "
@@ -3840,14 +4266,16 @@ def _shift_invert_main(torch, dev, gpu, nx, need):
           f"turns): the read's share of the eager iteration "
           f"{100 * (1 - ms_free / ms_read):.1f}%; bytes per iteration as "
           f"written {code_b / 1e6:.1f} MB "
-          f"({code_b / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s), at "
-          f"least {least_b / 1e6:.1f} MB "
+          f"({code_b / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s"
+          + ("" if ms_graph is None else
+             f", {100 * code_b / HBM_BYTES_PER_S * 1e3 / ms_graph:.1f}% of "
+             f"the node's pace") + f"), at least {least_b / 1e6:.1f} MB "
           f"({least_b / HBM_BYTES_PER_S * 1e3:.4f} ms); card {gpu}",
           flush=True)
     CG_PACE.update(read=ms_read, free=ms_free, graph=ms_graph,
                    code_bytes=code_b, least_bytes=least_b,
                    its=int(its.sum()), graph_its=int(g_its))
-    return counts
+    return counts, dia_rows
 
 
 def _dsdrv_pencil(n):
@@ -3974,6 +4402,24 @@ def _eigs_transforms(torch, dev, gpu, nx, bicg_nx, need):
         warnings.simplefilter("error")
         pc = solvers.ilu0_preconditioner(a, n_pad=op_s.n_pad, device=dev)
     t_host = time.perf_counter() - t0
+    # the update kernels on this operator's real vectors: five in-place
+    # iterations beside the twins' bicgstab_step, bit for bit; not counted
+    g = torch.Generator(device=dev).manual_seed(12)
+    b = torch.zeros(op_s.n_pad, dtype=torch.float64, device=dev)
+    b[:n] = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    c, _ = solvers.bicgstab_start(op_s.a_apply, b, None, 1e-12)
+    faults = _lockstep(
+        torch, "12c BiCGSTAB",
+        lambda s: solvers._bicg_iteration(op_s.a_apply, s, pc),
+        lambda c: solvers.bicgstab_step(op_s.a_apply, c, pc),
+        solvers._bicg_carry([t.clone() for t in c]), c,
+        tuple((i, i) for i in range(8)))
+    print(f"12c update kernels on the operator's vectors (5 iterations "
+          f"beside bicgstab_step, the twins): "
+          f"{'bit for bit' if not faults else faults}", flush=True)
+    if faults:
+        raise AssertionError(f"12c: the update kernels differ from the "
+                             f"twins: {faults}")
     solve = solvers.make_iterative_solve(
         op_s.a_apply, symmetric=False, tol=1e-12, maxiter=P12_BICG_MAXITER,
         precond=pc)
@@ -3982,19 +4428,26 @@ def _eigs_transforms(torch, dev, gpu, nx, bicg_nx, need):
         a_apply=op_s.a_apply, device=dev, capturable=True)
     tag = f"12c eigs(shift-invert sigma=0, BiCGSTAB + ILU(0), nx={bicg_nx})"
     (vals, vecs, out), wall, counts = _counted(
-        torch, dev, need("dia_matvec", "krylov_test"),
+        torch, dev, need("dia_matvec", "dia_matvec_sub", "krylov_test",
+                         "bicg_p", "bicg_s", "bicg_r", "bicg_x_test"),
         lambda: pt.eigs(op, **kw))
     its = np.asarray(solve.iterations)
     if its.max() >= P12_BICG_MAXITER:
         raise AssertionError(f"{tag}: a BiCGSTAB solve ran to its cap")
     st = out.stats
     on_graph = np.asarray(solve.on_graph)
+    # per iteration two products, 12 sweeps and the four update kernels;
+    # before each solve r = b - A x and one test
+    want = {"dia_matvec": 2 * its.sum() + len(its),
+            "dia_matvec_sub": 12 * its.sum(), "bicg_p": its.sum(),
+            "bicg_s": its.sum(), "bicg_r": its.sum(),
+            "bicg_x_test": its.sum(), "krylov_test": on_graph.sum()}
     if dev.type == "cuda" and (not on_graph.all()
-                               or counts["krylov_test"]
-                               != (its[on_graph] + 1).sum()):
+                               or any(counts[k] != v
+                                      for k, v in want.items())):
         raise AssertionError(f"{tag}: graphs {st.graphs_captured}, "
                              f"{on_graph.sum()} solves on them, launches "
-                             f"{counts}")
+                             f"{counts} (want {want})")
     ref = spla.eigs(a.tocsc(), k=24, sigma=0.0, return_eigenvectors=False)
     dmax, rmax = _gate_pairs(vals, vecs, a, ref, 1e-8, 1e-6, tag, count=6)
     del vecs
@@ -4066,13 +4519,14 @@ def transform_paths(torch, dev, gpu, nx=P12_NX, dense_n=P12_DENSE_N,
                     bicg_nx=P12_BICG_NX, svd_shape=P12_SVD_SHAPE):
     """Phase 12: the spectral transforms, their linear solvers and
     ``svds`` at full width (see the module docstring).  Returns each
-    path's kernel launches."""
+    path's kernel launches and row 7's float64 rows (12a's shapes)."""
     def need(*kernels):
         # a wrapper counts only the kernel launches a card makes
         return kernels if dev.type == "cuda" else ()
 
     t0 = time.perf_counter()
-    paths = {"12a": _shift_invert_main(torch, dev, gpu, nx, need)}
+    paths = {}
+    paths["12a"], dia_rows = _shift_invert_main(torch, dev, gpu, nx, need)
     paths.update(_dense_modes(torch, dev, gpu, dense_n, mode2_n, need))
     paths.update(_eigs_transforms(torch, dev, gpu, eigs_nx, bicg_nx, need))
     paths.update(_svds_full(torch, dev, gpu, svd_shape, need))
@@ -4080,7 +4534,7 @@ def transform_paths(torch, dev, gpu, nx=P12_NX, dense_n=P12_DENSE_N,
     print(f"phase 12: {elapsed:.2f} s (limit {P12_MAX_S:.0f} s)", flush=True)
     if elapsed > P12_MAX_S:
         raise AssertionError(f"phase 12 took {elapsed:.1f} s")
-    return paths
+    return paths, dia_rows
 
 
 def _band(n, diags):
@@ -4421,7 +4875,7 @@ def _dia_operator(offsets, diags, n, dev):
     from arpack_ng_tpu_torch.ops.sparse import _dia_products
 
     n_pad = pad_dim(n)
-    mv, blk = _dia_products(offsets, diags, n, n_pad, dev)
+    mv, blk, _ = _dia_products(offsets, diags, n, n_pad, dev)
 
     def apply(v, bv):
         w = mv(v)
@@ -5047,7 +5501,9 @@ def _cli_solvers(torch, dev, gpu, tmp, si_nx, pencil_n, need):
               "--tol", "1e-10"], closed, 1e-8, 4)):
         cg = "CG" in argv
         (rc, out, res), wall, counts = _counted(
-            torch, dev, need("dia_matvec", *(("krylov_test",) if cg else ())),
+            torch, dev, need("dia_matvec", *(("dia_matvec_sub", "cg_xr",
+                                              "cg_p_test", "krylov_test")
+                                             if cg else ())),
             lambda: _cli_inproc(argv + cpu))
         vals, dmax, rmax = _cli_gate(rc, out, spectrum, rel, rel,
                                      f"14d {tag}", count)
@@ -5733,14 +6189,30 @@ def kernel_entries(rows, launches, errs, phases):
            "dia_block": ("dia.cu", ops + "sparse.py:118", "dia_block",
                          P13_JSON_B, "dia_block_matvec"),
            "krylov_test": ("krylov_loop.cu", ops + "solvers.py:58",
-                           "krylov_test", None, "krylov_test")}
+                           "krylov_test", None, "krylov_test"),
+           "dia_matvec_sub": ("dia.cu", ops + "solvers.py:359",
+                              "dia_matvec_sub", None, "dia_matvec_sub"),
+           "cg_xr": ("krylov_loop.cu", ops + "solvers.py:65", "cg_xr", None,
+                     "cg_xr"),
+           "cg_p_test": ("krylov_loop.cu", ops + "solvers.py:70",
+                         "cg_p_test", None, "cg_p_test"),
+           "bicg_p": ("krylov_loop.cu", ops + "solvers.py:97", "bicg_p",
+                      None, "bicg_p"),
+           "bicg_s": ("krylov_loop.cu", ops + "solvers.py:101", "bicg_s",
+                      None, "bicg_s"),
+           "bicg_r": ("krylov_loop.cu", ops + "solvers.py:105", "bicg_r",
+                      None, "bicg_r"),
+           "bicg_x_test": ("krylov_loop.cu", ops + "solvers.py:106",
+                           "bicg_x_test", None, "bicg_x_test")}
+    f64 = {"krylov_test", "dia_matvec_sub", "cg_xr", "cg_p_test", "bicg_p",
+           "bicg_s", "bicg_r", "bicg_x_test"}
     entries = []
     for kname, (source, replaces, timed, shape, counter) in src.items():
-        r = next(r for r in rows if r["name"] == timed
-                 and r["dtype"] == {"cplx_cycle": "torch.complex64",
-                                    "krylov_test": "torch.float64"}.get(
-                                        kname, "torch.float32")
-                 and (shape is None or r["shape"] == shape))
+        dt = "torch.complex64" if kname == "cplx_cycle" else \
+            "torch.float64" if kname in f64 else "torch.float32"
+        r = next(r for r in rows if r["name"] == timed and r["dtype"] == dt
+                 and (shape is None or r["shape"] == shape)
+                 and r.get("form", "y - Az") == "y - Az")
         entries.append({
             "name": kname, "route": "cuda",
             "source": f"arpack_ng_tpu_torch/csrc/{source}",
@@ -5897,9 +6369,19 @@ def main() -> int:
     err_kt, row_kt = check_krylov_test(torch, dev, gpu)
     rows.append(row_kt)
     errs["krylov_test"] = err_kt
-    phases[12] = transform_paths(torch, dev, gpu)
-    # the loop test's main path: 12a, CG shift-invert on the graphs
-    launches["krylov_test"] = phases[12]["12a"]["krylov_test"]
+    err_up, rows_up = check_krylov_updates(torch, dev, gpu, P12_NX ** 2,
+                                           P12_BICG_NX ** 2)
+    rows += rows_up
+    errs.update(err_up)
+    phases[12], rows_dia64 = transform_paths(torch, dev, gpu)
+    rows += rows_dia64
+    errs["dia_matvec_sub"] = 0.0          # bit for bit, or phase 12 raised
+    # the loop test's and the update kernels' main paths: 12a, CG
+    # shift-invert on the graphs (the sweeps too); 12c for BiCGSTAB
+    for k in ("krylov_test", "cg_xr", "cg_p_test", "dia_matvec_sub"):
+        launches[k] = phases[12]["12a"][k]
+    for k in ("bicg_p", "bicg_s", "bicg_r", "bicg_x_test"):
+        launches[k] = phases[12]["12c bicgstab"][k]
     phases[13], err_blk, rows_blk = banded_block_paths(torch, dev, gpu)
     phases[14] = cli_paths(torch, dev, gpu)
     phases[15] = mesh_paths(torch, dev, gpu)

@@ -991,11 +991,15 @@ def test_cg_solve_on_card_matches_cpu(dev):
                                              precond=pc)
         bp = torch.zeros(op.n_pad, dtype=torch.float64)
         bp[: nx * nx] = torch.from_numpy(b)
-        before = cuda_dia.dia_matvec.launches
+        before = cuda_dia.dia_matvec.launches \
+            + cuda_dia.dia_matvec_sub.launches
         x.append(solve(bp.to(d)).cpu())
         its.append(solve.iterations[0])
         if d is dev:
-            assert cuda_dia.dia_matvec.launches - before > 3 * its[0]
+            # the product and the six sweeps (each a launch of the DIA
+            # kernel's epilogue form) per iteration
+            assert cuda_dia.dia_matvec.launches \
+                + cuda_dia.dia_matvec_sub.launches - before > 3 * its[0]
     assert abs(its[0] - its[1]) <= 1
     for xi in x:
         r = a @ xi[: nx * nx].numpy() - b
@@ -1979,7 +1983,9 @@ def test_while_node_solve_equals_host_loop_on_card(dev, symmetric):
     node.bind(dev)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
-    d0, t0 = cuda_dia.dia_matvec.launches, kl.krylov_test.launches
+    kernels = (cuda_dia.dia_matvec, cuda_dia.dia_matvec_sub,
+               kl.krylov_test, *kl.UPDATES)
+    c0 = [f.launches for f in kernels]
     with torch.cuda.stream(stream):
         graph = CapturedGraph(lambda: node(b), torch.cuda.graph_pool_handle())
         for _ in range(3):
@@ -1987,14 +1993,87 @@ def test_while_node_solve_equals_host_loop_on_card(dev, symmetric):
     its = host.iterations[0]
     assert node.iterations == [its] * 3 and all(node.on_graph)
     assert torch.equal(x_node, x_host)
-    per = 7 if symmetric else 14     # products and triangle sweeps
-    before = 7 if symmetric else 1
-    assert cuda_dia.dia_matvec.launches - d0 == 3 * (per * its + before)
-    assert kl.krylov_test.launches - t0 == 3 * (its + 1)
+    got = {f.__name__: f.launches - c for f, c in zip(kernels, c0)}
+    # per iteration: the products, the sweeps (the DIA kernel's epilogue
+    # form) and the update kernels, the last of which runs the loop test;
+    # before each node: r = b - A x (and z = M^-1 r for CG) and one test
+    if symmetric:
+        want = {"dia_matvec": its + 1, "dia_matvec_sub": 6 * its + 6,
+                "cg_xr": its, "cg_p_test": its}
+    else:
+        want = {"dia_matvec": 2 * its + 1, "dia_matvec_sub": 12 * its,
+                "bicg_p": its, "bicg_s": its, "bicg_r": its,
+                "bicg_x_test": its}
+    want["krylov_test"] = 1
+    assert got == {k: 3 * want.get(k, 0) for k in got}
     # outside a capture the bound solve is a graph of its own
     assert torch.equal(node(b), x_host)
     assert node.iterations[-1] == its and node.on_graph[-1]
-    assert kl.krylov_test.launches - t0 == 4 * (its + 1)
+    assert kl.krylov_test.launches - c0[2] == 4
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64", "complex64",
+                                   "complex128"])
+def test_update_kernels_match_twins_on_card(dev, dtype):
+    # each fused update kernel equals its twin (the torch ops it replaces)
+    # bit for bit: edge inputs at an odd length (a nan, an infinity,
+    # signed zeros, a complex nan part), the restart's selects and the
+    # rho == 0 flag both ways, z aliasing r; seeded vectors at 12a's length
+    import chip_smoke
+    for n, edge in ((65_539, True), (1 << 20, False)):
+        faults, _ = chip_smoke.krylov_update_faults(
+            torch, dev, getattr(torch, dtype), n, edge=edge)
+        assert not faults, faults
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_fused_loop_test_edge_inputs_on_card(dev):
+    # the loop test as cg_p_test and bicg_x_test run it decides as the host
+    # loop does (|rr| = atol2, one ulp either side, nan, a complex rr off
+    # the real axis, it = maxiter - 2 and - 1, maxiter = 0), bumps the
+    # counter and logs a loop that ends
+    import chip_smoke
+    assert chip_smoke.fused_test_faults(torch, dev) == []
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_update_kernels_refuse_other_dtypes_on_card(dev):
+    from arpack_ng_tpu_torch.ops import cuda_krylov_loop as kl
+    for dt in (torch.float16, torch.bfloat16):
+        v = [torch.ones(8, dtype=dt, device=dev) for _ in range(4)]
+        s = [torch.ones((), dtype=dt, device=dev) for _ in range(3)]
+        with pytest.raises(TypeError, match="no CUDA kernel"):
+            kl.cg_xr(s[0], s[1], *v, s[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(dia_cases.CASES))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dia_matvec_sub_matches_twin_on_card(dev, dtype, case):
+    # the DIA kernel's epilogue forms (y - A x, d (y - A x), y - d (A x))
+    # equal their twins bit for bit on the block cases' tables, one launch
+    # each, into a given out or a new vector
+    import chip_smoke
+    offsets, dtab, X, n = dia_cases.make(case, dtype, 3)
+    offs = torch.from_numpy(offsets).to(dev)
+    tab = torch.from_numpy(dtab).to(dev)
+    x, y, d = (torch.from_numpy(X[i]).to(dev) for i in range(3))
+    for form in (cuda_dia.SUB, cuda_dia.SCALE_SUB, cuda_dia.SUB_SCALED):
+        want = cuda_dia.dia_matvec_sub_plain(offs, tab, x, n, y, d, form)
+        before = cuda_dia.dia_matvec_sub.launches
+        got = cuda_dia.dia_matvec_sub(offs, tab, x, n, y, d, form)
+        out = torch.empty_like(x)
+        assert cuda_dia.dia_matvec_sub(offs, tab, x, n, y, d, form,
+                                       out=out) is out
+        assert cuda_dia.dia_matvec_sub.launches - before == 2
+        assert chip_smoke._bit_faults(torch, got, want) == 0, form
+        assert chip_smoke._bit_faults(torch, out, want) == 0, form
+    with pytest.raises(ValueError, match="overlap"):
+        cuda_dia.dia_matvec_sub(offs, tab, x, n, y, out=x)
     torch.cuda.synchronize()
 
 

@@ -2,9 +2,10 @@
 cuda_krylov_loop.py``, the graph form of ``ops/solvers.cg`` and
 ``bicgstab``) on the CPU, in float64 on seeded numpy inputs:
 
-* the CPU form of the WHILE node (``solvers._loop``: the body
-  ``cg_step`` / ``bicgstab_step`` on the loop's buffers, the test kernel's
-  plain twin before every iteration) equals the host loop ``_cg`` /
+* the CPU form of the WHILE node (``solvers._loop``: the body one
+  in-place iteration on the loop's buffers, the update kernels' twins,
+  the last of which runs the loop test's plain twin; the test kernel's
+  twin before the first) equals the host loop ``_cg`` /
   ``_bicgstab`` bit for bit, with equal iteration counts, plain and with
   Jacobi and IC(0) / ILU(0); both within 1e-10 relative of the
   reference's ``cg`` / ``bicgstab``;
@@ -253,26 +254,33 @@ class TestTestKernelTwin:
 
 
 def test_launch_accounting_of_a_body():
-    # a node whose body launched 7 DIA products and one test per
-    # iteration: the log adds them times each loop's iterations
+    # a node whose body launched an IC(0)-CG iteration's kernels (the
+    # product, six sweeps of the DIA kernel's epilogue form, cg_xr and
+    # cg_p_test, which runs the loop test: no test launch of its own):
+    # the log adds them times each loop's iterations
     log = kl.IterationLog(CPU)
     names = [f.__name__ for f in loop.GRAPH_KERNELS]
-    delta = [0] * len(names)
-    delta[names.index("dia_matvec")] = 7
-    delta[names.index("krylov_test")] = 1
+    per = {"dia_matvec": 1, "dia_matvec_sub": 6, "cg_xr": 1,
+           "cg_p_test": 1}
+    delta = [per.get(k, 0) for k in names]
     assert log.add_node([0] * len(names)) == 0
     assert log.add_node(delta) == 1
     for node, its in ((1, 12), (0, 5), (1, 30)):
         c = int(log.array[0])
         log.array[1 + 2 * c:3 + 2 * c] = (node, its)
         log.array[0] = c + 1
-    d0, t0 = cuda_dia.dia_matvec.launches, kl.krylov_test.launches
+    before = [f.launches for f in loop.GRAPH_KERNELS]
     try:
         assert log.drain() == [12, 5, 30]
-        assert cuda_dia.dia_matvec.launches - d0 == 7 * 42
-        assert kl.krylov_test.launches - t0 == 42
+        got = {f.__name__: f.launches - b
+               for f, b in zip(loop.GRAPH_KERNELS, before)}
+        assert got == {k: 42 * per.get(k, 0) for k in names}
+        assert kl.krylov_test.launches == before[names.index("krylov_test")]
+        assert cuda_dia.dia_matvec.launches - before[
+            names.index("dia_matvec")] == 42
     finally:
-        cuda_dia.dia_matvec.launches, kl.krylov_test.launches = d0, t0
+        for f, b in zip(loop.GRAPH_KERNELS, before):
+            f.launches = b
 
 
 def test_iterations_bookkeeping(rng):
